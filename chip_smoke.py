@@ -1,0 +1,517 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py [--profile] [--full]
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
+holds every kernel against its plain PyTorch version on the card (at the
+paper's DEFAULT shapes and at tile-tail shapes) and times both, then runs
+the paper's HieAvg experiment at the full width of its CNN
+(``BHFLSimulator(DEFAULT with T = 4, "hieavg", "temporary", "temporary")``:
+5 SGD steps per edge round, 2 cold-boot and 2 warm global rounds) once
+with the kernels (``kernel_mode="auto"``) and once with the plain versions
+(``"torch"``), and checks that the two agree.
+
+Output, one line each: the card as ``nvidia-smi`` names it, then JSON
+objects: the build, one per kernel check, the two runs, the ``kernels``
+summary, and last ``{"ok": true, "device": {...}}``.  ``--profile`` adds
+one more run under ``torch.profiler`` and a line of device time per
+kernel; ``--full`` adds the paper's whole DEFAULT run (T = 50) per mode.  Any failed phase
+raises and exits non-zero; without a CUDA device it exits 2 and prints
+nothing on stdout.  Imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM data-sheet peaks: HBM3 bandwidth and dense FP32 rate
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+# the paper's DEFAULT widths: D = 5 x 5 devices, B = 32, 28x28, c1 = 32,
+# c2 = 64, 10 classes, n_test = 1000
+D, B, HW, C1, C2, NCLS, NTEST = 25, 32, 28, 32, 64, 10, 1000
+FEAT = (HW // 2) ** 2 * C2
+
+REPLACES = {
+    "conv3x3_fwd": "src/repro/kernels/conv3x3.py:83",
+    "conv3x3_bwd": "src/repro/kernels/conv3x3.py:105",
+    "sgd_update": "src/repro/kernels/sgd_update.py:40",
+    "hieavg_agg": "src/repro/kernels/hieavg_agg.py:60",
+    "coef_agg": "src/repro/kernels/coef_agg.py:62",
+    "eval_head": "src/repro/kernels/eval_head.py:48",
+}
+SOURCE = {
+    "conv3x3_fwd": "src/repro_torch/kernels/csrc/conv3x3.cu",
+    "conv3x3_bwd": "src/repro_torch/kernels/csrc/conv3x3.cu",
+    "sgd_update": "src/repro_torch/kernels/csrc/sgd_update.cu",
+    "hieavg_agg": "src/repro_torch/kernels/csrc/hieavg_agg.cu",
+    "coef_agg": "src/repro_torch/kernels/csrc/coef_agg.cu",
+    "eval_head": "src/repro_torch/kernels/csrc/eval_head.cu",
+}
+
+# engine-parity tolerances of tests/test_engine_parity.py
+ACC_TOL, LOSS_TOL, DELTA_RTOL, DELTA_ATOL = 0.02, 1e-3, 0.01, 1e-4
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def timed_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, symbols, iters: int = 20):
+    """Device time per call of ``fn`` spent in the kernels whose names hold
+    one of ``symbols``, read from ``torch.profiler``: the kernels' own time,
+    without the host's launch cost that ``timed_ms`` includes.  None when
+    the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if str(ev.device_type) == "DeviceType.CUDA"
+             and any(sym in ev.key for sym in symbols))
+    return us / 1e3 / iters if us > 0 else None
+
+
+def check(name: str, ok: bool, detail: str) -> None:
+    if not ok:
+        raise AssertionError(f"{name}: {detail}")
+
+
+#: device-side kernel names -> the port's kernels (the rest is PyTorch's)
+KERNEL_SYMBOLS = (("gemm_kernel<0>", "conv3x3_fwd"),
+                  ("gemm_kernelILi0", "conv3x3_fwd"),
+                  ("gemm_kernel<1>", "conv3x3_bwd dcols"),
+                  ("gemm_kernelILi1", "conv3x3_bwd dcols"),
+                  ("gemm_kernel<2>", "conv3x3_bwd dW/db"),
+                  ("gemm_kernelILi2", "conv3x3_bwd dW/db"),
+                  ("sgd_update_kernel", "sgd_update"),
+                  ("hieavg_agg_kernel", "hieavg_agg"),
+                  ("coef_agg_kernel", "coef_agg"),
+                  ("eval_head_kernel", "eval_head"))
+
+
+def symbols_of(kernel: str) -> tuple:
+    return tuple(k for k, v in KERNEL_SYMBOLS if v.startswith(kernel))
+
+
+def profile_run(torch, simulator, setting) -> dict:
+    """One more ``kernel_mode="auto"`` run under ``torch.profiler``: device
+    time per kernel (the port's by name, PyTorch's own summed per name)
+    and the device's busy share of the run's wall time.  Only with
+    ``--profile``; the profiler's host overhead lengthens the wall time,
+    so the busy share is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+    sim = simulator(setting, "hieavg", "temporary", "temporary",
+                    device="cuda", kernel_mode="auto")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        sim.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    by_name: dict = {}
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        if us <= 0 or str(ev.device_type) != "DeviceType.CUDA":
+            continue
+        name = next((v for k, v in KERNEL_SYMBOLS if k in ev.key),
+                    "torch: " + ev.key[:60])
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + ev.count, t + us / 1e3)
+    busy = sum(t for _, t in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:14]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "busy_share": busy / (wall * 1e3),
+            "kernels": [{"name": k, "count": n, "device_ms": t}
+                        for k, (n, t) in top]}
+
+
+def full_runs(torch, simulator, setting) -> dict:
+    """The paper's whole DEFAULT run (T = 50 global rounds) once per kernel
+    mode, in turns (auto, torch, auto, torch): wall seconds, rounds per
+    second and the final accuracy.  Only with ``--full``."""
+    out: dict = {"t_global_rounds": setting.t_global_rounds}
+    for mode in ("auto", "torch", "auto", "torch"):
+        sim = simulator(setting, "hieavg", "temporary", "temporary",
+                        device="cuda", kernel_mode=mode)
+        torch.cuda.synchronize()
+        res = sim.run()
+        torch.cuda.synchronize()
+        out.setdefault(mode, []).append({
+            "wall_s": res.wall_time,
+            "rounds_per_s": setting.t_global_rounds / res.wall_time,
+            "final_accuracy": float(res.accuracy[-1]),
+            "final_loss": float(res.loss[-1]),
+            "final_clock_s": float(res.sim_clock[-1])})
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import DEFAULT
+    from repro_torch.fl import BHFLSimulator
+    from repro_torch.kernels import build
+    from repro_torch.kernels.coef_agg import coef_agg
+    from repro_torch.kernels.conv3x3 import (matmul_bias_relu_bwd,
+                                             matmul_bias_relu_fwd)
+    from repro_torch.kernels.eval_head import eval_head
+    from repro_torch.kernels.hieavg_agg import hieavg_agg
+    from repro_torch.kernels.sgd_update import sgd_update
+    from repro_torch.models import cnn_specs
+    from repro_torch.models.spec import count_params
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+    t0 = time.time()
+    build.library()
+    emit({"build": {"seconds": time.time() - t0,
+                    "library": build.compile_library().name,
+                    "flags": " ".join(build.NVCC_FLAGS)}})
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    results = {}
+
+    def record(name, err, tol, fn, plain_ms, library_ms, nbytes, flops,
+               extra=None):
+        """``fn`` launches the kernel at the timed shape: ``ms`` is its wall
+        time per call through the wrapper (CUDA events), ``device_ms`` its
+        kernels' own device time (profiler)."""
+        bms, by = bound_ms(nbytes, flops)
+        line = {"kernel": name, "max_abs_err": err, "tolerance": tol,
+                "ms": timed_ms(torch, fn),
+                "device_ms": device_ms(torch, fn, symbols_of(name)),
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bms, "bound_by": by, **(extra or {})}
+        emit(line)
+        results[name] = line
+
+    def gemm_err(got, want, rel=1e-4):
+        """max |got - want| and its tolerance rel * max|want| (FP32 sums in
+        another order than cuBLAS's)."""
+        err = (got - want).abs().max().item()
+        return err, rel * max(want.abs().max().item(), 1e-30)
+
+    # ---------------------------------------------------------- conv3x3_fwd
+    # train layer 2 (the DEFAULT hot shape) is timed; every other shape the
+    # main path gives the kernel (train layer 1, eval layers 1 and 2) and
+    # the tile tails are checked
+    M = B * HW * HW
+    shapes = [(D, M, 9 * C1, C2), (D, M, 9, C1),
+              (1, NTEST * HW * HW, 9, C1), (1, NTEST * HW * HW, 9 * C1, C2),
+              (1, 25, 9, 3), (2, 288, 36, 8), (1, 512, 27, 7)]
+    worst = 0.0
+    for (d, m, k, n) in shapes:
+        cols, w, b = rand(d, m, k), randn(d, k, n, scale=k ** -0.5), \
+            randn(d, n, scale=0.1)
+        got = matmul_bias_relu_fwd(cols, w, b, "cuda")
+        want = matmul_bias_relu_fwd(cols, w, b, "torch")
+        err, tol = gemm_err(got, want)
+        check("conv3x3_fwd", err <= tol, f"{(d, m, k, n)}: {err} > {tol}")
+        worst = max(worst, err / max(tol, 1e-30))
+        del cols, w, b, got, want
+    d, m, k, n = shapes[0]
+    cols, w, b = rand(d, m, k), randn(d, k, n, scale=k ** -0.5), \
+        randn(d, n, scale=0.1)
+    err, tol = gemm_err(matmul_bias_relu_fwd(cols, w, b, "cuda"),
+                        matmul_bias_relu_fwd(cols, w, b, "torch"))
+    record("conv3x3_fwd", err, tol,
+           lambda: matmul_bias_relu_fwd(cols, w, b, "cuda"),
+           timed_ms(torch, lambda: matmul_bias_relu_fwd(cols, w, b, "torch")),
+           timed_ms(torch, lambda: torch.baddbmm(b[:, None, :], cols, w)),
+           4.0 * (d * m * k + d * k * n + d * n + d * m * n),
+           2.0 * d * m * k * n,
+           {"shape": [d, m, k, n], "worst_err_over_tol": worst})
+
+    # ---------------------------------------------------------- conv3x3_bwd
+    worst = 0.0
+    for (d2, m2, k2, n2) in shapes:
+        c2, w2, b2 = rand(d2, m2, k2), randn(d2, k2, n2, scale=k2 ** -0.5), \
+            randn(d2, n2, scale=0.1)
+        y2 = matmul_bias_relu_fwd(c2, w2, b2, "torch")
+        dy2 = randn(d2, m2, n2)
+        for need in (True, False):
+            got = matmul_bias_relu_bwd(c2, w2, y2, dy2, need, "cuda")
+            want = matmul_bias_relu_bwd(c2, w2, y2, dy2, need, "torch")
+            for g_, w_ in zip(got, want):
+                if w_ is None:
+                    check("conv3x3_bwd", g_ is None, "dcols where none asked")
+                    continue
+                err2, tol2 = gemm_err(g_, w_)
+                check("conv3x3_bwd", err2 <= tol2,
+                      f"{(d2, m2, k2, n2)}: {err2} > {tol2}")
+                worst = max(worst, err2 / max(tol2, 1e-30))
+        del c2, w2, b2, y2, dy2, got, want
+    y = matmul_bias_relu_fwd(cols, w, b, "torch")
+    dy = randn(d, m, n)
+    got = matmul_bias_relu_bwd(cols, w, y, dy, True, "cuda")
+    want = matmul_bias_relu_bwd(cols, w, y, dy, True, "torch")
+    errs = [gemm_err(g_, w_) for g_, w_ in zip(got, want)]
+    err = max(e for e, _ in errs)
+    check("conv3x3_bwd", all(e <= t for e, t in errs), f"{errs}")
+    record("conv3x3_bwd", err, max(t for _, t in errs),
+           lambda: matmul_bias_relu_bwd(cols, w, y, dy, True, "cuda"),
+           timed_ms(torch, lambda: matmul_bias_relu_bwd(cols, w, y, dy, True,
+                                                        "torch")),
+           None,
+           4.0 * (2 * d * m * k + 2 * d * k * n + 2 * d * m * n + d * n),
+           4.0 * d * m * k * n + d * m * n,
+           {"shape": [d, m, k, n], "worst_err_over_tol": worst})
+    del cols, w, b, y, dy, got, want
+
+    # ------------------------------------------------ the model's leaves
+    specs = cnn_specs(HW, 1, NCLS, c1=C1, c2=C2)
+    P = count_params(specs)
+    leaf_sizes = [math.prod(s.shape) for s in specs.values()]
+
+    # ----------------------------------------------------------- sgd_update
+    ws = [randn(D, L) for L in leaf_sizes]
+    gs = [randn(D, L) for L in leaf_sizes]
+    s = 0.00095238
+    err = 0.0
+    for L in (1, 7, 2047, 2049):
+        w1, g1 = randn(3, L), randn(3, L)
+        e = (sgd_update(w1, g1, s, "cuda")
+             - sgd_update(w1, g1, s, "torch")).abs().max().item()
+        err = max(err, e)
+        check("sgd_update", torch.equal(sgd_update(w1, g1 * 1e3, 0.0, "cuda"),
+                                        w1), "scale 0 is not an identity")
+    for w1, g1 in zip(ws, gs):
+        err = max(err, (sgd_update(w1, g1, s, "cuda")
+                        - sgd_update(w1, g1, s, "torch")).abs().max().item())
+    check("sgd_update", err == 0.0, f"not bitwise the plain version: {err}")
+    record("sgd_update", err, 0.0,
+           lambda: [sgd_update(a, g, s, "cuda") for a, g in zip(ws, gs)],
+           timed_ms(torch, lambda: [sgd_update(a, g, s, "torch")
+                                    for a, g in zip(ws, gs)]),
+           timed_ms(torch, lambda: torch._foreach_add(ws, gs, alpha=-s)),
+           12.0 * D * P, 2.0 * D * P,
+           {"shape": [D, P], "leaves": len(ws)})
+    del ws, gs
+
+    # ----------------------------------------------------------- hieavg_agg
+    def hieavg_inputs(nb, n, L):
+        mask = rand(nb, n) > 0.3
+        coef = rand(nb, n)
+        return (randn(nb, n, L), randn(nb, n, L), randn(nb, n, L, scale=0.1),
+                mask, coef * mask, coef * ~mask,
+                torch.floor(rand(nb, n) * 6))
+
+    def agg_err(got, want):
+        err = max((g_ - w_).abs().max().item() for g_, w_ in zip(got, want))
+        tol = 1e-5 * max(w_.abs().max().item() for w_ in want)
+        return err, tol
+
+    nb, n = 5, 5                                  # N = 5 edges of J = 5
+    err, tol = 0.0, 0.0
+    for (nb2, n2, L) in ((1, 3, 1), (2, 5, 7), (5, 5, 2047), (1, 5, 2049)):
+        args = hieavg_inputs(nb2, n2, L)
+        e, t = agg_err(hieavg_agg(*args, mode="cuda"),
+                       hieavg_agg(*args, mode="torch"))
+        check("hieavg_agg", e <= t, f"{(nb2, n2, L)}: {e} > {t}")
+    leaves = [hieavg_inputs(nb, n, L) for L in leaf_sizes]
+    for args in leaves:
+        e, t = agg_err(hieavg_agg(*args, mode="cuda"),
+                       hieavg_agg(*args, mode="torch"))
+        check("hieavg_agg", e <= t, f"DEFAULT leaf: {e} > {t}")
+        err, tol = max(err, e), max(tol, t)
+    # a zero-coefficient slot adds exactly nothing, whatever it holds
+    a = hieavg_inputs(1, 4, 999)
+    junk = [x.clone() for x in a[:3]]
+    for x in junk:
+        x[:, 3] = 1e6
+    cp, ce = a[4].clone(), a[5].clone()
+    cp[:, 3] = ce[:, 3] = 0.0
+    check("hieavg_agg", torch.equal(
+        hieavg_agg(*a[:3], a[3], cp, ce, a[6], mode="cuda")[0],
+        hieavg_agg(*junk, a[3], cp, ce, a[6], mode="cuda")[0]),
+        "a zero-coefficient slot changed the aggregate")
+    record("hieavg_agg", err, tol,
+           lambda: [hieavg_agg(*x, mode="cuda") for x in leaves],
+           timed_ms(torch, lambda: [hieavg_agg(*x, mode="torch")
+                                    for x in leaves]),
+           None, 4.0 * (5 * nb * n * P + nb * P + 4 * nb * n * len(leaves)),
+           17.0 * nb * n * P, {"shape": [nb, n, P], "leaves": len(leaves)})
+    del leaves
+
+    # ------------------------------------------------------------- coef_agg
+    err, tol = 0.0, 0.0
+    for (nb2, n2, L) in ((1, 3, 1), (2, 5, 7), (5, 5, 2047), (1, 5, 2049)):
+        w2, c2 = randn(nb2, n2, L), rand(nb2, n2)
+        e, t = agg_err([coef_agg(w2, c2, "cuda")], [coef_agg(w2, c2, "torch")])
+        check("coef_agg", e <= t, f"{(nb2, n2, L)}: {e} > {t}")
+    cleaves = [(randn(nb, n, L), rand(nb, n)) for L in leaf_sizes]
+    for w2, c2 in cleaves:
+        e, t = agg_err([coef_agg(w2, c2, "cuda")], [coef_agg(w2, c2, "torch")])
+        check("coef_agg", e <= t, f"DEFAULT leaf: {e} > {t}")
+        err, tol = max(err, e), max(tol, t)
+    w2, c2 = randn(1, 5, 500), torch.tensor([[0.5, 0.3, 0.2, 0.0, 0.0]],
+                                            device=dev)
+    w3 = w2.clone()
+    w3[:, 3:] = 1e6
+    check("coef_agg", torch.equal(coef_agg(w2, c2, "cuda"),
+                                  coef_agg(w3, c2, "cuda")),
+          "a zero-coefficient slot changed the aggregate")
+    record("coef_agg", err, tol,
+           lambda: [coef_agg(x, c, "cuda") for x, c in cleaves],
+           timed_ms(torch, lambda: [coef_agg(x, c, "torch")
+                                    for x, c in cleaves]),
+           timed_ms(torch, lambda: [torch.einsum("bn,bnl->bl", c, x)
+                                    for x, c in cleaves]),
+           4.0 * (nb * n * P + nb * P + nb * n * len(cleaves)),
+           2.0 * nb * n * P, {"shape": [nb, n, P], "leaves": len(cleaves)})
+    del cleaves
+
+    # ------------------------------------------------------------ eval_head
+    def margin_rows(feats, wmat, bias):
+        """rows whose two largest logits are within float32 reach of each
+        other: their argmax may differ between two summation orders"""
+        z = feats.double() @ wmat.double() + bias.double()
+        top = torch.topk(z, 2, dim=-1).values
+        return int(((top[:, 0] - top[:, 1])
+                    <= 1e-4 * z.abs().amax(-1)).sum().item())
+
+    ambiguous, err = 0, 0
+    for m_ in (1, 7, 257, NTEST):
+        f_ = rand(m_, FEAT)
+        wm, bb = randn(FEAT, NCLS, scale=FEAT ** -0.5), randn(NCLS, scale=0.1)
+        lab = torch.randint(-1, NCLS, (m_,), generator=gen, device=dev)
+        got = int(eval_head(f_, wm, bb, lab, "cuda").item())
+        want = int(eval_head(f_, wm, bb, lab, "torch").item())
+        amb = margin_rows(f_, wm, bb)
+        check("eval_head", abs(got - want) <= amb,
+              f"M={m_}: count {got} vs {want}, {amb} ambiguous rows")
+        ambiguous, err = ambiguous + amb, max(err, abs(got - want))
+    record("eval_head", float(err), float(ambiguous),
+           lambda: eval_head(f_, wm, bb, lab, "cuda"),
+           timed_ms(torch, lambda: eval_head(f_, wm, bb, lab, "torch")),
+           None, 4.0 * (NTEST * FEAT + FEAT * NCLS + NCLS + NTEST
+                        + -(-NTEST // 8)),
+           2.0 * NTEST * FEAT * NCLS, {"shape": [NTEST, FEAT, NCLS]})
+    del f_, wm
+
+    # ----------------------------------------------------------- the run
+    setting = dataclasses.replace(DEFAULT, t_global_rounds=4)
+    runs = {}
+    for mode in ("auto", "torch"):
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        sim = BHFLSimulator(setting, "hieavg", "temporary", "temporary",
+                            device="cuda", kernel_mode=mode)
+        res = sim.run()
+        torch.cuda.synchronize()
+        runs[mode] = (res, dict(build.LAUNCHES))
+        rows = {"accuracy": res.accuracy, "loss": res.loss,
+                "delta": res.grad_norm, "clock": res.sim_clock,
+                "energy": res.sim_energy}
+        for key, row in rows.items():
+            check("run", row.shape == (setting.t_global_rounds,)
+                  and bool(np.isfinite(row).all()), f"{mode} {key}: {row}")
+        check("run", res.blocks == setting.t_global_rounds
+              and res.chain_valid, f"{mode}: chain {res.blocks}")
+        emit({"run": {"kernel_mode": mode, "wall_s": res.wall_time,
+                      "steps_per_epoch": sim.steps, "devices": sim.D,
+                      "blocks": res.blocks, "chain_valid": res.chain_valid,
+                      **{k: [float(v) for v in row]
+                         for k, row in rows.items()},
+                      "launches": dict(build.LAUNCHES)}})
+    a, launches = runs["auto"]
+    p, plain_launches = runs["torch"]
+    check("run", not plain_launches, f"torch mode launched {plain_launches}")
+    parity = {
+        "accuracy": bool(np.allclose(a.accuracy, p.accuracy, rtol=0,
+                                     atol=ACC_TOL)),
+        "loss": bool(np.allclose(a.loss, p.loss, rtol=LOSS_TOL,
+                                 atol=LOSS_TOL)),
+        "delta": bool(np.allclose(a.grad_norm, p.grad_norm, rtol=DELTA_RTOL,
+                                  atol=DELTA_ATOL)),
+        "clock_equal": bool(np.array_equal(a.sim_clock, p.sim_clock)),
+        "energy_equal": bool(np.array_equal(a.sim_energy, p.sim_energy)),
+        "blocks_equal": a.blocks == p.blocks,
+    }
+    emit({"parity": {"auto_vs_torch": parity,
+                     "max_abs_diff": {
+                         "accuracy": float(np.abs(a.accuracy
+                                                  - p.accuracy).max()),
+                         "loss": float(np.abs(a.loss - p.loss).max()),
+                         "delta": float(np.abs(a.grad_norm
+                                               - p.grad_norm).max())},
+                     "tolerances": {"accuracy_atol": ACC_TOL,
+                                    "loss_rtol_atol": LOSS_TOL,
+                                    "delta_rtol": DELTA_RTOL,
+                                    "delta_atol": DELTA_ATOL}}})
+    check("parity", all(parity.values()), f"{parity}")
+    if "--profile" in sys.argv[1:]:
+        emit({"profile": profile_run(torch, BHFLSimulator, setting)})
+    if "--full" in sys.argv[1:]:
+        emit({"full_run": full_runs(torch, BHFLSimulator, DEFAULT)})
+    missing = [k for k in REPLACES if launches.get(k, 0) == 0]
+    check("launches", not missing, f"never launched on the main path: "
+          f"{missing} ({launches})")
+
+    emit({"kernels": [
+        {"name": k, "route": "cuda", "source": SOURCE[k],
+         "replaces": REPLACES[k], "launches": launches[k],
+         "max_abs_err": results[k]["max_abs_err"],
+         "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
+         "bound_ms": results[k]["bound_ms"],
+         "bound_by": results[k]["bound_by"],
+         "library_ms": results[k]["library_ms"]} for k in REPLACES]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,155 @@
+"""HieAvg — the paper's hierarchical averaging aggregation (Sec. 3), in plain
+PyTorch.
+
+Port of ``repro.core.hieavg`` and the port's reference path: the engine's
+kernel route (``repro_torch.kernels.dispatch``) is tested against it, and
+it against the JAX functions.  Weights are dicts of *stacked* tensors: the
+leading ``mask.dim()`` axes are batch axes then the participant axis
+(``[n, ...]`` for one layer, ``[N, J, ...]`` for all N edges at once), so
+every function below works on both without a ``vmap``.
+
+Straggler estimation (Sec. 3.2.2): a straggler's missing submission is
+estimated as ``w_prev + E[Delta]`` and scaled by ``gamma = gamma0 *
+lam**k'``, k' >= 1 counting consecutive misses.  ``normalize=False`` is
+the paper's eq. (4)/(5) as written; ``normalize=True`` divides by the sum
+of the coefficients (beyond-paper, see ``repro.core.hieavg``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+f32 = torch.float32
+
+
+def _bshape(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """Reshape a [..., n] vector so it broadcasts against a [..., n, *leaf]
+    leaf."""
+    return v.reshape(tuple(v.shape) + (1,) * (leaf.dim() - v.dim()))
+
+
+@dataclasses.dataclass
+class History:
+    """Per-participant submission history: ``prev_w``/``delta_mean`` leaves
+    shaped like the stacked weights, ``n_obs`` (observed deltas) and
+    ``miss_count`` (consecutive misses) shaped like the mask."""
+
+    prev_w: dict
+    delta_mean: dict
+    n_obs: torch.Tensor
+    miss_count: torch.Tensor
+
+
+def _init(stacked_w: dict, lead: int) -> History:
+    first = next(iter(stacked_w.values()))
+    shape = tuple(first.shape[:lead])
+    return History(
+        prev_w=dict(stacked_w),
+        delta_mean={k: torch.zeros_like(v) for k, v in stacked_w.items()},
+        n_obs=torch.zeros(shape, dtype=f32, device=first.device),
+        miss_count=torch.zeros(shape, dtype=f32, device=first.device))
+
+
+def init_history(stacked_w: dict) -> History:
+    """Cold-boot history from a first ``[n, ...]`` stacked submission
+    (float32 storage; the ``history_dtype`` knob comes with a later
+    slice)."""
+    return _init(stacked_w, 1)
+
+
+def init_history_batched(stacked_w: dict) -> History:
+    """Cold-boot history for dense ``[N, J, ...]`` stacked weights."""
+    return _init(stacked_w, 2)
+
+
+def update_history(history: History, stacked_w: dict,
+                   mask: torch.Tensor) -> History:
+    """Fold one round of submissions into the history.
+
+    Present (mask True): delta = w - prev_w joins the running mean,
+    prev_w <- w, miss_count <- 0.  Stragglers: prev_w advances by E[Delta],
+    the delta stats freeze, miss_count += 1.
+    """
+    m = mask.to(f32)
+    new_prev, new_dmean = {}, {}
+    for k, w in stacked_w.items():
+        prev, dmean = history.prev_w[k], history.delta_mean[k]
+        mb = _bshape(m, prev)
+        nb = _bshape(history.n_obs, prev)
+        new_prev[k] = mb * w + (1.0 - mb) * (prev + dmean)
+        mean = (dmean * nb + (w - prev)) / (nb + 1.0)
+        new_dmean[k] = mb * mean + (1.0 - mb) * dmean
+    return History(prev_w=new_prev, delta_mean=new_dmean,
+                   n_obs=history.n_obs + m,
+                   miss_count=(history.miss_count + 1.0) * (1.0 - m))
+
+
+def update_history_batched(history: History, stacked_w: dict,
+                           mask: torch.Tensor) -> History:
+    """``update_history`` over ``[N, J, ...]`` weights and ``[N, J]`` masks
+    (the leading edge axis is a batch axis)."""
+    return update_history(history, stacked_w, mask)
+
+
+def _mix_and_update(stacked_w: dict, mask: torch.Tensor, history: History,
+                    part_weights: torch.Tensor, gamma0, lam,
+                    normalize: bool) -> tuple[dict, History]:
+    """Aggregate (eq. 4/5) and history update in one pass per leaf."""
+    m = mask.to(f32)
+    gamma = gamma0 * torch.pow(lam, history.miss_count + 1.0)   # k' >= 1
+    coef = part_weights * (m + (1.0 - m) * gamma)
+    if normalize:
+        coef = coef / torch.clamp(coef.sum(-1, keepdim=True), min=1e-12)
+    coef_p = coef * m
+    coef_e = coef * (1.0 - m)
+    nb1 = history.n_obs + 1.0
+    p_axis = m.dim() - 1
+    agg, new_prev, new_dmean = {}, {}, {}
+    for k, w in stacked_w.items():
+        pf, df = history.prev_w[k], history.delta_mean[k]
+        est = pf + df
+        agg[k] = (_bshape(coef_p, w) * w + _bshape(coef_e, w) * est
+                  ).sum(p_axis)
+        mb = _bshape(m, w)
+        new_prev[k] = mb * w + (1.0 - mb) * est
+        mean = (df * _bshape(history.n_obs, w) + (w - pf)) / _bshape(nb1, w)
+        new_dmean[k] = mb * mean + (1.0 - mb) * df
+    return agg, History(prev_w=new_prev, delta_mean=new_dmean,
+                        n_obs=history.n_obs + m,
+                        miss_count=(history.miss_count + 1.0) * (1.0 - m))
+
+
+def aggregate(stacked_w: dict, mask: torch.Tensor, history: History,
+              part_weights: torch.Tensor, gamma0, lam,
+              normalize: bool = False) -> tuple[dict, History]:
+    """Eq. (4)/(5) with caller-normalized ``part_weights``."""
+    return _mix_and_update(stacked_w, mask, history, part_weights, gamma0,
+                           lam, normalize)
+
+
+def edge_aggregate_batched(stacked_w: dict, mask: torch.Tensor,
+                           history: History, valid: torch.Tensor, gamma0,
+                           lam, normalize: bool = False
+                           ) -> tuple[dict, History]:
+    """Eq. (4) for all N edges: ``[N, J, ...]`` weights, ``[N, J]``
+    mask/valid; part weights ``valid / max(J_e, 1)`` (zero on padded
+    slots)."""
+    v = valid.to(f32)
+    pw = v / torch.clamp(v.sum(-1, keepdim=True), min=1.0)
+    return _mix_and_update(stacked_w, mask, history, pw, gamma0, lam,
+                           normalize)
+
+
+def global_aggregate_cold(stacked_w: dict, j_per_edge: torch.Tensor) -> dict:
+    """Eq. (3) during cold boot: the J_i-weighted mean over edge models; an
+    all-zero ``j_per_edge`` row aggregates to exact zeros."""
+    j = j_per_edge.to(f32)
+    pw = j / torch.clamp(j.sum(-1, keepdim=True), min=1e-12)
+    p_axis = pw.dim() - 1
+    return {k: (_bshape(pw, w) * w).sum(p_axis) for k, w in stacked_w.items()}
+
+
+def edge_aggregate_cold_batched(stacked_w: dict, valid: torch.Tensor) -> dict:
+    """Eq. (2) for all edges at once: per-edge mean over valid slots."""
+    return global_aggregate_cold(stacked_w, valid)

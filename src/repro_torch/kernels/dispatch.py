@@ -1,0 +1,76 @@
+"""The engine's entry points to the kernel plane.
+
+Port of ``repro.kernels.dispatch``.  Every entry takes ``mode``
+(``"auto" | "cuda" | "torch"``, see ``build.use_kernel``) and runs each
+kernel of its phase on the card or its plain PyTorch version; the
+coefficient recipes of the reference are kept exactly, including the
+``1e-12`` floors of the cold-boot means and the ``max(sum v, 1)`` floor of
+the warm edge layer.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.hieavg import History
+
+from . import ops
+from .conv3x3 import conv3x3_bias_relu as _conv3x3_bias_relu
+from .eval_head import eval_head as _eval_head
+
+#: The engine round phases this slice runs in a kernel, in round order.
+#: The reference's ``fedavg_aggregate`` and ``delayed_grad_aggregate``
+#: phases come with a later slice.
+ROUND_PHASES = ("train_conv_fwd_bwd", "sgd_update", "warm_edge_aggregate",
+                "warm_global_aggregate", "cold_boot_aggregate", "eval_head")
+
+
+def edge_aggregate_batched(stacked_w: dict, mask: torch.Tensor,
+                           history: History, valid: torch.Tensor, gamma0,
+                           lam, normalize: bool = False, *,
+                           mode: str = "auto") -> tuple[dict, History]:
+    """Eq. (4) for all N edges (``hieavg.edge_aggregate_batched``)."""
+    return ops.fused_edge_aggregate_batched(stacked_w, mask, history, valid,
+                                            gamma0, lam, normalize,
+                                            mode=mode)
+
+
+def global_aggregate(stacked_w: dict, mask: torch.Tensor, history: History,
+                     part_weights: torch.Tensor, gamma0, lam,
+                     normalize: bool = False, *, mode: str = "auto"
+                     ) -> tuple[dict, History]:
+    """Eq. (5) on the leader (``hieavg.aggregate``)."""
+    return ops.fused_mix_and_update(stacked_w, mask, history, part_weights,
+                                    gamma0, lam, normalize, mode=mode)
+
+
+def sgd_update(params: dict, grads: dict, scale: float, *,
+               mode: str = "auto") -> dict:
+    """The train step's ``w - scale * g`` per leaf."""
+    return ops.fused_sgd_update(params, grads, scale, mode=mode)
+
+
+def conv3x3_bias_relu(x, w, b, *, mode: str = "auto"):
+    """The CNN conv block ``relu(conv3x3_same(x, w) + b)``."""
+    return _conv3x3_bias_relu(x, w, b, mode=mode)
+
+
+def eval_head(feats, wmat, bias, labels, *, mode: str = "auto"):
+    """Correct-prediction count of the classifier head."""
+    return _eval_head(feats, wmat, bias, labels, mode=mode)
+
+
+def edge_aggregate_cold_batched(stacked_w: dict, valid: torch.Tensor, *,
+                                mode: str = "auto") -> dict:
+    """Cold-boot edge mean for all N edges (eq. 2); an all-invalid edge
+    aggregates to exact zeros."""
+    v = valid.to(torch.float32)
+    pw = v / torch.clamp(v.sum(-1, keepdim=True), min=1e-12)
+    return ops.fused_coef_aggregate(stacked_w, pw, mode=mode)
+
+
+def global_aggregate_cold(stacked_w: dict, j_per_edge: torch.Tensor, *,
+                          mode: str = "auto") -> dict:
+    """Cold-boot global J_i-weighted mean (eq. 3)."""
+    j = j_per_edge.to(torch.float32)
+    pw = j / torch.clamp(j.sum(), min=1e-12)
+    return ops.fused_coef_aggregate(stacked_w, pw, mode=mode)

@@ -1,0 +1,86 @@
+"""The port's kernel wrappers applied to whole stacked models.
+
+Port of ``repro.kernels.ops``.  Weights are dicts of stacked leaves; the
+leading ``mask.dim()`` axes are batch axes then the participant axis.
+Each leaf is flattened to ``[B, n, L]`` for its kernel, which takes the
+batch axis B as a grid axis (where the JAX package vmaps).  The tiny
+``[..., n]`` coefficient vectors are computed here in PyTorch, with the
+recipes of ``repro.kernels.ops`` and ``repro.kernels.dispatch``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.hieavg import History
+
+from .coef_agg import coef_agg
+from .hieavg_agg import hieavg_agg
+from .sgd_update import sgd_update
+
+
+def _flat(w: torch.Tensor, lead: tuple) -> torch.Tensor:
+    """[*lead, *leaf] -> [B, n, L] with B = prod(lead[:-1]), n = lead[-1]."""
+    return w.reshape(math.prod(lead[:-1]), lead[-1], -1).contiguous()
+
+
+def fused_mix_and_update(stacked_w: dict, mask: torch.Tensor,
+                         history: History, part_weights: torch.Tensor,
+                         gamma0, lam, normalize: bool = False, *,
+                         mode: str = "auto") -> tuple[dict, History]:
+    """``hieavg._mix_and_update`` (eq. 4/5) with the heavy ``[B, n, L]`` mix
+    and history update of each leaf in the ``hieavg_agg`` kernel."""
+    m = mask.to(torch.float32)
+    gamma = gamma0 * torch.pow(lam, history.miss_count + 1.0)   # k' >= 1
+    coef = part_weights * (m + (1.0 - m) * gamma)
+    if normalize:
+        coef = coef / torch.clamp(coef.sum(-1, keepdim=True), min=1e-12)
+    lead = tuple(mask.shape)
+    B, n = math.prod(lead[:-1]), lead[-1]
+    vecs = [v.reshape(B, n) for v in
+            (m, coef * m, coef * (1.0 - m), history.n_obs)]
+    aggs, nprevs, ndmeans = {}, {}, {}
+    for k, w in stacked_w.items():
+        a, p, d = hieavg_agg(_flat(w, lead),
+                             _flat(history.prev_w[k], lead),
+                             _flat(history.delta_mean[k], lead), *vecs,
+                             mode=mode)
+        aggs[k] = a.reshape(lead[:-1] + tuple(w.shape[len(lead):]))
+        nprevs[k] = p.reshape(w.shape)
+        ndmeans[k] = d.reshape(w.shape)
+    return aggs, History(prev_w=nprevs, delta_mean=ndmeans,
+                         n_obs=history.n_obs + m,
+                         miss_count=(history.miss_count + 1.0) * (1.0 - m))
+
+
+def fused_edge_aggregate_batched(stacked_w: dict, mask: torch.Tensor,
+                                 history: History, valid: torch.Tensor,
+                                 gamma0, lam, normalize: bool = False, *,
+                                 mode: str = "auto") -> tuple[dict, History]:
+    """Eq. (4) for all N edges (``[N, J, ...]`` leaves, ``[N, J]``
+    mask/valid); part weights ``valid / max(J_e, 1)``, so padded slots add
+    nothing."""
+    v = valid.to(torch.float32)
+    pw = v / torch.clamp(v.sum(-1, keepdim=True), min=1.0)
+    return fused_mix_and_update(stacked_w, mask, history, pw, gamma0, lam,
+                                normalize, mode=mode)
+
+
+def fused_coef_aggregate(stacked_w: dict, coef: torch.Tensor, *,
+                         mode: str = "auto") -> dict:
+    """``sum_n coef[..., n] * w[..., n, ...]`` per leaf (float32)."""
+    lead = tuple(coef.shape)
+    B, n = math.prod(lead[:-1]), lead[-1]
+    c = coef.reshape(B, n)
+    return {k: coef_agg(_flat(w, lead), c, mode=mode).reshape(
+                lead[:-1] + tuple(w.shape[len(lead):]))
+            for k, w in stacked_w.items()}
+
+
+def fused_sgd_update(params: dict, grads: dict, scale: float, *,
+                     mode: str = "auto") -> dict:
+    """``w - scale * g`` per leaf; ``scale`` is a host float.  (Autograd
+    may hand a leaf's gradient over as a strided view.)"""
+    return {k: sgd_update(w, grads[k].contiguous(), scale, mode=mode)
+            for k, w in params.items()}

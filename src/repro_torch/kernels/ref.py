@@ -1,0 +1,95 @@
+"""The plain PyTorch versions of the port's kernels.
+
+Each function computes what its CUDA kernel computes, in ordinary tensor
+operations, with the layouts of ``repro.kernels.ref``.  The kernel
+wrappers run them for CPU tensors and under ``kernel_mode="torch"``; the
+CPU tests hold them against the JAX kernels, and ``chip_smoke.py`` holds
+each CUDA kernel against its plain version on the card.
+
+Leading batch axes are allowed where the engine has them: ``[..., n, L]``
+operands with ``[..., n]`` coefficient vectors.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+f32 = torch.float32
+
+
+# ------------------------------------------------------------- hieavg_agg
+def hieavg_agg_ref(w, prev, dmean, mask, coef_present, coef_est, n_obs):
+    """HieAvg mix + history update on ``[..., n, L]`` leaves.
+
+      agg       = sum_n coef_present*w + coef_est*(prev + dmean)
+      new_prev  = m*w + (1-m)*(prev + dmean)
+      new_dmean = m*((dmean*n_obs + (w - prev)) / (n_obs+1)) + (1-m)*dmean
+
+    Returns (agg [..., L], new_prev, new_dmean); float32 math, outputs in
+    their operands' dtypes.
+    """
+    wf, pf, df = w.to(f32), prev.to(f32), dmean.to(f32)
+    m = mask.to(f32)[..., None]
+    cp = coef_present.to(f32)[..., None]
+    ce = coef_est.to(f32)[..., None]
+    nb = n_obs.to(f32)[..., None]
+    est = pf + df
+    agg = (cp * wf + ce * est).sum(-2)
+    new_prev = m * wf + (1.0 - m) * est
+    new_dmean = m * ((df * nb + (wf - pf)) / (nb + 1.0)) + (1.0 - m) * df
+    return agg.to(w.dtype), new_prev.to(prev.dtype), new_dmean.to(dmean.dtype)
+
+
+# -------------------------------------------------------------- sgd_update
+def sgd_update_ref(w, g, scale: float):
+    """``w - scale * g`` in float32, cast back to ``w``'s dtype; a scale of
+    0 is an exact identity."""
+    return (w.to(f32) - scale * g.to(f32)).to(w.dtype)
+
+
+# ------------------------------------------------------- conv3x3_bias_relu
+def matmul_bias_relu_ref(cols, wmat, bias):
+    """``relu(cols @ wmat + bias)``: cols [D, M, K], wmat [D, K, N],
+    bias [D, N] -> [D, M, N]."""
+    return torch.relu(torch.bmm(cols, wmat) + bias[:, None, :])
+
+
+def matmul_bias_relu_bwd_ref(cols, wmat, y, dy, need_dcols: bool = True):
+    """The backward of ``matmul_bias_relu_ref`` from its output ``y``:
+    dz = dy*(y > 0); returns (dcols or None, dW [D, K, N], db [D, N])."""
+    dz = dy * (y > 0)
+    dcols = torch.bmm(dz, wmat.transpose(1, 2)) if need_dcols else None
+    return dcols, torch.bmm(cols.transpose(1, 2), dz), dz.sum(1)
+
+
+def im2col3x3(x):
+    """[..., H, W, C] -> [..., H, W, 9C] SAME-padded 3x3 patches, (i, j, c)
+    channel order (``w.reshape(9*Cin, Cout)`` rows)."""
+    h, wd = x.shape[-3], x.shape[-2]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return torch.cat([xp[..., i:i + h, j:j + wd, :]
+                      for i in range(3) for j in range(3)], dim=-1)
+
+
+def conv3x3_bias_relu_ref(x, w, b):
+    """``relu(conv3x3_same(x, w) + b)``: x [..., H, W, Cin], w [3, 3, Cin,
+    Cout], b [Cout]; the im2col matmul in float32."""
+    cols = im2col3x3(x.to(f32))
+    out = torch.einsum("...k,ko->...o", cols, w.reshape(-1, w.shape[-1]).to(f32))
+    return torch.relu(out + b.to(f32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------- eval_head
+def eval_head_ref(feats, wmat, bias, labels):
+    """Count of rows where ``argmax(feats @ wmat + bias)`` (first maximum
+    wins) equals the label; a 0-dim int64 tensor on ``feats``' device."""
+    logits = feats.to(f32) @ wmat.to(f32) + bias.to(f32)
+    pred = torch.argmax(logits, dim=-1)
+    return (pred == labels.to(pred.dtype)).sum()
+
+
+# ----------------------------------------------------------------- coef_agg
+def coef_agg_ref(w, coef):
+    """``sum_n coef[..., n] * w[..., n, L]`` in float32; a zero coefficient
+    adds nothing."""
+    return (coef.to(f32)[..., None] * w.to(f32)).sum(-2)
