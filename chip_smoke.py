@@ -5,26 +5,35 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds every kernel against its plain PyTorch version on the card (at the
-paper's DEFAULT shapes and at tile-tail shapes) and times both, then runs
-the paper's HieAvg experiment at the full width of its CNN
-(``BHFLSimulator(DEFAULT with T = 4, "hieavg", "temporary", "temporary")``:
-5 SGD steps per edge round, 2 cold-boot and 2 warm global rounds) once
-with the kernels (``kernel_mode="auto"``) and once with the plain versions
-(``"torch"``), and checks that the two agree.
+paper's DEFAULT shapes and at tile-tail shapes; ``hieavg_agg`` also with
+bfloat16 and float8_e4m3fn history) and times both.  Then it runs the
+paper's experiment at the full width of its CNN (DEFAULT cut to T = 4:
+5 SGD steps per edge round, 2 cold-boot and 2 warm global rounds) under
+every single-run aggregator: ``hieavg`` (float32, bfloat16 and float8
+history) and ``t_fedavg``, ``d_fedavg``, ``delayed_grad`` with temporary
+stragglers, ``fedavg`` without.  Each runs once with the kernels
+(``kernel_mode="auto"``) and once with the plain versions (``"torch"``),
+and the two must agree.  Last, ``run_checkpointed(every=2)`` is cut
+after its first chunk and resumed from a fresh simulator: the result
+must be bitwise the uninterrupted checkpointed run's.
 
 Output, one line each: the card as ``nvidia-smi`` names it, then JSON
-objects: the build, one per kernel check, the two runs, the ``kernels``
-summary, and last ``{"ok": true, "device": {...}}``.  ``--profile`` adds
-one more run under ``torch.profiler`` and a line of device time per
-kernel; ``--full`` adds the paper's whole DEFAULT run (T = 50) per mode.  Any failed phase
-raises and exits non-zero; without a CUDA device it exits 2 and prints
-nothing on stdout.  Imports nothing of JAX or of the JAX package.
+objects: the build, one per kernel check, one per run, one parity line
+per configuration, the resume checks, the ``kernels`` summary, and last
+``{"ok": true, "device": {...}}``.  ``--profile`` adds one more HieAvg
+run under ``torch.profiler`` and a line of device time per kernel;
+``--full`` adds the paper's whole DEFAULT HieAvg run (T = 50) per mode
+and its Fig. 2 set (``run_comparison`` under temporary and permanent
+stragglers, with HieAvg's eq. (4) as written and normalized).  Any failed phase raises and exits non-zero; without a CUDA
+device it exits 2 and prints nothing on stdout.  Imports nothing of JAX
+or of the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -49,6 +58,7 @@ REPLACES = {
     "sgd_update": "src/repro/kernels/sgd_update.py:40",
     "hieavg_agg": "src/repro/kernels/hieavg_agg.py:60",
     "coef_agg": "src/repro/kernels/coef_agg.py:62",
+    "coef_agg_pair": "src/repro/kernels/coef_agg.py:88",
     "eval_head": "src/repro/kernels/eval_head.py:48",
 }
 SOURCE = {
@@ -57,11 +67,46 @@ SOURCE = {
     "sgd_update": "src/repro_torch/kernels/csrc/sgd_update.cu",
     "hieavg_agg": "src/repro_torch/kernels/csrc/hieavg_agg.cu",
     "coef_agg": "src/repro_torch/kernels/csrc/coef_agg.cu",
+    "coef_agg_pair": "src/repro_torch/kernels/csrc/coef_agg.cu",
     "eval_head": "src/repro_torch/kernels/csrc/eval_head.cu",
 }
 
 # engine-parity tolerances of tests/test_engine_parity.py
 ACC_TOL, LOSS_TOL, DELTA_RTOL, DELTA_ATOL = 0.02, 1e-3, 0.01, 1e-4
+
+#: the runs at DEFAULT width, T = 4: label -> (aggregator, stragglers at
+#: both layers, history dtype name or None)
+RUNS = {
+    "hieavg": ("hieavg", "temporary", None),
+    "t_fedavg": ("t_fedavg", "temporary", None),
+    "d_fedavg": ("d_fedavg", "temporary", None),
+    "delayed_grad": ("delayed_grad", "temporary", None),
+    "fedavg": ("fedavg", "none", None),
+    "hieavg_bf16": ("hieavg", "temporary", "bfloat16"),
+    "hieavg_f8": ("hieavg", "temporary", "float8_e4m3fn"),
+}
+#: kernels every run launches, and those only some runs do
+EVERY_RUN = ("conv3x3_fwd", "conv3x3_bwd", "sgd_update", "eval_head")
+RUN_KERNELS = {"hieavg": ("hieavg_agg", "coef_agg"),
+               "delayed_grad": ("coef_agg_pair",),
+               "fedavg": ("coef_agg",),
+               "hieavg_bf16": ("hieavg_agg", "coef_agg"),
+               "hieavg_f8": ("hieavg_agg", "coef_agg")}
+#: the run whose launches the ``kernels`` line reports, where not "hieavg"
+LAUNCHES_FROM = {"coef_agg_pair": "delayed_grad"}
+#: the configurations whose checkpointed run is cut and resumed
+RESUMED = ("delayed_grad", "hieavg_bf16")
+ROWS = ("accuracy", "loss", "grad_norm", "sim_clock", "sim_energy")
+
+#: mantissa bits and least normal exponent of the narrow history dtypes
+NARROW = {"bfloat16": (7, -126), "float8_e4m3fn": (3, -6)}
+#: float32 values at the edges of float8_e4m3fn: the largest finite value
+#: 448, the round-to-448 midpoint 464, what lies past it (NaN, as JAX casts),
+#: infinities, NaN, and the subnormals and their rounding midpoints
+F8_EDGES = (448.0, -448.0, 450.0, 464.0, -464.0, 464.01, -464.01, 465.0,
+            480.0, 1e30, float("inf"), float("-inf"), float("nan"), 1.0,
+            0.0, 2.0 ** -6, 2.0 ** -9, -2.0 ** -9, 2.0 ** -10,
+            3 * 2.0 ** -11, 2.0 ** -11, 1.5 * 2.0 ** -9, 7 * 2.0 ** -10)
 
 
 def emit(obj) -> None:
@@ -120,11 +165,13 @@ KERNEL_SYMBOLS = (("gemm_kernel<0>", "conv3x3_fwd"),
                   ("sgd_update_kernel", "sgd_update"),
                   ("hieavg_agg_kernel", "hieavg_agg"),
                   ("coef_agg_kernel", "coef_agg"),
+                  ("coef_agg_pair_kernel", "coef_agg_pair"),
                   ("eval_head_kernel", "eval_head"))
 
 
 def symbols_of(kernel: str) -> tuple:
-    return tuple(k for k, v in KERNEL_SYMBOLS if v.startswith(kernel))
+    return tuple(k for k, v in KERNEL_SYMBOLS
+                 if v == kernel or v.startswith(kernel + " "))
 
 
 def profile_run(torch, simulator, setting) -> dict:
@@ -180,6 +227,56 @@ def full_runs(torch, simulator, setting) -> dict:
     return out
 
 
+def fig2_runs(run_comparison, setting) -> dict:
+    """The paper's Fig. 2 set at DEFAULT (T = 50), ``kernel_mode="auto"``:
+    ``run_comparison`` (FedAvg without stragglers, HieAvg, T-FedAvg,
+    D-FedAvg) under temporary and permanent stragglers, with HieAvg's
+    eq. (4) as the paper writes it (``normalize=False``, the simulator's
+    default) and normalized (``normalize=True``, as the reference's own
+    Fig. 2 driver ``benchmarks/fig2_convergence.py`` runs it).  Wall
+    seconds, final and best accuracy per run.  Only with ``--full``."""
+    out: dict = {"t_global_rounds": setting.t_global_rounds}
+    for normalize in (False, True):
+        for kind in ("temporary", "permanent"):
+            res = run_comparison(setting, straggler_kind=kind, device="cuda",
+                                 kernel_mode="auto", normalize=normalize)
+            key = f"{kind}_normalized" if normalize else kind
+            out[key] = {name: {"wall_s": r.wall_time,
+                               "final_accuracy": float(r.accuracy[-1]),
+                               "best_accuracy": float(r.accuracy.max()),
+                               "final_loss": float(r.loss[-1])}
+                        for name, r in res.items()}
+    return out
+
+
+def resume_check(np_run, make_sim) -> dict:
+    """``run_checkpointed(every=2)`` run through, then run again, its last
+    step file deleted and resumed from a fresh simulator: the resumed
+    result must be bitwise the uninterrupted one, and close to ``run()``
+    (``np_run``; the same operations in the same order, rtol 1e-5).  The
+    checkpoints go to ``build/`` in the checkout and are removed."""
+    base = ROOT / "build" / "smoke_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    try:
+        full = make_sim().run_checkpointed(str(base / "a"), every=2)
+        make_sim().run_checkpointed(str(base / "b"), every=2)
+        last = max((base / "b").glob("step_*.npz"))
+        last.unlink()
+        last.with_suffix(".json").unlink()
+        resumed = make_sim().run_checkpointed(str(base / "b"), every=2)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    bitwise = all(np.array_equal(getattr(resumed, r), getattr(full, r))
+                  for r in ROWS) and resumed.blocks == full.blocks
+    close = all(np.allclose(getattr(full, r), getattr(np_run, r), rtol=1e-5,
+                            atol=1e-6) for r in ROWS)
+    return {"deleted": last.name, "resumed_bitwise": bitwise,
+            "close_to_run": close,
+            "max_abs_diff_to_run": {r: float(np.abs(getattr(full, r)
+                                                    - getattr(np_run, r))
+                                             .max()) for r in ROWS}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -187,9 +284,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import DEFAULT
-    from repro_torch.fl import BHFLSimulator
+    from repro_torch.core.hieavg import to_history_dtype
+    from repro_torch.fl import BHFLSimulator, run_comparison
     from repro_torch.kernels import build
-    from repro_torch.kernels.coef_agg import coef_agg
+    from repro_torch.kernels.coef_agg import coef_agg, coef_agg_pair
     from repro_torch.kernels.conv3x3 import (matmul_bias_relu_bwd,
                                              matmul_bias_relu_fwd)
     from repro_torch.kernels.eval_head import eval_head
@@ -223,14 +321,15 @@ def main() -> int:
     results = {}
 
     def record(name, err, tol, fn, plain_ms, library_ms, nbytes, flops,
-               extra=None):
-        """``fn`` launches the kernel at the timed shape: ``ms`` is its wall
-        time per call through the wrapper (CUDA events), ``device_ms`` its
-        kernels' own device time (profiler)."""
+               extra=None, kernel=None):
+        """``fn`` launches the kernel (``kernel``, default ``name``) at the
+        timed shape: ``ms`` is its wall time per call through the wrapper
+        (CUDA events), ``device_ms`` its kernels' own device time
+        (profiler)."""
         bms, by = bound_ms(nbytes, flops)
         line = {"kernel": name, "max_abs_err": err, "tolerance": tol,
                 "ms": timed_ms(torch, fn),
-                "device_ms": device_ms(torch, fn, symbols_of(name)),
+                "device_ms": device_ms(torch, fn, symbols_of(kernel or name)),
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bms, "bound_by": by, **(extra or {})}
         emit(line)
@@ -381,8 +480,79 @@ def main() -> int:
            timed_ms(torch, lambda: [hieavg_agg(*x, mode="torch")
                                     for x in leaves]),
            None, 4.0 * (5 * nb * n * P + nb * P + 4 * nb * n * len(leaves)),
-           17.0 * nb * n * P, {"shape": [nb, n, P], "leaves": len(leaves)})
+           17.0 * nb * n * P, {"shape": [nb, n, P], "leaves": len(leaves),
+                               "history": "float32"})
     del leaves
+
+    # ------------------------------- hieavg_agg with narrow history storage
+    def ulps(got, want, dtype_name):
+        """max |got - want| in units in the last place of the storage dtype
+        at the larger magnitude, compared in float32; NaN against NaN is 0,
+        NaN against a number is NaN (fails every bound)."""
+        g, w_ = got.float(), want.float()
+        mant, emin = NARROW[dtype_name]
+        mag = torch.maximum(g.abs(), w_.abs()).clamp(min=2.0 ** emin)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - mant)
+        r = torch.where(g.isnan() & w_.isnan(), 0.0, (g - w_).abs() / ulp)
+        return float(torch.nan_to_num(r, nan=float("inf")).max().item())
+
+    for hname in NARROW:
+        hdt = getattr(torch, hname)
+        label = f"hieavg_agg[{hname}]"
+
+        def narrow_inputs(nb2, n2, L):
+            a = list(hieavg_inputs(nb2, n2, L))
+            a[1], a[2] = to_history_dtype(a[1], hdt), to_history_dtype(a[2], hdt)
+            return a
+
+        err, tol, worst_ulp = 0.0, 0.0, 0.0
+        shapes = [(1, 3, 1), (2, 5, 7), (5, 5, 2047), (1, 5, 2049)]
+        shapes += [(b_, n, L) for b_ in (nb, 1) for L in leaf_sizes]
+        for shape in shapes:
+            args = narrow_inputs(*shape)
+            got = hieavg_agg(*args, mode="cuda")
+            want = hieavg_agg(*args, mode="torch")
+            check(label, got[1].dtype == got[2].dtype == hdt,
+                  f"history came back as {got[1].dtype}")
+            e, t = agg_err(got[:1], want[:1])
+            check(label, e <= t, f"{shape} agg: {e} > {t}")
+            u = max(ulps(g_, w_, hname) for g_, w_ in zip(got[1:], want[1:]))
+            check(label, u <= 1.0, f"{shape} history: {u} ulp")
+            err, tol = max(err, e), max(tol, t)
+            worst_ulp = max(worst_ulp, u)
+        # a present slot stores w itself: the kernel's rounding of the edge
+        # values against the cast helper's (which casts as jnp.astype)
+        edges = torch.tensor(F8_EDGES, device=dev)
+        one = torch.ones((1, 1), device=dev)
+        zero_h = to_history_dtype(torch.zeros((1, 1, len(F8_EDGES)),
+                                              device=dev), hdt)
+        ebits = {}
+        for mode in ("cuda", "torch"):
+            _, p_, d_ = hieavg_agg(edges[None, None], zero_h, zero_h,
+                                   one > 0, one, one * 0, one * 0, mode=mode)
+            ebits[mode] = (p_.float()[0, 0], d_.float()[0, 0])
+        want = to_history_dtype(edges, hdt).float()
+
+        def same(a_, b_):
+            return bool(((a_ == b_) | (a_.isnan() & b_.isnan())).all())
+
+        check(label, all(same(x, want) for x in ebits["cuda"] + ebits["torch"]),
+              f"edge values: {ebits['cuda'][0].tolist()} != {want.tolist()}")
+        hleaves = [narrow_inputs(nb, n, L) for L in leaf_sizes]
+        s = 2 if hname == "bfloat16" else 1
+        record(label, err, tol,
+               lambda: [hieavg_agg(*x, mode="cuda") for x in hleaves],
+               timed_ms(torch, lambda: [hieavg_agg(*x, mode="torch")
+                                        for x in hleaves]),
+               None, (4.0 + 4.0 * s) * nb * n * P + 4.0 * nb * P
+               + 16.0 * nb * n * len(hleaves),
+               17.0 * nb * n * P,
+               {"shape": [nb, n, P], "leaves": len(hleaves), "history": hname,
+                "history_max_ulp": worst_ulp, "history_tolerance_ulp": 1.0,
+                "edge_values": dict(zip(map(str, F8_EDGES),
+                                        ebits["cuda"][0].tolist()))},
+               kernel="hieavg_agg")
+        del hleaves
 
     # ------------------------------------------------------------- coef_agg
     err, tol = 0.0, 0.0
@@ -412,6 +582,46 @@ def main() -> int:
            2.0 * nb * n * P, {"shape": [nb, n, P], "leaves": len(cleaves)})
     del cleaves
 
+    # -------------------------------------------------------- coef_agg_pair
+    def pair_inputs(nb2, n2, L):
+        """a delayed-gradient mix: present slots weigh w, missing ones aux"""
+        m = rand(nb2, n2) > 0.4
+        c = rand(nb2, n2)
+        return randn(nb2, n2, L), randn(nb2, n2, L), c * m, c * ~m
+
+    err, tol = 0.0, 0.0
+    shapes = [(1, 3, 1), (2, 5, 7), (5, 5, 2047), (1, 5, 2049)]
+    shapes += [(b_, n, L) for b_ in (nb, 1) for L in leaf_sizes]
+    for shape in shapes:
+        args = pair_inputs(*shape)
+        e, t = agg_err([coef_agg_pair(*args, mode="cuda")],
+                       [coef_agg_pair(*args, mode="torch")])
+        check("coef_agg_pair", e <= t, f"{shape}: {e} > {t}")
+        err, tol = max(err, e), max(tol, t)
+    w2, a2 = randn(1, 5, 500), randn(1, 5, 500)
+    ca = torch.tensor([[0.5, 0.0, 0.2, 0.0, 0.0]], device=dev)
+    cb = torch.tensor([[0.0, 0.3, 0.0, 0.0, 0.0]], device=dev)
+    w3, a3 = w2.clone(), a2.clone()
+    w3[:, [1, 3, 4]] = 1e6
+    a3[:, [0, 2, 3, 4]] = 1e6
+    check("coef_agg_pair", torch.equal(coef_agg_pair(w2, a2, ca, cb, "cuda"),
+                                       coef_agg_pair(w3, a3, ca, cb, "cuda")),
+          "a zero-coefficient slot changed the aggregate")
+    pleaves = [pair_inputs(nb, n, L) for L in leaf_sizes]
+    record("coef_agg_pair", err, tol,
+           lambda: [coef_agg_pair(*x, mode="cuda") for x in pleaves],
+           timed_ms(torch, lambda: [coef_agg_pair(*x, mode="torch")
+                                    for x in pleaves]),
+           timed_ms(torch, lambda: [
+               torch.einsum("bn,bnl->bl", ca_, w_).add_(
+                   torch.einsum("bn,bnl->bl", cb_, a_))
+               for w_, a_, ca_, cb_ in pleaves]),
+           4.0 * (2 * nb * n * P + nb * P + 2 * nb * n * len(pleaves)),
+           4.0 * nb * n * P,
+           {"shape": [nb, n, P], "leaves": len(pleaves),
+            "library_calls": "two einsum calls per leaf, summed in place"})
+    del pleaves
+
     # ------------------------------------------------------------ eval_head
     def margin_rows(feats, wmat, bias):
         """rows whose two largest logits are within float32 reach of each
@@ -440,65 +650,89 @@ def main() -> int:
            2.0 * NTEST * FEAT * NCLS, {"shape": [NTEST, FEAT, NCLS]})
     del f_, wm
 
-    # ----------------------------------------------------------- the run
+    # ----------------------------------------------------------- the runs
+    # every configuration with the kernels and with the plain versions; the
+    # launch counts are set to 0 just before each run and read just after
     setting = dataclasses.replace(DEFAULT, t_global_rounds=4)
+    T = setting.t_global_rounds
+
+    def make_sim(label, mode):
+        agg, strag, hname = RUNS[label]
+        return BHFLSimulator(setting, agg, strag, strag, device="cuda",
+                             kernel_mode=mode,
+                             history_dtype=hname and getattr(torch, hname))
+
     runs = {}
-    for mode in ("auto", "torch"):
-        torch.cuda.synchronize()
-        build.reset_launch_counts()
-        sim = BHFLSimulator(setting, "hieavg", "temporary", "temporary",
-                            device="cuda", kernel_mode=mode)
-        res = sim.run()
-        torch.cuda.synchronize()
-        runs[mode] = (res, dict(build.LAUNCHES))
-        rows = {"accuracy": res.accuracy, "loss": res.loss,
-                "delta": res.grad_norm, "clock": res.sim_clock,
-                "energy": res.sim_energy}
-        for key, row in rows.items():
-            check("run", row.shape == (setting.t_global_rounds,)
-                  and bool(np.isfinite(row).all()), f"{mode} {key}: {row}")
-        check("run", res.blocks == setting.t_global_rounds
-              and res.chain_valid, f"{mode}: chain {res.blocks}")
-        emit({"run": {"kernel_mode": mode, "wall_s": res.wall_time,
-                      "steps_per_epoch": sim.steps, "devices": sim.D,
-                      "blocks": res.blocks, "chain_valid": res.chain_valid,
-                      **{k: [float(v) for v in row]
-                         for k, row in rows.items()},
-                      "launches": dict(build.LAUNCHES)}})
-    a, launches = runs["auto"]
-    p, plain_launches = runs["torch"]
-    check("run", not plain_launches, f"torch mode launched {plain_launches}")
-    parity = {
-        "accuracy": bool(np.allclose(a.accuracy, p.accuracy, rtol=0,
-                                     atol=ACC_TOL)),
-        "loss": bool(np.allclose(a.loss, p.loss, rtol=LOSS_TOL,
-                                 atol=LOSS_TOL)),
-        "delta": bool(np.allclose(a.grad_norm, p.grad_norm, rtol=DELTA_RTOL,
-                                  atol=DELTA_ATOL)),
-        "clock_equal": bool(np.array_equal(a.sim_clock, p.sim_clock)),
-        "energy_equal": bool(np.array_equal(a.sim_energy, p.sim_energy)),
-        "blocks_equal": a.blocks == p.blocks,
-    }
-    emit({"parity": {"auto_vs_torch": parity,
-                     "max_abs_diff": {
-                         "accuracy": float(np.abs(a.accuracy
-                                                  - p.accuracy).max()),
-                         "loss": float(np.abs(a.loss - p.loss).max()),
-                         "delta": float(np.abs(a.grad_norm
-                                               - p.grad_norm).max())},
-                     "tolerances": {"accuracy_atol": ACC_TOL,
-                                    "loss_rtol_atol": LOSS_TOL,
-                                    "delta_rtol": DELTA_RTOL,
-                                    "delta_atol": DELTA_ATOL}}})
-    check("parity", all(parity.values()), f"{parity}")
+    for label in RUNS:
+        for mode in ("auto", "torch"):
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            sim = make_sim(label, mode)
+            res = sim.run()
+            torch.cuda.synchronize()
+            runs[label, mode] = (res, dict(build.LAUNCHES))
+            for key in ROWS:
+                row = getattr(res, key)
+                check("run", row.shape == (T,) and bool(np.isfinite(row).all()),
+                      f"{label} {mode} {key}: {row}")
+            check("run", res.blocks == T and res.chain_valid,
+                  f"{label} {mode}: chain {res.blocks}")
+            emit({"run": {"config": label, "kernel_mode": mode,
+                          "wall_s": res.wall_time,
+                          "steps_per_epoch": sim.steps, "devices": sim.D,
+                          "blocks": res.blocks,
+                          "chain_valid": res.chain_valid,
+                          **{k: [float(v) for v in getattr(res, k)]
+                             for k in ROWS},
+                          "launches": runs[label, mode][1]}})
+        a, launches = runs[label, "auto"]
+        p, plain_launches = runs[label, "torch"]
+        check("run", not plain_launches,
+              f"{label}: torch mode launched {plain_launches}")
+        missing = [k for k in EVERY_RUN + RUN_KERNELS.get(label, ())
+                   if launches.get(k, 0) == 0]
+        check("launches", not missing,
+              f"{label}: never launched {missing} ({launches})")
+        parity = {
+            "accuracy": bool(np.allclose(a.accuracy, p.accuracy, rtol=0,
+                                         atol=ACC_TOL)),
+            "loss": bool(np.allclose(a.loss, p.loss, rtol=LOSS_TOL,
+                                     atol=LOSS_TOL)),
+            "delta": bool(np.allclose(a.grad_norm, p.grad_norm,
+                                      rtol=DELTA_RTOL, atol=DELTA_ATOL)),
+            "clock_equal": bool(np.array_equal(a.sim_clock, p.sim_clock)),
+            "energy_equal": bool(np.array_equal(a.sim_energy, p.sim_energy)),
+            "blocks_equal": a.blocks == p.blocks,
+        }
+        emit({"parity": {"config": label, "auto_vs_torch": parity,
+                         "max_abs_diff": {
+                             "accuracy": float(np.abs(a.accuracy
+                                                      - p.accuracy).max()),
+                             "loss": float(np.abs(a.loss - p.loss).max()),
+                             "delta": float(np.abs(a.grad_norm
+                                                   - p.grad_norm).max())},
+                         "tolerances": {"accuracy_atol": ACC_TOL,
+                                        "loss_rtol_atol": LOSS_TOL,
+                                        "delta_rtol": DELTA_RTOL,
+                                        "delta_atol": DELTA_ATOL}}})
+        check("parity", all(parity.values()), f"{label}: {parity}")
+
+    # ------------------------------------------------- the resumed runs
+    for label in RESUMED:
+        line = resume_check(runs[label, "auto"][0],
+                            lambda: make_sim(label, "auto"))
+        emit({"resume": {"config": label, "every": 2, **line}})
+        check("resume", line["resumed_bitwise"] and line["close_to_run"],
+              f"{label}: {line}")
+
     if "--profile" in sys.argv[1:]:
         emit({"profile": profile_run(torch, BHFLSimulator, setting)})
     if "--full" in sys.argv[1:]:
         emit({"full_run": full_runs(torch, BHFLSimulator, DEFAULT)})
-    missing = [k for k in REPLACES if launches.get(k, 0) == 0]
-    check("launches", not missing, f"never launched on the main path: "
-          f"{missing} ({launches})")
+        emit({"fig2": fig2_runs(run_comparison, DEFAULT)})
 
+    launches = {k: runs[LAUNCHES_FROM.get(k, "hieavg"), "auto"][1].get(k, 0)
+                for k in REPLACES}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE[k],
          "replaces": REPLACES[k], "launches": launches[k],

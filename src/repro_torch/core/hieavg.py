@@ -8,6 +8,11 @@ leading ``mask.dim()`` axes are batch axes then the participant axis
 (``[n, ...]`` for one layer, ``[N, J, ...]`` for all N edges at once), so
 every function below works on both without a ``vmap``.
 
+History storage (``history_dtype``): ``prev_w``/``delta_mean`` may be kept
+in ``torch.bfloat16`` or ``torch.float8_e4m3fn``; the math stays float32
+and every store goes through ``to_history_dtype``, which casts as
+``jnp.astype`` does.
+
 Straggler estimation (Sec. 3.2.2): a straggler's missing submission is
 estimated as ``w_prev + E[Delta]`` and scaled by ``gamma = gamma0 *
 lam**k'``, k' >= 1 counting consecutive misses.  ``normalize=False`` is
@@ -21,6 +26,26 @@ import dataclasses
 import torch
 
 f32 = torch.float32
+
+#: the storage dtypes of a history besides float32
+HISTORY_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
+
+#: float8_e4m3fn's largest finite value is 448; a float32 above 464 (the
+#: midpoint to the next binade) rounds past it
+_F8_LIMIT = 464.0
+
+
+def to_history_dtype(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Cast a float32 tensor to a history storage dtype as ``jnp.astype``
+    does.  bfloat16 and float32 are plain casts.  For float8_e4m3fn,
+    ``Tensor.to`` saturates to +-448 (inf included) where JAX gives NaN:
+    every |x| > 464, +-inf and NaN become a NaN of x's sign; the rest
+    round to nearest even, as ``Tensor.to`` does."""
+    if dtype != torch.float8_e4m3fn:
+        return x.to(dtype)
+    xf = x.to(f32)
+    nan = torch.copysign(torch.full_like(xf, float("nan")), xf)
+    return torch.where(xf.abs() <= _F8_LIMIT, xf, nan).to(dtype)
 
 
 def _bshape(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -41,26 +66,28 @@ class History:
     miss_count: torch.Tensor
 
 
-def _init(stacked_w: dict, lead: int) -> History:
+def _init(stacked_w: dict, lead: int, dtype) -> History:
     first = next(iter(stacked_w.values()))
     shape = tuple(first.shape[:lead])
+    dtype = dtype or first.dtype
     return History(
-        prev_w=dict(stacked_w),
-        delta_mean={k: torch.zeros_like(v) for k, v in stacked_w.items()},
+        prev_w={k: to_history_dtype(v, dtype) for k, v in stacked_w.items()},
+        delta_mean={k: torch.zeros_like(v, dtype=dtype)
+                    for k, v in stacked_w.items()},
         n_obs=torch.zeros(shape, dtype=f32, device=first.device),
         miss_count=torch.zeros(shape, dtype=f32, device=first.device))
 
 
-def init_history(stacked_w: dict) -> History:
-    """Cold-boot history from a first ``[n, ...]`` stacked submission
-    (float32 storage; the ``history_dtype`` knob comes with a later
-    slice)."""
-    return _init(stacked_w, 1)
+def init_history(stacked_w: dict, dtype=None) -> History:
+    """Cold-boot history from a first ``[n, ...]`` stacked submission;
+    ``dtype`` (None, bfloat16 or float8_e4m3fn) is the storage dtype of
+    ``prev_w``/``delta_mean``, None keeping the weights' own."""
+    return _init(stacked_w, 1, dtype)
 
 
-def init_history_batched(stacked_w: dict) -> History:
+def init_history_batched(stacked_w: dict, dtype=None) -> History:
     """Cold-boot history for dense ``[N, J, ...]`` stacked weights."""
-    return _init(stacked_w, 2)
+    return _init(stacked_w, 2, dtype)
 
 
 def update_history(history: History, stacked_w: dict,
@@ -70,16 +97,24 @@ def update_history(history: History, stacked_w: dict,
     Present (mask True): delta = w - prev_w joins the running mean,
     prev_w <- w, miss_count <- 0.  Stragglers: prev_w advances by E[Delta],
     the delta stats freeze, miss_count += 1.
+
+    As the reference, the estimate ``prev + dmean`` is rounded to the
+    storage dtype before it is mixed (the warm path, ``_mix_and_update``,
+    keeps it in float32).
     """
     m = mask.to(f32)
     new_prev, new_dmean = {}, {}
     for k, w in stacked_w.items():
         prev, dmean = history.prev_w[k], history.delta_mean[k]
+        pf, df, wf = prev.to(f32), dmean.to(f32), w.to(f32)
         mb = _bshape(m, prev)
         nb = _bshape(history.n_obs, prev)
-        new_prev[k] = mb * w + (1.0 - mb) * (prev + dmean)
-        mean = (dmean * nb + (w - prev)) / (nb + 1.0)
-        new_dmean[k] = mb * mean + (1.0 - mb) * dmean
+        est = to_history_dtype(pf + df, prev.dtype).to(f32)
+        new_prev[k] = to_history_dtype(mb * wf + (1.0 - mb) * est,
+                                       prev.dtype)
+        mean = (df * nb + (wf - pf)) / (nb + 1.0)
+        new_dmean[k] = to_history_dtype(mb * mean + (1.0 - mb) * df,
+                                        dmean.dtype)
     return History(prev_w=new_prev, delta_mean=new_dmean,
                    n_obs=history.n_obs + m,
                    miss_count=(history.miss_count + 1.0) * (1.0 - m))
@@ -95,7 +130,8 @@ def update_history_batched(history: History, stacked_w: dict,
 def _mix_and_update(stacked_w: dict, mask: torch.Tensor, history: History,
                     part_weights: torch.Tensor, gamma0, lam,
                     normalize: bool) -> tuple[dict, History]:
-    """Aggregate (eq. 4/5) and history update in one pass per leaf."""
+    """Aggregate (eq. 4/5) and history update in one pass per leaf: float32
+    math, the new history in its storage dtype."""
     m = mask.to(f32)
     gamma = gamma0 * torch.pow(lam, history.miss_count + 1.0)   # k' >= 1
     coef = part_weights * (m + (1.0 - m) * gamma)
@@ -107,14 +143,16 @@ def _mix_and_update(stacked_w: dict, mask: torch.Tensor, history: History,
     p_axis = m.dim() - 1
     agg, new_prev, new_dmean = {}, {}, {}
     for k, w in stacked_w.items():
-        pf, df = history.prev_w[k], history.delta_mean[k]
+        prev, dmean = history.prev_w[k], history.delta_mean[k]
+        w, pf, df = w.to(f32), prev.to(f32), dmean.to(f32)
         est = pf + df
         agg[k] = (_bshape(coef_p, w) * w + _bshape(coef_e, w) * est
                   ).sum(p_axis)
         mb = _bshape(m, w)
-        new_prev[k] = mb * w + (1.0 - mb) * est
+        new_prev[k] = to_history_dtype(mb * w + (1.0 - mb) * est, prev.dtype)
         mean = (df * _bshape(history.n_obs, w) + (w - pf)) / _bshape(nb1, w)
-        new_dmean[k] = mb * mean + (1.0 - mb) * df
+        new_dmean[k] = to_history_dtype(mb * mean + (1.0 - mb) * df,
+                                        dmean.dtype)
     return agg, History(prev_w=new_prev, delta_mean=new_dmean,
                         n_obs=history.n_obs + m,
                         miss_count=(history.miss_count + 1.0) * (1.0 - m))

@@ -1,6 +1,9 @@
-from .engine import EngineInputs, build_inputs, run_engine
+from .engine import (AGGREGATORS, EngineCarry, EngineInputs, build_inputs,
+                     init_engine_carry, run_engine, run_engine_chunk)
 from .faults import FaultSchedule, FaultSpec, compile_schedule
-from .simulator import BHFLSimulator, RunResult
+from .simulator import BHFLSimulator, RunResult, run_comparison
 
-__all__ = ["BHFLSimulator", "EngineInputs", "FaultSchedule", "FaultSpec",
-           "RunResult", "build_inputs", "compile_schedule", "run_engine"]
+__all__ = ["AGGREGATORS", "BHFLSimulator", "EngineCarry", "EngineInputs",
+           "FaultSchedule", "FaultSpec", "RunResult", "build_inputs",
+           "compile_schedule", "init_engine_carry", "run_comparison",
+           "run_engine", "run_engine_chunk"]

@@ -1,27 +1,36 @@
 """The BHFL run on the card: the host plane, then T global rounds of K edge
 rounds.
 
-Port of ``repro.fl.engine`` for ``aggregator="hieavg"``.  Where the JAX
-package compiles a whole run into one ``lax.scan`` program, the port is a
-Python loop that launches the kernels of each phase:
+Port of ``repro.fl.engine`` for the five single-run aggregators
+(``"hieavg"``, ``"t_fedavg"``, ``"d_fedavg"``, ``"fedavg"``,
+``"delayed_grad"``).  Where the JAX package compiles a whole run into one
+``lax.scan`` program, the port is a Python loop that launches the kernels
+of each phase:
 
   * ``build_inputs`` — the host plane, bitwise the reference's: dense
     ``[N, J_max]`` device slots with a ``valid`` mask, straggler and edge
     masks, batch indices in the legacy order, the paper's ``lr`` plane,
     per-device round times, the replayed consensus chain's latency and
     energy per round (``replay_chain``).
-  * ``run_engine`` — per edge round a local SGD epoch for all devices
-    (conv forward/backward and SGD update kernels), then HieAvg at the
-    edge (cold-boot mean or warm mix, the ``coef_agg``/``hieavg_agg``
-    kernels); per global round HieAvg on the leader, the metric rows, and
-    one test-set evaluation (conv kernels + ``eval_head``).
+  * ``run_engine_chunk`` — global rounds ``t0+1..t1`` from a carry (the
+    cross-round state, ``init_engine_carry``): per edge round a local SGD
+    epoch for all devices (conv forward/backward and SGD update kernels),
+    then the aggregator at every edge (HieAvg's cold-boot mean or warm
+    mix on the ``coef_agg``/``hieavg_agg`` kernels, FedAvg on
+    ``coef_agg``, delayed-gradient on ``coef_agg_pair``, the
+    ``t_fedavg``/``d_fedavg`` baselines in PyTorch); per global round the
+    aggregator on the leader, the metric rows, and one test-set evaluation
+    (conv kernels + ``eval_head``).  ``run_engine`` is one chunk over all
+    T rounds.
 
+Round tests compare global round numbers (``r == 0``, ``t == 1``,
+``t <= T_c``), so chunks run back to back give the whole run's numbers.
 Host-known scalars stay on the host: the learning rate of a step, the
-cold-boot test ``t <= T_c``, the history set-up rounds.  No SGD step waits
-for the device.  The simulated clock and the consensus energy are
-functions of the host plane alone, so ``host_clock`` computes them in
-float32 numpy with the reference's operations in the reference's order,
-and they match it exactly.
+cold-boot test, the history set-up rounds.  No SGD step waits for the
+device.  The simulated clock and the consensus energy are functions of
+the host plane alone, so ``host_clock`` computes them in float32 numpy
+with the reference's operations in the reference's order, and they match
+it exactly.
 """
 from __future__ import annotations
 
@@ -31,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import hieavg
+from repro_torch.core import baselines, hieavg
 from repro_torch.core import latency as lat
 from repro_torch.core import rng as rng_streams
 from repro_torch.core import straggler as strag
@@ -98,6 +107,8 @@ class EngineInputs:
     cons_time: np.ndarray     # [T] f32 per-round consensus latency
     cons_energy: np.ndarray   # [T] f32 per-round consensus energy (J)
     edge_hop: np.ndarray      # scalar f32 — 2 * E[LM'] edge<->leader hop
+    stale_beta: np.ndarray    # scalar f32 — delayed-grad discount beta
+    delay_delta: np.ndarray   # scalar f32 — delayed-grad max staleness
 
 
 def replay_chain(sim) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -228,7 +239,9 @@ def build_inputs(sim, *, init_params: Optional[dict] = None) -> EngineInputs:
         gamma0=np.float32(s.gamma0), lam=np.float32(s.lam),
         t_cold_boot=np.int32(s.t_cold_boot),
         dev_time=dev_time, cons_time=cons_time, cons_energy=cons_energy,
-        edge_hop=np.float32(2.0 * lp.lm_edge))
+        edge_hop=np.float32(2.0 * lp.lm_edge),
+        stale_beta=np.float32(s.staleness_discount),
+        delay_delta=np.float32(s.delay_delta))
 
 
 # ---------------------------------------------------------------- the run
@@ -263,21 +276,74 @@ def host_clock(inp: EngineInputs) -> tuple[np.ndarray, np.ndarray]:
     return clocks, energies
 
 
-def run_engine(inp: EngineInputs, *, device="cuda", normalize: bool = False,
-               kernel_mode: str = "auto"
-               ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
-                          np.ndarray]:
-    """One whole BHFL run on ``device``.  Returns per global round
-    (accuracy [T], mean local loss [T], global-model delta norm [T],
-    simulated clock [T], cumulative consensus energy [T]), the rows of
-    ``repro.fl.engine.run_engine`` with ``aggregator="hieavg"``.
+#: the aggregators ``run_engine_chunk`` runs (the reference's traced
+#: ``"switched"`` tri-select batches sweep grids and comes with the sweeps)
+AGGREGATORS = ("hieavg", "t_fedavg", "d_fedavg", "fedavg", "delayed_grad")
+
+
+@dataclasses.dataclass
+class EngineCarry:
+    """The engine's cross-round state after a global round, the carry of
+    ``repro.fl.engine.init_engine_carry`` less the clock and the energy
+    (``host_clock`` computes those from the host plane).  A run resumed
+    from a saved carry is bitwise the uninterrupted one."""
+
+    device_w: dict              # [N, J, ...] every device slot's model
+    ehist: hieavg.History       # edge HieAvg history [N, J, ...]
+    elast: dict                 # [N, J, ...] d_fedavg last weights /
+    #                             delayed_grad pending updates
+    ghist: hieavg.History       # global HieAvg history [N, ...]
+    glast: dict                 # [N, ...] the same stores on the leader
+    prev_global: dict           # [...] the global model of the last round
+    eage: torch.Tensor          # [N, J] delayed_grad consecutive misses
+    gage: torch.Tensor          # [N] the same on the leader
+
+
+def init_engine_carry(inp: EngineInputs, history_dtype=None, *,
+                      device="cuda") -> EngineCarry:
+    """The round-zero carry on ``device``: every model the initial one, the
+    HieAvg histories in ``history_dtype`` storage (None: float32; both are
+    set up again from the first submissions), zero stores and ages."""
+    dev = torch.device(device)
+    N, J = inp.dev_masks.shape[2:]
+    si = int(inp.seed_idx)
+    init_w = {k: torch.from_numpy(np.array(v[si])).to(dev)
+              for k, v in inp.init_w.items()}
+    edge0 = stack_params(init_w, N)
+    dev0 = stack_params(init_w, N, J)
+    return EngineCarry(
+        device_w=dev0,
+        ehist=hieavg.init_history_batched(dev0, history_dtype),
+        elast={k: torch.zeros_like(v) for k, v in dev0.items()},
+        ghist=hieavg.init_history(edge0, history_dtype),
+        glast={k: torch.zeros_like(v) for k, v in edge0.items()},
+        prev_global=init_w,
+        eage=torch.zeros((N, J), dtype=torch.float32, device=dev),
+        gage=torch.zeros((N,), dtype=torch.float32, device=dev))
+
+
+def run_engine_chunk(inp: EngineInputs, carry: EngineCarry, t0: int,
+                     t1: int, *, aggregator: str = "hieavg", device="cuda",
+                     normalize: bool = False, kernel_mode: str = "auto"
+                     ) -> tuple[tuple, EngineCarry]:
+    """Global rounds ``t0+1..t1`` of one BHFL run on ``device``, from the
+    carry after round ``t0``.  Returns ((accuracy, mean local loss,
+    global-model delta norm, simulated clock, cumulative consensus energy)
+    each ``[t1 - t0]``, the carry after round ``t1``): the rows of
+    ``repro.fl.engine.run_engine_chunk``.
 
     The loss row is the last edge round's per-device loss averaged over the
     valid slots; the delta row is the L2 norm of the global model's change
-    over the round.  ``kernel_mode``: see ``repro_torch.kernels.build``.
+    over the round.  The history storage dtype is the carry's.
+    ``kernel_mode``: see ``repro_torch.kernels.build``.
     """
+    if aggregator not in AGGREGATORS:
+        raise ValueError(f"unknown aggregator {aggregator!r}; expected one "
+                         f"of {AGGREGATORS}")
     dev = torch.device(device)
     T, K, N, J = inp.dev_masks.shape
+    if not 0 <= t0 < t1 <= T:
+        raise ValueError(f"rounds {t0}..{t1} outside 0..{T}")
     steps, bs = inp.batch_idx.shape[-2:]
     D = N * J
     si = int(inp.seed_idx)
@@ -287,26 +353,28 @@ def run_engine(inp: EngineInputs, *, device="cuda", normalize: bool = False,
 
     train_x, train_y = put(inp.train_x[si]), put(inp.train_y[si])
     test_x, test_y = put(inp.test_x[si]), put(inp.test_y[si])
-    batch_idx = put(inp.batch_idx.astype(np.int64))
+    batch_idx = put(inp.batch_idx[t0:t1].astype(np.int64))
     hd = put(inp.has_data)
     valid = put(inp.valid)
     v32 = valid.to(torch.float32)
-    dev_masks, edge_masks = put(inp.dev_masks), put(inp.edge_masks)
+    dev_masks = put(inp.dev_masks[t0:t1])
+    edge_masks = put(inp.edge_masks[t0:t1])
     j_arr = put(inp.j_arr)
     pw = j_arr / j_arr.sum()
     gamma0, lam = float(inp.gamma0), float(inp.lam)
+    beta, delta = float(inp.stale_beta), float(inp.delay_delta)
     t_cold = int(inp.t_cold_boot)
     img_shape = tuple(train_x.shape[1:])
 
-    global_w = {k: put(v[si]) for k, v in inp.init_w.items()}
-    device_w = stack_params(global_w, N, J)
-    ehist = ghist = None
-    prev_global = global_w
+    device_w, ehist, elast = carry.device_w, carry.ehist, carry.elast
+    ghist, glast, prev_global = carry.ghist, carry.glast, carry.prev_global
+    eage, gage = carry.eage, carry.gage
+    hdtype = next(iter(ehist.prev_w.values())).dtype
     accs, losses, deltas = [], [], []
-    for t in range(1, T + 1):
+    for t in range(t0 + 1, t1 + 1):
         for k in range(K):
             r = (t - 1) * K + k
-            bidx = batch_idx[t - 1, k]                    # [N, J, steps, B]
+            bidx = batch_idx[t - 1 - t0, k]               # [N, J, steps, B]
             x = train_x[bidx] * hd[:, :, None, None, None, None, None]
             y = torch.where(hd[:, :, None, None] > 0, train_y[bidx], 0)
             flat = {n: v.reshape((D,) + v.shape[2:])
@@ -318,32 +386,60 @@ def run_engine(inp: EngineInputs, *, device="cuda", normalize: bool = False,
             ws = {n: v.reshape((N, J) + v.shape[1:])
                   for n, v in pflat.items()}
             dev_loss = loss.reshape(N, J)
-            dmask = dev_masks[t - 1, k]
-            if r == 0:      # the edge history starts from the first epoch
-                ehist = hieavg.init_history_batched(ws)
-            if t <= t_cold:
-                edge_models = kernel_dispatch.edge_aggregate_cold_batched(
-                    ws, valid, mode=kernel_mode)
-                ehist = hieavg.update_history_batched(ehist, ws, dmask)
-            else:
-                edge_models, ehist = kernel_dispatch.edge_aggregate_batched(
-                    ws, dmask, ehist, valid, gamma0, lam, normalize,
+            dmask = dev_masks[t - 1 - t0, k]
+            # first edge round: everyone counts present for the
+            # d_fedavg/delayed_grad stores (nothing is in flight yet)
+            m_eff = dmask if r > 0 else torch.ones_like(dmask)
+            if aggregator == "hieavg":
+                if r == 0:  # the edge history starts from the first epoch
+                    ehist = hieavg.init_history_batched(ws, hdtype)
+                if t <= t_cold:
+                    edge_models = kernel_dispatch.edge_aggregate_cold_batched(
+                        ws, valid, mode=kernel_mode)
+                    ehist = hieavg.update_history_batched(ehist, ws, dmask)
+                else:
+                    edge_models, ehist = kernel_dispatch.edge_aggregate_batched(
+                        ws, dmask, ehist, valid, gamma0, lam, normalize,
+                        mode=kernel_mode)
+            elif aggregator == "delayed_grad":
+                edge_models, elast, eage = kernel_dispatch.delayed_grad(
+                    ws, m_eff, elast, eage, beta, delta, v32,
                     mode=kernel_mode)
+            elif aggregator == "t_fedavg":
+                edge_models = baselines.t_fedavg(ws, dmask, v32)
+            elif aggregator == "d_fedavg":
+                edge_models, elast = baselines.d_fedavg(ws, m_eff, elast, v32)
+            else:
+                edge_models = kernel_dispatch.fedavg(ws, v32, mode=kernel_mode)
             device_w = {n: v[:, None].expand((N, J) + v.shape[1:])
                         .contiguous() for n, v in edge_models.items()}
 
         # ---- global aggregation on the (replayed) leader
-        if t == 1:
-            ghist = hieavg.init_history(edge_models)
-        emask = edge_masks[t - 1]
-        if t <= t_cold:
-            global_w = kernel_dispatch.global_aggregate_cold(
-                edge_models, j_arr, mode=kernel_mode)
-            ghist = hieavg.update_history(ghist, edge_models, emask)
-        else:
-            global_w, ghist = kernel_dispatch.global_aggregate(
-                edge_models, emask, ghist, pw, gamma0, lam, normalize,
+        emask = edge_masks[t - 1 - t0]
+        m_eff = emask if t > 1 else torch.ones_like(emask)
+        if aggregator == "hieavg":
+            if t == 1:
+                ghist = hieavg.init_history(edge_models, hdtype)
+            if t <= t_cold:
+                global_w = kernel_dispatch.global_aggregate_cold(
+                    edge_models, j_arr, mode=kernel_mode)
+                ghist = hieavg.update_history(ghist, edge_models, emask)
+            else:
+                global_w, ghist = kernel_dispatch.global_aggregate(
+                    edge_models, emask, ghist, pw, gamma0, lam, normalize,
+                    mode=kernel_mode)
+        elif aggregator == "delayed_grad":
+            global_w, glast, gage = kernel_dispatch.delayed_grad(
+                edge_models, m_eff, glast, gage, beta, delta, j_arr,
                 mode=kernel_mode)
+        elif aggregator == "t_fedavg":
+            global_w = baselines.t_fedavg(edge_models, emask, j_arr)
+        elif aggregator == "d_fedavg":
+            global_w, glast = baselines.d_fedavg(edge_models, m_eff, glast,
+                                                 j_arr)
+        else:
+            global_w = kernel_dispatch.fedavg(edge_models, j_arr,
+                                              mode=kernel_mode)
         device_w = stack_params(global_w, N, J)
 
         # ---- per-round metrics
@@ -358,4 +454,25 @@ def run_engine(inp: EngineInputs, *, device="cuda", normalize: bool = False,
     clock, energy = host_clock(inp)
     rows = torch.stack([torch.stack(accs), torch.stack(losses),
                         torch.stack(deltas)]).cpu().numpy()
-    return rows[0], rows[1], rows[2], clock, energy
+    new_carry = EngineCarry(device_w=device_w, ehist=ehist, elast=elast,
+                            ghist=ghist, glast=glast,
+                            prev_global=prev_global, eage=eage, gage=gage)
+    return ((rows[0], rows[1], rows[2], clock[t0:t1], energy[t0:t1]),
+            new_carry)
+
+
+def run_engine(inp: EngineInputs, *, aggregator: str = "hieavg",
+               device="cuda", normalize: bool = False, history_dtype=None,
+               kernel_mode: str = "auto"
+               ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+                          np.ndarray]:
+    """One whole BHFL run on ``device``: ``run_engine_chunk`` over all T
+    rounds from the round-zero carry.  Returns per global round (accuracy,
+    mean local loss, global-model delta norm, simulated clock, cumulative
+    consensus energy), each ``[T]``, the rows of
+    ``repro.fl.engine.run_engine``."""
+    carry = init_engine_carry(inp, history_dtype, device=device)
+    rows, _ = run_engine_chunk(inp, carry, 0, inp.dev_masks.shape[0],
+                               aggregator=aggregator, device=device,
+                               normalize=normalize, kernel_mode=kernel_mode)
+    return rows

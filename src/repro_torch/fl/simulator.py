@@ -6,7 +6,12 @@ the BHFL workflow (local updates, HieAvg at the edge K times per global
 round, Raft consensus overlapped with the edge rounds, HieAvg on the
 leader).  The host-side set-up (data, partition, straggler schedules,
 chain, fault schedule) is the reference's, draw for draw; ``run`` builds
-the host plane and drives ``repro_torch.fl.engine.run_engine``.
+the host plane and drives ``repro_torch.fl.engine.run_engine``, and
+``run_checkpointed`` the same run in resumable chunks.  Aggregators:
+``hieavg`` (the paper), ``t_fedavg`` (drop stragglers), ``d_fedavg``
+(reuse their last weights), ``delayed_grad`` (stale updates arrive one
+round late, staleness-discounted), ``fedavg`` (the oracle, meaningful with
+no stragglers); ``run_comparison`` runs the paper's Fig. 2 set.
 
 The simulator runs on a CUDA device: ``device=None`` means ``"cuda"`` and
 raises when no GPU is present.  ``device="cpu"`` runs the plain PyTorch
@@ -21,8 +26,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt as _ckpt
 from repro_torch.configs.bhfl_cnn import BHFLSetting
 from repro_torch.core import consensus as _consensus
+from repro_torch.core import hieavg
 from repro_torch.core import latency as lat
 from repro_torch.core import rng as rng_streams
 from repro_torch.core import straggler as strag
@@ -89,15 +96,25 @@ class BHFLSimulator:
         (for example the reference's own ``init_from_specs`` draw),
         instead of the port's seeded initialiser.
 
-        Other aggregators than ``"hieavg"``, ``history_dtype``, and
-        population mode raise ``NotImplementedError``: they come with later
-        slices of the port."""
-        if aggregator != "hieavg":
+        ``history_dtype``: the HieAvg history storage dtype, None
+        (float32), ``torch.bfloat16`` or ``torch.float8_e4m3fn``; the math
+        stays float32.
+
+        ``aggregator="switched"`` and population mode raise
+        ``NotImplementedError``: they come with later slices of the
+        port."""
+        if aggregator == "switched":
             raise NotImplementedError(
-                f"aggregator={aggregator!r} {_LATER} (with the coef_agg_pair "
-                "kernel); this slice runs 'hieavg'")
-        if history_dtype is not None:
-            raise NotImplementedError(f"history_dtype {_LATER}")
+                f"aggregator='switched' {_LATER} (the sweeps, which set its "
+                "per-point selector)")
+        if aggregator not in _engine.AGGREGATORS:
+            raise ValueError(f"unknown aggregator {aggregator!r}; expected "
+                             f"one of {_engine.AGGREGATORS}")
+        if history_dtype is not None and \
+                history_dtype not in hieavg.HISTORY_DTYPES:
+            raise ValueError(
+                f"history_dtype must be None or one of "
+                f"{hieavg.HISTORY_DTYPES}, got {history_dtype!r}")
         if population is not None or j_cohort is not None:
             raise NotImplementedError(f"population mode {_LATER}")
         if kernel_mode not in KERNEL_MODES:
@@ -107,6 +124,8 @@ class BHFLSimulator:
         if kernel_mode == "cuda" and self.device.type != "cuda":
             raise ValueError("kernel_mode='cuda' needs device='cuda'")
         self.kernel_mode = kernel_mode
+        self.aggregator = aggregator
+        self.history_dtype = history_dtype
         self.init_params = init_params
         self.s = setting
         self.normalize = normalize
@@ -207,7 +226,8 @@ class BHFLSimulator:
         t0 = time.time()
         inp = _engine.build_inputs(self, init_params=self.init_params)
         accs, losses, deltas, clock, energy = _engine.run_engine(
-            inp, device=self.device, normalize=self.normalize,
+            inp, aggregator=self.aggregator, device=self.device,
+            normalize=self.normalize, history_dtype=self.history_dtype,
             kernel_mode=self.kernel_mode)
         if progress:
             for t in range(1, self.s.t_global_rounds + 1):
@@ -215,6 +235,9 @@ class BHFLSimulator:
                     print(f"  t={t:3d} acc={accs[t - 1]:.4f} "
                           f"loss={losses[t - 1]:.4f} "
                           f"clock={clock[t - 1]:.1f}s")
+        return self._result(t0, accs, losses, deltas, clock, energy)
+
+    def _result(self, t0, accs, losses, deltas, clock, energy) -> RunResult:
         return RunResult(
             accuracy=accs, loss=losses, grad_norm=deltas,
             wall_time=time.time() - t0, sim_latency=self.paper_latency(),
@@ -222,8 +245,75 @@ class BHFLSimulator:
             chain_valid=self.chain.validate(), sim_clock=clock,
             sim_energy=energy)
 
-    def run_checkpointed(self, *args, **kwargs) -> RunResult:
-        raise NotImplementedError(f"run_checkpointed {_LATER}")
+    def run_checkpointed(self, ckpt_dir: str, *, every: int = 10,
+                         resume: bool = True,
+                         progress: bool = False) -> RunResult:
+        """``run()`` in chunks of ``every`` global rounds, writing the
+        engine carry and the rows so far to ``ckpt_dir``
+        (``repro_torch.checkpoint``) after each chunk.
+
+        A run killed after any chunk and resumed from a **fresh** simulator
+        (same arguments: the chain replay, fault schedule and batch and
+        latency draws are rebuilt from their named streams, so the host
+        plane is byte for byte the same) ends bitwise equal to the
+        uninterrupted checkpointed run; against ``run()`` it is allclose.
+        ``resume=False`` ignores (and overwrites) existing checkpoints."""
+        if every < 1:
+            raise ValueError(f"every must be >= 1, got {every}")
+        t0 = time.time()
+        T = self.s.t_global_rounds
+        inp = _engine.build_inputs(self, init_params=self.init_params)
+        carry = _engine.init_engine_carry(inp, self.history_dtype,
+                                          device=self.device)
+        keys = ("accuracy", "loss", "delta", "clock", "energy")
+        outs = {k: np.zeros((0,), np.float32) for k in keys}
+        t_done = 0
+        if resume:
+            step = _ckpt.latest_step(ckpt_dir)
+            if step is not None:
+                like = {"carry": carry,
+                        "outs": {k: np.zeros((step,), np.float32)
+                                 for k in keys}}
+                state, _ = _ckpt.restore_checkpoint(ckpt_dir, like, step)
+                carry, outs, t_done = state["carry"], state["outs"], step
+                if progress:
+                    print(f"  resumed from checkpoint @ t={t_done}")
+        while t_done < T:
+            t1 = min(t_done + every, T)
+            rows, carry = _engine.run_engine_chunk(
+                inp, carry, t_done, t1, aggregator=self.aggregator,
+                device=self.device, normalize=self.normalize,
+                kernel_mode=self.kernel_mode)
+            for k, v in zip(keys, rows):
+                outs[k] = np.concatenate([outs[k], v.astype(np.float32)])
+            t_done = t1
+            _ckpt.save_checkpoint(ckpt_dir, t_done,
+                                  {"carry": carry, "outs": outs},
+                                  metadata={"t": t_done})
+            if progress:
+                print(f"  t={t_done:3d} acc={outs['accuracy'][-1]:.4f} "
+                      f"clock={outs['clock'][-1]:.1f}s  [checkpointed]")
+        return self._result(t0, outs["accuracy"], outs["loss"],
+                            outs["delta"], outs["clock"], outs["energy"])
 
     def run_legacy(self, *args, **kwargs) -> RunResult:
         raise NotImplementedError(f"run_legacy {_LATER}")
+
+
+def run_comparison(setting: BHFLSetting = BHFLSetting(),
+                   kinds: tuple[str, ...] = ("hieavg", "t_fedavg",
+                                             "d_fedavg"),
+                   straggler_kind: str = "temporary",
+                   include_oracle: bool = True, **kw) -> dict[str, RunResult]:
+    """The paper's Fig. 2 comparison: the same deployment and seed under
+    each aggregator of ``kinds`` with ``straggler_kind`` stragglers at both
+    layers, plus FedAvg without stragglers (``"wo_stragglers"``).
+    ``kw`` goes to every ``BHFLSimulator``."""
+    out = {}
+    if include_oracle:
+        out["wo_stragglers"] = BHFLSimulator(
+            setting, "fedavg", "none", "none", **kw).run()
+    for kind in kinds:
+        out[kind] = BHFLSimulator(
+            setting, kind, straggler_kind, straggler_kind, **kw).run()
+    return out

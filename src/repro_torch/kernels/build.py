@@ -64,10 +64,12 @@ SIGNATURES = {
     "conv3x3_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
     # w, g, out, numel, scale, stream
     "sgd_update_launch": (_P, _P, _P, _L, _F, _P),
-    # w, prev, dmean, vec, agg, nprev, ndmean, B, n, L, stream
-    "hieavg_agg_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
+    # w, prev, dmean, vec, agg, nprev, ndmean, B, n, L, history type, stream
+    "hieavg_agg_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _P),
     # w, coef, out, B, n, L, stream
     "coef_agg_launch": (_P, _P, _P, _I, _I, _L, _P),
+    # w, aux, coef [B, 2, n], out, B, n, L, stream
+    "coef_agg_pair_launch": (_P, _P, _P, _P, _I, _I, _L, _P),
     # feats, wmat, bias, labels, block_counts, M, F, C, stream
     "eval_head_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }

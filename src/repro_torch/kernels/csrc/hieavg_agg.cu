@@ -11,23 +11,49 @@
 //   ndmean[b,n,l]  = m*((dmean*n_obs + (w - prev)) / (n_obs + 1))
 //                    + (1-m)*dmean
 //
-// What bounds it on the H100: per element of a participant 12 bytes read
-// and 8 written for ~12 FLOPs: device-memory bandwidth.  Design: one
-// thread per column l loops over the n participants, so every operand
-// element is read once and every output written once, neighbouring
-// threads on neighbouring addresses; the [4, n] coefficients are read
-// once per block into shared memory.  A zero coefficient adds exactly 0.
+// w and agg are float32.  The history (prev, dmean, nprev, ndmean) is
+// stored in float32, bfloat16 or float8_e4m3fn (the engine's
+// history_dtype): the math is float32, each history value is widened on
+// load and rounded to nearest even on store.  A float8 store gives NaN
+// where |x| > 464, for +-inf and for NaN (no saturation), as JAX's cast.
+//
+// What bounds it on the H100: per element of a participant 4 + 2s bytes
+// read and 2s written (s = 4, 2 or 1 bytes of history) for ~12 FLOPs:
+// device-memory bandwidth.  Design: one thread per column l loops over the
+// n participants, so every operand element is read once and every output
+// written once, neighbouring threads on neighbouring addresses; the
+// [4, n] coefficients are read once per block into shared memory.  A zero
+// coefficient adds exactly 0.
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float load(const __nv_fp8_storage_t* p) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(*p, __NV_E4M3)));
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store(__nv_fp8_storage_t* p, float x) {
+  *p = __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3);
+}
+
+template <typename H>
 __global__ void hieavg_agg_kernel(const float* __restrict__ w,
-                                  const float* __restrict__ prev,
-                                  const float* __restrict__ dmean,
+                                  const H* __restrict__ prev,
+                                  const H* __restrict__ dmean,
                                   const float* __restrict__ vec,
                                   float* __restrict__ agg,
-                                  float* __restrict__ nprev,
-                                  float* __restrict__ ndmean, int n,
+                                  H* __restrict__ nprev,
+                                  H* __restrict__ ndmean, int n,
                                   long long L) {
   extern __shared__ float sv[];  // [4, n]
   const int b = blockIdx.y;
@@ -39,29 +65,52 @@ __global__ void hieavg_agg_kernel(const float* __restrict__ w,
   float acc = 0.f;
   for (int j = 0; j < n; ++j) {
     const size_t o = ((size_t)b * n + j) * L + l;
-    const float wv = w[o], pv = prev[o], dv = dmean[o];
+    const float wv = w[o], pv = load(prev + o), dv = load(dmean + o);
     const float m = sv[j], cp = sv[n + j], ce = sv[2 * n + j];
     const float nb = sv[3 * n + j];
     const float est = pv + dv;
     acc += cp * wv + ce * est;
-    nprev[o] = m * wv + (1.f - m) * est;
+    store(nprev + o, m * wv + (1.f - m) * est);
     const float mean = (dv * nb + (wv - pv)) / (nb + 1.f);
-    ndmean[o] = m * mean + (1.f - m) * dv;
+    store(ndmean + o, m * mean + (1.f - m) * dv);
   }
   agg[(size_t)b * L + l] = acc;
 }
 
-}  // namespace
-
-extern "C" int hieavg_agg_launch(const float* w, const float* prev,
-                                 const float* dmean, const float* vec,
-                                 float* agg, float* nprev, float* ndmean,
-                                 int B, int n, long long L, void* stream) {
-  if (L == 0 || B == 0) return 0;
+template <typename H>
+int launch(const float* w, const void* prev, const void* dmean,
+           const float* vec, float* agg, void* nprev, void* ndmean, int B,
+           int n, long long L, cudaStream_t stream) {
   const int threads = 256;
   dim3 grid((unsigned)((L + threads - 1) / threads), B);
-  hieavg_agg_kernel<<<grid, threads, 4 * n * sizeof(float),
-                      (cudaStream_t)stream>>>(w, prev, dmean, vec, agg, nprev,
-                                              ndmean, n, L);
+  hieavg_agg_kernel<H><<<grid, threads, 4 * n * sizeof(float), stream>>>(
+      w, (const H*)prev, (const H*)dmean, vec, agg, (H*)nprev, (H*)ndmean, n,
+      L);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// hist: the history storage type, 0 = float32, 1 = bfloat16,
+// 2 = float8_e4m3fn (kernels/hieavg_agg.py:HIST_CODES).
+extern "C" int hieavg_agg_launch(const float* w, const void* prev,
+                                 const void* dmean, const float* vec,
+                                 float* agg, void* nprev, void* ndmean,
+                                 int B, int n, long long L, int hist,
+                                 void* stream) {
+  if (L == 0 || B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (hist) {
+    case 0:
+      return launch<float>(w, prev, dmean, vec, agg, nprev, ndmean, B, n, L,
+                           s);
+    case 1:
+      return launch<__nv_bfloat16>(w, prev, dmean, vec, agg, nprev, ndmean,
+                                   B, n, L, s);
+    case 2:
+      return launch<__nv_fp8_storage_t>(w, prev, dmean, vec, agg, nprev,
+                                        ndmean, B, n, L, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

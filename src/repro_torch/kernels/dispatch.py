@@ -4,8 +4,12 @@ Port of ``repro.kernels.dispatch``.  Every entry takes ``mode``
 (``"auto" | "cuda" | "torch"``, see ``build.use_kernel``) and runs each
 kernel of its phase on the card or its plain PyTorch version; the
 coefficient recipes of the reference are kept exactly, including the
-``1e-12`` floors of the cold-boot means and the ``max(sum v, 1)`` floor of
-the warm edge layer.
+``1e-12`` floors of the cold-boot means, FedAvg and the delayed-gradient
+mix, and the ``max(sum v, 1)`` floor of the warm edge layer.  Leading
+batch axes are allowed: ``[..., n]`` coefficients are normalized over
+their last axis (where the reference vmaps over the edges).  The
+``t_fedavg`` and ``d_fedavg`` baselines run no kernel in the reference
+either; they stay in ``core.baselines``.
 """
 from __future__ import annotations
 
@@ -17,11 +21,10 @@ from . import ops
 from .conv3x3 import conv3x3_bias_relu as _conv3x3_bias_relu
 from .eval_head import eval_head as _eval_head
 
-#: The engine round phases this slice runs in a kernel, in round order.
-#: The reference's ``fedavg_aggregate`` and ``delayed_grad_aggregate``
-#: phases come with a later slice.
+#: The engine round phases that run in a kernel, in round order.
 ROUND_PHASES = ("train_conv_fwd_bwd", "sgd_update", "warm_edge_aggregate",
-                "warm_global_aggregate", "cold_boot_aggregate", "eval_head")
+                "warm_global_aggregate", "cold_boot_aggregate",
+                "fedavg_aggregate", "delayed_grad_aggregate", "eval_head")
 
 
 def edge_aggregate_batched(stacked_w: dict, mask: torch.Tensor,
@@ -74,3 +77,31 @@ def global_aggregate_cold(stacked_w: dict, j_per_edge: torch.Tensor, *,
     j = j_per_edge.to(torch.float32)
     pw = j / torch.clamp(j.sum(), min=1e-12)
     return ops.fused_coef_aggregate(stacked_w, pw, mode=mode)
+
+
+def fedavg(stacked_w: dict, part_weights: torch.Tensor, *,
+           mode: str = "auto") -> dict:
+    """Weighted FedAvg (``baselines.fedavg``) on the ``coef_agg`` kernel:
+    ``coef = pw / max(sum pw, 1e-12)``."""
+    pw = part_weights.to(torch.float32)
+    coef = pw / torch.clamp(pw.sum(-1, keepdim=True), min=1e-12)
+    return ops.fused_coef_aggregate(stacked_w, coef, mode=mode)
+
+
+def delayed_grad(stacked_w: dict, mask: torch.Tensor, pending: dict,
+                 age: torch.Tensor, beta, delta, part_weights: torch.Tensor,
+                 *, mode: str = "auto") -> tuple[dict, dict, torch.Tensor]:
+    """Delayed-gradient aggregation (``baselines.delayed_grad``) on the
+    ``coef_agg_pair`` kernel: a present slot adds ``coef * w``, a missing
+    one its staleness-discounted pending update ``coef * p``, with
+    ``k' = age + 1``, ``coef = pw * (m + (1 - m) * beta**k' * (k' <=
+    delta))`` normalized.  Returns (aggregate, new pending = ``stacked_w``,
+    new age = ``(age + 1) * (1 - m)``)."""
+    m = mask.to(torch.float32)
+    k_prime = age + 1.0
+    stale_c = (beta ** k_prime) * (k_prime <= delta).to(torch.float32)
+    coef = part_weights * (m + (1.0 - m) * stale_c)
+    coef = coef / torch.clamp(coef.sum(-1, keepdim=True), min=1e-12)
+    agg = ops.fused_coef_aggregate_pair(stacked_w, pending, coef * m,
+                                        coef * (1.0 - m), mode=mode)
+    return agg, stacked_w, (age + 1.0) * (1.0 - m)

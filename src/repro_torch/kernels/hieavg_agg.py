@@ -11,18 +11,27 @@ import torch
 
 from . import build, ref
 
+#: the history storage dtypes the kernel takes, by its ``hist`` code
+HIST_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+
 
 def hieavg_agg(w, prev, dmean, mask, coef_present, coef_est, n_obs,
                mode: str = "auto"):
-    """w/prev/dmean [B, n, L] float32; mask/coefs/n_obs [B, n].
-    Returns (agg [B, L], new_prev [B, n, L], new_dmean [B, n, L])."""
+    """w [B, n, L] float32; prev/dmean [B, n, L] in one history dtype
+    (float32, bfloat16 or float8_e4m3fn); mask/coefs/n_obs [B, n].
+    Returns (agg [B, L] float32, new_prev, new_dmean [B, n, L] in the
+    history dtype)."""
     if not build.use_kernel(mode, w):
         return ref.hieavg_agg_ref(w, prev, dmean, mask, coef_present,
                                   coef_est, n_obs)
     B, n, L = w.shape
+    if prev.dtype not in HIST_CODES:
+        raise TypeError(f"prev: expected one of {list(HIST_CODES)}, got "
+                        f"{prev.dtype}")
     build.expect(w, "w", (B, n, L))
-    build.expect(prev, "prev", (B, n, L), device=w.device)
-    build.expect(dmean, "dmean", (B, n, L), device=w.device)
+    build.expect(prev, "prev", (B, n, L), dtype=prev.dtype, device=w.device)
+    build.expect(dmean, "dmean", (B, n, L), dtype=prev.dtype,
+                 device=w.device)
     vec = torch.stack([mask.to(torch.float32), coef_present.to(torch.float32),
                        coef_est.to(torch.float32), n_obs.to(torch.float32)],
                       dim=1).contiguous()              # [B, 4, n]
@@ -34,5 +43,5 @@ def hieavg_agg(w, prev, dmean, mask, coef_present, coef_est, n_obs,
     build.check(build.library().hieavg_agg_launch(
         w.data_ptr(), prev.data_ptr(), dmean.data_ptr(), vec.data_ptr(),
         agg.data_ptr(), nprev.data_ptr(), ndmean.data_ptr(), B, n, L,
-        build.stream()), "hieavg_agg")
+        HIST_CODES[prev.dtype], build.stream()), "hieavg_agg")
     return agg, nprev, ndmean

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core.hieavg import History
 
-from .coef_agg import coef_agg
+from .coef_agg import coef_agg, coef_agg_pair
 from .hieavg_agg import hieavg_agg
 from .sgd_update import sgd_update
 
@@ -74,6 +74,20 @@ def fused_coef_aggregate(stacked_w: dict, coef: torch.Tensor, *,
     B, n = math.prod(lead[:-1]), lead[-1]
     c = coef.reshape(B, n)
     return {k: coef_agg(_flat(w, lead), c, mode=mode).reshape(
+                lead[:-1] + tuple(w.shape[len(lead):]))
+            for k, w in stacked_w.items()}
+
+
+def fused_coef_aggregate_pair(stacked_w: dict, aux: dict, ca: torch.Tensor,
+                              cb: torch.Tensor, *, mode: str = "auto"
+                              ) -> dict:
+    """``sum_n ca[..., n] * w[..., n, ...] + cb[..., n] * aux[..., n, ...]``
+    per leaf (float32): the delayed-gradient mix."""
+    lead = tuple(ca.shape)
+    B, n = math.prod(lead[:-1]), lead[-1]
+    a, b = ca.reshape(B, n), cb.reshape(B, n)
+    return {k: coef_agg_pair(_flat(w, lead), _flat(aux[k], lead), a, b,
+                             mode=mode).reshape(
                 lead[:-1] + tuple(w.shape[len(lead):]))
             for k, w in stacked_w.items()}
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.hieavg import to_history_dtype
+
 f32 = torch.float32
 
 
@@ -26,7 +28,8 @@ def hieavg_agg_ref(w, prev, dmean, mask, coef_present, coef_est, n_obs):
       new_dmean = m*((dmean*n_obs + (w - prev)) / (n_obs+1)) + (1-m)*dmean
 
     Returns (agg [..., L], new_prev, new_dmean); float32 math, outputs in
-    their operands' dtypes.
+    their operands' dtypes (a narrow history dtype cast as
+    ``core.hieavg.to_history_dtype`` casts it).
     """
     wf, pf, df = w.to(f32), prev.to(f32), dmean.to(f32)
     m = mask.to(f32)[..., None]
@@ -37,7 +40,8 @@ def hieavg_agg_ref(w, prev, dmean, mask, coef_present, coef_est, n_obs):
     agg = (cp * wf + ce * est).sum(-2)
     new_prev = m * wf + (1.0 - m) * est
     new_dmean = m * ((df * nb + (wf - pf)) / (nb + 1.0)) + (1.0 - m) * df
-    return agg.to(w.dtype), new_prev.to(prev.dtype), new_dmean.to(dmean.dtype)
+    return (agg.to(w.dtype), to_history_dtype(new_prev, prev.dtype),
+            to_history_dtype(new_dmean, dmean.dtype))
 
 
 # -------------------------------------------------------------- sgd_update
@@ -93,3 +97,10 @@ def coef_agg_ref(w, coef):
     """``sum_n coef[..., n] * w[..., n, L]`` in float32; a zero coefficient
     adds nothing."""
     return (coef.to(f32)[..., None] * w.to(f32)).sum(-2)
+
+
+def coef_agg_pair_ref(w, aux, ca, cb):
+    """``sum_n ca[..., n] * w[..., n, L] + cb[..., n] * aux[..., n, L]`` in
+    float32 (the delayed-gradient mix); a zero coefficient adds nothing."""
+    return (ca.to(f32)[..., None] * w.to(f32)
+            + cb.to(f32)[..., None] * aux.to(f32)).sum(-2)

@@ -8,16 +8,19 @@ PyTorch alone:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: the GEMMs ``rtol 1e-4`` (float32 sums in another order than
-cuBLAS's); the HieAvg mix and the coefficient aggregate ``rtol 1e-5,
-atol 1e-6`` (FMA contraction); the SGD update and the correct-counts
-exactly.
+cuBLAS's); the HieAvg mix and the coefficient aggregates ``rtol 1e-5,
+atol 1e-6`` (FMA contraction); a narrow (bfloat16 or float8_e4m3fn)
+history one unit in the last place of its dtype (the float32 value it
+rounds differs by the FMA's rounding); the float8 edge values, the SGD
+update, zero-coefficient slots and the correct-counts exactly.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.coef_agg import coef_agg  # noqa: E402
+from repro_torch.core.hieavg import to_history_dtype  # noqa: E402
+from repro_torch.kernels.coef_agg import coef_agg, coef_agg_pair  # noqa: E402
 from repro_torch.kernels.conv3x3 import (matmul_bias_relu_bwd,  # noqa: E402
                                          matmul_bias_relu_fwd)
 from repro_torch.kernels.eval_head import eval_head  # noqa: E402
@@ -98,3 +101,65 @@ def test_gpu_eval_head_matches_plain(cuda):
         labels = t(rng.integers(-1, 10, m).astype(np.int32)).to(cuda)
         assert int(eval_head(feats, wmat, bias, labels, "cuda")) == \
             int(eval_head(feats, wmat, bias, labels, "torch"))
+
+
+def test_gpu_coef_agg_pair_matches_plain(cuda):
+    rng = np.random.default_rng(2)
+    for b, length in ((1, 1), (5, 7), (5, 2047), (1, 2049), (5, 18432)):
+        w, aux = (t(np32(rng, b, 5, length)).to(cuda) for _ in range(2))
+        m = rng.random((b, 5)) > 0.4
+        c = rng.random((b, 5)).astype(np.float32)
+        ca, cb = t(c * m).to(cuda), t(c * ~m).to(cuda)
+        torch.testing.assert_close(coef_agg_pair(w, aux, ca, cb, "cuda"),
+                                   coef_agg_pair(w, aux, ca, cb, "torch"),
+                                   rtol=1e-5, atol=1e-6)
+    # a zero-coefficient slot adds exactly nothing, whatever it holds
+    w, aux = (t(np32(rng, 1, 5, 300)).to(cuda) for _ in range(2))
+    ca = torch.tensor([[0.5, 0.0, 0.2, 0.0, 0.0]], device=cuda)
+    cb = torch.tensor([[0.0, 0.3, 0.0, 0.0, 0.0]], device=cuda)
+    w2, aux2 = w.clone(), aux.clone()
+    w2[:, [1, 3, 4]] = 1e6
+    aux2[:, [0, 2, 3, 4]] = 1e6
+    assert torch.equal(coef_agg_pair(w, aux, ca, cb, "cuda"),
+                       coef_agg_pair(w2, aux2, ca, cb, "cuda"))
+
+
+#: mantissa bits and least normal exponent of the narrow history dtypes
+NARROW = {torch.bfloat16: (7, -126), torch.float8_e4m3fn: (3, -6)}
+
+
+def _ulps(got, want, dtype):
+    g, w = got.float(), want.float()
+    mant, emin = NARROW[dtype]
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** emin)
+    return ((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - mant)
+            ).max().item()
+
+
+@pytest.mark.parametrize("dtype", list(NARROW), ids=["bf16", "f8"])
+def test_gpu_hieavg_agg_narrow_history_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(3)
+    for length in L_TAILS:
+        args = [t(a)[None].to(cuda) for a in _hieavg_inputs(rng, 5, length)]
+        args[1], args[2] = (to_history_dtype(a, dtype) for a in args[1:3])
+        got = hieavg_agg(*args, mode="cuda")
+        want = hieavg_agg(*args, mode="torch")
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        for g, w in zip(got[1:], want[1:]):
+            assert g.dtype == dtype
+            assert _ulps(g, w, dtype) <= 1.0
+    # a present slot stores w itself: the kernel rounds the float8 edge
+    # values as the cast helper (and jnp.astype) does, NaN past 464
+    edges = torch.tensor([448.0, 464.0, 464.01, -464.01, 480.0, float("inf"),
+                          float("-inf"), float("nan"), 2.0 ** -9, 2.0 ** -10,
+                          3 * 2.0 ** -11, 7 * 2.0 ** -10], device=cuda)
+    zero = to_history_dtype(torch.zeros((1, 1, len(edges)), device=cuda),
+                            dtype)
+    one = torch.ones((1, 1), device=cuda)
+    _, nprev, ndmean = hieavg_agg(edges[None, None], zero, zero, one > 0, one,
+                                  one * 0, one * 0, mode="cuda")
+    want = to_history_dtype(edges, dtype).float()
+    for got in (nprev, ndmean):
+        g = got.float()[0, 0]
+        assert bool(((g == want) | (g.isnan() & want.isnan())).all()), \
+            (g.tolist(), want.tolist())

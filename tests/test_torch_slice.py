@@ -141,16 +141,38 @@ def test_simulator_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
         BHFLSimulator(PORT_TINY, device="cpu", kernel_mode="pallas", **KW)
 
 
-@pytest.mark.parametrize("kw", [dict(aggregator="fedavg"),
-                                dict(history_dtype=torch.bfloat16),
+@pytest.mark.parametrize("kw", [dict(aggregator="switched"),
+                                dict(j_cohort=2),
                                 dict(population=100)])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         BHFLSimulator(PORT_TINY, device="cpu", **KW, **kw)
 
 
-@pytest.mark.parametrize("entry", ["run_legacy", "run_checkpointed"])
+@pytest.mark.parametrize("entry", ["run_legacy"])
 def test_later_entry_points_raise(entry):
     sim = BHFLSimulator(PORT_TINY, device="cpu", **KW)
     with pytest.raises(NotImplementedError, match="later slice"):
         getattr(sim, entry)()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(aggregator="fedavg"), dict(aggregator="t_fedavg"),
+    dict(aggregator="d_fedavg"), dict(aggregator="delayed_grad"),
+    dict(history_dtype=torch.bfloat16),
+    dict(history_dtype=torch.float8_e4m3fn)],
+    ids=["fedavg", "t_fedavg", "d_fedavg", "delayed_grad", "bf16", "f8"])
+def test_slice_two_options_are_accepted(kw):
+    sim = BHFLSimulator(PORT_TINY, device="cpu", **KW, **kw)
+    assert sim.aggregator == kw.get("aggregator", "hieavg")
+    assert sim.history_dtype == kw.get("history_dtype")
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(aggregator="fedprox"), "aggregator"),
+    (dict(history_dtype=torch.float16), "history_dtype"),
+    (dict(history_dtype=torch.float32), "history_dtype")],
+    ids=["aggregator", "float16_history", "float32_history"])
+def test_unknown_options_raise(kw, err):
+    with pytest.raises(ValueError, match=err):
+        BHFLSimulator(PORT_TINY, device="cpu", **KW, **kw)
