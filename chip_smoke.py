@@ -6,7 +6,9 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds every kernel against its plain PyTorch version on the card (at the
 paper's DEFAULT shapes and at tile-tail shapes; ``hieavg_agg`` also with
-bfloat16 and float8_e4m3fn history) and times both.  Then it runs the
+bfloat16 and float8_e4m3fn history; ``flash_attention`` over a grid of
+lengths, head dims, masks and GQA groups in float32 and bfloat16, and at
+the serving shape of h2o-danube-1.8b) and times both.  Then it runs the
 paper's experiment at the full width of its CNN (DEFAULT cut to T = 4:
 5 SGD steps per edge round, 2 cold-boot and 2 warm global rounds) under
 every single-run aggregator: ``hieavg`` (float32, bfloat16 and float8
@@ -15,22 +17,29 @@ stragglers, ``fedavg`` without.  Each runs once with the kernels
 (``kernel_mode="auto"``) and once with the plain versions (``"torch"``),
 and the two must agree.  Last, ``run_checkpointed(every=2)`` is cut
 after its first chunk and resumed from a fresh simulator: the result
-must be bitwise the uninterrupted checkpointed run's.
+must be bitwise the uninterrupted checkpointed run's.  Last, the LLM
+serving path: ``repro_torch.launch.serve.run`` on h2o-danube-1.8b at full
+width (24 layers, bfloat16, batch 2, a prompt of 8192 tokens, twice the
+sliding window, 32 greedy tokens), with the flash kernel and with its
+plain version on the same seeded weights, and the parity of the two,
+layer by layer (see ``serve_parity``).
 
 Output, one line each: the card as ``nvidia-smi`` names it, then JSON
 objects: the build, one per kernel check, one per run, one parity line
-per configuration, the resume checks, the ``kernels`` summary, and last
-``{"ok": true, "device": {...}}``.  ``--profile`` adds one more HieAvg
-run under ``torch.profiler`` and a line of device time per kernel;
-``--full`` adds the paper's whole DEFAULT HieAvg run (T = 50) per mode
-and its Fig. 2 set (``run_comparison`` under temporary and permanent
-stragglers, with HieAvg's eq. (4) as written and normalized).  Any failed phase raises and exits non-zero; without a CUDA
+per configuration, the resume checks, one per serve run, the serve
+parity, the ``kernels`` summary, and last ``{"ok": true, "device":
+{...}}``.  ``--profile`` adds one more HieAvg run under ``torch.profiler``
+and a line of device time per kernel; ``--full`` adds the paper's whole
+DEFAULT HieAvg run (T = 50) per mode, its Fig. 2 set (``run_comparison``
+under temporary and permanent stragglers, with HieAvg's eq. (4) as
+written and normalized), and a serve run with a prompt of 32768 tokens.  Any failed phase raises and exits non-zero; without a CUDA
 device it exits 2 and prints nothing on stdout.  Imports nothing of JAX
 or of the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import shutil
@@ -43,9 +52,11 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks: HBM3 bandwidth and dense FP32 rate
+# H100 SXM data-sheet peaks: HBM3 bandwidth, dense FP32 and bf16
+# tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
 
 # the paper's DEFAULT widths: D = 5 x 5 devices, B = 32, 28x28, c1 = 32,
 # c2 = 64, 10 classes, n_test = 1000
@@ -60,6 +71,7 @@ REPLACES = {
     "coef_agg": "src/repro/kernels/coef_agg.py:62",
     "coef_agg_pair": "src/repro/kernels/coef_agg.py:88",
     "eval_head": "src/repro/kernels/eval_head.py:48",
+    "flash_attention": "src/repro/kernels/flash_attention.py:77",
 }
 SOURCE = {
     "conv3x3_fwd": "src/repro_torch/kernels/csrc/conv3x3.cu",
@@ -69,6 +81,7 @@ SOURCE = {
     "coef_agg": "src/repro_torch/kernels/csrc/coef_agg.cu",
     "coef_agg_pair": "src/repro_torch/kernels/csrc/coef_agg.cu",
     "eval_head": "src/repro_torch/kernels/csrc/eval_head.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 
 # engine-parity tolerances of tests/test_engine_parity.py
@@ -98,6 +111,28 @@ LAUNCHES_FROM = {"coef_agg_pair": "delayed_grad"}
 RESUMED = ("delayed_grad", "hieavg_bf16")
 ROWS = ("accuracy", "loss", "grad_norm", "sim_clock", "sim_energy")
 
+#: the serve cell: h2o-danube-1.8b at full width, batch 2, a prompt of
+#: twice its sliding window, 32 greedy tokens; ``--full`` adds a prompt of
+#: PREFILL_32K's length at batch 1
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = \
+    "h2o-danube-1.8b", 2, 8192, 32
+SERVE_LONG_PROMPT = 32768
+#: auto-vs-torch bound on each layer's output and on the logits, relative
+#: to their largest magnitude: 4 bfloat16 ulps at the top binade.  The two
+#: flash versions differ by one ulp in a few elements; the layer's bf16
+#: products after attention (wo, the MLP) carry that to a few ulps of the
+#: layer's largest value.  The layers are compared fed the same input: the
+#: random-weight model is chaotic, so free-running outputs diverge
+#: (PERF.md, section 6).
+SERVE_REL_TOL = 2.0 ** -5
+#: the flash kernel's check grid: query and kv lengths (the serving
+#: prompt's kv length among them), head dims, windows, (H, Hkv)
+FLASH_SQ, FLASH_SKV = (1, 300, 512), (256, 300, 8192)
+FLASH_DH, FLASH_WINDOWS = (32, 64, 80, 128), (None, 100, 4096)
+FLASH_HEADS = ((2, 2), (8, 2))
+#: the reference's float32 flash bound (tests/test_kernels.py)
+FLASH_F32_ATOL = 2e-5
+
 #: mantissa bits and least normal exponent of the narrow history dtypes
 NARROW = {"bfloat16": (7, -126), "float8_e4m3fn": (3, -6)}
 #: float32 values at the edges of float8_e4m3fn: the largest finite value
@@ -113,8 +148,11 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float,
+             flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    """The larger of the bytes' time at the HBM rate and the FLOPs' time at
+    ``flop_rate``, the card's peak for the inputs' type."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -166,7 +204,8 @@ KERNEL_SYMBOLS = (("gemm_kernel<0>", "conv3x3_fwd"),
                   ("hieavg_agg_kernel", "hieavg_agg"),
                   ("coef_agg_kernel", "coef_agg"),
                   ("coef_agg_pair_kernel", "coef_agg_pair"),
-                  ("eval_head_kernel", "eval_head"))
+                  ("eval_head_kernel", "eval_head"),
+                  ("flash_attention_kernel", "flash_attention"))
 
 
 def symbols_of(kernel: str) -> tuple:
@@ -174,20 +213,18 @@ def symbols_of(kernel: str) -> tuple:
                  if v == kernel or v.startswith(kernel + " "))
 
 
-def profile_run(torch, simulator, setting) -> dict:
-    """One more ``kernel_mode="auto"`` run under ``torch.profiler``: device
-    time per kernel (the port's by name, PyTorch's own summed per name)
-    and the device's busy share of the run's wall time.  Only with
-    ``--profile``; the profiler's host overhead lengthens the wall time,
-    so the busy share is a lower bound."""
+def profile_run(torch, fn) -> dict:
+    """``fn()`` (one more ``kernel_mode="auto"`` run) under
+    ``torch.profiler``: device time per kernel (the port's by name,
+    PyTorch's own summed per name) and the device's busy share of the run's
+    wall time.  Only with ``--profile``; the profiler's host overhead
+    lengthens the wall time, so the busy share is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
-    sim = simulator(setting, "hieavg", "temporary", "temporary",
-                    device="cuda", kernel_mode="auto")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        sim.run()
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     by_name: dict = {}
@@ -249,6 +286,244 @@ def fig2_runs(run_comparison, setting) -> dict:
     return out
 
 
+def bf16_ulps(got, want, atol: float = 0.0) -> float:
+    """max (|got - want| - atol) in bfloat16 ulps at the larger magnitude of
+    the two (ulp 2^(e - 7) for a value in [2^e, 2^(e+1)))."""
+    import torch
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((g - w).abs() - atol).clamp(min=0.0).div(ulp).max().item())
+
+
+def flash_pairs(sq: int, skv: int, causal: bool, window, q_offset=0) -> int:
+    """(query, key) pairs the masks keep, per head: the work this call's
+    data needs (the kernel skips whole tiles outside them)."""
+    pairs = 0
+    for i in range(sq):
+        qpos = q_offset + i
+        hi = min(skv, qpos + 1) if causal else skv
+        lo = max(0, qpos - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo)
+    return pairs
+
+
+def flash_phase(torch, cfg, flash_attention, randn, record) -> dict:
+    """The flash kernel against its plain version: a grid of Sq x Skv x Dh
+    x masks x GQA groups in float32 (atol 2e-5, the reference's bound) and
+    bfloat16 (one ulp beyond that bound: both versions sum in float32,
+    which may differ by 2e-5 where a sum cancels to near 0, and round once),
+    q read through strides and a chunked prefill's ``q_offset``; rows that
+    see no key exactly 0; then the serving shape of h2o-danube-1.8b,
+    checked and timed."""
+    worst = {"float32_abs": 0.0, "bfloat16_ulp": 0.0, "cases": 0}
+    for sq, skv, dh, causal, window, (h, hkv), dtype in itertools.product(
+            FLASH_SQ, FLASH_SKV, FLASH_DH, (True, False), FLASH_WINDOWS,
+            FLASH_HEADS, (torch.float32, torch.bfloat16)):
+        q = randn(2, sq, 2 * h, dh).to(dtype)[:, :, :h]   # strided heads
+        k, v = (randn(2, skv, hkv, dh).to(dtype) for _ in range(2))
+        kw = dict(causal=causal, window=window,
+                  q_offset=skv - sq if causal and skv > sq else 0)
+        got = flash_attention(q, k, v, mode="cuda", **kw)
+        want = flash_attention(q, k, v, mode="torch", **kw)
+        case = f"{(sq, skv, dh, causal, window, h, hkv, dtype)}"
+        if dtype == torch.float32:
+            err = (got - want).abs().max().item()
+            check("flash_attention", err <= FLASH_F32_ATOL, f"{case}: {err}")
+            worst["float32_abs"] = max(worst["float32_abs"], err)
+        else:
+            u = bf16_ulps(got, want, FLASH_F32_ATOL)
+            check("flash_attention", u <= 1.0, f"{case}: {u} ulp")
+            worst["bfloat16_ulp"] = max(worst["bfloat16_ulp"], u)
+        worst["cases"] += 1
+    for dtype, off in itertools.product((torch.float32, torch.bfloat16),
+                                        (-10, -100)):
+        q, k, v = (randn(1, 300, 4, 80).to(dtype) for _ in range(3))
+        got = flash_attention(q, k, v, causal=True, q_offset=off, mode="cuda")
+        want = flash_attention(q, k, v, causal=True, q_offset=off,
+                               mode="torch")
+        n = -off
+        check("flash_attention", bool((got[:, :n] == 0).all())
+              and bool((want[:, :n] == 0).all()),
+              f"rows that see no key are not 0 (q_offset {off})")
+        worst["cases"] += 1
+
+    # the serving shape: the prefill of ``cfg`` (h2o-danube-1.8b), bf16
+    b, s, h, hkv, dh, win = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, \
+        cfg.n_kv_heads, cfg.resolved_head_dim, cfg.sliding_window
+    q = randn(b, s, h, dh).to(torch.bfloat16)
+    k, v = (randn(b, s, hkv, dh).to(torch.bfloat16) for _ in range(2))
+    got = flash_attention(q, k, v, causal=True, window=win, mode="cuda")
+    want = flash_attention(q, k, v, causal=True, window=win, mode="torch")
+    u = bf16_ulps(got, want, FLASH_F32_ATOL)
+    check("flash_attention", u <= 1.0, f"serving shape: {u} ulp")
+    qpos = torch.arange(s, device=q.device)
+    mask = (qpos[None, :] <= qpos[:, None]) & \
+        (qpos[None, :] > qpos[:, None] - win)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    lib_err = (library().transpose(1, 2).float() - want.float()).abs().max()
+    flops = 4.0 * dh * b * h * flash_pairs(s, s, True, win)
+    record("flash_attention", (got.float() - want.float()).abs().max().item(),
+           2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7),
+           lambda: flash_attention(q, k, v, causal=True, window=win,
+                                   mode="cuda"),
+           timed_ms(torch, lambda: flash_attention(
+               q, k, v, causal=True, window=win, mode="torch"), iters=5),
+           timed_ms(torch, library, iters=5),
+           2.0 * (2 * b * s * h * dh + 2 * b * s * hkv * dh), flops,
+           {"shape": {"q": [b, s, h, dh], "kv": [b, s, hkv, dh],
+                      "dtype": "bfloat16", "causal": True, "window": win},
+            "max_ulp_beyond_atol": u, "max_ulp": bf16_ulps(got, want),
+            "tolerance": f"1 bf16 ulp beyond atol {FLASH_F32_ATOL}",
+            "flops": flops, "bound_flop_rate": BF16_TC_FLOP_PER_S,
+            "bound_fp32_ms": flops / FP32_FLOP_PER_S * 1e3,
+            "bound_qk_bf16_pv_fp32_ms": flops / 2 / BF16_TC_FLOP_PER_S * 1e3
+            + flops / 2 / FP32_FLOP_PER_S * 1e3,
+            "library_call": "scaled_dot_product_attention(attn_mask=causal "
+                            "& window, enable_gqa=True)",
+            "library_max_abs_diff": float(lib_err), "grid": worst},
+           flop_rate=BF16_TC_FLOP_PER_S)
+    return worst
+
+
+def serve_runs(torch, serve, build, n_layers: int) -> dict:
+    """``serve.run`` at full width with the kernels and with the plain
+    versions, on the same seeded weights, each decoding its own greedy
+    tokens: the launch counts are set to 0 just before each run and read
+    just after.  A short run first takes the first-call costs."""
+    kw = dict(smoke=False, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+              gen=SERVE_GEN, device="cuda", progress=False)
+    serve.run(SERVE_ARCH, **{**kw, "prompt_len": 512, "gen": 2})
+    runs = {}
+    for mode in ("auto", "torch"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        res = serve.run(SERVE_ARCH, kernel_mode=mode, **kw)
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check("serve", res["tokens"].shape == (SERVE_BATCH, SERVE_GEN)
+              and bool(np.isfinite(res["logits"]).all()),
+              f"{mode}: tokens {res['tokens'].shape}, logits not finite")
+        runs[mode] = (res, launches)
+        emit({"serve": {
+            "arch": SERVE_ARCH, "kernel_mode": mode, "layers": n_layers,
+            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+            "prefill_s": res["t_prefill"], "decode_s": res["t_decode"],
+            "decode_tokens_per_s": SERVE_GEN * SERVE_BATCH / res["t_decode"],
+            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
+            / res["t_prefill"],
+            "peak_memory_gb": peak / 1e9, "launches": launches}})
+    check("launches", runs["auto"][1].get("flash_attention", 0) == n_layers,
+          f"auto: {runs['auto'][1]}, expected {n_layers} flash launches")
+    check("launches", not runs["torch"][1],
+          f"torch mode launched {runs['torch'][1]}")
+    return runs
+
+
+def serve_parity(torch, serve, runs) -> dict:
+    """Auto against torch on the same inputs.  Every layer of the prefill
+    is fed the auto run's input in both modes (the kernel's one-ulp
+    differences would otherwise flip the sharp attention of random weights
+    and the runs diverge).  Per layer, the attention output itself (before
+    ``wo`` and the residual) within one bf16 ulp beyond ``FLASH_F32_ATOL``
+    times the layer's largest ``|v|``: the flash phase's bound, scaled as
+    the float32 error of a convex combination of v's rows scales; the
+    kernel on the model's own activations.  The layer's output and the
+    last position's logits of the two last layers within ``SERVE_REL_TOL``
+    of their largest magnitude.  Then torch mode's
+    decode from its caches of that pass, fed the auto run's tokens, against
+    the auto run's decode logits: decode launches no kernel and the caches
+    hold k and v from before attention, so this checks only that the
+    decode is deterministic.  The free-running runs' own differences and
+    greedy-token agreement are reported, not checked."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_tokens
+    from repro_torch.launch import make_serve_step
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import embed_apply, rms_norm, \
+        unembed_apply
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    cfg = get_config(SERVE_ARCH)
+    dev = torch.device("cuda")
+    auto = {k: torch.as_tensor(v, device=dev)
+            for k, v in runs["auto"][0].items() if k in ("tokens", "logits")}
+    params = serve.make_params(cfg, 0, dev)
+    prompts = torch.as_tensor(lm_tokens(SERVE_BATCH, SERVE_PROMPT, cfg.vocab,
+                                        seed=0), device=dev).long()
+    caches = {m: serve.make_caches(cfg, SERVE_BATCH,
+                                   SERVE_PROMPT + SERVE_GEN, dev, smoke=False)
+              for m in ("auto", "torch")}
+    x = embed_apply(params["embed"], prompts, cfg.torch_param_dtype)
+    pos = torch.arange(SERVE_PROMPT, device=dev)
+    layers, attn_ulp, attn_rel = [], [], []
+    for u in range(cfg.n_units):
+        up = T._index(params["unit"], u)
+        mp = up["0"]["mixer"]
+        q, k, v = A._qkv(mp, rms_norm(x, mp["norm"], cfg.norm_eps), cfg)
+        q, k = (A.apply_rope(t, pos, cfg.rope_theta) for t in (q, k))
+        a = {m: A._sdpa(q, k, v, causal=True, window=cfg.sliding_window,
+                        kernel_mode=m) for m in ("auto", "torch")}
+        attn_ulp.append(bf16_ulps(a["auto"], a["torch"], FLASH_F32_ATOL
+                                  * v.float().abs().max().item()))
+        attn_rel.append(rel(a["auto"], a["torch"]))
+        del q, k, v, a
+        y = {m: T._apply_layer("attn", up["0"], x, cfg, mode="prefill",
+                               cache=T._index(c["unit"], u)["0"], pos=None,
+                               kernel_mode=m) for m, c in caches.items()}
+        layers.append(rel(y["torch"], y["auto"]))
+        x = y["auto"]
+    logits = {m: unembed_apply(params["embed"], y[m][:, -1:], cfg)[:, 0]
+              for m in y}
+    decode = make_serve_step(cfg)
+    c, steps = caches["torch"], []
+    for i in range(SERVE_GEN - 1):
+        lg, c = decode(params, auto["tokens"][:, i:i + 1].long(),
+                       SERVE_PROMPT + i, c)
+        steps.append(lg.float())
+    torch_run = runs["torch"][0]
+    out = {
+        "tolerance_rel": SERVE_REL_TOL,
+        "attn_tolerance": f"1 bf16 ulp beyond atol {FLASH_F32_ATOL} "
+                          "x max|v|",
+        "attn_ulp": attn_ulp, "attn_rel": attn_rel,
+        "layer_rel": layers,
+        "prefill_logits_rel": rel(logits["torch"], logits["auto"]),
+        "forced_auto_vs_run_rel": rel(logits["auto"], auto["logits"][:, 0]),
+        "decode_logits_rel": rel(torch.stack(steps, 1),
+                                 auto["logits"][:, 1:]),
+        "free_running": {
+            "prefill_logits_max_abs_diff": float(np.abs(
+                torch_run["logits"][:, 0] - runs["auto"][0]["logits"][:, 0]
+            ).max()),
+            "decode_logits_max_abs_diff": float(np.abs(
+                torch_run["logits"][:, 1:] - runs["auto"][0]["logits"][:, 1:]
+            ).max()),
+            "max_abs_logit": float(np.abs(runs["auto"][0]["logits"]).max()),
+            "greedy_token_agreement": float(np.mean(
+                torch_run["tokens"] == runs["auto"][0]["tokens"]))}}
+    emit({"serve_parity": out})
+    bad = {k: out[k] for k in ("prefill_logits_rel", "forced_auto_vs_run_rel",
+                               "decode_logits_rel")
+           if out[k] > SERVE_REL_TOL}
+    worst_layer = max(layers)
+    check("serve_parity", not bad and worst_layer <= SERVE_REL_TOL,
+          f"over {SERVE_REL_TOL}: {bad}, worst layer {worst_layer}")
+    check("serve_parity", max(attn_ulp) <= 1.0,
+          f"attention output over 1 bf16 ulp: {attn_ulp}")
+    return out
+
+
 def resume_check(np_run, make_sim) -> dict:
     """``run_checkpointed(every=2)`` run through, then run again, its last
     step file deleted and resumed from a fresh simulator: the resumed
@@ -283,7 +558,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import DEFAULT
+    from repro_torch.configs import DEFAULT, get_config
     from repro_torch.core.hieavg import to_history_dtype
     from repro_torch.fl import BHFLSimulator, run_comparison
     from repro_torch.kernels import build
@@ -291,8 +566,10 @@ def main() -> int:
     from repro_torch.kernels.conv3x3 import (matmul_bias_relu_bwd,
                                              matmul_bias_relu_fwd)
     from repro_torch.kernels.eval_head import eval_head
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.hieavg_agg import hieavg_agg
     from repro_torch.kernels.sgd_update import sgd_update
+    from repro_torch.launch import serve
     from repro_torch.models import cnn_specs
     from repro_torch.models.spec import count_params
 
@@ -321,12 +598,12 @@ def main() -> int:
     results = {}
 
     def record(name, err, tol, fn, plain_ms, library_ms, nbytes, flops,
-               extra=None, kernel=None):
+               extra=None, kernel=None, flop_rate=FP32_FLOP_PER_S):
         """``fn`` launches the kernel (``kernel``, default ``name``) at the
         timed shape: ``ms`` is its wall time per call through the wrapper
         (CUDA events), ``device_ms`` its kernels' own device time
-        (profiler)."""
-        bms, by = bound_ms(nbytes, flops)
+        (profiler).  The bound counts ``flops`` at ``flop_rate``."""
+        bms, by = bound_ms(nbytes, flops, flop_rate)
         line = {"kernel": name, "max_abs_err": err, "tolerance": tol,
                 "ms": timed_ms(torch, fn),
                 "device_ms": device_ms(torch, fn, symbols_of(kernel or name)),
@@ -650,6 +927,10 @@ def main() -> int:
            2.0 * NTEST * FEAT * NCLS, {"shape": [NTEST, FEAT, NCLS]})
     del f_, wm
 
+    # ------------------------------------------------------ flash_attention
+    serve_cfg = get_config(SERVE_ARCH)
+    flash_phase(torch, serve_cfg, flash_attention, randn, record)
+
     # ----------------------------------------------------------- the runs
     # every configuration with the kernels and with the plain versions; the
     # launch counts are set to 0 just before each run and read just after
@@ -725,14 +1006,39 @@ def main() -> int:
         check("resume", line["resumed_bitwise"] and line["close_to_run"],
               f"{label}: {line}")
 
+    # --------------------------------------------------- the serving path
+    served = serve_runs(torch, serve, build, serve_cfg.n_layers)
+    serve_parity(torch, serve, served)
+
     if "--profile" in sys.argv[1:]:
-        emit({"profile": profile_run(torch, BHFLSimulator, setting)})
+        emit({"profile": profile_run(torch, lambda: BHFLSimulator(
+            setting, "hieavg", "temporary", "temporary", device="cuda",
+            kernel_mode="auto").run())})
+        for label, gen in (("prefill", 1), ("decode", SERVE_GEN)):
+            # gen 1 is the prefill alone; the decode's share is the rest
+            emit({"profile_serve": {"part": label, **profile_run(
+                torch, lambda: serve.run(
+                    SERVE_ARCH, smoke=False, batch=SERVE_BATCH,
+                    prompt_len=SERVE_PROMPT, gen=gen, device="cuda",
+                    progress=False))}})
     if "--full" in sys.argv[1:]:
         emit({"full_run": full_runs(torch, BHFLSimulator, DEFAULT)})
         emit({"fig2": fig2_runs(run_comparison, DEFAULT)})
+        torch.cuda.reset_peak_memory_stats()
+        res = serve.run(SERVE_ARCH, smoke=False, batch=1,
+                        prompt_len=SERVE_LONG_PROMPT, gen=SERVE_GEN,
+                        device="cuda", progress=False)
+        check("serve", bool(np.isfinite(res["logits"]).all()),
+              "long prompt: logits not finite")
+        emit({"serve_long": {
+            "arch": SERVE_ARCH, "batch": 1, "prompt": SERVE_LONG_PROMPT,
+            "gen": SERVE_GEN, "prefill_s": res["t_prefill"],
+            "decode_tokens_per_s": SERVE_GEN / res["t_decode"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}})
 
     launches = {k: runs[LAUNCHES_FROM.get(k, "hieavg"), "auto"][1].get(k, 0)
-                for k in REPLACES}
+                for k in REPLACES if k != "flash_attention"}
+    launches["flash_attention"] = served["auto"][1].get("flash_attention", 0)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE[k],
          "replaces": REPLACES[k], "launches": launches[k],

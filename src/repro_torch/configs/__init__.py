@@ -1,3 +1,60 @@
+"""The port's configurations: the paper's BHFL settings, and the LLM zoo's
+architecture registry (``get_config(arch_id)`` / ``get_smoke(arch_id)``,
+as ``repro.configs``).
+
+The registry knows all ten architecture ids of the reference.  Only the
+dense ones run in the port so far (the ``"attn"`` layer kind); the others
+raise ``NotImplementedError`` until their layer kinds are ported
+(``ROADMAP.md``, Queue 1).
+"""
+from __future__ import annotations
+
+import importlib
+
 from .bhfl_cnn import DEFAULT, REDUCED, BHFLSetting
 
-__all__ = ["BHFLSetting", "DEFAULT", "REDUCED"]
+#: id -> module in this package, for the architectures the port runs
+_MODULES = {
+    "deepseek-7b": "deepseek_7b",
+    "qwen3-14b": "qwen3_14b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+}
+#: the reference's other architectures, and the layer kinds they wait for
+_NOT_PORTED = {
+    "seamless-m4t-large-v2": "the encoder stack and cross-attention",
+    "minicpm3-4b": "mla",
+    "deepseek-v2-lite-16b": "mla and moe",
+    "grok-1-314b": "moe",
+    "recurrentgemma-9b": "rglru",
+    "llama-3.2-vision-11b": "cross-attention (xattn)",
+    "mamba2-130m": "ssd",
+}
+
+ARCH_IDS = ("deepseek-7b", "seamless-m4t-large-v2", "minicpm3-4b",
+            "deepseek-v2-lite-16b", "grok-1-314b", "recurrentgemma-9b",
+            "qwen3-14b", "llama-3.2-vision-11b", "h2o-danube-1.8b",
+            "mamba2-130m")
+
+
+def _mod(arch_id: str):
+    if arch_id in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch_id!r} needs {_NOT_PORTED[arch_id]}, which the port does "
+            "not have yet (ROADMAP.md, Queue 1)")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {list(ARCH_IDS)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+
+
+def get_config(arch_id: str):
+    """Full (production) config for an architecture."""
+    return _mod(arch_id).FULL
+
+
+def get_smoke(arch_id: str):
+    """Reduced same-family variant (2 layers, d_model 128)."""
+    return _mod(arch_id).make_smoke()
+
+
+__all__ = ["ARCH_IDS", "BHFLSetting", "DEFAULT", "REDUCED", "get_config",
+           "get_smoke"]

@@ -1,8 +1,9 @@
-"""Copy of ``repro.data.synthetic.class_images`` for the port.
+"""Copies of ``repro.data.synthetic`` for the port.
 
 MNIST is unavailable offline, so ``class_images`` generates an MNIST-shaped
 surrogate: each class is a fixed random prototype image; samples are
-prototype + per-sample Gaussian noise + random shift.  The arrays are
+prototype + per-sample Gaussian noise + random shift.  ``lm_tokens`` gives
+the LLM zoo's token streams: a mixture of Markov chains.  The arrays are
 bitwise those of the reference for the same arguments.
 """
 from __future__ import annotations
@@ -40,3 +41,18 @@ def class_images(n: int, seed: int = 0, hw: int = 28, n_classes: int = 10,
     imgs.flags.writeable = False
     labels.flags.writeable = False
     return imgs, labels
+
+
+def lm_tokens(n_seqs: int, seq_len: int, vocab: int, seed: int = 0
+              ) -> np.ndarray:
+    """Markov-mixture token streams [n_seqs, seq_len] int32."""
+    rng = np.random.default_rng(seed)
+    k = min(vocab, 64)
+    trans = rng.dirichlet(np.ones(k) * 0.1, size=k)
+    out = np.zeros((n_seqs, seq_len), np.int64)
+    state = rng.integers(0, k, size=n_seqs)
+    for t in range(seq_len):
+        out[:, t] = state
+        u = rng.random((n_seqs, 1))
+        state = (trans[state].cumsum(1) > u).argmax(1)
+    return (out % vocab).astype(np.int32)

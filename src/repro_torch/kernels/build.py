@@ -72,6 +72,12 @@ SIGNATURES = {
     "coef_agg_pair_launch": (_P, _P, _P, _P, _I, _I, _L, _P),
     # feats, wmat, bias, labels, block_counts, M, F, C, stream
     "eval_head_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, out, B, H, Hkv, Sq, Skv, Dh, the batch, sequence and head
+    # strides of q, k and v, causal, window (-1: none), q_offset, dtype
+    # code, stream
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                               _I, _I, _I, _I, _P),
 }
 
 

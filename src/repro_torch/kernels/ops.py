@@ -1,4 +1,6 @@
-"""The port's kernel wrappers applied to whole stacked models.
+"""The port's kernel wrappers applied to whole stacked models, and the GQA
+flash attention (``flash_attention``, from ``kernels.flash_attention``:
+batch and heads are its kernel's grid axes where the JAX package vmaps).
 
 Port of ``repro.kernels.ops``.  Weights are dicts of stacked leaves; the
 leading ``mask.dim()`` axes are batch axes then the participant axis.
@@ -16,6 +18,7 @@ import torch
 from repro_torch.core.hieavg import History
 
 from .coef_agg import coef_agg, coef_agg_pair
+from .flash_attention import flash_attention  # noqa: F401  (GQA front-end)
 from .hieavg_agg import hieavg_agg
 from .sgd_update import sgd_update
 
@@ -98,3 +101,4 @@ def fused_sgd_update(params: dict, grads: dict, scale: float, *,
     may hand a leaf's gradient over as a strided view.)"""
     return {k: sgd_update(w, grads[k].contiguous(), scale, mode=mode)
             for k, w in params.items()}
+

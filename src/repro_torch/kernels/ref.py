@@ -7,9 +7,13 @@ CPU tests hold them against the JAX kernels, and ``chip_smoke.py`` holds
 each CUDA kernel against its plain version on the card.
 
 Leading batch axes are allowed where the engine has them: ``[..., n, L]``
-operands with ``[..., n]`` coefficient vectors.
+operands with ``[..., n]`` coefficient vectors.  Attention takes the GQA
+layout of ``repro.models.attention``: ``[B, S, H, Dh]``.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -104,3 +108,52 @@ def coef_agg_pair_ref(w, aux, ca, cb):
     float32 (the delayed-gradient mix); a zero coefficient adds nothing."""
     return (ca.to(f32)[..., None] * w.to(f32)
             + cb.to(f32)[..., None] * aux.to(f32)).sum(-2)
+
+
+# --------------------------------------------------------- flash attention
+#: query rows per step of ``flash_attention_ref``: ``[B, H, 512, Skv]``
+#: float32 logits are live at once, never ``[B, H, Sq, Skv]``
+FLASH_Q_CHUNK = 512
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset: int = 0):
+    """``softmax(q kᵀ / sqrt(Dh)) v`` over GQA heads: q [B, Sq, H, Dh],
+    k/v [B, Skv, Hkv, Dh] -> [B, Sq, H, Dh] in ``v.dtype``.
+
+    Query head h reads kv head ``h // (H // Hkv)``.  Query row i sits at
+    absolute position ``q_offset + i``; ``causal`` keeps keys at or before
+    it, ``window`` (None: no window) keys less than ``window`` positions
+    behind it.  float32 math, in chunks of ``FLASH_Q_CHUNK`` query rows.
+    A row that sees no key gives exactly 0, as the Pallas kernel does
+    (``repro.kernels.ref.flash_attention_ref`` gives the mean of v there).
+    """
+    b, sq, h, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    kt = k.to(f32).permute(0, 2, 3, 1)                  # [B, Hkv, Dh, Skv]
+    vf = v.to(f32).permute(0, 2, 1, 3)                  # [B, Hkv, Skv, Dh]
+    kpos = torch.arange(skv, device=q.device)
+    out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
+    for c0 in range(0, sq, FLASH_Q_CHUNK):
+        qc = q[:, c0:c0 + FLASH_Q_CHUNK].to(f32)
+        n = qc.shape[1]
+        qc = qc.reshape(b, n, hkv, g, dh).permute(0, 2, 3, 1, 4)
+        logits = torch.matmul(qc.reshape(b, hkv, g * n, dh), kt)
+        logits = logits.div_(math.sqrt(dh)).view(b, hkv, g, n, skv)
+        qpos = torch.arange(c0, c0 + n, device=q.device)[:, None] + q_offset
+        ok = torch.ones((n, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        logits.masked_fill_(~ok, -math.inf)
+        m = logits.amax(-1, keepdim=True)
+        m = torch.where(m == -math.inf, 0.0, m)          # rows with no key
+        p = logits.sub_(m).exp_()
+        l = p.sum(-1, keepdim=True)
+        o = torch.matmul(p.view(b, hkv, g * n, skv), vf).view(b, hkv, g, n, dh)
+        o = o / torch.where(l == 0.0, 1.0, l)
+        out[:, c0:c0 + n] = o.permute(0, 3, 1, 2, 4).reshape(
+            b, n, h, dh).to(v.dtype)
+    return out

@@ -1,7 +1,12 @@
 from .cnn import (cnn_accuracy, cnn_features, cnn_logits, cnn_loss,
                   cnn_specs, params_from_numpy, stack_params)
-from .spec import ParamSpec, init_params
+from .config import ArchConfig, InputShape
+from .spec import ParamSpec, init_from_specs, init_params
+from .transformer import (cache_specs, decode_step, forward_train,
+                          param_specs, prefill)
 
-__all__ = ["ParamSpec", "cnn_accuracy", "cnn_features", "cnn_logits",
-           "cnn_loss", "cnn_specs", "init_params", "params_from_numpy",
+__all__ = ["ArchConfig", "InputShape", "ParamSpec", "cache_specs",
+           "cnn_accuracy", "cnn_features", "cnn_logits", "cnn_loss",
+           "cnn_specs", "decode_step", "forward_train", "init_from_specs",
+           "init_params", "param_specs", "params_from_numpy", "prefill",
            "stack_params"]

@@ -12,7 +12,11 @@ cuBLAS's); the HieAvg mix and the coefficient aggregates ``rtol 1e-5,
 atol 1e-6`` (FMA contraction); a narrow (bfloat16 or float8_e4m3fn)
 history one unit in the last place of its dtype (the float32 value it
 rounds differs by the FMA's rounding); the float8 edge values, the SGD
-update, zero-coefficient slots and the correct-counts exactly.
+update, zero-coefficient slots and the correct-counts exactly.  Flash
+attention: float32 ``atol 2e-5`` (``tests/test_kernels.py``'s bound),
+bfloat16 one unit in the last place beyond that bound (both versions
+widen, sum in float32, which may differ by 2e-5 where a sum cancels to
+near 0, and round once), rows that see no key exactly 0.
 """
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ from repro_torch.kernels.coef_agg import coef_agg, coef_agg_pair  # noqa: E402
 from repro_torch.kernels.conv3x3 import (matmul_bias_relu_bwd,  # noqa: E402
                                          matmul_bias_relu_fwd)
 from repro_torch.kernels.eval_head import eval_head  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.hieavg_agg import hieavg_agg  # noqa: E402
 from repro_torch.kernels.sgd_update import sgd_update  # noqa: E402
 
@@ -128,12 +133,14 @@ def test_gpu_coef_agg_pair_matches_plain(cuda):
 NARROW = {torch.bfloat16: (7, -126), torch.float8_e4m3fn: (3, -6)}
 
 
-def _ulps(got, want, dtype):
+def _ulps(got, want, dtype, atol=0.0):
+    """max (|got - want| - atol) in ulps of ``dtype`` at the larger
+    magnitude."""
     g, w = got.float(), want.float()
     mant, emin = NARROW[dtype]
     mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** emin)
-    return ((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - mant)
-            ).max().item()
+    return (((g - w).abs() - atol).clamp(min=0.0)
+            / torch.exp2(torch.floor(torch.log2(mag)) - mant)).max().item()
 
 
 @pytest.mark.parametrize("dtype", list(NARROW), ids=["bf16", "f8"])
@@ -163,3 +170,44 @@ def test_gpu_hieavg_agg_narrow_history_matches_plain(cuda, dtype):
         g = got.float()[0, 0]
         assert bool(((g == want) | (g.isnan() & want.isnan())).all()), \
             (g.tolist(), want.tolist())
+
+
+#: (Sq, Skv), Dh, (H, Hkv), causal, window: the tile tails (64-row tiles)
+#: of every head dim the kernel is built for, GQA groups 1 to 4
+FLASH_CASES = [((1, 256), 64, (4, 4), True, None),
+               ((300, 300), 80, (8, 2), True, 100),
+               ((65, 129), 128, (4, 1), False, None),
+               ((512, 1000), 32, (4, 2), True, 256),
+               ((300, 300), 80, (8, 2), False, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gpu_flash_attention_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(4)
+    for (sq, skv), dh, (h, hkv), causal, window in FLASH_CASES:
+        # q is a slice of a wider tensor: the kernel reads it by strides
+        q = t(np32(rng, 2, sq, 2 * h, dh)).to(cuda, dtype)[:, :, :h]
+        k, v = (t(np32(rng, 2, skv, hkv, dh)).to(cuda, dtype)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window,
+                  q_offset=skv - sq if causal else 0)
+        got = flash_attention(q, k, v, mode="cuda", **kw)
+        want = flash_attention(q, k, v, mode="torch", **kw)
+        assert got.dtype == dtype and got.shape == (2, sq, h, dh)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+        else:
+            assert _ulps(got, want, dtype, atol=2e-5) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gpu_flash_attention_rows_without_keys_are_zero(cuda, dtype):
+    rng = np.random.default_rng(5)
+    q, k, v = (t(np32(rng, 1, 40, 2, 80)).to(cuda, dtype) for _ in range(3))
+    got = flash_attention(q, k, v, causal=True, q_offset=-10, mode="cuda")
+    want = flash_attention(q, k, v, causal=True, q_offset=-10, mode="torch")
+    assert torch.equal(got[:, :10], torch.zeros_like(got[:, :10]))
+    assert torch.equal(want[:, :10], got[:, :10])
+    assert got[:, 10:].abs().max().item() > 0.1
