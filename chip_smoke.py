@@ -6,9 +6,12 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds every kernel against its plain PyTorch version on the card (at the
 paper's DEFAULT shapes and at tile-tail shapes; ``hieavg_agg`` also with
-bfloat16 and float8_e4m3fn history; ``flash_attention`` over a grid of
-lengths, head dims, masks and GQA groups in float32 and bfloat16, and at
-the serving shape of h2o-danube-1.8b) and times both.  Then it runs the
+bfloat16 and float8_e4m3fn history; ``sgd_update`` as one launch over
+the CNN's six leaves; ``flash_attention`` over a grid of lengths, head
+dims, masks and GQA groups in float32 and bfloat16, at unit-scale and at
+sharp logits, and at the serving shape of h2o-danube-1.8b, after a line
+that names the kernel each input type launched and its HGMMA count) and
+times both.  Then it runs the
 paper's experiment at the full width of its CNN (DEFAULT cut to T = 4:
 5 SGD steps per edge round, 2 cold-boot and 2 warm global rounds) under
 every single-run aggregator: ``hieavg`` (float32, bfloat16 and float8
@@ -25,16 +28,19 @@ plain version on the same seeded weights, and the parity of the two,
 layer by layer (see ``serve_parity``).
 
 Output, one line each: the card as ``nvidia-smi`` names it, then JSON
-objects: the build, one per kernel check, one per run, one parity line
+objects: the build, one per kernel check (with ``flash_design`` before
+the flash line), one per run (each HieAvg-path run launches
+``sgd_update`` once per local step), one parity line
 per configuration, the resume checks, one per serve run, the serve
 parity, the ``kernels`` summary, and last ``{"ok": true, "device":
 {...}}``.  ``--profile`` adds one more HieAvg run under ``torch.profiler``
 and a line of device time per kernel; ``--full`` adds the paper's whole
 DEFAULT HieAvg run (T = 50) per mode, its Fig. 2 set (``run_comparison``
 under temporary and permanent stragglers, with HieAvg's eq. (4) as
-written and normalized), and a serve run with a prompt of 32768 tokens.  Any failed phase raises and exits non-zero; without a CUDA
-device it exits 2 and prints nothing on stdout.  Imports nothing of JAX
-or of the JAX package.
+written and normalized), and a serve run with a prompt of 32768 tokens.
+Any failed phase raises and exits non-zero; without a CUDA device it
+exits 2 and prints nothing on stdout.  Imports nothing of JAX or of the
+JAX package.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -130,6 +137,13 @@ SERVE_REL_TOL = 2.0 ** -5
 FLASH_SQ, FLASH_SKV = (1, 300, 512), (256, 300, 8192)
 FLASH_DH, FLASH_WINDOWS = (32, 64, 80, 128), (None, 100, 4096)
 FLASH_HEADS = ((2, 2), (8, 2))
+#: sharp attention: (Sq, Skv, Dh, causal, window, q scale); q scaled up so
+#: that logits reach the hundreds, as in the serving model's random
+#: weights, where the order of the float32 sums decides the output
+FLASH_SHARP = ((300, 8192, 80, True, 4096, 24.0), (129, 129, 128, False, None,
+                                                   24.0),
+               (512, 1000, 32, True, 256, 24.0), (300, 300, 64, True, 100,
+                                                  60.0))
 #: the reference's float32 flash bound (tests/test_kernels.py)
 FLASH_F32_ATOL = 2e-5
 
@@ -205,7 +219,8 @@ KERNEL_SYMBOLS = (("gemm_kernel<0>", "conv3x3_fwd"),
                   ("coef_agg_kernel", "coef_agg"),
                   ("coef_agg_pair_kernel", "coef_agg_pair"),
                   ("eval_head_kernel", "eval_head"),
-                  ("flash_attention_kernel", "flash_attention"))
+                  ("flash_attention_kernel", "flash_attention"),
+                  ("flash_attention_wgmma_kernel", "flash_attention"))
 
 
 def symbols_of(kernel: str) -> tuple:
@@ -308,25 +323,91 @@ def flash_pairs(sq: int, skv: int, causal: bool, window, q_offset=0) -> int:
     return pairs
 
 
+def kernel_key(name: str) -> str:
+    """``flash_attention_wgmma_kernel<80>`` from a mangled
+    (``..._kernelILi80E...``) or a demangled (``..._kernel<80, ...>``)
+    kernel name: its name and first template argument."""
+    m = re.search(r"([a-z_]+_kernel)(?:ILi|<)(\d+)", name)
+    return f"{m.group(1)}<{m.group(2)}>" if m else name
+
+
+def hgmma_counts(library: Path) -> dict:
+    """HGMMA (wgmma) instructions per kernel in the built library's SASS,
+    by ``cuobjdump -sass``: which kernels run on the tensor cores."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = kernel_key(line.split("Function : ")[1].strip())
+            counts.setdefault(fn, 0)
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def flash_designs(torch, flash_attention, designs, randn, library) -> dict:
+    """Which kernel each input type launched, read from the profiler's
+    kernel names, beside its design and its HGMMA count: bfloat16 must run
+    the wgmma kernel at Dh 80 (the serving head dim), float32 the FMA one
+    with no HGMMA."""
+    from torch.profiler import ProfilerActivity, profile
+    hgmma = hgmma_counts(library)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (randn(1, 256, 2, 80).to(dtype) for _ in range(3))
+        flash_attention(q, k, v, causal=True, mode="cuda")   # warm-up
+        names = []
+        for calls in (3, 20):   # a short window may record no kernel
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    flash_attention(q, k, v, causal=True, mode="cuda")
+                torch.cuda.synchronize()
+            names = sorted({kernel_key(ev.key) for ev in prof.key_averages()
+                            if "flash_attention" in ev.key})
+            if names:
+                break
+        count = sum(hgmma.get(name, 0) for name in names)
+        out[str(dtype).split(".")[-1]] = {"design": designs[dtype],
+                                          "kernels": names, "hgmma": count}
+    check("flash_attention", out["bfloat16"]["kernels"]
+          == ["flash_attention_wgmma_kernel<80>"]
+          and out["bfloat16"]["hgmma"] > 0
+          and out["float32"]["kernels"] == ["flash_attention_kernel<80>"]
+          and out["float32"]["hgmma"] == 0, f"designs launched: {out}")
+    out["hgmma_per_kernel"] = {f: n for f, n in hgmma.items() if n}
+    emit({"flash_design": out})
+    return out
+
+
 def flash_phase(torch, cfg, flash_attention, randn, record) -> dict:
     """The flash kernel against its plain version: a grid of Sq x Skv x Dh
     x masks x GQA groups in float32 (atol 2e-5, the reference's bound) and
     bfloat16 (one ulp beyond that bound: both versions sum in float32,
     which may differ by 2e-5 where a sum cancels to near 0, and round once),
-    q read through strides and a chunked prefill's ``q_offset``; rows that
-    see no key exactly 0; then the serving shape of h2o-danube-1.8b,
-    checked and timed."""
+    q read through strides and a chunked prefill's ``q_offset``, and the
+    same bounds at sharp attention (``FLASH_SHARP``); rows that see no key
+    exactly 0; then the serving shape of h2o-danube-1.8b, checked and
+    timed."""
     worst = {"float32_abs": 0.0, "bfloat16_ulp": 0.0, "cases": 0}
-    for sq, skv, dh, causal, window, (h, hkv), dtype in itertools.product(
-            FLASH_SQ, FLASH_SKV, FLASH_DH, (True, False), FLASH_WINDOWS,
-            FLASH_HEADS, (torch.float32, torch.bfloat16)):
-        q = randn(2, sq, 2 * h, dh).to(dtype)[:, :, :h]   # strided heads
+    grid = [(sq, skv, dh, causal, window, hh, 1.0, dtype)
+            for sq, skv, dh, causal, window, hh, dtype in itertools.product(
+                FLASH_SQ, FLASH_SKV, FLASH_DH, (True, False), FLASH_WINDOWS,
+                FLASH_HEADS, (torch.float32, torch.bfloat16))]
+    grid += [(sq, skv, dh, causal, window, (8, 2), qs, dtype)
+             for sq, skv, dh, causal, window, qs in FLASH_SHARP
+             for dtype in (torch.float32, torch.bfloat16)]
+    for sq, skv, dh, causal, window, (h, hkv), qs, dtype in grid:
+        q = randn(2, sq, 2 * h, dh, scale=qs).to(dtype)[:, :, :h]  # strided
         k, v = (randn(2, skv, hkv, dh).to(dtype) for _ in range(2))
         kw = dict(causal=causal, window=window,
                   q_offset=skv - sq if causal and skv > sq else 0)
         got = flash_attention(q, k, v, mode="cuda", **kw)
         want = flash_attention(q, k, v, mode="torch", **kw)
-        case = f"{(sq, skv, dh, causal, window, h, hkv, dtype)}"
+        case = f"{(sq, skv, dh, causal, window, h, hkv, qs, dtype)}"
         if dtype == torch.float32:
             err = (got - want).abs().max().item()
             check("flash_attention", err <= FLASH_F32_ATOL, f"{case}: {err}")
@@ -566,9 +647,10 @@ def main() -> int:
     from repro_torch.kernels.conv3x3 import (matmul_bias_relu_bwd,
                                              matmul_bias_relu_fwd)
     from repro_torch.kernels.eval_head import eval_head
+    from repro_torch.kernels.flash_attention import DESIGNS as FLASH_DESIGNS
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.hieavg_agg import hieavg_agg
-    from repro_torch.kernels.sgd_update import sgd_update
+    from repro_torch.kernels.sgd_update import sgd_update, sgd_update_many
     from repro_torch.launch import serve
     from repro_torch.models import cnn_specs
     from repro_torch.models.spec import count_params
@@ -691,6 +773,8 @@ def main() -> int:
     leaf_sizes = [math.prod(s.shape) for s in specs.values()]
 
     # ----------------------------------------------------------- sgd_update
+    # one launch per local step over every leaf: bitwise the plain version
+    # per leaf, scale 0 an exact identity, one launch counted per call
     ws = [randn(D, L) for L in leaf_sizes]
     gs = [randn(D, L) for L in leaf_sizes]
     s = 0.00095238
@@ -702,18 +786,24 @@ def main() -> int:
         err = max(err, e)
         check("sgd_update", torch.equal(sgd_update(w1, g1 * 1e3, 0.0, "cuda"),
                                         w1), "scale 0 is not an identity")
-    for w1, g1 in zip(ws, gs):
-        err = max(err, (sgd_update(w1, g1, s, "cuda")
-                        - sgd_update(w1, g1, s, "torch")).abs().max().item())
+    before = build.LAUNCHES["sgd_update"]
+    got = sgd_update_many(ws, gs, s, "cuda")
+    check("sgd_update", build.LAUNCHES["sgd_update"] == before + 1,
+          f"{len(ws)} leaves took {build.LAUNCHES['sgd_update'] - before} "
+          "launches")
+    for g_, w_ in zip(got, sgd_update_many(ws, gs, s, "torch")):
+        err = max(err, (g_ - w_).abs().max().item())
     check("sgd_update", err == 0.0, f"not bitwise the plain version: {err}")
+    check("sgd_update", all(torch.equal(a, w_) for a, w_ in zip(
+        sgd_update_many(ws, [g * 1e3 for g in gs], 0.0, "cuda"), ws)),
+        "scale 0 is not an identity")
     record("sgd_update", err, 0.0,
-           lambda: [sgd_update(a, g, s, "cuda") for a, g in zip(ws, gs)],
-           timed_ms(torch, lambda: [sgd_update(a, g, s, "torch")
-                                    for a, g in zip(ws, gs)]),
+           lambda: sgd_update_many(ws, gs, s, "cuda"),
+           timed_ms(torch, lambda: sgd_update_many(ws, gs, s, "torch")),
            timed_ms(torch, lambda: torch._foreach_add(ws, gs, alpha=-s)),
            12.0 * D * P, 2.0 * D * P,
-           {"shape": [D, P], "leaves": len(ws)})
-    del ws, gs
+           {"shape": [D, P], "leaves": len(ws), "launches_per_call": 1})
+    del ws, gs, got
 
     # ----------------------------------------------------------- hieavg_agg
     def hieavg_inputs(nb, n, L):
@@ -929,6 +1019,8 @@ def main() -> int:
 
     # ------------------------------------------------------ flash_attention
     serve_cfg = get_config(SERVE_ARCH)
+    flash_designs(torch, flash_attention, FLASH_DESIGNS, randn,
+                  build.compile_library())
     flash_phase(torch, serve_cfg, flash_attention, randn, record)
 
     # ----------------------------------------------------------- the runs
@@ -943,7 +1035,7 @@ def main() -> int:
                              kernel_mode=mode,
                              history_dtype=hname and getattr(torch, hname))
 
-    runs = {}
+    runs, steps_of = {}, {}
     for label in RUNS:
         for mode in ("auto", "torch"):
             torch.cuda.synchronize()
@@ -952,6 +1044,7 @@ def main() -> int:
             res = sim.run()
             torch.cuda.synchronize()
             runs[label, mode] = (res, dict(build.LAUNCHES))
+            steps_of[label] = sim.steps
             for key in ROWS:
                 row = getattr(res, key)
                 check("run", row.shape == (T,) and bool(np.isfinite(row).all()),
@@ -974,6 +1067,10 @@ def main() -> int:
                    if launches.get(k, 0) == 0]
         check("launches", not missing,
               f"{label}: never launched {missing} ({launches})")
+        steps = T * setting.k_edge_rounds * steps_of[label]
+        check("launches", launches.get("sgd_update", 0) == steps,
+              f"{label}: {launches.get('sgd_update', 0)} sgd_update "
+              f"launches for {steps} local steps")
         parity = {
             "accuracy": bool(np.allclose(a.accuracy, p.accuracy, rtol=0,
                                          atol=ACC_TOL)),

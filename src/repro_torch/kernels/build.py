@@ -62,8 +62,9 @@ SIGNATURES = {
     # cols, wmat, y, dy, dcols (may be null), dw_part, D, M, K, N, rows per
     # partial, stream
     "conv3x3_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
-    # w, g, out, numel, scale, stream
-    "sgd_update_launch": (_P, _P, _P, _L, _F, _P),
+    # host arrays of the leaves' w and g pointers and of their element
+    # counts, the number of leaves, the flat output, scale, stream
+    "sgd_update_launch": (_P, _P, _P, _I, _P, _F, _P),
     # w, prev, dmean, vec, agg, nprev, ndmean, B, n, L, history type, stream
     "hieavg_agg_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _P),
     # w, coef, out, B, n, L, stream

@@ -5,37 +5,76 @@
 // flash_attention_1h (one head; BQ = BK = 256 blocks, the grid (nq, nk)
 // with kv innermost, the running max, sum and accumulator carried in VMEM
 // from one grid step to the next) and the vmap over batch, kv heads and
-// the query group in src/repro/kernels/ops.py:flash_attention.
+// the query group in src/repro/kernels/ops.py:flash_attention.  On Hopper
+// blocks run in no order, so the carry becomes a loop inside the block.
+// Query head h reads kv head h / G.  q, k and v are read where they lie,
+// [B, S, H, Dh] with the strides the wrapper passes (Dh contiguous); the
+// output is [B, Sq, H, Dh], contiguous, in the input type.  kv tiles
+// wholly above the causal diagonal or wholly left of the window are
+// skipped, not masked: at the serving shape of h2o-danube-1.8b (q [2, 8192,
+// 32, 80], k/v [2, 8192, 8, 80], window 4096) that leaves 25.2 M of the
+// 67.1 M (q, k) pairs per head.  Partial tiles mask as the Pallas kernel
+// does (kpos < Skv, kpos <= qpos, kpos > qpos - window); masked logits
+// never enter exp, and a row that sees no key writes 0.  The scale
+// 1/sqrt(Dh) multiplies the float32 sum.  The input type picks the design.
 //
-// On Hopper blocks run in no order, so the carry becomes a loop inside
-// the block.  One block of 256 threads per (tile of 64 query rows, query
-// head, batch entry); query head h reads kv head h / G.  q, k and v are
-// read where they lie, [B, S, H, Dh] with the strides the wrapper passes
-// (Dh contiguous); the output is [B, Sq, H, Dh], contiguous, in the
-// input type.  The block stages its q tile and then each 64-row kv tile
-// in shared memory, widened to float32; the running max, the running
-// sum and the [64, Dh] accumulator stay in float32 registers (each thread
-// owns 4 query rows; the 16 threads of a half-warp share them and reduce
-// a row's max and sum with shuffles).  kv tiles wholly above the causal
-// diagonal or wholly left of the window are skipped, not masked: at the
-// serving shape of h2o-danube-1.8b (q [2, 8192, 32, 80], k/v [2, 8192,
-// 8, 80], window 4096) that leaves 25.2 M of the 67.1 M (q, k) pairs per
-// head.  Partial tiles mask as the Pallas kernel does (kpos < Skv,
-// kpos <= qpos, kpos > qpos - window); masked logits never enter exp, and
-// a row that sees no key writes 0.  The scale is 1/sqrt(Dh).
+// bfloat16 (the serving path): 4 Dh FLOPs per visible pair, 5.15e11 at the
+// serving shape, 0.52 ms at the card's 989 TFLOP/s of bf16 tensor-core
+// rate; it moves 210 MB, 0.063 ms at 3.35 TB/s: tensor-core bound (the
+// three-term p v below doubles the tensor work: 1.04 ms).  One
+// block of three warpgroups per (tile of 128 query rows, query head,
+// batch entry), the longest tiles first.  Warpgroups 0 and 1 consume, 64
+// query rows each (the M of wgmma); one thread of warpgroup 2 produces:
+// TMA loads the block's q tile once and each 128-row kv tile into a ring
+// of two stages, with a full and an empty mbarrier per stage (setmaxnreg
+// moves the producer's registers to the consumers).  Tiles are stored in
+// 16-column chunks of 32-byte rows with TMA's 32-byte swizzle: one chunk
+// is one wgmma k-step, and 16 divides every head dim built (32, 64, 80,
+// 128; 80 is 160 bytes a row, no whole number of 128-byte atoms).
+//   s = q k^T runs on bf16 wgmma (m64n128k16, both operands from shared
+// memory, K-major) into float32: products of bf16 values are exact in
+// float32, so only the order of the float32 sums differs from the plain
+// version.  The online softmax works on the accumulator fragment: each
+// thread holds 2 rows x 32 columns, reduces row max and sum across the quad
+// that shares a row, and takes p = exp(t - m) (on ex2.approx) with t the
+// scaled float32 sum and m the running max of the t's, so every p and
+// every rescale refer to one exact max (see softmax_tile).  Only tiles that
+// cut a row's visible range are masked, from a per-row column interval;
+// masked logits become -inf, whose exp is 0.  Large logits near the max
+// (|t| >= 8, within 20 of it) are summed again as one float32 FMA chain
+// over d, the plain version's order: there the order of the float32 sum,
+// not the kernel's accuracy, decides the output (see softmax_tile).
+//   o += p v also runs on bf16 wgmma (m64nDhk16, v N-major from shared
+// memory), with p in registers: the accumulator fragment of s is the
+// A-operand fragment of the next product, so p never goes through shared
+// memory.  p in [0, 1] is no bf16 value, so it is split into three bf16
+// terms p = p1 + p2 + p3, each the round-to-nearest of what the terms
+// before it left (the differences are exact in float32); the three
+// products against one v tile leave at most 2^-24 p per product, float32's
+// own rounding (two terms would leave 2^-16 p).  l sums the float32 p; the
+// rescale exp(m_old - m_new) is applied to the o fragment in registers.
+// Each warpgroup runs a tile's two products in turn; the other
+// consumer's softmax fills the tensor cores' gaps (overlapping a tile's
+// softmax with the previous tile's p v inside one warpgroup, on a third
+// stage, measured slower).
 //
-// What bounds it on the H100: FP32 FMA, no tensor cores (the port runs
-// without TF32).  At the serving shape one launch does 5.15e11 FLOPs,
-// 7.7 ms at 67 TFLOP/s; it moves 210 MB, 0.063 ms at 3.35 TB/s.  This
-// first design is also bound by shared-memory reads (8 loads per 16 FMAs
-// in q k^T).  A later redesign: products of bf16 values are exact in
-// float32, so q k^T can move to bf16 wgmma (989 TFLOP/s) without changing
-// a bit of its sums' inputs; p v cannot, because p is not a bf16 value.
+// float32: the first design, FP32 FMA on operands widened in shared
+// memory (no tensor cores; the port runs without TF32), bound by shared-
+// memory loads (8 per 16 FMAs in q k^T).  One block of 256 threads per
+// (tile of 64 query rows, query head, batch entry); each thread owns 4
+// query rows, the 16 threads of a half-warp reduce a row's max and sum
+// with shuffles.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
+                   // through the CUDA runtime, so nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
+
+// ------------------------------------------------------ float32: FP32 FMA
+namespace f32 {
 
 constexpr int BQ = 64;           // query rows per block
 constexpr int BK = 64;           // kv rows per tile
@@ -56,13 +95,7 @@ struct Params {
 };
 
 __device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int DH>
 constexpr size_t smem_bytes() {
@@ -212,16 +245,668 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+}  // namespace f32
+
+// -------------------------------------------------- bfloat16: wgmma + TMA
+namespace bf16 {
+
+constexpr int BQ = 128;       // query rows per block, 64 per consumer
+constexpr int BK = 128;       // kv rows per tile
+constexpr int STAGES = 2;     // the kv ring
+constexpr int THREADS = 384;  // warpgroups 0, 1 consume, 2 produces
+constexpr int CONSUMER_WARPS = 8;
+constexpr int KSTEP = 16;     // bf16 values per 32-byte row: one k-step
+constexpr int ROW = 32;       // bytes per swizzled chunk row
+constexpr int NS = BK / 2;    // s accumulators per thread
+constexpr float LOG2E = 1.4426950408889634f;
+
 template <int DH>
-int launch_typed(const Params& p, int B, int dtype, cudaStream_t stream) {
-  if (dtype == 0) return launch<DH, float>(p, B, stream);
-  if (dtype == 1) return launch<DH, __nv_bfloat16>(p, B, stream);
-  return (int)cudaErrorInvalidValue;
+struct Layout {               // byte offsets in shared memory
+  static constexpr int NCH = DH / KSTEP;      // chunks per tile row
+  static constexpr int QCHUNK = BQ * ROW;     // [BQ rows][16 columns]
+  static constexpr int KCHUNK = BK * ROW;     // [BK rows][16 columns]
+  static constexpr int Q = 0;
+  static constexpr int K = Q + NCH * QCHUNK;             // [STAGES][NCH]
+  static constexpr int V = K + STAGES * NCH * KCHUNK;    // [STAGES][NCH]
+  static constexpr int BAR = V + STAGES * NCH * KCHUNK;  // full, empty, q
+  static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1);
+  static constexpr int Q_TX = BQ * DH * 2;               // bytes per load
+  static constexpr int KV_TX = 2 * BK * DH * 2;
+};
+
+struct Params {
+  void* o;
+  int H, G, Sq, Skv, causal, window, q_offset;  // window < 0: none
+  float scale;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory at dst; completion is counted on bar's transaction bytes
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 32-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 3
+__device__ __forceinline__ uint64_t desc32(uint32_t addr, uint32_t lbo,
+                                           uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)3 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving the registers of an asynchronous wgmma
+// (accumulators, A fragments) across the wait for it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float2 ld_bf16x2(uint32_t addr) {  // shared
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = +0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d[64] (+)= A B^T, m64n128k16: A [64 x 16] and B [128 x 16] bf16 in shared
+// memory, both K-major; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[16] += A B, m64n32k16: A [64 x 16] bf16 in registers (in the
+// accumulator fragment's order), B [16 x 32] bf16 in shared memory, N-major.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d[32] += A B, m64n64k16: A [64 x 16] bf16 in registers (in the
+// accumulator fragment's order), B [16 x 64] bf16 in shared memory, N-major.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d[40] += A B, m64n80k16: A [64 x 16] bf16 in registers (in the
+// accumulator fragment's order), B [16 x 80] bf16 in shared memory, N-major.
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d[64] += A B, m64n128k16: A [64 x 16] bf16 in registers (in the
+// accumulator fragment's order), B [16 x 128] bf16 in shared memory, N-major.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
+                                         const uint32_t* a, uint64_t db) {
+  if constexpr (DH == 32) wgmma_rs_n32(d, a[0], a[1], a[2], a[3], db);
+  if constexpr (DH == 64) wgmma_rs_n64(d, a[0], a[1], a[2], a[3], db);
+  if constexpr (DH == 80) wgmma_rs_n80(d, a[0], a[1], a[2], a[3], db);
+  if constexpr (DH == 128) wgmma_rs_n128(d, a[0], a[1], a[2], a[3], db);
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x0, x1) -> three bf16x2 terms, each the round-to-nearest of what the
+// terms before it left; the residuals are exact in float32
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& t1,
+                                       uint32_t& t2, uint32_t& t3) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x0, x1);
+  const float2 fa = __bfloat1622float2(a);
+  const float r0 = __fsub_rn(x0, fa.x), r1 = __fsub_rn(x1, fa.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(r0, r1);
+  const float2 fb = __bfloat1622float2(b);
+  const __nv_bfloat162 c =
+      __floats2bfloat162_rn(__fsub_rn(r0, fb.x), __fsub_rn(r1, fb.y));
+  t1 = bits(a);
+  t2 = bits(b);
+  t3 = bits(c);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One consumer thread's rows: r0 and r0 + 8 of its warpgroup's 64.
+struct Rows {
+  float m[2] = {-INFINITY, -INFINITY};  // running max of the logits
+  float l[2] = {0.f, 0.f};              // running sum of p
+  float a[2];                           // this tile's rescale of o
+  int lo[2], hi[2];  // the tile's visible columns per row: [lo, hi)
+};
+
+// The online softmax on the s fragment of one kv tile: element i sits at
+// row r0 (+8 when i & 2), column 8 (i / 4) + cq + (i & 1).  Each logit is
+// the float32 sum times the scale, rounded once, and the running max is one
+// of them, so t - m and m_old - m_new are exact differences: every p and
+// every rescale refers to the same max, as in the plain version.  (Folding
+// the scale into the exponent, 2^(s c - round(m c)), breaks that: at logits
+// in the hundreds the rounding of m c weighs one tile's p against
+// another's by up to 2^-15, which a row that mixes two keys of cancelling
+// v turns into errors far above float32's.)  p = 2^((t - m) log2 e) on
+// ex2.approx.  Masked logits become -inf, whose 2^x is +0; a row whose max
+// is still -inf takes an offset of 0, so nothing of it enters exp as NaN,
+// and its rescale is 0 (nothing was summed).
+//   Where logits are large (|t| >= REFINE_ABOVE), a few ulps of t move p
+// by more than float32's own rounding of the output, and the order of the
+// float32 sum decides them: at the serving model's logits in the hundreds,
+// in a row that mixes two keys of comparable p and cancelling v, the
+// tensor cores' order and the plain version's sequential FMA chain give
+// outputs that differ by many times float32's rounding of them, each as
+// far from the float64 value.  So the logits within REFINE_WITHIN of the
+// running max are recomputed by `chain` as one float32 FMA chain over d,
+// the order the plain version's GEMM and the float32 path sum in.  Random
+// inputs of unit scale never take this path.
+constexpr float REFINE_ABOVE = 8.f;   // |logit|: ulp(8) = 2^-20
+constexpr float REFINE_WITHIN = 20.f;  // below the max: p < 2e-9
+template <bool MASK, typename Chain>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], Rows& r, int cq,
+                                             float scale, Chain chain) {
+  float mx[2] = {r.m[0], r.m[1]};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int h = (i >> 1) & 1, col = 8 * (i / 4) + cq + (i & 1);
+    s[i] *= scale;
+    if (MASK && (col < r.lo[h] || col >= r.hi[h])) s[i] = -INFINITY;
+    mx[h] = fmaxf(mx[h], s[i]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) mx[h] = quad_max(mx[h]);
+  auto big = [](float x) { return x > -INFINITY && fabsf(x) >= REFINE_ABOVE; };
+  if (__any_sync(0xffffffffu, big(mx[0]) || big(mx[1]))) {
+    uint64_t need = 0;  // bit i: element i is recomputed
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int h = (i >> 1) & 1;
+      if (s[i] > mx[h] - REFINE_WITHIN && fabsf(s[i]) >= REFINE_ABOVE)
+        need |= 1ull << i;
+    }
+    while (need) {  // each lane its own elements, the lanes side by side
+      const int j = __ffsll(need) - 1;
+      need &= need - 1;
+      const float t = chain(j) * scale;
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        if (i == j) s[i] = t;  // a register array takes no runtime index
+    }
+    mx[0] = r.m[0];
+    mx[1] = r.m[1];
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) mx[h] = quad_max(mx[h]);
+  }
+  float off[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    off[h] = mx[h] == -INFINITY ? 0.f : mx[h];
+    r.a[h] = r.m[h] == -INFINITY ? 0.f : ex2((r.m[h] - mx[h]) * LOG2E);
+    r.m[h] = mx[h];
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int h = (i >> 1) & 1;
+    s[i] = ex2((s[i] - off[h]) * LOG2E);
+    rs[h] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) r.l[h] = r.l[h] * r.a[h] + quad_sum(rs[h]);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const Params p) {
+  using L = Layout<DH>;
+  constexpr int NCH = L::NCH, NO = DH / 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // the swizzle pattern repeats every 256 bytes: align every chunk to 1024
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = base + L::BAR, empty = full + 8 * STAGES,
+                 qbar = empty + 8 * STAGES;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.G;
+
+  // the kv tiles any query row of this block can see
+  const int nrows = min(BQ, p.Sq - q0);
+  const long long qlo = (long long)p.q_offset + q0, qhi = qlo + nrows - 1;
+  long long kbeg = 0, kend = p.Skv;
+  if (p.causal && qhi + 1 < kend) kend = qhi + 1;
+  if (p.window >= 0 && qlo - p.window + 1 > kbeg) kbeg = qlo - p.window + 1;
+  const int t0 = (int)(kbeg / BK);
+  const int ntiles = kend > kbeg ? (int)((kend + BK - 1) / BK) - t0 : 0;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * 128) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 2 * 128 && ntiles > 0) {
+      mbar_expect_tx(qbar, L::Q_TX);
+      for (int c = 0; c < NCH; ++c)
+        tma_load(base + L::Q + c * L::QCHUNK, &tq, qbar, c * KSTEP, q0, h, b);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % STAGES;
+        const uint32_t bar = full + 8 * s;
+        mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(bar, L::KV_TX);
+        const int k0 = (t0 + it) * BK;
+        for (int c = 0; c < NCH; ++c) {
+          tma_load(base + L::K + (s * NCH + c) * L::KCHUNK, &tk, bar,
+                   c * KSTEP, k0, hk, b);
+          tma_load(base + L::V + (s * NCH + c) * L::KCHUNK, &tv, bar,
+                   c * KSTEP, k0, hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3,
+            lane = threadIdx.x & 31;
+  const int cq = (lane & 3) * 2;                   // the quad's columns
+  const int rw = q0 + wg * 64;                     // this warpgroup's rows
+  const int r0 = rw + warp * 16 + (lane >> 2);     // rows r0 and r0 + 8
+  const int nrw = max(0, min(64, p.Sq - rw));
+  const long long qlw = (long long)p.q_offset + rw, qhw = qlw + nrw - 1;
+
+  float o[NO], s[NS];
+  uint32_t pa[3 * BK / KSTEP * 4];  // p's three bf16 terms, A fragments
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  Rows rows;
+
+  // whether this warpgroup's rows see any of the tile
+  auto seen = [&](int it) {
+    const long long k0 = (long long)(t0 + it) * BK;
+    return nrw > 0 && k0 < p.Skv && (!p.causal || k0 <= qhw) &&
+           (p.window < 0 || k0 + BK - 1 > qlw - p.window);
+  };
+  // s = q k^T: NCH k-steps, both operands K-major in shared memory
+  auto issue_s = [&](int it) {
+    const uint32_t qa = base + L::Q + wg * 64 * ROW,
+                   ka = base + L::K + (it % STAGES) * NCH * L::KCHUNK;
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+      wgmma_ss_n128(s, desc32(qa + c * L::QCHUNK, 16, 8 * ROW),
+                    desc32(ka + c * L::KCHUNK, 16, 8 * ROW), c > 0);
+    wgmma_commit();
+  };
+  // o += p v, three terms per k-step; v N-major: 16 kv rows of 32 bytes
+  // per k-step, the next 16 columns one chunk on (LBO), the next 8 rows
+  // 256 bytes on (SBO)
+  auto issue_pv = [&](int it) {
+    const uint32_t va = base + L::V + (it % STAGES) * NCH * L::KCHUNK;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / KSTEP; ++kk) {
+      const uint64_t dv = desc32(va + kk * KSTEP * ROW, L::KCHUNK, 8 * ROW);
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        wgmma_pv<DH>(o, &pa[(kk * 3 + t) * 4], dv);
+    }
+    wgmma_commit();
+  };
+  // the sum of element i of tile it's s as one float32 FMA chain over d,
+  // from the swizzled chunks in shared memory (a row's 16-byte halves swap
+  // when bit 2 of the row is set)
+  auto chain_of = [&](int it) {
+    return [&, it](int i) {
+      const int qr = wg * 64 + warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1),
+                kr = 8 * (i / 4) + cq + (i & 1);
+      const uint32_t qrow = base + L::Q + qr * ROW,
+                     krow = base + L::K + (it % STAGES) * NCH * L::KCHUNK +
+                            kr * ROW,
+                     swq = ((qr >> 2) & 1) << 4, swk = ((kr >> 2) & 1) << 4;
+      float acc = 0.f;
+#pragma unroll 1
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int j = 0; j < KSTEP / 2; ++j) {
+          const float2 a = ld_bf16x2(qrow + c * L::QCHUNK + ((4 * j) ^ swq));
+          const float2 b = ld_bf16x2(krow + c * L::KCHUNK + ((4 * j) ^ swk));
+          acc = fmaf(a.x, b.x, acc);
+          acc = fmaf(a.y, b.y, acc);
+        }
+      return acc;
+    };
+  };
+  // the softmax of tile it; masks only where some row sees part of it
+  auto softmax = [&](int it) {
+    const long long k0 = (long long)(t0 + it) * BK;
+    if (k0 + BK <= p.Skv && (!p.causal || k0 + BK - 1 <= qlw) &&
+        (p.window < 0 || k0 > qhw - p.window)) {
+      softmax_tile<false>(s, rows, cq, p.scale, chain_of(it));
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const long long qpos = (long long)p.q_offset + r0 + 8 * j;
+      long long hi = p.Skv, lo = 0;
+      if (p.causal && qpos + 1 < hi) hi = qpos + 1;
+      if (p.window >= 0) lo = qpos - p.window + 1;
+      rows.lo[j] = (int)min(max(lo - k0, 0LL), (long long)BK);
+      rows.hi[j] = (int)min(max(hi - k0, 0LL), (long long)BK);
+    }
+    softmax_tile<true>(s, rows, cq, p.scale, chain_of(it));
+  };
+  // o *= a per row, then p into its three bf16 terms: k-step kk takes
+  // columns 16 kk.. of p, the fragment's registers 8 kk.., which are in
+  // the A operand's order
+  auto rescale_and_split = [&]() {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= rows.a[(i >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < BK / KSTEP; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split3(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1],
+               pa[(kk * 3 + 0) * 4 + r], pa[(kk * 3 + 1) * 4 + r],
+               pa[(kk * 3 + 2) * 4 + r]);
+  };
+
+  // each tile's two products run in turn; the other consumer warpgroup's
+  // softmax fills the tensor cores' gaps
+  if (ntiles > 0) mbar_wait(qbar, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % STAGES;
+    mbar_wait(full + 8 * st, (it / STAGES) & 1);
+    if (seen(it)) {
+      issue_s(it);
+      wgmma_wait_all();
+      fence_regs(s);
+      softmax(it);
+      rescale_and_split();
+      issue_pv(it);
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(pa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  }
+
+  // rows past Sq are not stored; a row that saw no key writes 0
+  const float d0 = rows.l[0] == 0.f ? 1.f : rows.l[0],
+              d1 = rows.l[1] == 0.f ? 1.f : rows.l[1];
+  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o);
+  __nv_bfloat16* o0 = O + (((size_t)b * p.Sq + r0) * p.H + h) * DH + cq;
+  __nv_bfloat16* o1 = o0 + (size_t)8 * p.H * DH;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    if (r0 < p.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j] / d0, o[4 * j + 1] / d0);
+    if (r0 + 8 < p.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// [B, S, H, DH] bf16 with element strides (sb, ss, sh), DH contiguous, in
+// boxes of 16 columns x `rows` rows of one head, 32-byte swizzle; rows past
+// S read as zeros.  Returns 0 or 1000 + the encoding's CUresult.
+int encode(CUtensorMap* map, const void* ptr, int B, int S, int H, int DH,
+           long long sb, long long ss, long long sh, int rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return 1000 + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dim[4] = {(cuuint64_t)DH, (cuuint64_t)S, (cuuint64_t)H,
+                             (cuuint64_t)B};
+  const cuuint64_t stride[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)KSTEP, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dim, stride, box, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_32B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, const Params& p,
+           int B, int Hkv, long long qsb, long long qss, long long qsh,
+           long long ksb, long long kss, long long ksh, long long vsb,
+           long long vss, long long vsh, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  const int skv = p.Skv > 0 ? p.Skv : 1;  // no key: no tile is loaded
+  int rc = encode(&tq, q, B, p.Sq, p.H, DH, qsb, qss, qsh, BQ);
+  if (rc == 0) rc = encode(&tk, k, B, skv, Hkv, DH, ksb, kss, ksh, BK);
+  if (rc == 0) rc = encode(&tv, v, B, skv, Hkv, DH, vsb, vss, vsh, BK);
+  if (rc != 0) return rc;
+  const int smem = Layout<DH>::BYTES + 1024;  // + the alignment to 1024
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
+  flash_attention_wgmma_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bf16
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o alike); window < 0: none.
+// dtype: 0 float32 (the FMA design), 1 bfloat16 (wgmma + TMA; every
+// pointer 16-byte aligned and every stride of a dim longer than 1 a
+// multiple of 8 elements, which the wrapper checks); window < 0: none.
+// Returns a cudaError_t, or 1000 + the CUresult of a failed tensor-map
+// encoding.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int Hkv, int Sq, int Skv, int D, long long qsb, long long qss,
@@ -230,15 +915,31 @@ extern "C" int flash_attention_launch(
     int q_offset, int dtype, void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
   if (Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
-  Params p{q,   k,   v,   o,   H,   H / Hkv, Sq,     Skv,      qsb,
-           qss, qsh, ksb, kss, ksh, vsb,     vss,    vsh,      causal,
-           window, q_offset, (float)(1.0 / sqrt((double)D))};
+  const float scale = (float)(1.0 / sqrt((double)D));
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    f32::Params p{q,   k,   v,   o,   H,   H / Hkv, Sq,     Skv,      qsb,
+                  qss, qsh, ksb, kss, ksh, vsb,     vss,    vsh,      causal,
+                  window, q_offset, scale};
+    switch (D) {
+      case 32: return f32::launch<32, float>(p, B, st);
+      case 64: return f32::launch<64, float>(p, B, st);
+      case 80: return f32::launch<80, float>(p, B, st);
+      case 128: return f32::launch<128, float>(p, B, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const bf16::Params p{o, H, H / Hkv, Sq, Skv, causal, window, q_offset, scale};
+#define WG_LAUNCH(DH)                                                      \
+  bf16::launch<DH>(q, k, v, p, B, Hkv, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, \
+                 vsh, st)
   switch (D) {
-    case 32: return launch_typed<32>(p, B, dtype, st);
-    case 64: return launch_typed<64>(p, B, dtype, st);
-    case 80: return launch_typed<80>(p, B, dtype, st);
-    case 128: return launch_typed<128>(p, B, dtype, st);
+    case 32: return WG_LAUNCH(32);
+    case 64: return WG_LAUNCH(64);
+    case 80: return WG_LAUNCH(80);
+    case 128: return WG_LAUNCH(128);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef WG_LAUNCH
 }

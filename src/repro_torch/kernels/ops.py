@@ -20,7 +20,7 @@ from repro_torch.core.hieavg import History
 from .coef_agg import coef_agg, coef_agg_pair
 from .flash_attention import flash_attention  # noqa: F401  (GQA front-end)
 from .hieavg_agg import hieavg_agg
-from .sgd_update import sgd_update
+from .sgd_update import sgd_update_many
 
 
 def _flat(w: torch.Tensor, lead: tuple) -> torch.Tensor:
@@ -97,8 +97,12 @@ def fused_coef_aggregate_pair(stacked_w: dict, aux: dict, ca: torch.Tensor,
 
 def fused_sgd_update(params: dict, grads: dict, scale: float, *,
                      mode: str = "auto") -> dict:
-    """``w - scale * g`` per leaf; ``scale`` is a host float.  (Autograd
-    may hand a leaf's gradient over as a strided view.)"""
-    return {k: sgd_update(w, grads[k].contiguous(), scale, mode=mode)
-            for k, w in params.items()}
+    """``w - scale * g`` per leaf, every leaf in one ``sgd_update`` launch;
+    ``scale`` is a host float.  (Autograd may hand a leaf's gradient over
+    as a strided view.)"""
+    names = list(params)
+    out = sgd_update_many([params[k] for k in names],
+                          [grads[k].contiguous() for k in names], scale,
+                          mode=mode)
+    return dict(zip(names, out))
 

@@ -16,7 +16,10 @@ update, zero-coefficient slots and the correct-counts exactly.  Flash
 attention: float32 ``atol 2e-5`` (``tests/test_kernels.py``'s bound),
 bfloat16 one unit in the last place beyond that bound (both versions
 widen, sum in float32, which may differ by 2e-5 where a sum cancels to
-near 0, and round once), rows that see no key exactly 0.
+near 0, and round once), rows that see no key exactly 0, at unit-scale and
+at sharp (q scaled by 24) logits.  The multi-leaf SGD update is bitwise
+the plain version, one launch a call; a bfloat16 operand that breaks a
+TMA precondition raises before any launch.
 """
 import numpy as np
 import pytest
@@ -30,7 +33,9 @@ from repro_torch.kernels.conv3x3 import (matmul_bias_relu_bwd,  # noqa: E402
 from repro_torch.kernels.eval_head import eval_head  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.hieavg_agg import hieavg_agg  # noqa: E402
-from repro_torch.kernels.sgd_update import sgd_update  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.sgd_update import (MAX_LEAVES,  # noqa: E402
+                                            sgd_update, sgd_update_many)
 
 pytestmark = pytest.mark.gpu
 
@@ -172,13 +177,26 @@ def test_gpu_hieavg_agg_narrow_history_matches_plain(cuda, dtype):
             (g.tolist(), want.tolist())
 
 
-#: (Sq, Skv), Dh, (H, Hkv), causal, window: the tile tails (64-row tiles)
-#: of every head dim the kernel is built for, GQA groups 1 to 4
+#: (Sq, Skv), Dh, (H, Hkv), causal, window: the tile tails of every head
+#: dim the kernels are built for (float32: 64-row tiles; bfloat16: 128 query
+#: rows a block, 128 kv rows a tile, a ring of two stages), GQA groups 1 to
+#: 4, q read through strides in every case
 FLASH_CASES = [((1, 256), 64, (4, 4), True, None),
                ((300, 300), 80, (8, 2), True, 100),
                ((65, 129), 128, (4, 1), False, None),
                ((512, 1000), 32, (4, 2), True, 256),
-               ((300, 300), 80, (8, 2), False, 64)]
+               ((300, 300), 80, (8, 2), False, 64),
+               # one past a bf16 block and tile, each head dim
+               ((129, 129), 32, (2, 2), True, None),
+               ((129, 129), 64, (4, 2), False, None),
+               ((129, 129), 80, (4, 1), True, 100),
+               ((129, 129), 128, (2, 1), False, 64),
+               # one query row, a long kv
+               ((1, 1000), 80, (8, 2), True, 4096),
+               ((1, 129), 128, (2, 2), False, None),
+               # kv of 3 and 5 tiles: not a whole number of ring stages
+               ((100, 384), 80, (4, 2), True, None),
+               ((200, 640), 64, (4, 1), False, 300)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -199,6 +217,72 @@ def test_gpu_flash_attention_matches_plain(cuda, dtype):
             torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
         else:
             assert _ulps(got, want, dtype, atol=2e-5) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gpu_flash_attention_sharp_logits_match_plain(cuda, dtype):
+    """Logits in the hundreds (q scaled by 24, as the serving model's random
+    weights make them), where a few ulps of a logit move the output: the
+    same bounds as above."""
+    rng = np.random.default_rng(7)
+    for (sq, skv), dh, (h, hkv), causal, window in FLASH_CASES[1:6]:
+        q = t(np32(rng, 2, sq, h, dh, scale=24.0)).to(cuda, dtype)
+        k, v = (t(np32(rng, 2, skv, hkv, dh)).to(cuda, dtype)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window,
+                  q_offset=skv - sq if causal else 0)
+        got = flash_attention(q, k, v, mode="cuda", **kw)
+        want = flash_attention(q, k, v, mode="torch", **kw)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+        else:
+            assert _ulps(got, want, dtype, atol=2e-5) <= 1.0
+
+
+def test_gpu_flash_attention_bf16_refuses_what_tma_cannot_load(cuda):
+    """An operand that breaks a TMA precondition raises before any launch:
+    q whose storage is offset by one element (2 bytes), and k whose
+    sequence stride is no multiple of 16 bytes."""
+    q = torch.zeros(2 * 64 * 4 * 80 + 1, device=cuda,
+                    dtype=torch.bfloat16)[1:].view(2, 64, 4, 80)
+    k = torch.zeros(2, 64, 2, 84, device=cuda, dtype=torch.bfloat16)
+    k = k[..., :80]
+    good = torch.zeros(2, 64, 2, 80, device=cuda, dtype=torch.bfloat16)
+    before = build.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, good, good, mode="cuda")
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash_attention(q.clone(), k, good, mode="cuda")
+    assert build.LAUNCHES["flash_attention"] == before
+
+
+#: the paper's CNN leaves at DEFAULT width (c1 32, c2 64, 10 classes,
+#: 28x28), D = 25 devices: 144266 parameters in six leaves
+CNN_LEAVES = [(25, 3, 3, 1, 32), (25, 32), (25, 3, 3, 32, 64), (25, 64),
+              (25, 12544, 10), (25, 10)]
+
+
+def test_gpu_sgd_update_many_is_one_bitwise_launch(cuda):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(6)
+    ws = [torch.randn(s, generator=g, device=cuda) for s in CNN_LEAVES]
+    gs = [torch.randn(s, generator=g, device=cuda) for s in CNN_LEAVES]
+    before = build.LAUNCHES["sgd_update"]
+    got = sgd_update_many(ws, gs, 0.00095238, "cuda")
+    assert build.LAUNCHES["sgd_update"] == before + 1
+    for a, b, w in zip(got, sgd_update_many(ws, gs, 0.00095238, "torch"),
+                       ws):
+        assert a.shape == w.shape and torch.equal(a, b)
+    # scale 0 is an exact identity, whatever the gradient holds
+    same = sgd_update_many(ws, [x * 1e30 for x in gs], 0.0, "cuda")
+    assert all(torch.equal(a, w) for a, w in zip(same, ws))
+    assert build.LAUNCHES["sgd_update"] == before + 2
+    # one launch takes at most MAX_LEAVES leaves, refused before launching
+    many = [ws[1]] * (MAX_LEAVES + 1)
+    with pytest.raises(ValueError, match="at most"):
+        sgd_update_many(many, many, 0.1, "cuda")
+    assert build.LAUNCHES["sgd_update"] == before + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -29,14 +29,15 @@ from repro.kernels.conv3x3 import \
 from repro.kernels.eval_head import eval_head as jax_eval_head  # noqa: E402
 from repro.kernels.hieavg_agg import hieavg_agg as jax_hieavg_agg  # noqa: E402
 from repro.kernels.sgd_update import sgd_update as jax_sgd  # noqa: E402
-from repro_torch.kernels import build, dispatch  # noqa: E402
+from repro_torch.kernels import build, dispatch, ops  # noqa: E402
 from repro_torch.kernels.coef_agg import coef_agg  # noqa: E402
 from repro_torch.kernels.conv3x3 import (conv3x3_bias_relu,  # noqa: E402
                                          matmul_bias_relu_bwd,
                                          matmul_bias_relu_fwd)
 from repro_torch.kernels.eval_head import eval_head  # noqa: E402
 from repro_torch.kernels.hieavg_agg import hieavg_agg  # noqa: E402
-from repro_torch.kernels.sgd_update import sgd_update  # noqa: E402
+from repro_torch.kernels.sgd_update import (sgd_update,  # noqa: E402
+                                            sgd_update_many)
 
 pytestmark = pytest.mark.kernel_oracle
 
@@ -123,6 +124,47 @@ def test_sgd_update_wants_a_host_scale():
     w = torch.zeros(2, 3)
     with pytest.raises(TypeError, match="host float"):
         sgd_update(w, w, torch.tensor(0.1))
+
+
+#: a ragged set of leaves: the CNN's kinds of shape at small widths, a
+#: one-element leaf and an empty one
+RAGGED = {"conv1_w": (3, 3, 3, 1, 4), "conv1_b": (3, 4), "fc_w": (3, 37, 10),
+          "fc_b": (3, 10), "one": (1,), "empty": (3, 0)}
+
+
+@pytest.mark.parametrize("scale", [0.37, 0.0])
+def test_fused_sgd_update_matches_pallas_per_leaf(scale):
+    """The one-launch-per-step path (``ops.fused_sgd_update`` through
+    ``sgd_update_many``) is the JAX kernel leaf by leaf; a strided gradient
+    is taken as autograd hands it over."""
+    rng = np.random.default_rng(11)
+    params = {k: np32(rng, *shp) for k, shp in RAGGED.items()}
+    grads = {k: np32(rng, *shp, scale=1e3) for k, shp in RAGGED.items()}
+    tgrads = {k: t(g) for k, g in grads.items()}
+    tgrads["fc_w"] = t(np.ascontiguousarray(grads["fc_w"].transpose(0, 2, 1))
+                       ).transpose(1, 2)                     # strided view
+    got = ops.fused_sgd_update({k: t(w) for k, w in params.items()}, tgrads,
+                               float(np.float32(scale)))
+    assert list(got) == list(RAGGED)
+    for k, w in params.items():
+        # the JAX kernel on the leaf as one [1, L] row (an empty leaf has
+        # nothing to update)
+        ref = np.asarray(jax_sgd(w.reshape(1, -1), grads[k].reshape(1, -1),
+                                 jnp.float32(scale), interpret=True)
+                         ).reshape(w.shape) if w.size else w
+        assert got[k].shape == w.shape and got[k].dtype == torch.float32
+        np.testing.assert_allclose(got[k].numpy(), ref, rtol=1e-6, atol=1e-7)
+        if scale == 0.0:
+            assert torch.equal(got[k], t(w))
+
+
+def test_sgd_update_many_checks_its_leaves():
+    w = torch.zeros(2, 3)
+    with pytest.raises(ValueError, match="2 leaves, 1 grads"):
+        sgd_update_many([w, w], [w], 0.1)
+    assert sgd_update_many([], [], 0.1) == []
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sgd_update_many([w], [w], 0.1, mode="cuda")
 
 
 # ------------------------------------------------------------- hieavg_agg
