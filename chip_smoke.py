@@ -5,13 +5,15 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds every kernel against its plain PyTorch version on the card (at the
-paper's DEFAULT shapes and at tile-tail shapes; ``hieavg_agg`` also with
+paper's DEFAULT shapes and at tile-tail shapes; the conv kernels at
+every shape of the main path, the backward with and without dx, timed
+beside a grouped ``conv2d`` and the im2col GEMM; ``hieavg_agg`` also with
 bfloat16 and float8_e4m3fn history; ``sgd_update`` as one launch over
 the CNN's six leaves; ``flash_attention`` over a grid of lengths, head
 dims, masks and GQA groups in float32 and bfloat16, at unit-scale and at
-sharp logits, and at the serving shape of h2o-danube-1.8b, after a line
-that names the kernel each input type launched and its HGMMA count) and
-times both.  Then it runs the
+sharp logits, and at the serving shape of h2o-danube-1.8b in bfloat16
+and float32, after a line that names the kernel each input type launched
+and its HGMMA count) and times both.  Then it runs the
 paper's experiment at the full width of its CNN (DEFAULT cut to T = 4:
 5 SGD steps per edge round, 2 cold-boot and 2 warm global rounds) under
 every single-run aggregator: ``hieavg`` (float32, bfloat16 and float8
@@ -69,6 +71,14 @@ BF16_TC_FLOP_PER_S = 989e12
 # c2 = 64, 10 classes, n_test = 1000
 D, B, HW, C1, C2, NCLS, NTEST = 25, 32, 28, 32, 64, 10, 1000
 FEAT = (HW // 2) ** 2 * C2
+#: the conv kernels' check shapes (D, B, H, W, Cin, Cout): the main path's
+#: (train and eval, layers 2 and 1; the first is timed) and tails of the
+#: tiling: one tile, tails, odd channels, a non-square image, channels
+#: across the 4-channel chunk and 8-channel group edges
+CONV_SHAPES = ((D, B, HW, HW, C1, C2), (D, B, HW, HW, 1, C1),
+               (1, NTEST, HW, HW, 1, C1), (1, NTEST, HW, HW, C1, C2),
+               (1, 1, 5, 5, 1, 3), (2, 2, 12, 12, 4, 8), (1, 2, 16, 16, 3, 7),
+               (1, 3, 7, 9, 5, 6), (1, 2, 10, 10, 33, 65))
 
 REPLACES = {
     "conv3x3_fwd": "src/repro/kernels/conv3x3.py:83",
@@ -208,12 +218,9 @@ def check(name: str, ok: bool, detail: str) -> None:
 
 
 #: device-side kernel names -> the port's kernels (the rest is PyTorch's)
-KERNEL_SYMBOLS = (("gemm_kernel<0>", "conv3x3_fwd"),
-                  ("gemm_kernelILi0", "conv3x3_fwd"),
-                  ("gemm_kernel<1>", "conv3x3_bwd dcols"),
-                  ("gemm_kernelILi1", "conv3x3_bwd dcols"),
-                  ("gemm_kernel<2>", "conv3x3_bwd dW/db"),
-                  ("gemm_kernelILi2", "conv3x3_bwd dW/db"),
+KERNEL_SYMBOLS = (("conv3x3_fwd_kernel", "conv3x3_fwd"),
+                  ("conv3x3_dx_kernel", "conv3x3_bwd dx"),
+                  ("conv3x3_dw_kernel", "conv3x3_bwd dW/db"),
                   ("sgd_update_kernel", "sgd_update"),
                   ("hieavg_agg_kernel", "hieavg_agg"),
                   ("coef_agg_kernel", "coef_agg"),
@@ -469,6 +476,29 @@ def flash_phase(torch, cfg, flash_attention, randn, record) -> dict:
                             "& window, enable_gqa=True)",
             "library_max_abs_diff": float(lib_err), "grid": worst},
            flop_rate=BF16_TC_FLOP_PER_S)
+
+    # the float32 instantiation (off the serving path) at the same shape,
+    # against its FP32 bound and the library call on float32 inputs
+    q, k, v = (t_.float() for t_ in (q, k, v))
+    got = flash_attention(q, k, v, causal=True, window=win, mode="cuda")
+    want = flash_attention(q, k, v, causal=True, window=win, mode="torch")
+    err = (got - want).abs().max().item()
+    check("flash_attention", err <= FLASH_F32_ATOL,
+          f"float32 serving shape: {err}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    del got, want
+    record("flash_attention_f32", err, FLASH_F32_ATOL,
+           lambda: flash_attention(q, k, v, causal=True, window=win,
+                                   mode="cuda"),
+           timed_ms(torch, lambda: flash_attention(
+               q, k, v, causal=True, window=win, mode="torch"), iters=5),
+           timed_ms(torch, library, iters=5),
+           4.0 * (2 * b * s * h * dh + 2 * b * s * hkv * dh), flops,
+           {"shape": {"q": [b, s, h, dh], "kv": [b, s, hkv, dh],
+                      "dtype": "float32", "causal": True, "window": win},
+            "library_call": "scaled_dot_product_attention(attn_mask=causal "
+                            "& window, enable_gqa=True), float32"},
+           kernel="flash_attention")
     return worst
 
 
@@ -644,12 +674,12 @@ def main() -> int:
     from repro_torch.fl import BHFLSimulator, run_comparison
     from repro_torch.kernels import build
     from repro_torch.kernels.coef_agg import coef_agg, coef_agg_pair
-    from repro_torch.kernels.conv3x3 import (matmul_bias_relu_bwd,
-                                             matmul_bias_relu_fwd)
+    from repro_torch.kernels.conv3x3 import conv3x3_bwd, conv3x3_fwd
     from repro_torch.kernels.eval_head import eval_head
     from repro_torch.kernels.flash_attention import DESIGNS as FLASH_DESIGNS
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.hieavg_agg import hieavg_agg
+    from repro_torch.kernels.ref import im2col3x3
     from repro_torch.kernels.sgd_update import sgd_update, sgd_update_many
     from repro_torch.launch import serve
     from repro_torch.models import cnn_specs
@@ -700,72 +730,91 @@ def main() -> int:
         err = (got - want).abs().max().item()
         return err, rel * max(want.abs().max().item(), 1e-30)
 
-    # ---------------------------------------------------------- conv3x3_fwd
-    # train layer 2 (the DEFAULT hot shape) is timed; every other shape the
-    # main path gives the kernel (train layer 1, eval layers 1 and 2) and
-    # the tile tails are checked
-    M = B * HW * HW
-    shapes = [(D, M, 9 * C1, C2), (D, M, 9, C1),
-              (1, NTEST * HW * HW, 9, C1), (1, NTEST * HW * HW, 9 * C1, C2),
-              (1, 25, 9, 3), (2, 288, 36, 8), (1, 512, 27, 7)]
-    worst = 0.0
-    for (d, m, k, n) in shapes:
-        cols, w, b = rand(d, m, k), randn(d, k, n, scale=k ** -0.5), \
-            randn(d, n, scale=0.1)
-        got = matmul_bias_relu_fwd(cols, w, b, "cuda")
-        want = matmul_bias_relu_fwd(cols, w, b, "torch")
-        err, tol = gemm_err(got, want)
-        check("conv3x3_fwd", err <= tol, f"{(d, m, k, n)}: {err} > {tol}")
-        worst = max(worst, err / max(tol, 1e-30))
-        del cols, w, b, got, want
-    d, m, k, n = shapes[0]
-    cols, w, b = rand(d, m, k), randn(d, k, n, scale=k ** -0.5), \
-        randn(d, n, scale=0.1)
-    err, tol = gemm_err(matmul_bias_relu_fwd(cols, w, b, "cuda"),
-                        matmul_bias_relu_fwd(cols, w, b, "torch"))
-    record("conv3x3_fwd", err, tol,
-           lambda: matmul_bias_relu_fwd(cols, w, b, "cuda"),
-           timed_ms(torch, lambda: matmul_bias_relu_fwd(cols, w, b, "torch")),
-           timed_ms(torch, lambda: torch.baddbmm(b[:, None, :], cols, w)),
-           4.0 * (d * m * k + d * k * n + d * n + d * m * n),
-           2.0 * d * m * k * n,
-           {"shape": [d, m, k, n], "worst_err_over_tol": worst})
-
-    # ---------------------------------------------------------- conv3x3_bwd
-    worst = 0.0
-    for (d2, m2, k2, n2) in shapes:
-        c2, w2, b2 = rand(d2, m2, k2), randn(d2, k2, n2, scale=k2 ** -0.5), \
-            randn(d2, n2, scale=0.1)
-        y2 = matmul_bias_relu_fwd(c2, w2, b2, "torch")
-        dy2 = randn(d2, m2, n2)
+    # ------------------------------------------------- conv3x3_fwd and _bwd
+    # every shape the main path gives the kernels (train and eval, both
+    # layers) and the tiling's tails, the backward with and without dx;
+    # layer 2 at the train shape is timed
+    worst_f = worst_b = 0.0
+    for shape in CONV_SHAPES:
+        d, b_, h, wd, ci, co = shape
+        x, w = rand(d, b_, h, wd, ci), randn(d, 3, 3, ci, co,
+                                             scale=(9 * ci) ** -0.5)
+        b = randn(d, co, scale=0.1)
+        want = conv3x3_fwd(x, w, b, "torch")
+        err, tol = gemm_err(conv3x3_fwd(x, w, b, "cuda"), want)
+        check("conv3x3_fwd", err <= tol, f"{shape}: {err} > {tol}")
+        worst_f = max(worst_f, err / max(tol, 1e-30))
+        dy = randn(d, b_, h, wd, co)
         for need in (True, False):
-            got = matmul_bias_relu_bwd(c2, w2, y2, dy2, need, "cuda")
-            want = matmul_bias_relu_bwd(c2, w2, y2, dy2, need, "torch")
-            for g_, w_ in zip(got, want):
+            got = conv3x3_bwd(x, w, want, dy, need, "cuda")
+            for g_, w_ in zip(got, conv3x3_bwd(x, w, want, dy, need,
+                                               "torch")):
                 if w_ is None:
-                    check("conv3x3_bwd", g_ is None, "dcols where none asked")
+                    check("conv3x3_bwd", g_ is None, "dx where none asked")
                     continue
-                err2, tol2 = gemm_err(g_, w_)
-                check("conv3x3_bwd", err2 <= tol2,
-                      f"{(d2, m2, k2, n2)}: {err2} > {tol2}")
-                worst = max(worst, err2 / max(tol2, 1e-30))
-        del c2, w2, b2, y2, dy2, got, want
-    y = matmul_bias_relu_fwd(cols, w, b, "torch")
-    dy = randn(d, m, n)
-    got = matmul_bias_relu_bwd(cols, w, y, dy, True, "cuda")
-    want = matmul_bias_relu_bwd(cols, w, y, dy, True, "torch")
-    errs = [gemm_err(g_, w_) for g_, w_ in zip(got, want)]
-    err = max(e for e, _ in errs)
-    check("conv3x3_bwd", all(e <= t for e, t in errs), f"{errs}")
-    record("conv3x3_bwd", err, max(t for _, t in errs),
-           lambda: matmul_bias_relu_bwd(cols, w, y, dy, True, "cuda"),
-           timed_ms(torch, lambda: matmul_bias_relu_bwd(cols, w, y, dy, True,
-                                                        "torch")),
-           None,
-           4.0 * (2 * d * m * k + 2 * d * k * n + 2 * d * m * n + d * n),
-           4.0 * d * m * k * n + d * m * n,
-           {"shape": [d, m, k, n], "worst_err_over_tol": worst})
-    del cols, w, b, y, dy, got, want
+                err, tol = gemm_err(g_, w_)
+                check("conv3x3_bwd", err <= tol,
+                      f"{shape} need_dx={need}: {err} > {tol}")
+                worst_b = max(worst_b, err / max(tol, 1e-30))
+        del x, w, b, want, dy, got
+    d, b_, h, wd, ci, co = CONV_SHAPES[0]
+    m = b_ * h * wd
+    x, w = rand(d, b_, h, wd, ci), randn(d, 3, 3, ci, co,
+                                         scale=(9 * ci) ** -0.5)
+    b = randn(d, co, scale=0.1)
+    y = conv3x3_fwd(x, w, b, "torch")
+    dy = randn(d, b_, h, wd, co)
+    # the yardsticks: one grouped conv2d over the D devices (NCHW, TF32
+    # off), its convolution_backward given dz, and the im2col GEMM on
+    # patches built beforehand
+    xn = x.permute(1, 0, 4, 2, 3).reshape(b_, d * ci, h, wd).contiguous()
+    wn = w.permute(0, 4, 3, 1, 2).reshape(d * co, ci, 3, 3).contiguous()
+    bn = b.reshape(-1)
+    dzn = (dy * (y > 0)).permute(1, 0, 4, 2, 3).reshape(
+        b_, d * co, h, wd).contiguous()
+    cols = im2col3x3(x).reshape(d, m, 9 * ci)
+    wmat = w.reshape(d, 9 * ci, co)
+
+    def lib_fwd():
+        return torch.nn.functional.conv2d(xn, wn, bn, padding=1, groups=d)
+
+    def lib_bwd():
+        return torch.ops.aten.convolution_backward(
+            dzn, xn, wn, [d * co], [1, 1], [1, 1], [1, 1], False, [0, 0], d,
+            [True, True, True])
+
+    lib_diff = (torch.relu(lib_fwd()).reshape(b_, d, co, h, wd)
+                .permute(1, 0, 3, 4, 2) - y).abs().max().item()
+    err, tol = gemm_err(conv3x3_fwd(x, w, b, "cuda"), y)
+    flops = 2.0 * d * m * 9 * ci * co
+    record("conv3x3_fwd", err, tol, lambda: conv3x3_fwd(x, w, b, "cuda"),
+           timed_ms(torch, lambda: conv3x3_fwd(x, w, b, "torch")),
+           timed_ms(torch, lib_fwd),
+           4.0 * (d * m * ci + d * 9 * ci * co + d * co + d * m * co), flops,
+           {"shape": [d, b_, h, wd, ci, co], "worst_err_over_tol": worst_f,
+            "library_call": "conv2d(groups=D), no ReLU",
+            "library_max_abs_diff": lib_diff,
+            "library_cols_ms": timed_ms(torch, lambda: torch.baddbmm(
+                b[:, None, :], cols, wmat)),
+            "library_cols_call": "baddbmm on im2col patches built before"})
+    del cols, wmat
+    got = conv3x3_bwd(x, w, y, dy, True, "cuda")
+    errs = [gemm_err(g_, w_) for g_, w_ in
+            zip(got, conv3x3_bwd(x, w, y, dy, True, "torch"))]
+    check("conv3x3_bwd", all(e <= t_ for e, t_ in errs), f"{errs}")
+    record("conv3x3_bwd", max(e for e, _ in errs), max(t_ for _, t_ in errs),
+           lambda: conv3x3_bwd(x, w, y, dy, True, "cuda"),
+           timed_ms(torch, lambda: conv3x3_bwd(x, w, y, dy, True, "torch")),
+           timed_ms(torch, lib_bwd),
+           4.0 * (2 * d * m * ci + 2 * d * 9 * ci * co + 2 * d * m * co
+                  + d * co), 2 * flops + d * m * co,
+           {"shape": [d, b_, h, wd, ci, co], "worst_err_over_tol": worst_b,
+            "library_call": "convolution_backward of conv2d(groups=D), "
+                            "given dz",
+            "library_cols_ms": None,
+            "bitwise_on_repeat": all(torch.equal(a_, b2) for a_, b2 in zip(
+                got, conv3x3_bwd(x, w, y, dy, True, "cuda")))})
+    del x, w, b, y, dy, got, xn, wn, bn, dzn
 
     # ------------------------------------------------ the model's leaves
     specs = cnn_specs(HW, 1, NCLS, c1=C1, c2=C2)
@@ -1039,10 +1088,12 @@ def main() -> int:
     for label in RUNS:
         for mode in ("auto", "torch"):
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             build.reset_launch_counts()
             sim = make_sim(label, mode)
             res = sim.run()
             torch.cuda.synchronize()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
             runs[label, mode] = (res, dict(build.LAUNCHES))
             steps_of[label] = sim.steps
             for key in ROWS:
@@ -1058,7 +1109,8 @@ def main() -> int:
                           "chain_valid": res.chain_valid,
                           **{k: [float(v) for v in getattr(res, k)]
                              for k in ROWS},
-                          "launches": runs[label, mode][1]}})
+                          "launches": runs[label, mode][1],
+                          "peak_memory_gb": peak_gb}})
         a, launches = runs[label, "auto"]
         p, plain_launches = runs[label, "torch"]
         check("run", not plain_launches,

@@ -57,11 +57,12 @@ _F = ctypes.c_float
 
 #: argtypes of every launcher in csrc/, by symbol
 SIGNATURES = {
-    # cols, wmat, bias, y, D, M, K, N, stream
-    "conv3x3_fwd_launch": (_P, _P, _P, _P, _I, _L, _I, _I, _P),
-    # cols, wmat, y, dy, dcols (may be null), dw_part, D, M, K, N, rows per
-    # partial, stream
-    "conv3x3_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
+    # x, w, b, y, D, B*H rows, H, W, Cin, Cout, stream
+    "conv3x3_fwd_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, y, dy, dx (may be null), dw_part, D, B*H rows, H, W, Cin, Cout,
+    # rows per partial, stream
+    "conv3x3_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _P),
     # host arrays of the leaves' w and g pointers and of their element
     # counts, the number of leaves, the flat output, scale, stream
     "sgd_update_launch": (_P, _P, _P, _I, _P, _F, _P),

@@ -1,20 +1,28 @@
-"""The CNN conv block ``relu(conv3x3_same(x, w) + b)`` on the CUDA kernels
-of ``csrc/conv3x3.cu``.
+"""The CNN conv block ``relu(conv3x3_same(x, w) + b)`` on the implicit-GEMM
+CUDA kernels of ``csrc/conv3x3.cu``.
 
-Port of ``repro.kernels.conv3x3``.  The im2col construction (pad + nine
-shifted slices) stays in PyTorch, as it stays in XLA there: its autograd
-is col2im, so ``dx`` comes for free, and the ``torch.autograd.Function``
-below covers only the matmul + bias + ReLU core:
+Port of ``repro.kernels.conv3x3``, whose Pallas kernels ``_fwd_call``
+(``relu(cols @ W + b)``) and ``_bwd_call`` (``dcols``, ``dW``, ``db``) run
+on im2col patches built in XLA, ``dx`` coming from the autodiff of that
+construction (col2im).  On the H100 the patches cost more than the
+products (722 MB a step at the DEFAULT second layer, against an 80 MB
+input), so here both passes read the input's halo from shared memory:
 
-  forward   y  = relu(cols @ W + b)                 conv3x3_fwd
-  backward  dz = dy * (y > 0)                       conv3x3_bwd
-            dcols = dz @ W^T    (only when cols needs a gradient)
-            dW, db = per-row-run partials of [cols^T; 1] @ dz,
-                     summed here with torch.sum
+  forward   y  = relu(conv3x3_same(x, w) + b)                conv3x3_fwd
+  backward  dz = dy * (y > 0), applied as dy is loaded       conv3x3_bwd
+            dx = conv3x3_same(dz, w flipped, transposed)
+                 (only when x needs a gradient)
+            dW, db = per-row-run partials of sum_p x-taps * dz and
+                     sum_p dz, summed here with torch.sum
 
-The stacked device axis is the kernels' batch axis: cols [D, M, 9*Cin],
-W [D, 9*Cin, Cout], b [D, Cout].  Plain version: ``ref.matmul_bias_relu_ref``
-and ``ref.matmul_bias_relu_bwd_ref``.
+Bound at the DEFAULT train shape of the second layer (D 25, 25088
+pixels a device, Cin 32, Cout 64): 2.31e10 FLOPs a direction at the FP32
+rate, 0.345 ms forward and 0.690 ms backward; the kernels stay in FP32.
+
+Layouts are the JAX package's and the stacked device axis is the grid's:
+x [D, B, H, W, Cin], w [D, 3, 3, Cin, Cout], b [D, Cout].  The autograd
+function saves x, w and y, never patches.  Plain versions:
+``ref.conv3x3_fwd_ref`` and ``ref.conv3x3_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -22,77 +30,89 @@ import torch
 
 from . import build, ref
 
-#: rows of cols reduced into one dW/db partial by one block of the
-#: backward kernel (the partials are summed outside, deterministically)
-ROWS_PER_PARTIAL = 2048
+#: image rows (of a device's B*H) reduced into one dW/db partial by one
+#: block of the backward kernel (the partials are summed outside,
+#: deterministically)
+ROWS_PER_PARTIAL = 32
+#: the widest image the kernels take: 32 groups of 7 pixels a row
+MAX_WIDTH = 224
 
 
-def matmul_bias_relu_fwd(cols, wmat, bias, mode: str = "auto"):
-    """``relu(cols @ wmat + bias)`` for each of D devices."""
-    if not build.use_kernel(mode, cols):
-        return ref.matmul_bias_relu_ref(cols, wmat, bias)
-    D, M, K = cols.shape
-    N = wmat.shape[-1]
-    build.expect(cols, "cols", (D, M, K))
-    build.expect(wmat, "wmat", (D, K, N), device=cols.device)
-    build.expect(bias, "bias", (D, N), device=cols.device)
+def _launch(rc: int, name: str) -> None:
+    if rc == -1:
+        raise ValueError(f"{name}: image wider than {MAX_WIDTH} or weights "
+                         "too wide for a block's shared memory")
+    build.check(rc, name)
+
+
+def conv3x3_fwd(x, w, b, mode: str = "auto"):
+    """``relu(conv3x3_same(x, w) + b)`` for each of D devices: x [D, B, H,
+    W, Cin], w [D, 3, 3, Cin, Cout], b [D, Cout] -> [D, B, H, W, Cout]."""
+    if not build.use_kernel(mode, x):
+        return ref.conv3x3_fwd_ref(x, w, b)
+    D, nb, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    build.expect(x, "x", (D, nb, h, wd, cin))
+    build.expect(w, "w", (D, 3, 3, cin, cout), device=x.device)
+    build.expect(b, "b", (D, cout), device=x.device)
     if D > 65535:
         raise ValueError(f"conv3x3_fwd: D={D} exceeds the grid's z limit")
-    y = torch.empty((D, M, N), device=cols.device, dtype=torch.float32)
+    y = torch.empty((D, nb, h, wd, cout), device=x.device,
+                    dtype=torch.float32)
     build.LAUNCHES["conv3x3_fwd"] += 1
-    build.check(build.library().conv3x3_fwd_launch(
-        cols.data_ptr(), wmat.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        D, M, K, N, build.stream()), "conv3x3_fwd")
+    _launch(build.library().conv3x3_fwd_launch(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+        D, nb * h, h, wd, cin, cout, build.stream()), "conv3x3_fwd")
     return y
 
 
-def matmul_bias_relu_bwd(cols, wmat, y, dy, need_dcols: bool = True,
-                         mode: str = "auto"):
-    """(dcols or None, dW [D, K, N], db [D, N]) of ``matmul_bias_relu_fwd``
-    given its output ``y`` and the output gradient ``dy``."""
-    if not build.use_kernel(mode, cols):
-        return ref.matmul_bias_relu_bwd_ref(cols, wmat, y, dy, need_dcols)
-    D, M, K = cols.shape
-    N = wmat.shape[-1]
-    build.expect(cols, "cols", (D, M, K))
-    for name, t, shape in (("wmat", wmat, (D, K, N)), ("y", y, (D, M, N)),
-                           ("dy", dy, (D, M, N))):
-        build.expect(t, name, shape, device=cols.device)
-    nt = -(-M // ROWS_PER_PARTIAL)
-    if D * nt > 65535:
-        raise ValueError(f"conv3x3_bwd: {D} x {nt} partials exceed the "
-                         "grid's z limit")
-    dcols = torch.empty_like(cols) if need_dcols else None
-    part = torch.empty((D, nt, K + 1, N), device=cols.device,
+def conv3x3_bwd(x, w, y, dy, need_dx: bool = True, mode: str = "auto"):
+    """(dx or None, dW [D, 3, 3, Cin, Cout], db [D, Cout]) of
+    ``conv3x3_fwd`` given its output ``y`` and the output gradient
+    ``dy``."""
+    if not build.use_kernel(mode, x):
+        return ref.conv3x3_bwd_ref(x, w, y, dy, need_dx)
+    D, nb, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    build.expect(x, "x", (D, nb, h, wd, cin))
+    for name, t, shape in (("w", w, (D, 3, 3, cin, cout)),
+                           ("y", y, (D, nb, h, wd, cout)),
+                           ("dy", dy, (D, nb, h, wd, cout))):
+        build.expect(t, name, shape, device=x.device)
+    nparts = -(-(nb * h) // ROWS_PER_PARTIAL)
+    if D > 65535:
+        raise ValueError(f"conv3x3_bwd: D={D} exceeds the grid's z limit")
+    dx = torch.empty_like(x) if need_dx else None
+    part = torch.empty((D, nparts, 9 * cin + 1, cout), device=x.device,
                        dtype=torch.float32)
     build.LAUNCHES["conv3x3_bwd"] += 1
-    build.check(build.library().conv3x3_bwd_launch(
-        cols.data_ptr(), wmat.data_ptr(), y.data_ptr(), dy.data_ptr(),
-        None if dcols is None else dcols.data_ptr(), part.data_ptr(),
-        D, M, K, N, ROWS_PER_PARTIAL, build.stream()), "conv3x3_bwd")
-    total = part.sum(1)                              # [D, K + 1, N]
-    return dcols, total[:, :K], total[:, K]
+    _launch(build.library().conv3x3_bwd_launch(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), dy.data_ptr(),
+        None if dx is None else dx.data_ptr(), part.data_ptr(),
+        D, nb * h, h, wd, cin, cout, ROWS_PER_PARTIAL, build.stream()),
+        "conv3x3_bwd")
+    total = part.sum(1)                              # [D, 9*Cin + 1, Cout]
+    return dx, total[:, :9 * cin].reshape(w.shape), total[:, 9 * cin]
 
 
-class _MatmulBiasRelu(torch.autograd.Function):
-    """relu(cols @ wmat + bias) with a kernel on both passes."""
+class _Conv3x3BiasRelu(torch.autograd.Function):
+    """relu(conv3x3_same(x, w) + b) with a kernel on both passes; saves x,
+    w and y."""
 
     @staticmethod
-    def forward(ctx, cols, wmat, bias, mode):
-        cols, wmat, bias = (cols.contiguous(), wmat.contiguous(),
-                            bias.contiguous())
-        y = matmul_bias_relu_fwd(cols, wmat, bias, mode)
-        ctx.save_for_backward(cols, wmat, y)
+    def forward(ctx, x, w, b, mode):
+        x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
+        y = conv3x3_fwd(x, w, b, mode)
+        ctx.save_for_backward(x, w, y)
         ctx.mode = mode
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        cols, wmat, y = ctx.saved_tensors
-        dcols, dw, db = matmul_bias_relu_bwd(
-            cols, wmat, y, dy.contiguous(), ctx.needs_input_grad[0],
-            ctx.mode)
-        return dcols, dw, db, None
+        x, w, y = ctx.saved_tensors
+        dx, dw, db = conv3x3_bwd(x, w, y, dy.contiguous(),
+                                 ctx.needs_input_grad[0], ctx.mode)
+        return dx, dw, db, None
 
 
 def conv3x3_bias_relu(x, w, b, mode: str = "auto"):
@@ -100,11 +120,10 @@ def conv3x3_bias_relu(x, w, b, mode: str = "auto"):
 
     Stacked: x [D, ..., H, W, Cin], w [D, 3, 3, Cin, Cout], b [D, Cout].
     Single model: x [..., H, W, Cin], w [3, 3, Cin, Cout], b [Cout].
-    Semantics = ``ref.conv3x3_bias_relu_ref`` per device.
+    Semantics = ``repro.kernels.ref.conv3x3_bias_relu_ref`` per device.
     """
     if w.dim() == 4:
         return conv3x3_bias_relu(x[None], w[None], b[None], mode)[0]
-    D, cin, cout = w.shape[0], w.shape[3], w.shape[4]
-    cols = ref.im2col3x3(x).reshape(D, -1, 9 * cin)
-    y = _MatmulBiasRelu.apply(cols, w.reshape(D, 9 * cin, cout), b, mode)
-    return y.reshape(x.shape[:-1] + (cout,))
+    D, h, wd, cin = w.shape[0], x.shape[-3], x.shape[-2], x.shape[-1]
+    y = _Conv3x3BiasRelu.apply(x.reshape(D, -1, h, wd, cin), w, b, mode)
+    return y.reshape(x.shape[:-1] + (w.shape[-1],))

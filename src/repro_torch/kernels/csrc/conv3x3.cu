@@ -1,210 +1,673 @@
-// The conv block's im2col matmul with its bias + ReLU epilogue, and its
-// backward, as batched FP32 GEMMs for sm_90a.
+// The CNN conv block relu(conv3x3_same(x, w) + b) and its backward as
+// implicit-GEMM FP32 kernels for sm_90a: no im2col and no col2im.
 //
-// Replaces the Pallas kernels of src/repro/kernels/conv3x3.py:
-// _fwd_call (relu(cols @ W + b) per 256-row tile) and _bwd_call
-// (dz = dy * (y > 0), dcols = dz W^T, per-tile dW = cols^T dz and
-// db = sum dz partials summed outside).  The TPU kernels get the stacked
-// device axis from vmap; here it is the grid's z axis.
+// Replaces the Pallas kernels of src/repro/kernels/conv3x3.py: _fwd_call
+// (relu(cols @ W + b) over im2col patches) and _bwd_call (dz = dy*(y > 0),
+// dcols = dz W^T, per-tile dW = cols^T dz and db = sum dz partials summed
+// outside).  The TPU version builds the patches in XLA and gets dx from
+// the autodiff of that construction (col2im); on Hopper the patches cost
+// far more than the products: at the paper's DEFAULT train shape the
+// second layer's cols is 25 x 25088 x 288 floats = 722 MB a step against
+// an 80 MB input.  Here the nine taps are read from a halo of the input
+// in shared memory, and dx is the same kernel run over dz with the
+// flipped, transposed weights.  Layouts are the JAX package's:
+// x [D, B, H, W, Cin], w [D, 3, 3, Cin, Cout], b [D, Cout],
+// y [D, B, H, W, Cout]; the device axis D is the grid's z axis.
 //
-// What bounds it on the H100: at the paper's DEFAULT widths the second
-// layer is [D*B*784, 288] x [288, 64] per device, 2*M*K*N = 23 GFLOP per
-// direction per SGD step against ~0.9 GB of operands: above the FP32
-// ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B), so it is bound by FP32
-// operations.  TF32 and the tensor cores would lift that bound; the port
-// stays in full FP32 on this path (a later, opt-in mode).
+// What bounds it on the H100: the second layer at the DEFAULT train shape
+// (D 25, 25088 pixels a device, Cin 32, Cout 64) does 2.31e10 FLOPs a
+// direction for ~243 MB of operands, above the FP32 ridge (67 TFLOP/s
+// over 3.35 TB/s = 20 FLOP/B): 0.345 ms forward and 0.690 ms backward at
+// the FP32 rate.  The port stays in full FP32 (no TF32), so the design
+// aims at keeping the FFMA pipes busy:
 //
-// Design: one GEMM template for the three products.  A 64x64 output tile
-// per 256-thread block, each thread a 4x4 micro-tile at stride 16 (so a
-// half-warp stores 16 consecutive floats), the reduction staged through
-// shared memory 16 deep.  The tile loaders know each operand's layout
-// and read along its contiguous axis; ragged M, K and N are masked with
-// zeros, never padded by a copy.  The relu mask of the backward is
-// applied as dz is loaded, so dz is never stored.  dW and db are one
-// product: the cols^T operand gets an extra row of ones, whose output row
-// is sum(dz) = db.  Each z-block reduces a fixed run of rows into its own
-// [K+1, N] partial; torch.sum adds the partials outside, so the result is
-// deterministic (no atomics).
+// conv3x3_fwd_kernel / conv3x3_dx_kernel (one body, conv_tile):
+//   * a block of 8 warps owns 64 output channels (WM 1: each warp 8 of
+//     them) or 32 (WM 2: two warps along the pixels) and walks over tiles
+//     of whole image rows (32 * WM groups of TM = 7 pixels: 8 or 16 rows
+//     of a 28-wide image) of one device; its slice of w stays resident in
+//     shared memory, loaded once;
+//   * each tile's input halo (its rows, one above and one below, one
+//     zero column each side) comes into a 3-stage cp.async ring in chunks
+//     of CK channels (8 at the DEFAULT widths), zero-filled outside the
+//     image (the SAME pad), while the block computes on the chunk before;
+//   * each thread holds TM x 8 accumulators: per channel and tap row it
+//     reads TM + 2 inputs once and uses them for the three column taps;
+//     a warp shares its weights (broadcast float4 reads), and the halo's
+//     row stride is picked so that a warp's input reads hit 32 banks;
+//   * rows of another image (a tile may span two) and rows outside the
+//     batch read a row of zeros instead;
+//   * the forward adds the bias and applies the ReLU in the epilogue
+//     (16-byte stores); the dx pass reads dz = dy * (y > 0) (both halos
+//     copied, dz masked in place, never stored), with w flipped in both
+//     spatial axes and transposed to [tap][Cout][Cin] as it is loaded:
+//     dx[p, ci] = sum_{i,j,co} dz[p + (1 - i, 1 - j), co] w[i, j, ci, co],
+//     and the zero halo drops the contributions to padded positions
+//     exactly as col2im of the SAME pad does.  So dx needs neither the
+//     patches nor their transpose.
+//
+// conv3x3_dw_kernel: dW[i, j, ci, co] = sum_p x[p + (i-1, j-1), ci] dz[p, co]
+//   and db = sum_p dz[p, :].  A block of 9 warps reduces a fixed run of
+//   image rows of one device into its own [9*Cin + 1, Cout] partial (the
+//   last row is db: the row of ones of the TPU kernel's [cols^T; 1]
+//   product), one image row a stage (x rows r-1..r+1, dy and y row r
+//   through the same kind of ring).  At the DEFAULT widths a warp is one
+//   tap and each thread owns 8 input x 8 output channels of it (16-byte
+//   reads of x and dz); where the channels leave threads over, the
+//   threads also split the row's pixels and their sums are added in
+//   shared memory in a fixed order.  The partials are summed outside
+//   (torch.sum), so every result is the same run to run: no atomics.
+//
+// Limits, checked by the launchers (-1): W <= 224 (32 groups of 7), and a
+// block's weights and ring within shared memory (Ck up to about 140).
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 64;   // output rows per block
-constexpr int BN = 64;   // output cols per block
-constexpr int BK = 16;   // reduction depth per shared-memory stage
-constexpr int NT = 256;  // threads per block (16 x 16)
+constexpr int NT = 256;           // threads of a fwd/dx block (8 warps)
+constexpr int TM = 7;             // output pixels a thread, along a row
+constexpr int TN = 8;             // output channels a thread
+constexpr int NS = 3;             // stages of the cp.async rings
+constexpr int DW_NT = 288;        // threads of a dW block (9 warps)
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory of one block
 
-enum Mode { FWD = 0, DCOLS = 1, DW = 2 };
+// 4-byte asynchronous copy to shared memory; ok false zero-fills it
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
 
-struct Params {
-  const float* cols;  // [D, M, K]
-  const float* wmat;  // [D, K, N]
-  const float* bias;  // [D, N]               (FWD)
-  const float* y;     // [D, M, N]  relu out  (DCOLS, DW)
-  const float* dy;    // [D, M, N]            (DCOLS, DW)
-  float* out;         // FWD y [D, M, N]; DCOLS dcols [D, M, K];
-                      // DW partials [D, nt, K + 1, N]
-  long long M;
-  int K, N;
-  int rows;           // DW: rows reduced per partial
-  int nt;             // DW: partials per device
+// 16-byte asynchronous copy to shared memory; ok false zero-fills it
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The tiling of one device's flattened [B*H, W] pixel rows.
+struct Tile {
+  int rows, H, W;  // B*H image rows of a device, image height and width
+  int gpr;         // pixel groups of TM a row: ceil(W / TM) <= 32
+  int rb;          // image rows a tile: 32 * WM / gpr
+  int hw;          // halo columns used: gpr*TM + 2
+  int cs;          // halo row stride in shared memory (floats), >= hw
+  int ntiles;      // ceil(rows / rb)
 };
 
-// The GEMM view per mode (output OM x ON, reduction R):
-//   FWD   A(i, r) = cols[i, r]           B(r, j) = W[r, j]    OM=M  ON=N R=K
-//   DCOLS A(i, r) = dz[i, r]             B(r, j) = W[j, r]    OM=M  ON=K R=N
-//   DW    A(i, r) = cols[m0 + r, i] | 1  B(r, j) = dz[m0+r,j] OM=K+1 ON=N
-//                                                             R=rows
-template <int MODE>
-__global__ void __launch_bounds__(NT) gemm_kernel(const Params p) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const long long i0 = (long long)blockIdx.x * BM;
-  const int j0 = blockIdx.y * BN;
-
-  int d;
-  long long m0 = 0, R, OM;
-  int ON;
-  if (MODE == DW) {
-    d = blockIdx.z / p.nt;
-    m0 = (long long)(blockIdx.z % p.nt) * p.rows;
-    R = p.M - m0 < p.rows ? p.M - m0 : p.rows;
-    OM = p.K + 1;
-    ON = p.N;
-  } else if (MODE == FWD) {
-    d = blockIdx.z;
-    R = p.K;
-    OM = p.M;
-    ON = p.N;
-  } else {
-    d = blockIdx.z;
-    R = p.N;
-    OM = p.M;
-    ON = p.K;
+// q = start, start + step, ... walked as (a, b) = (q / per, q % per)
+// without a division a step
+struct Walk {
+  int a, b, da, db, per;
+  __device__ Walk(int start, int step, int per_)
+      : a(start / per_), b(start % per_), da(step / per_), db(step % per_),
+        per(per_) {}
+  __device__ void next() {
+    a += da;
+    b += db;
+    if (b >= per) {
+      b -= per;
+      ++a;
+    }
   }
-  const size_t MK = (size_t)p.M * p.K, MN = (size_t)p.M * p.N;
-  const float* cols = p.cols + (size_t)d * MK;
-  const float* W = p.wmat + (size_t)d * p.K * p.N;
-  const float* y = MODE == FWD ? nullptr : p.y + (size_t)d * MN;
-  const float* dy = MODE == FWD ? nullptr : p.dy + (size_t)d * MN;
+};
 
-  float acc[4][4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+enum { FWD = 0, DX = 1 };
 
-  for (long long r0 = 0; r0 < R; r0 += BK) {
+// out[p, n] = sum_{i,j,k} in[p + (i-1, j-1), k] * W[i, j, k, n] over one
+// device; FWD: in = x, W = w, out = y = relu(. + bias), Ck = Cin,
+// Cn = Cout.  DX: in = dy masked by gate = y > 0, W = w flipped and
+// transposed, out = dx, Ck = Cout, Cn = Cin.
+template <int MODE, int CK, int WM>
+__device__ __forceinline__ void conv_tile(
+    const float* __restrict__ in, const float* __restrict__ gate,
+    const float* __restrict__ w, const float* __restrict__ bias,
+    float* __restrict__ out, int Ck, int Cn, const Tile g) {
+  constexpr int WN = 8 / WM, BN = WN * TN;
+  extern __shared__ float4 smem4[];
+  const int ckp = (Ck + CK - 1) / CK * CK;
+  float* ws = reinterpret_cast<float*>(smem4);  // [9][ckp][BN]
+  float* zrow = ws + 9 * ckp * BN;               // cs zeros
+  float* ring = zrow + g.cs;                     // NS stages
+  const int half = CK * (g.rb + 2) * g.cs;       // one halo [CK][rb+2][cs]
+  const int sf = MODE == DX ? 2 * half : half;   // floats a stage
+
+  const int tid = threadIdx.x, wn = (tid >> 5) % WN;
+  const int d = blockIdx.z, co0 = blockIdx.y * BN;
+  const size_t plane = (size_t)g.rows * g.W;
+  const float* in_d = in + (size_t)d * plane * Ck;
+  const float* gate_d = gate + (MODE == DX ? (size_t)d * plane * Ck : 0);
+  const float* w_d = w + (size_t)d * 9 * Ck * Cn;
+  float* out_d = out + (size_t)d * plane * Cn;
+
+  // the block's weights, zero beyond Ck and Cn, read along their
+  // contiguous global axis
+  for (int e = tid; e < 9 * ckp * BN; e += NT) {
+    int tap, k, n;
+    if (MODE == FWD) {
+      n = e % BN;
+      k = (e / BN) % ckp;
+      tap = e / (BN * ckp);
+    } else {
+      k = e % ckp;
+      n = (e / ckp) % BN;
+      tap = e / (ckp * BN);
+    }
+    float v = 0.f;
+    if (k < Ck && co0 + n < Cn)
+      v = MODE == FWD ? w_d[((size_t)tap * Ck + k) * Cn + co0 + n]
+                      : w_d[((size_t)(8 - tap) * Cn + co0 + n) * Ck + k];
+    ws[(tap * ckp + k) * BN + n] = v;
+  }
+  for (int e = tid; e < g.cs; e += NT) zrow[e] = 0.f;
+
+  const int nchunk = ckp / CK;
+  const int bx = blockIdx.x, gx = gridDim.x;
+  const int my_tiles = bx < g.ntiles ? (g.ntiles - 1 - bx) / gx + 1 : 0;
+  const int steps = my_tiles * nchunk;  // (tile, channel chunk) pairs
+  const int kk = tid % CK;              // the halo channel this thread copies
+
+  // step s: channel chunk s % nchunk of tile bx + (s / nchunk) * gx; the
+  // thread copies halo elements tid / CK, + NT / CK, ... of channel kk
+  auto prefetch = [&](int s) {
+    if (s < steps) {
+      const int k = (s % nchunk) * CK + kk;
+      const int r0 = (bx + (s / nchunk) * gx) * g.rb - 1;
+      float* buf = ring + (s % NS) * sf + kk * (g.rb + 2) * g.cs;
+      for (Walk q(tid / CK, NT / CK, g.hw); q.a < g.rb + 2; q.next()) {
+        const int r = r0 + q.a, c = q.b - 1;
+        const bool ok = k < Ck && r >= 0 && r < g.rows && c >= 0 && c < g.W;
+        const size_t off = ok ? ((size_t)r * g.W + c) * Ck + k : 0;
+        cp_async4(buf + q.a * g.cs + q.b, in_d + off, ok);
+        if constexpr (MODE == DX)
+          cp_async4(buf + half + q.a * g.cs + q.b, gate_d + off, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  // dz = dy * (y > 0) on the elements this thread copied (its own copies
+  // are complete after the wait)
+  auto mask = [&](int s) {
+    float* buf = ring + (s % NS) * sf + kk * (g.rb + 2) * g.cs;
+    for (Walk q(tid / CK, NT / CK, g.hw); q.a < g.rb + 2; q.next()) {
+      float* z = buf + q.a * g.cs + q.b;
+      if (!(z[half] > 0.f)) z[0] = 0.f;
+    }
+  };
+
+  // this thread: pixels lg*TM .. lg*TM + TM - 1 of the tile's row lr,
+  // output channels co0 + wn*TN .. + TN - 1
+  const int pg = (tid >> 5) / WN * 32 + (tid & 31);
+  const int lr = pg / g.gpr, lg = pg - lr * g.gpr;
+  const bool active = lr < g.rb;
+  const int cob = co0 + wn * TN;
+  float bv[TN];
 #pragma unroll
-    for (int q = 0; q < (BM * BK) / NT; ++q) {
-      const int e = tid + q * NT;
-      int ii, rr;
-      if (MODE == DW) { ii = e % BM; rr = e / BM; }   // cols^T: i contiguous
-      else            { rr = e % BK; ii = e / BK; }   // r contiguous
-      const long long i = i0 + ii, r = r0 + rr;
-      float v = 0.f;
-      if (i < OM && r < R) {
-        if (MODE == FWD) {
-          v = cols[i * p.K + r];
-        } else if (MODE == DCOLS) {
-          const size_t o = (size_t)i * p.N + r;
-          v = y[o] > 0.f ? dy[o] : 0.f;
-        } else {
-          v = i < p.K ? cols[(m0 + r) * p.K + i] : 1.f;
+  for (int n = 0; n < TN; ++n)
+    bv[n] = MODE == FWD && cob + n < Cn ? bias[(size_t)d * Cn + cob + n] : 0.f;
+
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) prefetch(s);
+  float acc[TM][TN];
+  for (int s = 0; s < steps; ++s) {
+    prefetch(s + NS - 1);
+    cp_async_wait<NS - 1>();
+    if constexpr (MODE == DX) mask(s);
+    __syncthreads();
+    const int chunk = s % nchunk;
+    const int row = (bx + (s / nchunk) * gx) * g.rb + lr;
+    const int h = row % g.H;
+    const bool live = active && row < g.rows;
+    if (chunk == 0) {
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int n = 0; n < TN; ++n) acc[m][n] = 0.f;
+    }
+    // the three tap rows of this thread's pixels, a row of zeros where the
+    // tap falls outside the image; kst steps to the next channel
+    const float* xrow[3];
+    int kst[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const bool ok = live && h + i >= 1 && h + i <= g.H;
+      xrow[i] = ok ? ring + (s % NS) * sf + (lr + i) * g.cs + lg * TM : zrow;
+      kst[i] = ok ? (g.rb + 2) * g.cs : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < CK; ++k) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const float* xr = xrow[i] + k * kst[i];
+        float a[TM + 2];
+#pragma unroll
+        for (int q = 0; q < TM + 2; ++q) a[q] = xr[q];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float4* wr = reinterpret_cast<const float4*>(
+              ws + ((i * 3 + j) * ckp + chunk * CK + k) * BN + wn * TN);
+          float wv[TN];
+#pragma unroll
+          for (int v = 0; v < TN / 4; ++v) {
+            const float4 f = wr[v];
+            wv[4 * v] = f.x;
+            wv[4 * v + 1] = f.y;
+            wv[4 * v + 2] = f.z;
+            wv[4 * v + 3] = f.w;
+          }
+#pragma unroll
+          for (int n = 0; n < TN; ++n)
+#pragma unroll
+            for (int m = 0; m < TM; ++m)
+              acc[m][n] = fmaf(a[m + j], wv[n], acc[m][n]);
         }
       }
-      As[rr][ii] = v;
     }
+    if (chunk == nchunk - 1 && live) {
+      float* orow = out_d + (size_t)row * g.W * Cn + cob;
+      const bool vec = Cn % 4 == 0 && cob + TN <= Cn;
 #pragma unroll
-    for (int q = 0; q < (BN * BK) / NT; ++q) {
-      const int e = tid + q * NT;
-      int jj, rr;
-      if (MODE == DCOLS) { rr = e % BK; jj = e / BK; }  // W^T: r contiguous
-      else               { jj = e % BN; rr = e / BN; }  // j contiguous
-      const long long r = r0 + rr;
-      const int j = j0 + jj;
-      float v = 0.f;
-      if (j < ON && r < R) {
-        if (MODE == FWD) {
-          v = W[r * p.N + j];
-        } else if (MODE == DCOLS) {
-          v = W[(size_t)j * p.N + r];
-        } else {
-          const size_t o = (size_t)(m0 + r) * p.N + j;
-          v = y[o] > 0.f ? dy[o] : 0.f;
+      for (int m = 0; m < TM; ++m) {
+        const int c = lg * TM + m;
+        if (c < g.W) {
+          float o[TN];
+#pragma unroll
+          for (int n = 0; n < TN; ++n)
+            o[n] = MODE == FWD ? fmaxf(acc[m][n] + bv[n], 0.f) : acc[m][n];
+          float* dst = orow + (size_t)c * Cn;
+          if (vec) {
+#pragma unroll
+            for (int v = 0; v < TN / 4; ++v)
+              reinterpret_cast<float4*>(dst)[v] = make_float4(
+                  o[4 * v], o[4 * v + 1], o[4 * v + 2], o[4 * v + 3]);
+          } else {
+#pragma unroll
+            for (int n = 0; n < TN; ++n)
+              if (cob + n < Cn) dst[n] = o[n];
+          }
         }
       }
-      Bs[rr][jj] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) a[u] = As[k][ty + 16 * u];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) b[v] = Bs[k][tx + 16 * v];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(a[u], b[v], acc[u][v]);
     }
     __syncthreads();
   }
+  cp_async_wait<0>();
+}
 
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const long long i = i0 + ty + 16 * u;
-    if (i >= OM) continue;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int j = j0 + tx + 16 * v;
-      if (j >= ON) continue;
-      if (MODE == FWD) {
-        const float z = acc[u][v] + p.bias[(size_t)d * p.N + j];
-        p.out[(size_t)d * MN + (size_t)i * p.N + j] = fmaxf(z, 0.f);
-      } else if (MODE == DCOLS) {
-        p.out[(size_t)d * MK + (size_t)i * p.K + j] = acc[u][v];
+template <int CK, int WM>
+__global__ void __launch_bounds__(NT, 2)
+    conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ b, float* __restrict__ y,
+                       int Cin, int Cout, Tile g) {
+  conv_tile<FWD, CK, WM>(x, nullptr, w, b, y, Cin, Cout, g);
+}
+
+template <int CK, int WM>
+__global__ void __launch_bounds__(NT, 2)
+    conv3x3_dx_kernel(const float* __restrict__ dy, const float* __restrict__ y,
+                      const float* __restrict__ w, float* __restrict__ dx,
+                      int Cin, int Cout, Tile g) {
+  conv_tile<DX, CK, WM>(dy, y, w, nullptr, dx, Cout, Cin, g);
+}
+
+// dW/db partials: block (t, gy, d) reduces image rows [t*rpp, (t+1)*rpp)
+// of device d into part[d, t] = [9*Cin + 1, Cout], for the thread groups
+// [gy*GB, gy*GB + GB).  A group is one tap x TCI input x 8 output
+// channels (4*go .. +3 and 4*(ngo + go) .. +3, so that neighbouring
+// lanes read neighbouring 16-byte words of dz), numbered output channels
+// fastest, then input, then tap (a warp shares its tap and reads few
+// distinct inputs).  When the groups do not fill the block, its
+// DW_NT / GB slices split each row's pixels.
+template <int TCI>
+__global__ void __launch_bounds__(DW_NT, 2)
+    conv3x3_dw_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                      const float* __restrict__ dy, float* __restrict__ part,
+                      int rows, int H, int W, int Cin, int Cout, int rpp,
+                      int nparts, int GB) {
+  constexpr int ACC = TCI * 8 + 8;  // dW accumulators, then db's
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  const int ngi = (Cin + TCI - 1) / TCI, ngo = (Cout + 7) / 8;
+  const int cip = TCI * ngi, cop = 8 * ngo;  // padded channel strides
+  // a stage: x rows r-1..r+1 [3][W+2][cip] | dz row [W][cop] | y row
+  const int xf = (3 * (W + 2) * cip + 3) / 4 * 4, zf = W * cop;
+  const int sf = xf + 2 * zf;
+  const int tid = threadIdx.x, d = blockIdx.z, t = blockIdx.x;
+  const int nps = DW_NT / GB, slot = tid % GB, ps = tid / GB;
+  const int G = 9 * ngi * ngo, gidx = blockIdx.y * GB + slot;
+  const bool act = ps < nps && gidx < G;
+  const int go = gidx % ngo, gi = gidx / ngo % ngi, tap = gidx / (ngo * ngi);
+  const int ti = tap / 3, tj = tap - 3 * ti;
+  const int cpp = (W + nps - 1) / nps;  // pixels of a row per slice
+  const int c_lo = act ? min(W, ps * cpp) : W, c_hi = min(W, c_lo + cpp);
+  const int r_lo = t * rpp, nrow = min(rpp, rows - r_lo);
+  const size_t plane = (size_t)rows * W;
+  const float* x_d = x + (size_t)d * plane * Cin;
+  const float* y_d = y + (size_t)d * plane * Cout;
+  const float* dy_d = dy + (size_t)d * plane * Cout;
+  const bool xvec = Cin % 4 == 0, zvec = Cout % 4 == 0;
+
+  // the pad columns and channels are never copied: zero them once
+  for (int e = tid; e < NS * sf; e += DW_NT) ring[e] = 0.f;
+  __syncthreads();
+
+  // copy units of a pixel: 16 bytes where the channels allow, else 4
+  const int xu = xvec ? Cin / 4 : Cin, zu = zvec ? Cout / 4 : Cout;
+  auto prefetch = [&](int s) {
+    if (s < nrow) {
+      const int r = r_lo + s;
+      float* xs = ring + (s % NS) * sf;
+      float* zs = xs + xf;
+      float* ys = zs + zf;
+      // x rows r-1..r+1 lie one after another in global memory
+      for (Walk q(tid, DW_NT, xu); q.a < 3 * W; q.next()) {
+        const int hr = q.a >= 2 * W ? 2 : (q.a >= W ? 1 : 0);
+        const bool ok = r - 1 + hr >= 0 && r - 1 + hr < rows;
+        const float* src =
+            x_d + (ok ? ((size_t)(r - 1) * W + q.a) * Cin : 0);
+        float* dst = xs + (q.a + 2 * hr + 1) * cip;
+        if (xvec)
+          cp_async16(dst + 4 * q.b, src + 4 * q.b, ok);
+        else
+          cp_async4(dst + q.b, src + q.b, ok);
+      }
+      for (Walk q(tid, DW_NT, zu); q.a < W; q.next()) {
+        const size_t o = ((size_t)r * W + q.a) * Cout;
+        const int so = q.a * cop;
+        if (zvec) {
+          cp_async16(zs + so + 4 * q.b, dy_d + o + 4 * q.b, true);
+          cp_async16(ys + so + 4 * q.b, y_d + o + 4 * q.b, true);
+        } else {
+          cp_async4(zs + so + q.b, dy_d + o + q.b, true);
+          cp_async4(ys + so + q.b, y_d + o + q.b, true);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // dz = dy * (y > 0) on the elements this thread copied
+  auto mask = [&](int s) {
+    float* zs = ring + (s % NS) * sf + xf;
+    const float* ys = zs + zf;
+    for (Walk q(tid, DW_NT, zu); q.a < W; q.next()) {
+      if (zvec) {
+        const int o = q.a * cop + 4 * q.b;
+        float4 z = *reinterpret_cast<float4*>(zs + o);
+        const float4 yv = *reinterpret_cast<const float4*>(ys + o);
+        z.x = yv.x > 0.f ? z.x : 0.f;
+        z.y = yv.y > 0.f ? z.y : 0.f;
+        z.z = yv.z > 0.f ? z.z : 0.f;
+        z.w = yv.w > 0.f ? z.w : 0.f;
+        *reinterpret_cast<float4*>(zs + o) = z;
       } else {
-        p.out[((size_t)blockIdx.z * (p.K + 1) + i) * p.N + j] = acc[u][v];
+        const int o = q.a * cop + q.b;
+        if (!(ys[o] > 0.f)) zs[o] = 0.f;
       }
     }
+  };
+
+  float acc[ACC];
+#pragma unroll
+  for (int v = 0; v < ACC; ++v) acc[v] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) prefetch(s);
+  for (int s = 0; s < nrow; ++s) {
+    prefetch(s + NS - 1);
+    cp_async_wait<NS - 1>();
+    mask(s);
+    __syncthreads();
+    const int h = (r_lo + s) % H;
+    // a tap row outside the image adds nothing
+    if (h + ti >= 1 && h + ti <= H) {
+      const float* xp = ring + (s % NS) * sf +
+                        (ti * (W + 2) + tj + c_lo) * cip + gi * TCI;
+      const float* zp = ring + (s % NS) * sf + xf + c_lo * cop + 4 * go;
+      for (int c = c_lo; c < c_hi; ++c, xp += cip, zp += cop) {
+        float xv[TCI], zv[8];
+        if constexpr (TCI == 8) {
+          const float4 a0 = *reinterpret_cast<const float4*>(xp);
+          const float4 a1 = *reinterpret_cast<const float4*>(xp + 4);
+          xv[0] = a0.x; xv[1] = a0.y; xv[2] = a0.z; xv[3] = a0.w;
+          xv[4] = a1.x; xv[5] = a1.y; xv[6] = a1.z; xv[7] = a1.w;
+        } else {
+          xv[0] = xp[0];
+        }
+        const float4 z0 = *reinterpret_cast<const float4*>(zp);
+        const float4 z1 = *reinterpret_cast<const float4*>(zp + 4 * ngo);
+        zv[0] = z0.x; zv[1] = z0.y; zv[2] = z0.z; zv[3] = z0.w;
+        zv[4] = z1.x; zv[5] = z1.y; zv[6] = z1.z; zv[7] = z1.w;
+#pragma unroll
+        for (int u = 0; u < TCI; ++u)
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            acc[u * 8 + n] = fmaf(xv[u], zv[n], acc[u * 8 + n]);
+        if (tap == 4) {  // the centre tap sees every pixel: db's row of ones
+#pragma unroll
+          for (int n = 0; n < 8; ++n) acc[TCI * 8 + n] += zv[n];
+        }
+      }
+    }
+    __syncthreads();
   }
+  cp_async_wait<0>();
+
+  // part row of accumulator v of group gidx; -1 where it has none
+  auto row_of = [&](int gid, int v, int& col) {
+    const int o = gid % ngo, i = gid / ngo % ngi, tp = gid / (ngo * ngi);
+    const int n = v % 8;
+    col = n < 4 ? 4 * o + n : 4 * (ngo + o) + n - 4;
+    if (v < TCI * 8) {
+      const int ci = i * TCI + v / 8;
+      return ci < Cin && col < Cout ? tp * Cin + ci : -1;
+    }
+    return tp == 4 && i == 0 && col < Cout ? 9 * Cin : -1;
+  };
+  float* pd = part + ((size_t)d * nparts + t) * (9 * Cin + 1) * Cout;
+  if (nps == 1) {
+    if (!act) return;
+#pragma unroll
+    for (int v = 0; v < ACC; ++v) {
+      int col;
+      const int r = row_of(gidx, v, col);
+      if (r >= 0) pd[(size_t)r * Cout + col] = acc[v];
+    }
+    return;
+  }
+  // add the pixel slices' sums in a fixed order, slice 0 first
+  float* red = ring;
+#pragma unroll
+  for (int v = 0; v < ACC; ++v) red[tid * ACC + v] = acc[v];
+  __syncthreads();
+  for (int e = tid; e < GB * ACC; e += DW_NT) {
+    const int sl = e / ACC, v = e - sl * ACC;
+    if (blockIdx.y * GB + sl >= G) continue;
+    float sum = 0.f;
+    for (int p = 0; p < nps; ++p) sum += red[(p * GB + sl) * ACC + v];
+    int col;
+    const int r = row_of(blockIdx.y * GB + sl, v, col);
+    if (r >= 0) pd[(size_t)r * Cout + col] = sum;
+  }
+}
+
+// ---------------------------------------------------------------- host side
+
+// The halo row stride: at least hw, and such that a warp's first reads
+// (lane -> row lane / gpr, column (lane % gpr) * TM) fall into as few
+// lanes a bank as can be.
+int pick_cs(int gpr, int hw) {
+  int best = hw, best_deg = 33;
+  const int lanes = 32 / gpr * gpr;
+  for (int cs = hw; cs < hw + 32; ++cs) {
+    int cnt[32] = {0}, deg = 0;
+    for (int lane = 0; lane < lanes; ++lane) {
+      const int bank = ((lane / gpr) * cs + (lane % gpr) * TM) % 32;
+      deg = ++cnt[bank] > deg ? cnt[bank] : deg;
+    }
+    if (deg < best_deg) {
+      best_deg = deg;
+      best = cs;
+    }
+  }
+  return best;
+}
+
+Tile make_tile(int rows, int H, int W, int wm) {
+  Tile g;
+  g.rows = rows;
+  g.H = H;
+  g.W = W;
+  g.gpr = (W + TM - 1) / TM;
+  g.rb = 32 * wm / g.gpr;
+  g.hw = g.gpr * TM + 2;
+  g.cs = pick_cs(g.gpr, g.hw);
+  g.ntiles = (rows + g.rb - 1) / g.rb;
+  return g;
+}
+
+size_t tile_smem(int mode, int CK, int wm, int Ck, const Tile& g) {
+  const size_t ckp = (Ck + CK - 1) / CK * CK;
+  const size_t half = (size_t)CK * (g.rb + 2) * g.cs;
+  return 4 * (9 * ckp * (8 / wm) * TN + g.cs +
+              NS * half * (mode == DX ? 2 : 1));
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// Launch a conv_tile kernel: as many blocks a device and channel slice as
+// the card holds at once at its occupancy (at least one), each walking
+// over its share of the device's tiles.
+template <typename... P, typename... A>
+int launch_tile(void (*kernel)(P...), size_t smem, int D, int Cn, int BN,
+                const Tile& g, cudaStream_t st, A... args) {
+  if (smem > (size_t)SMEM_MAX) return -1;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  const int ny = (Cn + BN - 1) / BN;
+  const int slots = (per_sm > 0 ? per_sm : 1) * sm_count();
+  int nx = slots / (D * ny);
+  nx = nx < 1 ? 1 : (nx > g.ntiles ? g.ntiles : nx);
+  dim3 grid(nx, ny, D);
+  kernel<<<grid, NT, smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// The forward (MODE FWD) or dx (DX) pass: Ck channels in, Cn out.  A block
+// takes 64 output channels (WM 1) where more than 32 are wanted and its
+// weights fit, else 32 (WM 2: two warps along the pixels).  The halo
+// chunk: CK 1 for a single input channel; 8 where the channels come in
+// eights and the ring fits (half the barriers of 4: the DEFAULT second
+// layer's forward and dx, the latter at one block an SM); else 4.
+template <int MODE, int CK, int WM>
+int tile_run(const float* in, const float* gate, const float* w,
+             const float* b, float* out, int D, int rows, int H, int W,
+             int Cin, int Cout, cudaStream_t st) {
+  const int Ck = MODE == FWD ? Cin : Cout, Cn = MODE == FWD ? Cout : Cin;
+  const Tile g = make_tile(rows, H, W, WM);
+  const size_t smem = tile_smem(MODE, CK, WM, Ck, g);
+  if (MODE == FWD)
+    return launch_tile(conv3x3_fwd_kernel<CK, WM>, smem, D, Cn, 8 / WM * TN,
+                       g, st, in, w, b, out, Cin, Cout, g);
+  return launch_tile(conv3x3_dx_kernel<CK, WM>, smem, D, Cn, 8 / WM * TN, g,
+                     st, in, gate, w, out, Cin, Cout, g);
+}
+
+template <int MODE>
+int tile_pass(const float* in, const float* gate, const float* w,
+              const float* b, float* out, int D, int rows, int H, int W,
+              int Cin, int Cout, cudaStream_t st) {
+  const int Ck = MODE == FWD ? Cin : Cout, Cn = MODE == FWD ? Cout : Cin;
+  const Tile g1 = make_tile(rows, H, W, 1), g2 = make_tile(rows, H, W, 2);
+  auto fits = [&](int ck, int wm) {
+    return tile_smem(MODE, ck, wm, Ck, wm == 1 ? g1 : g2) <=
+           (size_t)SMEM_MAX;
+  };
+#define RUN(CK, WM) \
+  tile_run<MODE, CK, WM>(in, gate, w, b, out, D, rows, H, W, Cin, Cout, st)
+  if (Ck == 1) return Cn > 32 && fits(1, 1) ? RUN(1, 1) : RUN(1, 2);
+  if (Cn > 32 && fits(4, 1))
+    return Ck % 8 == 0 && fits(8, 1) ? RUN(8, 1) : RUN(4, 1);
+  return Ck % 8 == 0 && fits(8, 2) ? RUN(8, 2) : RUN(4, 2);
+#undef RUN
+}
+
+template <int TCI>
+int dw_run(const float* x, const float* y, const float* dy, float* part,
+           int D, int rows, int H, int W, int Cin, int Cout, int rpp,
+           cudaStream_t st) {
+  const int ngi = (Cin + TCI - 1) / TCI, ngo = (Cout + 7) / 8;
+  const int G = 9 * ngi * ngo, GB = G < DW_NT ? G : DW_NT;
+  const size_t xf = (3 * (size_t)(W + 2) * TCI * ngi + 3) / 4 * 4;
+  size_t smem = 4 * NS * (xf + 2 * (size_t)W * 8 * ngo);
+  const size_t red = 4 * (size_t)DW_NT * (TCI * 8 + 8);
+  if (DW_NT / GB > 1 && smem < red) smem = red;
+  if (smem > (size_t)SMEM_MAX) return -1;
+  cudaError_t e = cudaFuncSetAttribute(
+      conv3x3_dw_kernel<TCI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nparts = (rows + rpp - 1) / rpp;
+  dim3 grid(nparts, (G + GB - 1) / GB, D);
+  conv3x3_dw_kernel<TCI><<<grid, DW_NT, smem, st>>>(
+      x, y, dy, part, rows, H, W, Cin, Cout, rpp, nparts, GB);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// y = relu(cols @ wmat + bias) for each of D devices.
-extern "C" int conv3x3_fwd_launch(const float* cols, const float* wmat,
-                                  const float* bias, float* y, int D,
-                                  long long M, int K, int N, void* stream) {
-  Params p{cols, wmat, bias, nullptr, nullptr, y, M, K, N, 0, 1};
-  dim3 grid((unsigned)((M + BM - 1) / BM), (N + BN - 1) / BN, D);
-  gemm_kernel<FWD><<<grid, NT, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+// y = relu(conv3x3_same(x, w) + b) for each of D devices; x [D, rows, W,
+// Cin] with rows = B*H image rows of height H.  -1: a shape the kernel
+// does not take (W > 224, or weights too wide for shared memory).
+extern "C" int conv3x3_fwd_launch(const float* x, const float* w,
+                                  const float* b, float* y, int D, int rows,
+                                  int H, int W, int Cin, int Cout,
+                                  void* stream) {
+  if (W > 32 * TM) return -1;
+  return tile_pass<FWD>(x, nullptr, w, b, y, D, rows, H, W, Cin, Cout,
+                        (cudaStream_t)stream);
 }
 
-// dcols = (dy * (y > 0)) @ wmat^T (skipped when dcols is null) and the
-// [D, nt, K + 1, N] partials of [cols^T; 1] @ (dy * (y > 0)), nt =
-// ceil(M / rows).
-extern "C" int conv3x3_bwd_launch(const float* cols, const float* wmat,
-                                  const float* y, const float* dy,
-                                  float* dcols, float* dw_part, int D,
-                                  long long M, int K, int N, int rows,
+// dx (skipped when dx is null) and the [D, nparts, 9*Cin + 1, Cout]
+// partials of dW (rows tap*Cin + ci) and db (the last row), nparts =
+// ceil(rows / rpp), from x, w, the forward's y and dy.  -1: a shape the
+// kernels do not take.
+extern "C" int conv3x3_bwd_launch(const float* x, const float* w,
+                                  const float* y, const float* dy, float* dx,
+                                  float* dw_part, int D, int rows, int H,
+                                  int W, int Cin, int Cout, int rpp,
                                   void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int nt = (int)((M + rows - 1) / rows);
-  if (dcols != nullptr) {
-    Params p{cols, wmat, nullptr, y, dy, dcols, M, K, N, 0, 1};
-    dim3 grid((unsigned)((M + BM - 1) / BM), (K + BN - 1) / BN, D);
-    gemm_kernel<DCOLS><<<grid, NT, 0, s>>>(p);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  if (W > 32 * TM) return -1;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dx != nullptr) {
+    const int rc = tile_pass<DX>(dy, y, w, nullptr, dx, D, rows, H, W, Cin,
+                                 Cout, st);
+    if (rc != 0) return rc;
   }
-  Params p{cols, wmat, nullptr, y, dy, dw_part, M, K, N, rows, nt};
-  dim3 grid((K + 1 + BM - 1) / BM, (N + BN - 1) / BN, D * nt);
-  gemm_kernel<DW><<<grid, NT, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  return Cin % 8 == 0 || Cin > 8
+             ? dw_run<8>(x, y, dy, dw_part, D, rows, H, W, Cin, Cout, rpp, st)
+             : dw_run<1>(x, y, dy, dw_part, D, rows, H, W, Cin, Cout, rpp,
+                         st);
 }

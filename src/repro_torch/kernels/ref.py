@@ -56,20 +56,6 @@ def sgd_update_ref(w, g, scale: float):
 
 
 # ------------------------------------------------------- conv3x3_bias_relu
-def matmul_bias_relu_ref(cols, wmat, bias):
-    """``relu(cols @ wmat + bias)``: cols [D, M, K], wmat [D, K, N],
-    bias [D, N] -> [D, M, N]."""
-    return torch.relu(torch.bmm(cols, wmat) + bias[:, None, :])
-
-
-def matmul_bias_relu_bwd_ref(cols, wmat, y, dy, need_dcols: bool = True):
-    """The backward of ``matmul_bias_relu_ref`` from its output ``y``:
-    dz = dy*(y > 0); returns (dcols or None, dW [D, K, N], db [D, N])."""
-    dz = dy * (y > 0)
-    dcols = torch.bmm(dz, wmat.transpose(1, 2)) if need_dcols else None
-    return dcols, torch.bmm(cols.transpose(1, 2), dz), dz.sum(1)
-
-
 def im2col3x3(x):
     """[..., H, W, C] -> [..., H, W, 9C] SAME-padded 3x3 patches, (i, j, c)
     channel order (``w.reshape(9*Cin, Cout)`` rows)."""
@@ -79,12 +65,36 @@ def im2col3x3(x):
                       for i in range(3) for j in range(3)], dim=-1)
 
 
-def conv3x3_bias_relu_ref(x, w, b):
-    """``relu(conv3x3_same(x, w) + b)``: x [..., H, W, Cin], w [3, 3, Cin,
-    Cout], b [Cout]; the im2col matmul in float32."""
-    cols = im2col3x3(x.to(f32))
-    out = torch.einsum("...k,ko->...o", cols, w.reshape(-1, w.shape[-1]).to(f32))
-    return torch.relu(out + b.to(f32)).to(x.dtype)
+def conv3x3_fwd_ref(x, w, b):
+    """``relu(conv3x3_same(x, w) + b)`` per device: x [D, ..., H, W, Cin],
+    w [D, 3, 3, Cin, Cout], b [D, Cout]; im2col + ``bmm`` in float32."""
+    D, cin, cout = w.shape[0], w.shape[3], w.shape[4]
+    cols = im2col3x3(x).reshape(D, -1, 9 * cin)
+    y = torch.relu(torch.bmm(cols, w.reshape(D, 9 * cin, cout))
+                   + b[:, None, :])
+    return y.reshape(x.shape[:-1] + (cout,))
+
+
+def conv3x3_bwd_ref(x, w, y, dy, need_dx: bool = True):
+    """The backward of ``conv3x3_fwd_ref`` from its output ``y``:
+    dz = dy*(y > 0); returns (dx or None, dW [D, 3, 3, Cin, Cout],
+    db [D, Cout]).  dx is col2im of ``dcols = dz wᵀ`` written out: nine
+    shifted adds into a padded buffer, whose border is then dropped."""
+    D, cin, cout = w.shape[0], w.shape[3], w.shape[4]
+    h, wd = x.shape[-3], x.shape[-2]
+    dz = (dy * (y > 0)).reshape(D, -1, cout)
+    cols = im2col3x3(x).reshape(D, -1, 9 * cin)
+    dw = torch.bmm(cols.transpose(1, 2), dz).reshape(w.shape)
+    db = dz.sum(1)
+    if not need_dx:
+        return None, dw, db
+    dcols = torch.bmm(dz, w.reshape(D, 9 * cin, cout).transpose(1, 2))
+    dcols = dcols.reshape(x.shape[:-1] + (3, 3, cin))
+    dxp = x.new_zeros(x.shape[:-3] + (h + 2, wd + 2, cin))
+    for i in range(3):
+        for j in range(3):
+            dxp[..., i:i + h, j:j + wd, :] += dcols[..., i, j, :]
+    return dxp[..., 1:h + 1, 1:wd + 1, :].contiguous(), dw, db
 
 
 # ---------------------------------------------------------------- eval_head

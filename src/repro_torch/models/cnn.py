@@ -1,8 +1,8 @@
 """The paper's MNIST CNN (Sec. 6.1.5) on stacked per-device weights.
 
 Port of the engine's path through ``repro.models.cnn``: two 3x3 SAME conv
-blocks (the im2col form, ``kernels.conv3x3``), one 2x2 max-pool, one dense
-layer.  Layouts are the JAX package's: images ``[..., H, W, C]``, conv
+blocks (``kernels.conv3x3``: implicit-GEMM kernels on the card), one 2x2
+max-pool, one dense layer.  Layouts are the JAX package's: images ``[..., H, W, C]``, conv
 weights ``[3, 3, Cin, Cout]``, dense ``[F, C]``.  The engine's functions
 take a stacked model, every leaf with a leading device axis ``[D, ...]``,
 and images ``[D, B, H, W, C]``; the devices' weights are independent.

@@ -7,8 +7,8 @@ PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: the GEMMs ``rtol 1e-4`` (float32 sums in another order than
-cuBLAS's); the HieAvg mix and the coefficient aggregates ``rtol 1e-5,
+Tolerances: the conv kernels ``rtol 1e-4`` (float32 sums in another
+order than cuBLAS's), their backward bitwise on repeat; the HieAvg mix and the coefficient aggregates ``rtol 1e-5,
 atol 1e-6`` (FMA contraction); a narrow (bfloat16 or float8_e4m3fn)
 history one unit in the last place of its dtype (the float32 value it
 rounds differs by the FMA's rounding); the float8 edge values, the SGD
@@ -27,15 +27,17 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.hieavg import to_history_dtype  # noqa: E402
+from repro_torch.fl.engine import train_epoch_body  # noqa: E402
 from repro_torch.kernels.coef_agg import coef_agg, coef_agg_pair  # noqa: E402
-from repro_torch.kernels.conv3x3 import (matmul_bias_relu_bwd,  # noqa: E402
-                                         matmul_bias_relu_fwd)
+from repro_torch.kernels.conv3x3 import conv3x3_bwd, conv3x3_fwd  # noqa: E402
 from repro_torch.kernels.eval_head import eval_head  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.hieavg_agg import hieavg_agg  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.sgd_update import (MAX_LEAVES,  # noqa: E402
                                             sgd_update, sgd_update_many)
+from repro_torch.models import cnn_specs, stack_params  # noqa: E402
+from repro_torch.models.spec import init_params  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -68,22 +70,63 @@ def cuda():
     return torch.device("cuda")
 
 
+#: (D, B, H, W, Cin, Cout): tails of the tiling, a non-square image and a
+#: channel count across the 4-channel chunk and 8-channel group edges
+CONV_TAILS = ((1, 1, 5, 5, 1, 3), (2, 2, 12, 12, 4, 8), (1, 2, 16, 16, 3, 7),
+              (1, 3, 7, 9, 5, 6), (1, 2, 10, 10, 33, 65))
+
+
+def _conv_inputs(cuda, g, d, b, h, wd, cin, cout):
+    x = torch.randn((d, b, h, wd, cin), generator=g, device=cuda)
+    w = torch.randn((d, 3, 3, cin, cout), generator=g, device=cuda) \
+        * (9 * cin) ** -0.5
+    bias = torch.randn((d, cout), generator=g, device=cuda) * 0.1
+    dy = torch.randn((d, b, h, wd, cout), generator=g, device=cuda)
+    return x, w, bias, dy
+
+
 def test_gpu_conv_kernels_match_plain(cuda):
     g = torch.Generator(device=cuda)
     g.manual_seed(0)
-    for d, m, k, n in ((1, 25, 9, 3), (2, 288, 36, 8), (3, 2049, 288, 64)):
-        cols = torch.rand((d, m, k), generator=g, device=cuda)
-        w = torch.randn((d, k, n), generator=g, device=cuda) * k ** -0.5
-        b = torch.randn((d, n), generator=g, device=cuda) * 0.1
-        y = matmul_bias_relu_fwd(cols, w, b, "cuda")
-        want = matmul_bias_relu_fwd(cols, w, b, "torch")
+    for shape in CONV_TAILS:
+        x, w, b, dy = _conv_inputs(cuda, g, *shape)
+        y = conv3x3_fwd(x, w, b, "cuda")
+        want = conv3x3_fwd(x, w, b, "torch")
         torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-5)
-        dy = torch.randn((d, m, n), generator=g, device=cuda)
-        for got, ref in zip(matmul_bias_relu_bwd(cols, w, want, dy, True,
-                                                 "cuda"),
-                            matmul_bias_relu_bwd(cols, w, want, dy, True,
-                                                 "torch")):
-            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        for need_dx in (True, False):
+            got = conv3x3_bwd(x, w, want, dy, need_dx, "cuda")
+            ref = conv3x3_bwd(x, w, want, dy, need_dx, "torch")
+            assert (got[0] is None) == (not need_dx)
+            for a, r in zip(got, ref):
+                if r is not None:
+                    torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+
+
+def test_gpu_conv_backward_is_bitwise_on_repeat(cuda):
+    """No atomics: the same inputs give the same dx, dW and db bits."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    x, w, b, dy = _conv_inputs(cuda, g, 3, 8, 28, 28, 32, 64)
+    y = conv3x3_fwd(x, w, b, "cuda")
+    first = conv3x3_bwd(x, w, y, dy, True, "cuda")
+    for _ in range(3):
+        again = conv3x3_bwd(x, w, y, dy, True, "cuda")
+        assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+
+
+def test_gpu_local_step_launches_each_conv_kernel_once_a_layer(cuda):
+    """One local SGD step of the engine: the forward and the backward
+    kernel once per conv layer, one SGD update."""
+    specs = cnn_specs(28, 1, 10, c1=32, c2=64)
+    params = stack_params(init_params(specs, torch.Generator().manual_seed(0),
+                                      device=cuda), 4)
+    images = torch.rand((4, 1, 8, 28, 28, 1), device=cuda)
+    labels = torch.randint(0, 10, (4, 1, 8), device=cuda)
+    build.reset_launch_counts()
+    train_epoch_body(params, images, labels, 0.01, "auto")
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"conv3x3_fwd": 2, "conv3x3_bwd": 2,
+                                    "sgd_update": 1}
 
 
 def test_gpu_elementwise_kernels_match_plain(cuda):

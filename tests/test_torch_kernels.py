@@ -32,8 +32,7 @@ from repro.kernels.sgd_update import sgd_update as jax_sgd  # noqa: E402
 from repro_torch.kernels import build, dispatch, ops  # noqa: E402
 from repro_torch.kernels.coef_agg import coef_agg  # noqa: E402
 from repro_torch.kernels.conv3x3 import (conv3x3_bias_relu,  # noqa: E402
-                                         matmul_bias_relu_bwd,
-                                         matmul_bias_relu_fwd)
+                                         conv3x3_bwd, conv3x3_fwd)
 from repro_torch.kernels.eval_head import eval_head  # noqa: E402
 from repro_torch.kernels.hieavg_agg import hieavg_agg  # noqa: E402
 from repro_torch.kernels.sgd_update import (sgd_update,  # noqa: E402
@@ -53,21 +52,35 @@ def np32(rng, *shape, scale=1.0):
 
 
 # ------------------------------------------------------------------- conv
-CONV_SHAPES = [(1, 5, 1, 3),     # M = 25 < one tile
-               (2, 12, 4, 8),    # M = 288: a tile and a tail
-               (2, 16, 3, 7)]    # M = 512: whole tiles, odd Cout
+#: (D, B, H, W, Cin, Cout); D 0 is the single-model form, D > 0 the stacked
+#: one, held against ``jax.vmap`` of the Pallas conv and of its VJP
+CONV_SHAPES = [(0, 1, 5, 5, 1, 3),     # M = 25 < one tile
+               (0, 2, 12, 12, 4, 8),   # M = 288: a tile and a tail
+               (0, 2, 16, 16, 3, 7),   # M = 512: whole tiles, odd Cout
+               (0, 2, 7, 9, 5, 6),     # a non-square image
+               (0, 3, 8, 8, 1, 4),     # layer 1's single input channel
+               (3, 2, 6, 6, 2, 4)]     # stacked devices
 
 
-@pytest.mark.parametrize("b,hw,cin,cout", CONV_SHAPES)
-def test_conv3x3_forward_and_grads_match_pallas(b, hw, cin, cout):
-    rng = np.random.default_rng(b * 100 + hw)
-    x, w = np32(rng, b, hw, hw, cin), np32(rng, 3, 3, cin, cout, scale=0.3)
-    bias, dy = np32(rng, cout, scale=0.3), np32(rng, b, hw, hw, cout)
+@pytest.mark.parametrize("d,b,h,wd,cin,cout", CONV_SHAPES)
+def test_conv3x3_forward_and_grads_match_pallas(d, b, h, wd, cin, cout):
+    rng = np.random.default_rng(d * 1000 + b * 100 + h * 10 + wd)
+    lead = (d,) if d else ()
+    x = np32(rng, *lead, b, h, wd, cin)
+    w = np32(rng, *lead, 3, 3, cin, cout, scale=0.3)
+    bias = np32(rng, *lead, cout, scale=0.3)
+    dy = np32(rng, *lead, b, h, wd, cout)
+
+    def conv(x, w, bb):
+        return jax_conv(x, w, bb, interpret=True)
+
+    if d:
+        conv = jax.vmap(conv)
 
     def loss(x, w, bb):
-        return jnp.sum(jax_conv(x, w, bb, interpret=True) * dy)
+        return jnp.sum(conv(x, w, bb) * dy)
 
-    ref_y = jax_conv(x, w, bias, interpret=True)
+    ref_y = conv(x, w, bias)
     gx, gw, gb = jax.grad(loss, argnums=(0, 1, 2))(x, w, bias)
 
     tx, tw, tb = (t(a).requires_grad_(True) for a in (x, w, bias))
@@ -93,13 +106,38 @@ def test_conv3x3_stacked_devices_are_independent():
                                    rtol=0, atol=0)
 
 
-def test_conv3x3_skips_dcols_when_cols_needs_no_grad():
+def test_conv3x3_skips_dx_when_x_needs_no_grad():
     rng = np.random.default_rng(4)
-    cols, w = t(np32(rng, 2, 30, 9)), t(np32(rng, 2, 9, 5))
-    y = matmul_bias_relu_fwd(cols, w, t(np32(rng, 2, 5)))
-    dcols, dw, db = matmul_bias_relu_bwd(cols, w, y, torch.ones_like(y),
-                                         need_dcols=False)
-    assert dcols is None and dw.shape == (2, 9, 5) and db.shape == (2, 5)
+    x, w = t(np32(rng, 2, 3, 5, 6, 1)), t(np32(rng, 2, 3, 3, 1, 5))
+    y = conv3x3_fwd(x, w, t(np32(rng, 2, 5)))
+    dx, dw, db = conv3x3_bwd(x, w, y, torch.ones_like(y), need_dx=False)
+    assert dx is None and dw.shape == (2, 3, 3, 1, 5) and db.shape == (2, 5)
+    # through autograd: images need no gradient, so the backward asks for
+    # none, and dW and db are those of the backward that computes dx too
+    tw = w.clone().requires_grad_(True)
+    tb = torch.zeros(2, 5, requires_grad=True)
+    conv3x3_bias_relu(x, tw, tb).sum().backward()
+    want = conv3x3_bwd(x, w, conv3x3_fwd(x, w, torch.zeros(2, 5)),
+                       torch.ones_like(y), need_dx=True)
+    torch.testing.assert_close(tw.grad, want[1], rtol=0, atol=0)
+    torch.testing.assert_close(tb.grad, want[2], rtol=0, atol=0)
+
+
+def test_conv3x3_saves_x_and_never_patches():
+    """The autograd function keeps x, w and y for the backward: no
+    [D, M, 9*Cin] im2col tensor."""
+    rng = np.random.default_rng(5)
+    d, b, h, wd, cin, cout = 2, 3, 6, 7, 4, 5
+    x = t(np32(rng, d, b, h, wd, cin)).requires_grad_(True)
+    w = t(np32(rng, d, 3, 3, cin, cout)).requires_grad_(True)
+    bias = t(np32(rng, d, cout)).requires_grad_(True)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda a: saved.append(tuple(a.shape)) or a, lambda a: a):
+        conv3x3_bias_relu(x, w, bias)
+    assert sorted(saved) == sorted([(d, b, h, wd, cin), (d, 3, 3, cin, cout),
+                                    (d, b, h, wd, cout)])
+    assert all(s[-1] != 9 * cin for s in saved)
 
 
 # ------------------------------------------------------------------- sgd
