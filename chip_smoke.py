@@ -7,13 +7,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds every kernel against its plain PyTorch version on the card (at the
 paper's DEFAULT shapes and at tile-tail shapes; the conv kernels at
 every shape of the main path, the backward with and without dx, timed
-beside a grouped ``conv2d`` and the im2col GEMM; ``hieavg_agg`` also with
-bfloat16 and float8_e4m3fn history; ``sgd_update`` as one launch over
-the CNN's six leaves; ``flash_attention`` over a grid of lengths, head
-dims, masks and GQA groups in float32 and bfloat16, at unit-scale and at
-sharp logits, and at the serving shape of h2o-danube-1.8b in bfloat16
-and float32, after a line that names the kernel each input type launched
-and its HGMMA count) and times both.  Then it runs the
+beside a grouped ``conv2d`` and the im2col GEMM; ``hieavg_agg`` as one
+launch over the CNN's six leaves, with float32, bfloat16 and
+float8_e4m3fn history; ``sgd_update`` as one launch over the CNN's six
+leaves; ``eval_head`` at 10 and 100 classes, bitwise on repeat;
+``flash_attention`` over a grid of lengths, head dims, masks and GQA
+groups in float32 and bfloat16, at unit-scale and at sharp logits, and
+at the serving shape of h2o-danube-1.8b in bfloat16 and float32, after a
+line that names the kernel each input type launched and its HGMMA
+count) and times both.  Then it runs the
 paper's experiment at the full width of its CNN (DEFAULT cut to T = 4:
 5 SGD steps per edge round, 2 cold-boot and 2 warm global rounds) under
 every single-run aggregator: ``hieavg`` (float32, bfloat16 and float8
@@ -32,7 +34,8 @@ layer by layer (see ``serve_parity``).
 Output, one line each: the card as ``nvidia-smi`` names it, then JSON
 objects: the build, one per kernel check (with ``flash_design`` before
 the flash line), one per run (each HieAvg-path run launches
-``sgd_update`` once per local step), one parity line
+``sgd_update`` once per local step and ``hieavg_agg`` once per warm
+aggregate), one parity line
 per configuration, the resume checks, one per serve run, the serve
 parity, the ``kernels`` summary, and last ``{"ok": true, "device":
 {...}}``.  ``--profile`` adds one more HieAvg run under ``torch.profiler``
@@ -194,6 +197,19 @@ def timed_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(torch, fn, iters: int = 200) -> float:
+    """The host's time per call of ``fn`` (perf_counter, the device not
+    waited for inside the loop): what a host-bound wrapper costs."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
 def device_ms(torch, fn, symbols, iters: int = 20):
     """Device time per call of ``fn`` spent in the kernels whose names hold
     one of ``symbols``, read from ``torch.profiler``: the kernels' own time,
@@ -226,6 +242,7 @@ KERNEL_SYMBOLS = (("conv3x3_fwd_kernel", "conv3x3_fwd"),
                   ("coef_agg_kernel", "coef_agg"),
                   ("coef_agg_pair_kernel", "coef_agg_pair"),
                   ("eval_head_kernel", "eval_head"),
+                  ("eval_head_argmax_kernel", "eval_head argmax"),
                   ("flash_attention_kernel", "flash_attention"),
                   ("flash_attention_wgmma_kernel", "flash_attention"))
 
@@ -678,7 +695,7 @@ def main() -> int:
     from repro_torch.kernels.eval_head import eval_head
     from repro_torch.kernels.flash_attention import DESIGNS as FLASH_DESIGNS
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.hieavg_agg import hieavg_agg
+    from repro_torch.kernels.hieavg_agg import hieavg_agg, hieavg_agg_many
     from repro_torch.kernels.ref import im2col3x3
     from repro_torch.kernels.sgd_update import sgd_update, sgd_update_many
     from repro_torch.launch import serve
@@ -713,11 +730,13 @@ def main() -> int:
                extra=None, kernel=None, flop_rate=FP32_FLOP_PER_S):
         """``fn`` launches the kernel (``kernel``, default ``name``) at the
         timed shape: ``ms`` is its wall time per call through the wrapper
-        (CUDA events), ``device_ms`` its kernels' own device time
-        (profiler).  The bound counts ``flops`` at ``flop_rate``."""
+        (CUDA events, the median of 5 timings: a host-bound wrapper's
+        swings with the shared host), ``device_ms`` its kernels' own device
+        time (profiler).  The bound counts ``flops`` at ``flop_rate``."""
         bms, by = bound_ms(nbytes, flops, flop_rate)
         line = {"kernel": name, "max_abs_err": err, "tolerance": tol,
-                "ms": timed_ms(torch, fn),
+                "ms": float(np.median([timed_ms(torch, fn)
+                                       for _ in range(5)])),
                 "device_ms": device_ms(torch, fn, symbols_of(kernel or name)),
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bms, "bound_by": by, **(extra or {})}
@@ -867,6 +886,24 @@ def main() -> int:
         tol = 1e-5 * max(w_.abs().max().item() for w_ in want)
         return err, tol
 
+    def many_inputs(nb, n, hdt):
+        """the six leaves [nb, n, L] of one aggregate and its float32
+        coefficients (as the main path passes them), history stored in
+        ``hdt``"""
+        a = [hieavg_inputs(nb, n, L) for L in leaf_sizes]
+        return ([x[0] for x in a], [to_history_dtype(x[1], hdt) for x in a],
+                [to_history_dtype(x[2], hdt) for x in a],
+                *(v.float() for v in a[0][3:]))
+
+    def one_launch(name, args):
+        """hieavg_agg_many on the card, checked to be one launch"""
+        before = build.LAUNCHES["hieavg_agg"]
+        got = hieavg_agg_many(*args, mode="cuda")
+        check(name, build.LAUNCHES["hieavg_agg"] == before + 1,
+              f"{len(args[0])} leaves took "
+              f"{build.LAUNCHES['hieavg_agg'] - before} launches")
+        return got
+
     nb, n = 5, 5                                  # N = 5 edges of J = 5
     err, tol = 0.0, 0.0
     for (nb2, n2, L) in ((1, 3, 1), (2, 5, 7), (5, 5, 2047), (1, 5, 2049)):
@@ -874,10 +911,10 @@ def main() -> int:
         e, t = agg_err(hieavg_agg(*args, mode="cuda"),
                        hieavg_agg(*args, mode="torch"))
         check("hieavg_agg", e <= t, f"{(nb2, n2, L)}: {e} > {t}")
-    leaves = [hieavg_inputs(nb, n, L) for L in leaf_sizes]
-    for args in leaves:
-        e, t = agg_err(hieavg_agg(*args, mode="cuda"),
-                       hieavg_agg(*args, mode="torch"))
+    margs = many_inputs(nb, n, torch.float32)
+    for got, want in zip(zip(*one_launch("hieavg_agg", margs)),
+                         zip(*hieavg_agg_many(*margs, mode="torch"))):
+        e, t = agg_err(got, want)
         check("hieavg_agg", e <= t, f"DEFAULT leaf: {e} > {t}")
         err, tol = max(err, e), max(tol, t)
     # a zero-coefficient slot adds exactly nothing, whatever it holds
@@ -891,14 +928,23 @@ def main() -> int:
         hieavg_agg(*a[:3], a[3], cp, ce, a[6], mode="cuda")[0],
         hieavg_agg(*junk, a[3], cp, ce, a[6], mode="cuda")[0]),
         "a zero-coefficient slot changed the aggregate")
+    outs = [o for kind in hieavg_agg_many(*margs, mode="cuda") for o in kind]
     record("hieavg_agg", err, tol,
-           lambda: [hieavg_agg(*x, mode="cuda") for x in leaves],
-           timed_ms(torch, lambda: [hieavg_agg(*x, mode="torch")
-                                    for x in leaves]),
-           None, 4.0 * (5 * nb * n * P + nb * P + 4 * nb * n * len(leaves)),
-           17.0 * nb * n * P, {"shape": [nb, n, P], "leaves": len(leaves),
-                               "history": "float32"})
-    del leaves
+           lambda: hieavg_agg_many(*margs, mode="cuda"),
+           timed_ms(torch, lambda: hieavg_agg_many(*margs, mode="torch")),
+           None, 4.0 * (5 * nb * n * P + nb * P + 4 * nb * n),
+           17.0 * nb * n * P, {
+               "shape": [nb, n, P], "leaves": len(margs[0]),
+               "history": "float32", "launches_per_call": 1,
+               # the host's share: the whole wrapper, and the per-leaf
+               # output views alone (as_strided of each of the 18)
+               "host_ms": host_ms(torch, lambda: hieavg_agg_many(
+                   *margs, mode="cuda")),
+               "views_host_ms": host_ms(torch, lambda: [
+                   o.as_strided(o.shape, o.stride(), o.storage_offset())
+                   for o in outs])})
+    del outs
+    del margs
 
     # ------------------------------- hieavg_agg with narrow history storage
     def ulps(got, want, dtype_name):
@@ -921,54 +967,70 @@ def main() -> int:
             a[1], a[2] = to_history_dtype(a[1], hdt), to_history_dtype(a[2], hdt)
             return a
 
-        err, tol, worst_ulp = 0.0, 0.0, 0.0
-        shapes = [(1, 3, 1), (2, 5, 7), (5, 5, 2047), (1, 5, 2049)]
-        shapes += [(b_, n, L) for b_ in (nb, 1) for L in leaf_sizes]
-        for shape in shapes:
-            args = narrow_inputs(*shape)
-            got = hieavg_agg(*args, mode="cuda")
-            want = hieavg_agg(*args, mode="torch")
+        def narrow_check(shape, got, want):
             check(label, got[1].dtype == got[2].dtype == hdt,
                   f"history came back as {got[1].dtype}")
             e, t = agg_err(got[:1], want[:1])
             check(label, e <= t, f"{shape} agg: {e} > {t}")
             u = max(ulps(g_, w_, hname) for g_, w_ in zip(got[1:], want[1:]))
             check(label, u <= 1.0, f"{shape} history: {u} ulp")
-            err, tol = max(err, e), max(tol, t)
-            worst_ulp = max(worst_ulp, u)
+            return e, t, u
+
+        err, tol, worst_ulp = 0.0, 0.0, 0.0
+        for shape in [(1, 3, 1), (2, 5, 7), (5, 5, 2047), (1, 5, 2049)]:
+            args = narrow_inputs(*shape)
+            narrow_check(shape, hieavg_agg(*args, mode="cuda"),
+                         hieavg_agg(*args, mode="torch"))
+        for b_ in (nb, 1):
+            margs = many_inputs(b_, n, hdt)
+            for got, want in zip(zip(*one_launch(label, margs)),
+                                 zip(*hieavg_agg_many(*margs, mode="torch"))):
+                e, t, u = narrow_check((b_, n), got, want)
+                err, tol = max(err, e), max(tol, t)
+                worst_ulp = max(worst_ulp, u)
         # a present slot stores w itself: the kernel's rounding of the edge
         # values against the cast helper's (which casts as jnp.astype)
         edges = torch.tensor(F8_EDGES, device=dev)
         one = torch.ones((1, 1), device=dev)
         zero_h = to_history_dtype(torch.zeros((1, 1, len(F8_EDGES)),
                                               device=dev), hdt)
-        ebits = {}
+        ebits, stored = {}, {}
         for mode in ("cuda", "torch"):
             _, p_, d_ = hieavg_agg(edges[None, None], zero_h, zero_h,
                                    one > 0, one, one * 0, one * 0, mode=mode)
             ebits[mode] = (p_.float()[0, 0], d_.float()[0, 0])
-        want = to_history_dtype(edges, hdt).float()
+            stored[mode] = (p_[0, 0], d_[0, 0])
+        want_h = to_history_dtype(edges, hdt)
+        want = want_h.float()
 
         def same(a_, b_):
             return bool(((a_ == b_) | (a_.isnan() & b_.isnan())).all())
 
         check(label, all(same(x, want) for x in ebits["cuda"] + ebits["torch"]),
               f"edge values: {ebits['cuda'][0].tolist()} != {want.tolist()}")
-        hleaves = [narrow_inputs(nb, n, L) for L in leaf_sizes]
+        if hdt == torch.float8_e4m3fn:
+            # float8 bitwise, the NaNs' signs included (bfloat16 NaN
+            # payloads differ between conversions, so it stops at the value)
+            bits = [x.view(torch.uint8) for x in stored["cuda"]]
+            check(label, all(torch.equal(b_, want_h.view(torch.uint8))
+                             for b_ in bits),
+                  f"edge bits: {bits[0].tolist()} != "
+                  f"{want_h.view(torch.uint8).tolist()}")
+        margs = many_inputs(nb, n, hdt)
         s = 2 if hname == "bfloat16" else 1
         record(label, err, tol,
-               lambda: [hieavg_agg(*x, mode="cuda") for x in hleaves],
-               timed_ms(torch, lambda: [hieavg_agg(*x, mode="torch")
-                                        for x in hleaves]),
+               lambda: hieavg_agg_many(*margs, mode="cuda"),
+               timed_ms(torch, lambda: hieavg_agg_many(*margs, mode="torch")),
                None, (4.0 + 4.0 * s) * nb * n * P + 4.0 * nb * P
-               + 16.0 * nb * n * len(hleaves),
+               + 16.0 * nb * n,
                17.0 * nb * n * P,
-               {"shape": [nb, n, P], "leaves": len(hleaves), "history": hname,
+               {"shape": [nb, n, P], "leaves": len(margs[0]), "history": hname,
+                "launches_per_call": 1,
                 "history_max_ulp": worst_ulp, "history_tolerance_ulp": 1.0,
                 "edge_values": dict(zip(map(str, F8_EDGES),
                                         ebits["cuda"][0].tolist()))},
                kernel="hieavg_agg")
-        del hleaves
+        del margs
 
     # ------------------------------------------------------------- coef_agg
     err, tol = 0.0, 0.0
@@ -1047,24 +1109,45 @@ def main() -> int:
         return int(((top[:, 0] - top[:, 1])
                     <= 1e-4 * z.abs().amax(-1)).sum().item())
 
-    ambiguous, err = 0, 0
-    for m_ in (1, 7, 257, NTEST):
+    def eval_case(m_, c_):
+        """inputs at M = m_, C = c_ (a third of the labels right), the
+        kernel's count against the plain one, bitwise on repeat"""
         f_ = rand(m_, FEAT)
-        wm, bb = randn(FEAT, NCLS, scale=FEAT ** -0.5), randn(NCLS, scale=0.1)
-        lab = torch.randint(-1, NCLS, (m_,), generator=gen, device=dev)
-        got = int(eval_head(f_, wm, bb, lab, "cuda").item())
+        wm, bb = randn(FEAT, c_, scale=FEAT ** -0.5), randn(c_, scale=0.1)
+        lab = torch.randint(-1, c_, (m_,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        lab[::3] = torch.argmax(f_ @ wm + bb, -1)[::3]
+        got = eval_head(f_, wm, bb, lab, "cuda")
         want = int(eval_head(f_, wm, bb, lab, "torch").item())
         amb = margin_rows(f_, wm, bb)
-        check("eval_head", abs(got - want) <= amb,
-              f"M={m_}: count {got} vs {want}, {amb} ambiguous rows")
-        ambiguous, err = ambiguous + amb, max(err, abs(got - want))
-    record("eval_head", float(err), float(ambiguous),
-           lambda: eval_head(f_, wm, bb, lab, "cuda"),
-           timed_ms(torch, lambda: eval_head(f_, wm, bb, lab, "torch")),
-           None, 4.0 * (NTEST * FEAT + FEAT * NCLS + NCLS + NTEST
-                        + -(-NTEST // 8)),
-           2.0 * NTEST * FEAT * NCLS, {"shape": [NTEST, FEAT, NCLS]})
-    del f_, wm
+        check("eval_head", abs(int(got.item()) - want) <= amb,
+              f"M={m_} C={c_}: count {int(got.item())} vs {want}, {amb} "
+              "ambiguous rows")
+        check("eval_head", all(torch.equal(eval_head(f_, wm, bb, lab, "cuda"),
+                                           got) for _ in range(2)),
+              f"M={m_} C={c_}: count not bitwise on repeat")
+        return (f_, wm, bb, lab), abs(int(got.item()) - want), amb
+
+    for c_ in (NCLS, 100):
+        ambiguous, err = 0, 0
+        for m_ in (1, 7, 257, NTEST):
+            args, e, amb = eval_case(m_, c_)
+            ambiguous, err = ambiguous + amb, max(err, e)
+        record("eval_head" if c_ == NCLS else f"eval_head[C={c_}]",
+               float(err), float(ambiguous),
+               lambda: eval_head(*args, "cuda"),
+               timed_ms(torch, lambda: eval_head(*args, "torch")),
+               None, 4.0 * (NTEST * FEAT + FEAT * c_ + c_ + NTEST) + 8.0,
+               2.0 * NTEST * FEAT * c_,
+               {"shape": [NTEST, FEAT, c_], "bitwise_on_repeat": True,
+                "host_ms": host_ms(torch, lambda: eval_head(*args, "cuda")),
+                # the two passes' device times: partial logits, argmax
+                "device_ms_passes": [device_ms(
+                    torch, lambda: eval_head(*args, "cuda"), (sym,))
+                    for sym in ("eval_head_kernel",
+                                "eval_head_argmax_kernel")]},
+               kernel="eval_head")
+        del args
 
     # ------------------------------------------------------ flash_attention
     serve_cfg = get_config(SERVE_ARCH)
@@ -1123,6 +1206,13 @@ def main() -> int:
         check("launches", launches.get("sgd_update", 0) == steps,
               f"{label}: {launches.get('sgd_update', 0)} sgd_update "
               f"launches for {steps} local steps")
+        if "hieavg_agg" in RUN_KERNELS.get(label, ()):
+            # one launch an aggregate: K edge rounds and the global one in
+            # every warm round
+            aggs = (T - setting.t_cold_boot) * (setting.k_edge_rounds + 1)
+            check("launches", launches["hieavg_agg"] == aggs,
+                  f"{label}: {launches['hieavg_agg']} hieavg_agg launches "
+                  f"for {aggs} aggregates")
         parity = {
             "accuracy": bool(np.allclose(a.accuracy, p.accuracy, rtol=0,
                                          atol=ACC_TOL)),

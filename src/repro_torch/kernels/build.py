@@ -66,14 +66,17 @@ SIGNATURES = {
     # host arrays of the leaves' w and g pointers and of their element
     # counts, the number of leaves, the flat output, scale, stream
     "sgd_update_launch": (_P, _P, _P, _I, _P, _F, _P),
-    # w, prev, dmean, vec, agg, nprev, ndmean, B, n, L, history type, stream
-    "hieavg_agg_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _P),
+    # host arrays of the leaves' (w, prev, dmean) pointers, of their
+    # columns and of their first output columns, the number of leaves, the
+    # host array of the four coefficient vectors, agg, nprev, ndmean, B, n,
+    # history type, stream
+    "hieavg_agg_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     # w, coef, out, B, n, L, stream
     "coef_agg_launch": (_P, _P, _P, _I, _I, _L, _P),
     # w, aux, coef [B, 2, n], out, B, n, L, stream
     "coef_agg_pair_launch": (_P, _P, _P, _P, _I, _I, _L, _P),
-    # feats, wmat, bias, labels, block_counts, M, F, C, stream
-    "eval_head_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # feats, wmat, bias, labels, partial logits, count, M, F, C, stream
+    "eval_head_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, out, B, H, Hkv, Sq, Skv, Dh, the batch, sequence and head
     # strides of q, k and v, causal, window (-1: none), q_offset, dtype
     # code, stream
@@ -168,7 +171,11 @@ def library() -> ctypes.CDLL:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream of the current device, as an int: the value
+    of ``torch.cuda.current_stream().cuda_stream``, read without building
+    a ``Stream`` object, which costs a host-bound wrapper more than the
+    rest of its launch."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def check(rc: int, name: str) -> None:

@@ -36,6 +36,9 @@ from . import build, ref
 ROWS_PER_PARTIAL = 32
 #: the widest image the kernels take: 32 groups of 7 pixels a row
 MAX_WIDTH = 224
+#: the most devices one launch takes (the grid's z extent); more are split
+#: across launches
+MAX_DEVICES = 65535
 
 
 def _launch(rc: int, name: str) -> None:
@@ -43,6 +46,16 @@ def _launch(rc: int, name: str) -> None:
         raise ValueError(f"{name}: image wider than {MAX_WIDTH} or weights "
                          "too wide for a block's shared memory")
     build.check(rc, name)
+
+
+def _device_runs(D: int):
+    """(first device, devices) of each launch."""
+    return [(d0, min(MAX_DEVICES, D - d0)) for d0 in range(0, D, MAX_DEVICES)]
+
+
+def _at(t, d0: int):
+    """The address of device ``d0``'s slice of ``t`` (None stays None)."""
+    return None if t is None else t.data_ptr() + d0 * t.stride(0) * 4
 
 
 def conv3x3_fwd(x, w, b, mode: str = "auto"):
@@ -55,14 +68,13 @@ def conv3x3_fwd(x, w, b, mode: str = "auto"):
     build.expect(x, "x", (D, nb, h, wd, cin))
     build.expect(w, "w", (D, 3, 3, cin, cout), device=x.device)
     build.expect(b, "b", (D, cout), device=x.device)
-    if D > 65535:
-        raise ValueError(f"conv3x3_fwd: D={D} exceeds the grid's z limit")
     y = torch.empty((D, nb, h, wd, cout), device=x.device,
                     dtype=torch.float32)
-    build.LAUNCHES["conv3x3_fwd"] += 1
-    _launch(build.library().conv3x3_fwd_launch(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-        D, nb * h, h, wd, cin, cout, build.stream()), "conv3x3_fwd")
+    for d0, d in _device_runs(D):
+        build.LAUNCHES["conv3x3_fwd"] += 1
+        _launch(build.library().conv3x3_fwd_launch(
+            _at(x, d0), _at(w, d0), _at(b, d0), _at(y, d0), d, nb * h, h, wd,
+            cin, cout, build.stream()), "conv3x3_fwd")
     return y
 
 
@@ -80,17 +92,15 @@ def conv3x3_bwd(x, w, y, dy, need_dx: bool = True, mode: str = "auto"):
                            ("dy", dy, (D, nb, h, wd, cout))):
         build.expect(t, name, shape, device=x.device)
     nparts = -(-(nb * h) // ROWS_PER_PARTIAL)
-    if D > 65535:
-        raise ValueError(f"conv3x3_bwd: D={D} exceeds the grid's z limit")
     dx = torch.empty_like(x) if need_dx else None
     part = torch.empty((D, nparts, 9 * cin + 1, cout), device=x.device,
                        dtype=torch.float32)
-    build.LAUNCHES["conv3x3_bwd"] += 1
-    _launch(build.library().conv3x3_bwd_launch(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), dy.data_ptr(),
-        None if dx is None else dx.data_ptr(), part.data_ptr(),
-        D, nb * h, h, wd, cin, cout, ROWS_PER_PARTIAL, build.stream()),
-        "conv3x3_bwd")
+    for d0, d in _device_runs(D):
+        build.LAUNCHES["conv3x3_bwd"] += 1
+        _launch(build.library().conv3x3_bwd_launch(
+            _at(x, d0), _at(w, d0), _at(y, d0), _at(dy, d0), _at(dx, d0),
+            _at(part, d0), d, nb * h, h, wd, cin, cout, ROWS_PER_PARTIAL,
+            build.stream()), "conv3x3_bwd")
     total = part.sum(1)                              # [D, 9*Cin + 1, Cout]
     return dx, total[:, :9 * cin].reshape(w.shape), total[:, 9 * cin]
 

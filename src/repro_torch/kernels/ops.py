@@ -4,8 +4,9 @@ batch and heads are its kernel's grid axes where the JAX package vmaps).
 
 Port of ``repro.kernels.ops``.  Weights are dicts of stacked leaves; the
 leading ``mask.dim()`` axes are batch axes then the participant axis.
-Each leaf is flattened to ``[B, n, L]`` for its kernel, which takes the
-batch axis B as a grid axis (where the JAX package vmaps).  The tiny
+The kernels take the batch axes as a grid axis (where the JAX package
+vmaps): ``hieavg_agg`` every leaf as it is, in one launch; ``coef_agg``
+each leaf flattened to ``[B, n, L]``.  The tiny
 ``[..., n]`` coefficient vectors are computed here in PyTorch, with the
 recipes of ``repro.kernels.ops`` and ``repro.kernels.dispatch``.
 """
@@ -19,7 +20,7 @@ from repro_torch.core.hieavg import History
 
 from .coef_agg import coef_agg, coef_agg_pair
 from .flash_attention import flash_attention  # noqa: F401  (GQA front-end)
-from .hieavg_agg import hieavg_agg
+from .hieavg_agg import hieavg_agg_many
 from .sgd_update import sgd_update_many
 
 
@@ -32,26 +33,21 @@ def fused_mix_and_update(stacked_w: dict, mask: torch.Tensor,
                          history: History, part_weights: torch.Tensor,
                          gamma0, lam, normalize: bool = False, *,
                          mode: str = "auto") -> tuple[dict, History]:
-    """``hieavg._mix_and_update`` (eq. 4/5) with the heavy ``[B, n, L]`` mix
-    and history update of each leaf in the ``hieavg_agg`` kernel."""
+    """``hieavg._mix_and_update`` (eq. 4/5) with the heavy mix and history
+    update of every leaf in one ``hieavg_agg`` launch."""
     m = mask.to(torch.float32)
     gamma = gamma0 * torch.pow(lam, history.miss_count + 1.0)   # k' >= 1
     coef = part_weights * (m + (1.0 - m) * gamma)
     if normalize:
         coef = coef / torch.clamp(coef.sum(-1, keepdim=True), min=1e-12)
-    lead = tuple(mask.shape)
-    B, n = math.prod(lead[:-1]), lead[-1]
-    vecs = [v.reshape(B, n) for v in
-            (m, coef * m, coef * (1.0 - m), history.n_obs)]
-    aggs, nprevs, ndmeans = {}, {}, {}
-    for k, w in stacked_w.items():
-        a, p, d = hieavg_agg(_flat(w, lead),
-                             _flat(history.prev_w[k], lead),
-                             _flat(history.delta_mean[k], lead), *vecs,
-                             mode=mode)
-        aggs[k] = a.reshape(lead[:-1] + tuple(w.shape[len(lead):]))
-        nprevs[k] = p.reshape(w.shape)
-        ndmeans[k] = d.reshape(w.shape)
+    names = list(stacked_w)
+    aggs, nprevs, ndmeans = hieavg_agg_many(
+        [stacked_w[k] for k in names],
+        [history.prev_w[k] for k in names],
+        [history.delta_mean[k] for k in names],
+        m, coef * m, coef * (1.0 - m), history.n_obs, mode=mode)
+    aggs, nprevs, ndmeans = (dict(zip(names, x))
+                             for x in (aggs, nprevs, ndmeans))
     return aggs, History(prev_w=nprevs, delta_mean=ndmeans,
                          n_obs=history.n_obs + m,
                          miss_count=(history.miss_count + 1.0) * (1.0 - m))

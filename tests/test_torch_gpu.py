@@ -19,7 +19,12 @@ widen, sum in float32, which may differ by 2e-5 where a sum cancels to
 near 0, and round once), rows that see no key exactly 0, at unit-scale and
 at sharp (q scaled by 24) logits.  The multi-leaf SGD update is bitwise
 the plain version, one launch a call; a bfloat16 operand that breaks a
-TMA precondition raises before any launch.
+TMA precondition raises before any launch.  The multi-leaf HieAvg mix is
+one launch a call at the bounds of the one-leaf one.  The correct-count
+at any number of classes equals the plain count up to the rows whose two
+largest logits lie within float32 reach (``rel 1e-4``) of each other, and
+is the same on repeat.  The conv wrapper splits more devices than the
+grid's z extent across launches, at the conv bounds.
 """
 import numpy as np
 import pytest
@@ -29,10 +34,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.hieavg import to_history_dtype  # noqa: E402
 from repro_torch.fl.engine import train_epoch_body  # noqa: E402
 from repro_torch.kernels.coef_agg import coef_agg, coef_agg_pair  # noqa: E402
-from repro_torch.kernels.conv3x3 import conv3x3_bwd, conv3x3_fwd  # noqa: E402
+from repro_torch.kernels.conv3x3 import (MAX_DEVICES,  # noqa: E402
+                                         conv3x3_bwd, conv3x3_fwd)
 from repro_torch.kernels.eval_head import eval_head  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.hieavg_agg import hieavg_agg  # noqa: E402
+from repro_torch.kernels.hieavg_agg import (hieavg_agg,  # noqa: E402
+                                            hieavg_agg_many)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.sgd_update import (MAX_LEAVES,  # noqa: E402
                                             sgd_update, sgd_update_many)
@@ -338,3 +345,112 @@ def test_gpu_flash_attention_rows_without_keys_are_zero(cuda, dtype):
     assert torch.equal(got[:, :10], torch.zeros_like(got[:, :10]))
     assert torch.equal(want[:, :10], got[:, :10])
     assert got[:, 10:].abs().max().item() > 0.1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, *NARROW],
+                         ids=["f32", "bf16", "f8"])
+def test_gpu_hieavg_agg_many_is_one_launch_for_every_leaf(cuda, dtype):
+    """The CNN's six leaves at DEFAULT width (B = n = 5), the tile tails and
+    leaves whose rows miss the 16-byte path (odd lengths, an address one
+    element off) in one launch, each leaf within the one-leaf bounds."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7)
+    lead = (5, 5)
+    shapes = [s[1:] for s in CNN_LEAVES] + [(L,) for L in L_TAILS] + \
+        [(33,), (3, 3, 3), (4, 2)]
+    ws, prevs, dmeans = [], [], []
+    for s in shapes:
+        ws.append(torch.randn(lead + s, generator=g, device=cuda))
+        prevs.append(to_history_dtype(
+            torch.randn(lead + s, generator=g, device=cuda), dtype))
+        dmeans.append(to_history_dtype(
+            torch.randn(lead + s, generator=g, device=cuda) * 0.1, dtype))
+    # an operand one element off 16 bytes takes the one-column path
+    base = torch.randn(5 * 5 * 8 + 1, generator=g, device=cuda)
+    ws[-1] = base[1:].view(lead + (4, 2))
+    mask = torch.rand(lead, generator=g, device=cuda) > 0.4
+    coef = torch.rand(lead, generator=g, device=cuda)
+    nobs = torch.floor(torch.rand(lead, generator=g, device=cuda) * 6)
+    args = (ws, prevs, dmeans, mask, coef * mask, coef * ~mask, nobs)
+    before = build.LAUNCHES["hieavg_agg"]
+    got = hieavg_agg_many(*args, mode="cuda")
+    assert build.LAUNCHES["hieavg_agg"] == before + 1
+    want = hieavg_agg_many(*args, mode="torch")
+    for k, w in enumerate(ws):
+        assert got[0][k].shape == want[0][k].shape == lead[:1] + w.shape[2:]
+        torch.testing.assert_close(got[0][k], want[0][k], rtol=1e-5,
+                                   atol=1e-6)
+        for a, b in ((got[1][k], want[1][k]), (got[2][k], want[2][k])):
+            assert a.shape == w.shape and a.dtype == dtype
+            if dtype == torch.float32:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+            else:
+                assert _ulps(a, b, dtype) <= 1.0
+    # each output kind is views of one allocation
+    for outs in got:
+        assert len({o.untyped_storage().data_ptr() for o in outs}) == 1
+
+
+@pytest.mark.parametrize("c", [1, 10, 16, 17, 100, 1000])
+def test_gpu_eval_head_any_classes_matches_plain(cuda, c):
+    """The count at any C equals the plain one up to the ambiguous rows,
+    and is bitwise the same on repeat (no float atomics)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(c)
+    f = 12544
+    wmat = torch.randn((f, c), generator=g, device=cuda) * f ** -0.5
+    bias = torch.randn((c,), generator=g, device=cuda) * 0.1
+    for m in (1, 7, 257, 1000, 10000):
+        feats = torch.rand((m, f), generator=g, device=cuda)
+        labels = torch.randint(-1, c, (m,), generator=g, device=cuda)
+        z = feats.double() @ wmat.double() + bias.double()
+        labels[::3] = torch.argmax(z, -1)[::3]   # a third of them right
+        if c > 1:
+            top = torch.topk(z, 2, dim=-1).values
+            amb = int(((top[:, 0] - top[:, 1])
+                       <= 1e-4 * z.abs().amax(-1)).sum())
+        else:
+            amb = 0
+        got = eval_head(feats, wmat, bias, labels, "cuda")
+        assert got.dtype == torch.int64 and got.dim() == 0
+        want = int(eval_head(feats, wmat, bias, labels, "torch"))
+        assert abs(int(got) - want) <= amb, (m, int(got), want, amb)
+        for _ in range(2):
+            assert torch.equal(eval_head(feats, wmat, bias, labels, "cuda"),
+                               got)
+
+
+def test_gpu_conv_splits_devices_past_the_grid_limit(cuda):
+    """D = MAX_DEVICES + 2 on a tiny image: two launches a pass, each
+    device's result that of the plain version."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(8)
+    x, w, b, dy = _conv_inputs(cuda, g, MAX_DEVICES + 2, 1, 3, 3, 1, 4)
+    before = dict(build.LAUNCHES)
+    y = conv3x3_fwd(x, w, b, "cuda")
+    torch.testing.assert_close(y, conv3x3_fwd(x, w, b, "torch"), rtol=1e-4,
+                               atol=1e-5)
+    got = conv3x3_bwd(x, w, y, dy, True, "cuda")
+    for a, r in zip(got, conv3x3_bwd(x, w, y, dy, True, "torch")):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+    for name in ("conv3x3_fwd", "conv3x3_bwd"):
+        assert build.LAUNCHES[name] == before.get(name, 0) + 2
+
+
+def test_gpu_conv_refuses_images_wider_than_224(cuda):
+    x = torch.zeros((1, 1, 3, 225, 2), device=cuda)
+    w = torch.zeros((1, 3, 3, 2, 4), device=cuda)
+    with pytest.raises(ValueError, match="wider than 224"):
+        conv3x3_fwd(x, w, torch.zeros((1, 4), device=cuda), "cuda")
+    with pytest.raises(ValueError, match="wider than 224"):
+        conv3x3_bwd(x, w, torch.zeros((1, 1, 3, 225, 4), device=cuda),
+                    torch.zeros((1, 1, 3, 225, 4), device=cuda), True,
+                    "cuda")
+
+
+def test_gpu_conv_refuses_weights_too_wide_for_shared_memory(cuda):
+    """4096 input channels: a block's [9 * Cin, 64] slice of w is 9.4 MB."""
+    x = torch.zeros((1, 1, 3, 3, 4096), device=cuda)
+    w = torch.zeros((1, 3, 3, 4096, 64), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        conv3x3_fwd(x, w, torch.zeros((1, 64), device=cuda), "cuda")

@@ -318,3 +318,14 @@ def test_kernel_modes():
         build.use_kernel("pallas", w)
     with pytest.raises(ValueError, match="CUDA tensors"):
         sgd_update(w, w, 0.1, mode="cuda")
+
+
+def test_conv3x3_splits_devices_past_the_grid_limit_into_runs():
+    """More devices than the grid's z extent go to several launches, each
+    at most MAX_DEVICES, covering every device once in order."""
+    from repro_torch.kernels.conv3x3 import MAX_DEVICES, _device_runs
+    assert _device_runs(3) == [(0, 3)]
+    assert _device_runs(MAX_DEVICES) == [(0, MAX_DEVICES)]
+    assert _device_runs(2 * MAX_DEVICES + 7) == [
+        (0, MAX_DEVICES), (MAX_DEVICES, MAX_DEVICES), (2 * MAX_DEVICES, 7)]
+    assert _device_runs(0) == []
