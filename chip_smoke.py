@@ -9,8 +9,10 @@ paper's DEFAULT shapes and at tile-tail shapes; the conv kernels at
 every shape of the main path, the backward with and without dx, timed
 beside a grouped ``conv2d`` and the im2col GEMM; ``hieavg_agg`` as one
 launch over the CNN's six leaves, with float32, bfloat16 and
-float8_e4m3fn history; ``sgd_update`` as one launch over the CNN's six
-leaves; ``eval_head`` at 10 and 100 classes, bitwise on repeat;
+float8_e4m3fn history; ``coef_agg`` and ``coef_agg_pair`` as one launch
+over the six leaves at the edge and the global layer's lead, bitwise on
+repeat; ``sgd_update`` as one launch over the CNN's six leaves;
+``eval_head`` at 10 and 100 classes, bitwise on repeat;
 ``flash_attention`` over a grid of lengths, head dims, masks and GQA
 groups in float32 and bfloat16, at unit-scale and at sharp logits, and
 at the serving shape of h2o-danube-1.8b in bfloat16 and float32, after a
@@ -33,14 +35,16 @@ layer by layer (see ``serve_parity``).
 
 Output, one line each: the card as ``nvidia-smi`` names it, then JSON
 objects: the build, one per kernel check (with ``flash_design`` before
-the flash line), one per run (each HieAvg-path run launches
-``sgd_update`` once per local step and ``hieavg_agg`` once per warm
-aggregate), one parity line
+the flash line), one per run (each run launches ``sgd_update`` once per
+local step and one aggregate kernel per aggregate: ``coef_agg`` in
+HieAvg's cold rounds and in FedAvg, ``hieavg_agg`` in HieAvg's warm ones,
+``coef_agg_pair`` in delayed-gradient), one parity line
 per configuration, the resume checks, one per serve run, the serve
 parity, the ``kernels`` summary, and last ``{"ok": true, "device":
 {...}}``.  ``--profile`` adds one more HieAvg run under ``torch.profiler``
 and a line of device time per kernel; ``--full`` adds the paper's whole
-DEFAULT HieAvg run (T = 50) per mode, its Fig. 2 set (``run_comparison``
+DEFAULT run (T = 50) per mode of HieAvg, FedAvg and delayed-gradient
+aggregation, its Fig. 2 set (``run_comparison``
 under temporary and permanent stragglers, with HieAvg's eq. (4) as
 written and normalized), and a serve run with a prompt of 32768 tokens.
 Any failed phase raises and exits non-zero; without a CUDA device it
@@ -239,8 +243,8 @@ KERNEL_SYMBOLS = (("conv3x3_fwd_kernel", "conv3x3_fwd"),
                   ("conv3x3_dw_kernel", "conv3x3_bwd dW/db"),
                   ("sgd_update_kernel", "sgd_update"),
                   ("hieavg_agg_kernel", "hieavg_agg"),
-                  ("coef_agg_kernel", "coef_agg"),
-                  ("coef_agg_pair_kernel", "coef_agg_pair"),
+                  ("coef_agg_kernel<false>", "coef_agg"),
+                  ("coef_agg_kernel<true>", "coef_agg_pair"),
                   ("eval_head_kernel", "eval_head"),
                   ("eval_head_argmax_kernel", "eval_head argmax"),
                   ("flash_attention_kernel", "flash_attention"),
@@ -283,14 +287,16 @@ def profile_run(torch, fn) -> dict:
                         for k, (n, t) in top]}
 
 
-def full_runs(torch, simulator, setting) -> dict:
-    """The paper's whole DEFAULT run (T = 50 global rounds) once per kernel
-    mode, in turns (auto, torch, auto, torch): wall seconds, rounds per
-    second and the final accuracy.  Only with ``--full``."""
-    out: dict = {"t_global_rounds": setting.t_global_rounds}
+def full_runs(torch, simulator, setting, label: str = "hieavg") -> dict:
+    """The paper's whole DEFAULT run (T = 50 global rounds) of the smoke
+    configuration ``label`` (``RUNS``) once per kernel mode, in turns
+    (auto, torch, auto, torch): wall seconds, rounds per second and the
+    final accuracy.  Only with ``--full``."""
+    agg, strag, _ = RUNS[label]
+    out: dict = {"config": label, "t_global_rounds": setting.t_global_rounds}
     for mode in ("auto", "torch", "auto", "torch"):
-        sim = simulator(setting, "hieavg", "temporary", "temporary",
-                        device="cuda", kernel_mode=mode)
+        sim = simulator(setting, agg, strag, strag, device="cuda",
+                        kernel_mode=mode)
         torch.cuda.synchronize()
         res = sim.run()
         torch.cuda.synchronize()
@@ -690,7 +696,8 @@ def main() -> int:
     from repro_torch.core.hieavg import to_history_dtype
     from repro_torch.fl import BHFLSimulator, run_comparison
     from repro_torch.kernels import build
-    from repro_torch.kernels.coef_agg import coef_agg, coef_agg_pair
+    from repro_torch.kernels.coef_agg import (coef_agg_many,
+                                              coef_agg_pair_many)
     from repro_torch.kernels.conv3x3 import conv3x3_bwd, conv3x3_fwd
     from repro_torch.kernels.eval_head import eval_head
     from repro_torch.kernels.flash_attention import DESIGNS as FLASH_DESIGNS
@@ -1032,73 +1039,90 @@ def main() -> int:
                kernel="hieavg_agg")
         del margs
 
-    # ------------------------------------------------------------- coef_agg
-    err, tol = 0.0, 0.0
-    for (nb2, n2, L) in ((1, 3, 1), (2, 5, 7), (5, 5, 2047), (1, 5, 2049)):
-        w2, c2 = randn(nb2, n2, L), rand(nb2, n2)
-        e, t = agg_err([coef_agg(w2, c2, "cuda")], [coef_agg(w2, c2, "torch")])
-        check("coef_agg", e <= t, f"{(nb2, n2, L)}: {e} > {t}")
-    cleaves = [(randn(nb, n, L), rand(nb, n)) for L in leaf_sizes]
-    for w2, c2 in cleaves:
-        e, t = agg_err([coef_agg(w2, c2, "cuda")], [coef_agg(w2, c2, "torch")])
-        check("coef_agg", e <= t, f"DEFAULT leaf: {e} > {t}")
-        err, tol = max(err, e), max(tol, t)
-    w2, c2 = randn(1, 5, 500), torch.tensor([[0.5, 0.3, 0.2, 0.0, 0.0]],
-                                            device=dev)
-    w3 = w2.clone()
-    w3[:, 3:] = 1e6
-    check("coef_agg", torch.equal(coef_agg(w2, c2, "cuda"),
-                                  coef_agg(w3, c2, "cuda")),
-          "a zero-coefficient slot changed the aggregate")
-    record("coef_agg", err, tol,
-           lambda: [coef_agg(x, c, "cuda") for x, c in cleaves],
-           timed_ms(torch, lambda: [coef_agg(x, c, "torch")
-                                    for x, c in cleaves]),
-           timed_ms(torch, lambda: [torch.einsum("bn,bnl->bl", c, x)
-                                    for x, c in cleaves]),
-           4.0 * (nb * n * P + nb * P + nb * n * len(cleaves)),
-           2.0 * nb * n * P, {"shape": [nb, n, P], "leaves": len(cleaves)})
-    del cleaves
+    # ------------------------------------------- coef_agg and coef_agg_pair
+    # every leaf of an aggregate in one launch, at the edge layer's lead
+    # (B = n = 5) and the global layer's (n = 5), each checked to be one
+    # launch, within the plain version's bound and bitwise on repeat; the
+    # tails one leaf a call; a zero-coefficient slot adds exactly nothing;
+    # the six-leaf call at the edge layer's lead is timed
+    leaf_shapes = [tuple(s.shape) for s in specs.values()]
 
-    # -------------------------------------------------------- coef_agg_pair
-    def pair_inputs(nb2, n2, L):
-        """a delayed-gradient mix: present slots weigh w, missing ones aux"""
-        m = rand(nb2, n2) > 0.4
-        c = rand(nb2, n2)
-        return randn(nb2, n2, L), randn(nb2, n2, L), c * m, c * ~m
+    def coef_inputs(kind, lead, shapes):
+        """leaves [*lead, *leaf] (the pair: w and aux) and coefficients
+        [*lead]: one vector, or a delayed-gradient mix (present slots weigh
+        w, missing ones aux)"""
+        c = rand(*lead)
+        if kind == "coef_agg":
+            return [[randn(*lead, *s) for s in shapes]], (c,)
+        m = rand(*lead) > 0.4
+        return ([[randn(*lead, *s) for s in shapes] for _ in range(2)],
+                (c * m, c * ~m))
 
-    err, tol = 0.0, 0.0
-    shapes = [(1, 3, 1), (2, 5, 7), (5, 5, 2047), (1, 5, 2049)]
-    shapes += [(b_, n, L) for b_ in (nb, 1) for L in leaf_sizes]
-    for shape in shapes:
-        args = pair_inputs(*shape)
-        e, t = agg_err([coef_agg_pair(*args, mode="cuda")],
-                       [coef_agg_pair(*args, mode="torch")])
-        check("coef_agg_pair", e <= t, f"{shape}: {e} > {t}")
-        err, tol = max(err, e), max(tol, t)
-    w2, a2 = randn(1, 5, 500), randn(1, 5, 500)
-    ca = torch.tensor([[0.5, 0.0, 0.2, 0.0, 0.0]], device=dev)
-    cb = torch.tensor([[0.0, 0.3, 0.0, 0.0, 0.0]], device=dev)
-    w3, a3 = w2.clone(), a2.clone()
-    w3[:, [1, 3, 4]] = 1e6
-    a3[:, [0, 2, 3, 4]] = 1e6
-    check("coef_agg_pair", torch.equal(coef_agg_pair(w2, a2, ca, cb, "cuda"),
-                                       coef_agg_pair(w3, a3, ca, cb, "cuda")),
-          "a zero-coefficient slot changed the aggregate")
-    pleaves = [pair_inputs(nb, n, L) for L in leaf_sizes]
-    record("coef_agg_pair", err, tol,
-           lambda: [coef_agg_pair(*x, mode="cuda") for x in pleaves],
-           timed_ms(torch, lambda: [coef_agg_pair(*x, mode="torch")
-                                    for x in pleaves]),
-           timed_ms(torch, lambda: [
-               torch.einsum("bn,bnl->bl", ca_, w_).add_(
-                   torch.einsum("bn,bnl->bl", cb_, a_))
-               for w_, a_, ca_, cb_ in pleaves]),
-           4.0 * (2 * nb * n * P + nb * P + 2 * nb * n * len(pleaves)),
-           4.0 * nb * n * P,
-           {"shape": [nb, n, P], "leaves": len(pleaves),
-            "library_calls": "two einsum calls per leaf, summed in place"})
-    del pleaves
+    for kind, many in (("coef_agg", coef_agg_many),
+                       ("coef_agg_pair", coef_agg_pair_many)):
+        err, tol = 0.0, 0.0
+        for (nb2, n2, L) in ((1, 3, 1), (2, 5, 7), (5, 5, 2047), (1, 5, 2049)):
+            ops_, cs = coef_inputs(kind, (nb2, n2), [(L,)])
+            e, t = agg_err(many(*ops_, *cs, mode="cuda"),
+                           many(*ops_, *cs, mode="torch"))
+            check(kind, e <= t, f"{(nb2, n2, L)}: {e} > {t}")
+        for lead in ((nb, n), (n,)):
+            ops_, cs = coef_inputs(kind, lead, leaf_shapes)
+            before = build.LAUNCHES[kind]
+            got = many(*ops_, *cs, mode="cuda")
+            check(kind, build.LAUNCHES[kind] == before + 1,
+                  f"lead {lead}: {len(leaf_shapes)} leaves took "
+                  f"{build.LAUNCHES[kind] - before} launches")
+            e, t = agg_err(got, many(*ops_, *cs, mode="torch"))
+            check(kind, e <= t, f"lead {lead}: {e} > {t}")
+            err, tol = max(err, e), max(tol, t)
+            check(kind, all(torch.equal(a_, b_) for a_, b_ in zip(
+                got, many(*ops_, *cs, mode="cuda"))),
+                f"lead {lead}: not bitwise on repeat")
+        # a zero-coefficient slot adds exactly nothing, whatever it holds
+        w2, a2 = randn(1, 5, 500), randn(1, 5, 500)
+        w3, a3 = w2.clone(), a2.clone()
+        if kind == "coef_agg":
+            zc = (torch.tensor([[0.5, 0.3, 0.2, 0.0, 0.0]], device=dev),)
+            w3[:, 3:] = 1e6
+        else:
+            zc = (torch.tensor([[0.5, 0.0, 0.2, 0.0, 0.0]], device=dev),
+                  torch.tensor([[0.0, 0.3, 0.0, 0.0, 0.0]], device=dev))
+            w3[:, [1, 3, 4]] = 1e6
+            a3[:, [0, 2, 3, 4]] = 1e6
+        clean = [[w2], [a2]][:len(zc)]
+        junk = [[w3], [a3]][:len(zc)]
+        check(kind, torch.equal(many(*clean, *zc, mode="cuda")[0],
+                                many(*junk, *zc, mode="cuda")[0]),
+              "a zero-coefficient slot changed the aggregate")
+        ops_, cs = coef_inputs(kind, (nb, n), leaf_shapes)
+        flat = [[x.view(nb, n, -1) for x in o] for o in ops_]
+        if kind == "coef_agg":
+            def library():
+                return [torch.einsum("bn,bnl->bl", cs[0], w_)
+                        for w_ in flat[0]]
+        else:
+            def library():
+                return [torch.einsum("bn,bnl->bl", cs[0], w_).add_(
+                    torch.einsum("bn,bnl->bl", cs[1], a_))
+                    for w_, a_ in zip(*flat)]
+        outs = many(*ops_, *cs, mode="cuda")
+        record(kind, err, tol, lambda: many(*ops_, *cs, mode="cuda"),
+               timed_ms(torch, lambda: many(*ops_, *cs, mode="torch")),
+               timed_ms(torch, library),
+               4.0 * (len(ops_) * nb * n * P + nb * P + len(cs) * nb * n),
+               2.0 * len(ops_) * nb * n * P, {
+                   "shape": [nb, n, P], "leaves": len(leaf_shapes),
+                   "launches_per_call": 1,
+                   "library_calls": f"{len(ops_)} einsum call(s) a leaf",
+                   # the host's share: the whole wrapper, and the per-leaf
+                   # output views alone (as_strided of each of the six)
+                   "host_ms": host_ms(torch, lambda: many(
+                       *ops_, *cs, mode="cuda")),
+                   "views_host_ms": host_ms(torch, lambda: [
+                       o.as_strided(o.shape, o.stride(), o.storage_offset())
+                       for o in outs])})
+        del ops_, flat, outs, got
 
     # ------------------------------------------------------------ eval_head
     def margin_rows(feats, wmat, bias):
@@ -1206,13 +1230,20 @@ def main() -> int:
         check("launches", launches.get("sgd_update", 0) == steps,
               f"{label}: {launches.get('sgd_update', 0)} sgd_update "
               f"launches for {steps} local steps")
+        # one launch an aggregate: K edge rounds and the global one in
+        # every round; HieAvg's cold rounds on coef_agg, its warm ones on
+        # hieavg_agg
+        per_round = setting.k_edge_rounds + 1
+        cold = min(T, setting.t_cold_boot)
+        aggs = {"fedavg": {"coef_agg": T * per_round},
+                "delayed_grad": {"coef_agg_pair": T * per_round}}
         if "hieavg_agg" in RUN_KERNELS.get(label, ()):
-            # one launch an aggregate: K edge rounds and the global one in
-            # every warm round
-            aggs = (T - setting.t_cold_boot) * (setting.k_edge_rounds + 1)
-            check("launches", launches["hieavg_agg"] == aggs,
-                  f"{label}: {launches['hieavg_agg']} hieavg_agg launches "
-                  f"for {aggs} aggregates")
+            aggs[label] = {"hieavg_agg": (T - cold) * per_round,
+                           "coef_agg": cold * per_round}
+        for k, want in aggs.get(label, {}).items():
+            check("launches", launches.get(k, 0) == want,
+                  f"{label}: {launches.get(k, 0)} {k} launches for {want} "
+                  "aggregates")
         parity = {
             "accuracy": bool(np.allclose(a.accuracy, p.accuracy, rtol=0,
                                          atol=ACC_TOL)),
@@ -1261,7 +1292,9 @@ def main() -> int:
                     prompt_len=SERVE_PROMPT, gen=gen, device="cuda",
                     progress=False))}})
     if "--full" in sys.argv[1:]:
-        emit({"full_run": full_runs(torch, BHFLSimulator, DEFAULT)})
+        for label in ("hieavg", "fedavg", "delayed_grad"):
+            emit({"full_run": full_runs(torch, BHFLSimulator, DEFAULT,
+                                        label)})
         emit({"fig2": fig2_runs(run_comparison, DEFAULT)})
         torch.cuda.reset_peak_memory_stats()
         res = serve.run(SERVE_ARCH, smoke=False, batch=1,

@@ -71,10 +71,12 @@ SIGNATURES = {
     # host array of the four coefficient vectors, agg, nprev, ndmean, B, n,
     # history type, stream
     "hieavg_agg_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
-    # w, coef, out, B, n, L, stream
-    "coef_agg_launch": (_P, _P, _P, _I, _I, _L, _P),
-    # w, aux, coef [B, 2, n], out, B, n, L, stream
-    "coef_agg_pair_launch": (_P, _P, _P, _P, _I, _I, _L, _P),
+    # host arrays of the leaves' w pointers (the pair: w and aux of each
+    # leaf), of their columns, of their first output columns and of their
+    # 16-byte flags, the number of leaves, coef [B, n] (the pair:
+    # [B, 2, n]), out, B, n, stream
+    "coef_agg_launch": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _P),
+    "coef_agg_pair_launch": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _P),
     # feats, wmat, bias, labels, partial logits, count, M, F, C, stream
     "eval_head_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, out, B, H, Hkv, Sq, Skv, Dh, the batch, sequence and head

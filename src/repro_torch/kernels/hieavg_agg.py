@@ -10,53 +10,15 @@ leaf.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
 from . import build, ref
+from .leaves import MAX_LEAVES, plan
 
 #: the history storage dtypes the kernel takes, by its ``hist`` code
 HIST_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
-#: the most leaves one launch takes (csrc/hieavg_agg.cu: MAX_LEAVES)
-MAX_LEAVES = 64
-#: each leaf's first column in the flat outputs is a multiple of this, so
-#: that its rows take the kernel's 16-byte path (csrc/hieavg_agg.cu: VEC)
-_ALIGN = 4
-
-
-def _contiguous_strides(shape: tuple) -> tuple:
-    strides, s = [], 1
-    for d in reversed(shape):
-        strides.append(s)
-        s *= max(d, 1)
-    return tuple(reversed(strides))
-
-
-@functools.lru_cache(maxsize=64)
-def _plan(lead: tuple, shapes: tuple) -> tuple:
-    """For leaves ``[*lead, *leaf]``: the ctypes arrays of each leaf's
-    columns and first output column, the total columns, and for each leaf
-    the shape, strides and offset of its agg view and of its history
-    views.  Cached by the shapes: a run aggregates the same ones."""
-    B, n = math.prod(lead[:-1]), lead[-1]
-    cols, starts, views, start = [], [], [], 0
-    for shape in shapes:
-        if tuple(shape[:len(lead)]) != lead:
-            raise ValueError(f"hieavg_agg: leaf {tuple(shape)} does not "
-                             f"lead with the mask's shape {lead}")
-        L = math.prod(shape[len(lead):])
-        agg_shape = lead[:-1] + tuple(shape[len(lead):])
-        views.append((agg_shape, _contiguous_strides(agg_shape), B * start,
-                      tuple(shape), _contiguous_strides(tuple(shape)),
-                      B * n * start))
-        cols.append(L)
-        starts.append(start)
-        start += -(-L // _ALIGN) * _ALIGN
-    k = len(shapes)
-    return ((ctypes.c_longlong * k)(*cols), (ctypes.c_longlong * k)(*starts),
-            start, views)
 
 
 def hieavg_agg_many(ws, prevs, dmeans, mask, coef_present, coef_est, n_obs,
@@ -108,7 +70,8 @@ def hieavg_agg_many(ws, prevs, dmeans, mask, coef_present, coef_est, n_obs,
             raise ValueError(f"hieavg_agg: leaves on {w.device}, {p.device},"
                              f" {d.device}, expected {dev}")
         ptrs += (w.data_ptr(), p.data_ptr(), d.data_ptr())
-    cols, starts, total, views = _plan(lead, tuple([w.shape for w in ws]))
+    cols, starts, total, views = plan("hieavg_agg", lead,
+                                      tuple([w.shape for w in ws]))
     B, n = math.prod(lead[:-1]), lead[-1]
     agg = torch.empty(B * total, dtype=f32, device=dev)
     nprev = torch.empty(B * n * total, dtype=hdt, device=dev)

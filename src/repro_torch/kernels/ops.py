@@ -5,28 +5,21 @@ batch and heads are its kernel's grid axes where the JAX package vmaps).
 Port of ``repro.kernels.ops``.  Weights are dicts of stacked leaves; the
 leading ``mask.dim()`` axes are batch axes then the participant axis.
 The kernels take the batch axes as a grid axis (where the JAX package
-vmaps): ``hieavg_agg`` every leaf as it is, in one launch; ``coef_agg``
-each leaf flattened to ``[B, n, L]``.  The tiny
-``[..., n]`` coefficient vectors are computed here in PyTorch, with the
-recipes of ``repro.kernels.ops`` and ``repro.kernels.dispatch``.
+vmaps) and every leaf of an aggregate as it is, in one launch
+(``hieavg_agg``, ``coef_agg``, ``coef_agg_pair``).  The tiny ``[..., n]``
+coefficient vectors are computed here in PyTorch, with the recipes of
+``repro.kernels.ops`` and ``repro.kernels.dispatch``.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from repro_torch.core.hieavg import History
 
-from .coef_agg import coef_agg, coef_agg_pair
+from .coef_agg import coef_agg_many, coef_agg_pair_many
 from .flash_attention import flash_attention  # noqa: F401  (GQA front-end)
 from .hieavg_agg import hieavg_agg_many
 from .sgd_update import sgd_update_many
-
-
-def _flat(w: torch.Tensor, lead: tuple) -> torch.Tensor:
-    """[*lead, *leaf] -> [B, n, L] with B = prod(lead[:-1]), n = lead[-1]."""
-    return w.reshape(math.prod(lead[:-1]), lead[-1], -1).contiguous()
 
 
 def fused_mix_and_update(stacked_w: dict, mask: torch.Tensor,
@@ -68,27 +61,23 @@ def fused_edge_aggregate_batched(stacked_w: dict, mask: torch.Tensor,
 
 def fused_coef_aggregate(stacked_w: dict, coef: torch.Tensor, *,
                          mode: str = "auto") -> dict:
-    """``sum_n coef[..., n] * w[..., n, ...]`` per leaf (float32)."""
-    lead = tuple(coef.shape)
-    B, n = math.prod(lead[:-1]), lead[-1]
-    c = coef.reshape(B, n)
-    return {k: coef_agg(_flat(w, lead), c, mode=mode).reshape(
-                lead[:-1] + tuple(w.shape[len(lead):]))
-            for k, w in stacked_w.items()}
+    """``sum_n coef[..., n] * w[..., n, ...]`` per leaf (float32), every
+    leaf in one ``coef_agg`` launch."""
+    names = list(stacked_w)
+    return dict(zip(names, coef_agg_many([stacked_w[k] for k in names],
+                                         coef, mode=mode)))
 
 
 def fused_coef_aggregate_pair(stacked_w: dict, aux: dict, ca: torch.Tensor,
                               cb: torch.Tensor, *, mode: str = "auto"
                               ) -> dict:
     """``sum_n ca[..., n] * w[..., n, ...] + cb[..., n] * aux[..., n, ...]``
-    per leaf (float32): the delayed-gradient mix."""
-    lead = tuple(ca.shape)
-    B, n = math.prod(lead[:-1]), lead[-1]
-    a, b = ca.reshape(B, n), cb.reshape(B, n)
-    return {k: coef_agg_pair(_flat(w, lead), _flat(aux[k], lead), a, b,
-                             mode=mode).reshape(
-                lead[:-1] + tuple(w.shape[len(lead):]))
-            for k, w in stacked_w.items()}
+    per leaf (float32), every leaf in one ``coef_agg_pair`` launch: the
+    delayed-gradient mix."""
+    names = list(stacked_w)
+    return dict(zip(names, coef_agg_pair_many(
+        [stacked_w[k] for k in names], [aux[k] for k in names], ca, cb,
+        mode=mode)))
 
 
 def fused_sgd_update(params: dict, grads: dict, scale: float, *,

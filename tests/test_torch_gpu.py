@@ -20,7 +20,8 @@ near 0, and round once), rows that see no key exactly 0, at unit-scale and
 at sharp (q scaled by 24) logits.  The multi-leaf SGD update is bitwise
 the plain version, one launch a call; a bfloat16 operand that breaks a
 TMA precondition raises before any launch.  The multi-leaf HieAvg mix is
-one launch a call at the bounds of the one-leaf one.  The correct-count
+one launch a call at the bounds of the one-leaf one, and so are the
+multi-leaf coefficient aggregates, bitwise on repeat.  The correct-count
 at any number of classes equals the plain count up to the rows whose two
 largest logits lie within float32 reach (``rel 1e-4``) of each other, and
 is the same on repeat.  The conv wrapper splits more devices than the
@@ -33,7 +34,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.hieavg import to_history_dtype  # noqa: E402
 from repro_torch.fl.engine import train_epoch_body  # noqa: E402
-from repro_torch.kernels.coef_agg import coef_agg, coef_agg_pair  # noqa: E402
+from repro_torch.kernels.coef_agg import (coef_agg,  # noqa: E402
+                                          coef_agg_many, coef_agg_pair,
+                                          coef_agg_pair_many)
 from repro_torch.kernels.conv3x3 import (MAX_DEVICES,  # noqa: E402
                                          conv3x3_bwd, conv3x3_fwd)
 from repro_torch.kernels.eval_head import eval_head  # noqa: E402
@@ -389,6 +392,41 @@ def test_gpu_hieavg_agg_many_is_one_launch_for_every_leaf(cuda, dtype):
     # each output kind is views of one allocation
     for outs in got:
         assert len({o.untyped_storage().data_ptr() for o in outs}) == 1
+
+
+@pytest.mark.parametrize("lead", [(5, 5), (5,)], ids=["edges", "global"])
+@pytest.mark.parametrize("kind", ["single", "pair"])
+def test_gpu_coef_agg_many_is_one_launch_for_every_leaf(cuda, kind, lead):
+    """The CNN's six leaves at DEFAULT width (B = n = 5 at the edge layer,
+    B = 1, n = 5 at the global one), the tile tails and leaves whose rows
+    miss the 16-byte path (odd lengths, an address one element off) in one
+    launch, each leaf within the one-leaf bounds, bitwise on repeat."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(8)
+    shapes = [s[1:] for s in CNN_LEAVES] + [(L,) for L in L_TAILS] + \
+        [(33,), (3, 3, 3), (4, 2)]
+    ops_ = [[torch.randn(lead + s, generator=g, device=cuda) for s in shapes]
+            for _ in range(1 if kind == "single" else 2)]
+    # an operand one element off 16 bytes takes the one-column path
+    base = torch.randn(5 * 5 * 8 + 1, generator=g, device=cuda)
+    ops_[-1][-1] = base[1:1 + 8 * int(np.prod(lead))].view(lead + (4, 2))
+    c = torch.rand(lead, generator=g, device=cuda)
+    m = torch.rand(lead, generator=g, device=cuda) > 0.4
+    if kind == "single":
+        fn, coefs, name = coef_agg_many, (c,), "coef_agg"
+    else:
+        fn, coefs, name = coef_agg_pair_many, (c * m, c * ~m), "coef_agg_pair"
+    before = build.LAUNCHES[name]
+    got = fn(*ops_, *coefs, mode="cuda")
+    assert build.LAUNCHES[name] == before + 1
+    want = fn(*ops_, *coefs, mode="torch")
+    for k, w in enumerate(ops_[0]):
+        assert got[k].shape == want[k].shape == lead[:-1] + w.shape[len(lead):]
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
+    # the outputs are views of one allocation, and the same on repeat
+    assert len({o.untyped_storage().data_ptr() for o in got}) == 1
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, fn(*ops_, *coefs, mode="cuda")))
 
 
 @pytest.mark.parametrize("c", [1, 10, 16, 17, 100, 1000])
