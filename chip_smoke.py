@@ -11,7 +11,10 @@ beside a grouped ``conv2d`` and the im2col GEMM; ``hieavg_agg`` as one
 launch over the CNN's six leaves, with float32, bfloat16 and
 float8_e4m3fn history; ``coef_agg`` and ``coef_agg_pair`` as one launch
 over the six leaves at the edge and the global layer's lead, bitwise on
-repeat; ``sgd_update`` as one launch over the CNN's six leaves;
+repeat; ``sgd_update`` as one launch over the CNN's six leaves, with one
+scale and, before each sweep plan runs, with one scale a row at every row
+count its buckets give that path (``sgd_update[rows]``,
+``torch._foreach_addcmul`` its library yardstick);
 ``eval_head`` at 10 and 100 classes, bitwise on repeat;
 ``flash_attention`` over a grid of lengths, head dims, masks and GQA
 groups in float32 and bfloat16, at unit-scale and at sharp logits, and
@@ -26,7 +29,17 @@ stragglers, ``fedavg`` without.  Each runs once with the kernels
 (``kernel_mode="auto"``) and once with the plain versions (``"torch"``),
 and the two must agree.  Last, ``run_checkpointed(every=2)`` is cut
 after its first chunk and resumed from a fresh simulator: the result
-must be bitwise the uninterrupted checkpointed run's.  Last, the LLM
+must be bitwise the uninterrupted checkpointed run's.  Then the sweeps
+(``repro_torch.fl.sweep``) at the CNN's full width, DEFAULT cut to T = 4
+with one epoch over each device's own shard: Fig. 3's eleven rows
+(``bucket_cost="measured"``) and a "switched" plan (HieAvg,
+delayed-gradient and FedAvg x two straggler fractions over seeds 0 and 1,
+and one ragged ``j_per_edge`` point), each run with the kernels and with
+the plain versions on the same buckets, and every point once more alone:
+each point within the engine-parity bounds of its standalone run and of
+the plain sweep, clock and energy equal.  Then K* over a batched grid
+(``optimize_k_masked`` on the card, 16 ``LatencyParams`` x 3 omega_bar,
+against the host's ``optimize_k``: every K* equal).  Last, the LLM
 serving path: ``repro_torch.launch.serve.run`` on h2o-danube-1.8b at full
 width (24 layers, bfloat16, batch 2, a prompt of 8192 tokens, twice the
 sliding window, 32 greedy tokens), with the flash kernel and with its
@@ -39,14 +52,19 @@ the flash line), one per run (each run launches ``sgd_update`` once per
 local step and one aggregate kernel per aggregate: ``coef_agg`` in
 HieAvg's cold rounds and in FedAvg, ``hieavg_agg`` in HieAvg's warm ones,
 ``coef_agg_pair`` in delayed-gradient), one parity line
-per configuration, the resume checks, one per serve run, the serve
+per configuration, the resume checks, one ``sweep`` line per plan (its
+buckets, wall seconds of the plan, of its plain run and of its points one
+by one, peak memory, launches, the largest differences and whether they
+are bitwise), the ``kstar`` line, one per serve run, the serve
 parity, the ``kernels`` summary, and last ``{"ok": true, "device":
-{...}}``.  ``--profile`` adds one more HieAvg run under ``torch.profiler``
-and a line of device time per kernel; ``--full`` adds the paper's whole
-DEFAULT run (T = 50) per mode of HieAvg, FedAvg and delayed-gradient
-aggregation, its Fig. 2 set (``run_comparison``
-under temporary and permanent stragglers, with HieAvg's eq. (4) as
-written and normalized), and a serve run with a prompt of 32768 tokens.
+{...}}``.  ``--profile`` adds one more HieAvg run and the switched sweep
+under ``torch.profiler``, a line of device time per kernel each;
+``--full`` adds the paper's whole DEFAULT run (T = 50) per mode of
+HieAvg, FedAvg and delayed-gradient aggregation, its Fig. 2 set
+(``run_comparison`` under temporary and permanent stragglers, with
+HieAvg's eq. (4) as written and normalized), Fig. 3's grid at T = 50 as
+one plan (wall seconds, final and best accuracy per point), and a serve
+run with a prompt of 32768 tokens.
 Any failed phase raises and exits non-zero; without a CUDA device it
 exits 2 and prints nothing on stdout.  Imports nothing of JAX or of the
 JAX package.
@@ -91,6 +109,7 @@ REPLACES = {
     "conv3x3_fwd": "src/repro/kernels/conv3x3.py:83",
     "conv3x3_bwd": "src/repro/kernels/conv3x3.py:105",
     "sgd_update": "src/repro/kernels/sgd_update.py:40",
+    "sgd_update[rows]": "src/repro/kernels/sgd_update.py:40",
     "hieavg_agg": "src/repro/kernels/hieavg_agg.py:60",
     "coef_agg": "src/repro/kernels/coef_agg.py:62",
     "coef_agg_pair": "src/repro/kernels/coef_agg.py:88",
@@ -101,12 +120,37 @@ SOURCE = {
     "conv3x3_fwd": "src/repro_torch/kernels/csrc/conv3x3.cu",
     "conv3x3_bwd": "src/repro_torch/kernels/csrc/conv3x3.cu",
     "sgd_update": "src/repro_torch/kernels/csrc/sgd_update.cu",
+    "sgd_update[rows]": "src/repro_torch/kernels/csrc/sgd_update.cu",
     "hieavg_agg": "src/repro_torch/kernels/csrc/hieavg_agg.cu",
     "coef_agg": "src/repro_torch/kernels/csrc/coef_agg.cu",
     "coef_agg_pair": "src/repro_torch/kernels/csrc/coef_agg.cu",
     "eval_head": "src/repro_torch/kernels/csrc/eval_head.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
+
+#: the sweep phase: DEFAULT geometry cut to T = 4, one epoch over each
+#: device's own shard (``steps_per_epoch=None``, as Fig. 3 runs); Fig. 3's
+#: eleven rows (``benchmarks/fig3_sweeps.py``), and a "switched" plan of
+#: aggregator x straggler fraction over two seeds with one ragged point
+SWEEP_T = 4
+SWEEP_KW = dict(n_train=4000, n_test=1000, steps_per_epoch=None)
+FIG3 = (("j_per_edge", (3, 5, 8)), ("n_edges", (3, 5, 8)),
+        ("k_edge_rounds", (1, 2, 4)), ("straggler_frac", (0.2, 0.4)))
+SWITCHED = tuple({"aggregation": a, "straggler_frac": f}
+                 for a in ("hieavg", "delayed_grad", "fedavg")
+                 for f in (0.2, 0.4)) + (
+    {"j_per_edge": [3, 5, 8, 5, 4], "seed": 1},)
+SWITCHED_SEEDS = (0, 1)
+#: the kernels of the sweep path each plan must launch
+SWEEP_KERNELS = {"fig3": ("conv3x3_fwd", "conv3x3_bwd", "sgd_update[rows]",
+                          "hieavg_agg", "coef_agg", "eval_head"),
+                 "switched": ("conv3x3_fwd", "conv3x3_bwd", "sgd_update",
+                              "hieavg_agg", "coef_agg", "coef_agg_pair",
+                              "eval_head")}
+#: the K* grid: 16 LatencyParams (lm_device x lp_device) x 3 omega_bar,
+#: consensus latency 3.3 s, K up to 64
+KSTAR_LM, KSTAR_LP = (0.1, 0.51, 1.0, 2.0), (0.5, 1.67, 3.0, 6.0)
+KSTAR_OMEGA, KSTAR_CONS, KSTAR_KMAX = (9.1, 10.3, 12.0), 3.3, 64
 
 # engine-parity tolerances of tests/test_engine_parity.py
 ACC_TOL, LOSS_TOL, DELTA_RTOL, DELTA_ATOL = 0.02, 1e-3, 0.01, 1e-4
@@ -131,6 +175,11 @@ RUN_KERNELS = {"hieavg": ("hieavg_agg", "coef_agg"),
                "hieavg_f8": ("hieavg_agg", "coef_agg")}
 #: the run whose launches the ``kernels`` line reports, where not "hieavg"
 LAUNCHES_FROM = {"coef_agg_pair": "delayed_grad"}
+#: the kernels whose launches the ``kernels`` line takes from a smoke run
+#: (flash_attention's come from the serve run, the per-row SGD update's
+#: from the sweeps)
+RUN_LAUNCHES = ("conv3x3_fwd", "conv3x3_bwd", "sgd_update", "hieavg_agg",
+                "coef_agg", "coef_agg_pair", "eval_head")
 #: the configurations whose checkpointed run is cut and resumed
 RESUMED = ("delayed_grad", "hieavg_bf16")
 ROWS = ("accuracy", "loss", "grad_norm", "sim_clock", "sim_energy")
@@ -686,12 +735,235 @@ def resume_check(np_run, make_sim) -> dict:
                                              .max()) for r in ROWS}}
 
 
+def fig3_overrides() -> list:
+    return [{field: v} for field, values in FIG3 for v in values]
+
+
+def _point_sim(simulator, setting, ov: dict, seed: int, mode: str):
+    """The standalone simulator of a sweep point (its overrides, seed and
+    aggregation)."""
+    ov = dict(ov)
+    ov.pop("seed", None)
+    agg = ov.pop("aggregation", "hieavg")
+    kw = dict(SWEEP_KW)
+    jpe = ov.pop("j_per_edge", None)
+    if isinstance(jpe, list):
+        kw["j_per_edge"] = jpe
+    elif jpe is not None:
+        ov["j_per_edge"] = jpe
+    return simulator(dataclasses.replace(setting, **ov), agg, "temporary",
+                     "temporary", seed=seed, device="cuda", kernel_mode=mode,
+                     **kw)
+
+
+def _rows_diff(a, b, t_valid) -> dict:
+    """Largest differences of the sweep rows ``a`` against ``b`` (a
+    SweepResult, or a list of standalone RunResults), over each point's
+    valid rounds, whether they are bitwise, and whether they hold the
+    engine-parity bounds with the clock and the energy equal."""
+    def row(res, p, k, tv):
+        return getattr(res[p], k) if isinstance(res, list) \
+            else getattr(res, k)[p, :tv]
+
+    out = {k: 0.0 for k in ROWS}
+    bitwise = within = True
+    for p, tv in enumerate(t_valid):
+        x = {k: row(a, p, k, tv) for k in ROWS}
+        y = {k: row(b, p, k, tv) for k in ROWS}
+        for k in ROWS:
+            out[k] = max(out[k], float(np.abs(x[k] - y[k]).max()))
+            bitwise = bitwise and bool(np.array_equal(x[k], y[k]))
+        within = within and bool(
+            np.allclose(x["accuracy"], y["accuracy"], rtol=0, atol=ACC_TOL)
+            and np.allclose(x["loss"], y["loss"], rtol=LOSS_TOL,
+                            atol=LOSS_TOL)
+            and np.allclose(x["grad_norm"], y["grad_norm"], rtol=DELTA_RTOL,
+                            atol=DELTA_ATOL)
+            and np.array_equal(x["sim_clock"], y["sim_clock"])
+            and np.array_equal(x["sim_energy"], y["sim_energy"]))
+    return {"max_abs_diff": out, "bitwise": bitwise, "within_bounds": within}
+
+
+def per_row_launches(plan) -> dict:
+    """{rows: launches} of the per-row SGD path over a plan's buckets, by
+    the engine's rule (``fl/engine.py``, ``run_engine_chunk``): at global
+    round t and edge round k the points still running take one scale a row
+    (``Pa·N·J`` rows, one launch a step) where their lr differs or a step
+    is padded for some of them; a host float otherwise."""
+    out: dict = {}
+    for b in plan.buckets:
+        inp = b.inputs
+        _, T, K, N, J = inp.dev_masks.shape
+        steps = inp.batch_idx.shape[-2]
+        for t in range(1, T + 1):
+            for k in range(K):
+                ids = np.flatnonzero((t <= inp.t_valid) & (k < inp.k_valid))
+                if not ids.size:
+                    continue
+                lr = inp.lr[ids, t - 1, k]
+                if (inp.s_valid[ids] < steps).any() or (lr != lr[0]).any():
+                    rows = ids.size * N * J
+                    out[rows] = out.get(rows, 0) + steps
+    return out
+
+
+def sweep_phase(torch, build, fl, setting, rows_check) -> dict:
+    """The sweep path at full width: Fig. 3's eleven rows
+    (``bucket_cost="measured"``) and the "switched" plan, each planned
+    once, then run with the kernels (the launch counts set to 0 just
+    before and read just after) and with the plain versions on the same
+    buckets; every point run again alone with the kernels.  Each point of
+    the kernel sweep is held to its standalone run and to the plain sweep
+    within the engine-parity bounds, clock and energy equal.  Before a
+    plan runs, ``rows_check`` holds the per-row SGD kernel against its
+    plain version at each row count the plan gives it
+    (``per_row_launches``); after, its counted launches must be those.
+    Returns the launches of the kernel sweeps."""
+    plans = {"fig3": (fig3_overrides(), (0,)),
+             "switched": (list(SWITCHED), SWITCHED_SEEDS)}
+    total: dict = {}
+    for name, (overrides, seeds) in plans.items():
+        t0 = time.time()
+        plan = fl.plan_sweep(setting, seeds, overrides=overrides,
+                             bucket_cost="measured", device="cuda",
+                             kernel_mode="auto", **SWEEP_KW)
+        plan_s = time.time() - t0
+        rows_launches = per_row_launches(plan)
+        rows_check(rows_launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.time()
+        got = fl.run_plan(plan, donate=False)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.time()
+        plain = fl.run_plan(dataclasses.replace(plan, kernel_mode="torch"))
+        torch.cuda.synchronize()
+        plain_wall = time.time() - t0
+        alone, alone_s = [], 0.0
+        for ov, seed in got.points:
+            sim = _point_sim(fl.BHFLSimulator, setting, ov, seed, "auto")
+            torch.cuda.synchronize()
+            t0 = time.time()
+            alone.append(sim.run())
+            torch.cuda.synchronize()
+            alone_s += time.time() - t0
+        for k in ROWS:
+            row = getattr(got, k)
+            check("sweep", bool(np.isfinite(row).all())
+                  and row.shape == (len(got.points), plan.grid_max["t"]),
+                  f"{name} {k}: {row}")
+        missing = [k for k in SWEEP_KERNELS[name] if not launches.get(k)]
+        check("launches", not missing,
+              f"sweep {name}: never launched {missing} ({launches})")
+        check("launches", launches.get("sgd_update[rows]", 0)
+              == sum(rows_launches.values()),
+              f"sweep {name}: per-row SGD launches {launches} against "
+              f"{rows_launches} by the engine's rule")
+        vs_alone = _rows_diff(got, alone, got.t_valid)
+        vs_plain = _rows_diff(got, plain, got.t_valid)
+        emit({"sweep": {
+            "plan": name, "points": len(got.points),
+            "buckets": plan.describe().splitlines(),
+            "aggregator": plan.aggregator,
+            "t_global_rounds": setting.t_global_rounds,
+            **{k: v for k, v in SWEEP_KW.items()},
+            "plan_s": plan_s, "per_row_sgd_rows": {
+                str(r): n for r, n in sorted(rows_launches.items())},
+            "wall_s": wall,
+            "points_per_s": len(got.points) / wall,
+            "plain_wall_s": plain_wall, "one_by_one_s": alone_s,
+            "peak_memory_gb": peak / 1e9, "launches": launches,
+            "vs_standalone": vs_alone, "vs_plain": vs_plain,
+            "final_accuracy": [float(got.accuracy[p, got.t_valid[p] - 1])
+                               for p in range(len(got.points))],
+            "tolerances": {"accuracy_atol": ACC_TOL,
+                           "loss_rtol_atol": LOSS_TOL,
+                           "delta_rtol": DELTA_RTOL,
+                           "delta_atol": DELTA_ATOL}}})
+        check("sweep", vs_alone["within_bounds"],
+              f"{name}: sweep against standalone runs {vs_alone}")
+        check("sweep", vs_plain["within_bounds"],
+              f"{name}: kernel sweep against plain sweep {vs_plain}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def kstar_phase(torch, core) -> dict:
+    """K* over a batched grid: ``optimize_k_masked`` on the card over 16
+    LatencyParams x 3 omega_bar in one call, against ``optimize_k`` on the
+    host per grid point; every ``k_star`` must be equal."""
+    dev = torch.device("cuda")
+    lms, lps = np.meshgrid(KSTAR_LM, KSTAR_LP, indexing="ij")
+    n_om = len(KSTAR_OMEGA)
+    lm = np.repeat(lms.ravel(), n_om).astype(np.float32)
+    lp = np.repeat(lps.ravel(), n_om).astype(np.float32)
+    om = np.tile(np.asarray(KSTAR_OMEGA, np.float32), lms.size)
+    G = lm.size
+    p = core.LatencyParams(lm_device=torch.from_numpy(lm).to(dev),
+                           lp_device=torch.from_numpy(lp).to(dev))
+    bp = dataclasses.replace(core.BoundParams(),
+                             eta=torch.full((G,), 0.12, device=dev))
+    om_t = torch.from_numpy(om).to(dev)
+
+    def solve():
+        return core.optimize_k_masked(
+            core.total_latency_k(p, KSTAR_KMAX),
+            core.omega_bound_k(bp, KSTAR_KMAX),
+            core.edge_window_k(p, KSTAR_KMAX), om_t, KSTAR_CONS)
+
+    k, lat_, _ = solve()
+    card = k.cpu().numpy()
+    t0 = time.perf_counter()
+    host = []
+    for i in range(G):
+        r = core.optimize_k(
+            core.LatencyParams(lm_device=float(lm[i]),
+                               lp_device=float(lp[i])),
+            lambda kk: core.omega_bound(kk, core.BoundParams()),
+            float(om[i]), KSTAR_CONS, KSTAR_KMAX)
+        host.append(-1 if r is None else r.k_star)
+    host_ms_ = (time.perf_counter() - t0) * 1e3
+    out = {"grid": G, "k_max": KSTAR_KMAX, "consensus_latency": KSTAR_CONS,
+           "omega_bar": list(KSTAR_OMEGA), "k_star": card.tolist(),
+           "equal": bool((card == np.asarray(host)).all()),
+           "card_ms": timed_ms(torch, solve), "host_ms": host_ms_}
+    emit({"kstar": out})
+    check("kstar", out["equal"], f"card {card.tolist()} host {host}")
+    return out
+
+
+def fig3_full(torch, fl, setting) -> dict:
+    """Fig. 3's grid at T = 50 (``--full``): wall seconds of the plan and
+    of its run, final and best accuracy per point."""
+    t0 = time.time()
+    plan = fl.plan_sweep(setting, overrides=fig3_overrides(),
+                         device="cuda", kernel_mode="auto", **SWEEP_KW)
+    plan_s = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = fl.run_plan(plan)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return {"t_global_rounds": setting.t_global_rounds, "plan_s": plan_s,
+            "wall_s": wall, "points_per_s": len(res.points) / wall,
+            "points": [{"override": ov,
+                        "final_accuracy": float(res.accuracy[p, -1]),
+                        "best_accuracy": float(res.accuracy[p].max())}
+                       for p, (ov, _) in enumerate(res.points)]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import core, fl
     from repro_torch.configs import DEFAULT, get_config
     from repro_torch.core.hieavg import to_history_dtype
     from repro_torch.fl import BHFLSimulator, run_comparison
@@ -879,6 +1151,58 @@ def main() -> int:
            12.0 * D * P, 2.0 * D * P,
            {"shape": [D, P], "leaves": len(ws), "launches_per_call": 1})
     del ws, gs, got
+
+    def sgd_rows_check(rows_launches: dict) -> None:
+        """One scale a row at each row count (points x devices) a sweep
+        bucket gives the per-row path (``per_row_launches``), over the
+        CNN's leaves: bitwise the plain version, a padded step's zero rows
+        exactly their w, one launch counted per call.  Timed at the count
+        the plan launches most; called before the sweep's counts are
+        reset, so these launches are not the main path's."""
+        for rows in sorted(set(rows_launches) - checked_rows):
+            checked_rows.add(rows)
+            ws = [randn(rows, *s_.shape) for s_ in specs.values()]
+            gs = [randn(rows, *s_.shape, scale=1e3)
+                  for s_ in specs.values()]
+            scale = rand(rows) * 0.01
+            scale[::3] = 0.0
+            before = build.LAUNCHES["sgd_update[rows]"]
+            got = sgd_update_many(ws, gs, scale, "cuda")
+            check("sgd_update[rows]", build.LAUNCHES["sgd_update[rows]"]
+                  == before + 1, f"{rows} rows: not one launch a call")
+            err = max((g_ - w_).abs().max().item() for g_, w_ in zip(
+                got, sgd_update_many(ws, gs, scale, "torch")))
+            check("sgd_update[rows]", err == 0.0,
+                  f"{rows} rows: not bitwise the plain version: {err}")
+            check("sgd_update[rows]", all(torch.equal(a[::3], w_[::3])
+                                          for a, w_ in zip(got, ws)),
+                  f"{rows} rows: a zero row is not an identity")
+            if "sgd_update[rows]" in results or rows != max(
+                    rows_launches, key=lambda r: (rows_launches[r], r)):
+                del ws, gs, got
+                continue
+            col = [scale.view((rows,) + (1,) * (w_.dim() - 1)).expand_as(w_)
+                   for w_ in ws]
+            lib_err = max((a - b2).abs().max().item() for a, b2 in zip(
+                torch._foreach_addcmul(ws, col, gs, value=-1.0), got))
+            record("sgd_update[rows]", err, 0.0,
+                   lambda: sgd_update_many(ws, gs, scale, "cuda"),
+                   timed_ms(torch, lambda: sgd_update_many(ws, gs, scale,
+                                                           "torch")),
+                   timed_ms(torch, lambda: torch._foreach_addcmul(
+                       ws, col, gs, value=-1.0)),
+                   12.0 * rows * P + 4.0 * rows, 2.0 * rows * P,
+                   {"shape": [rows, P], "leaves": len(ws),
+                    "launches_per_call": 1,
+                    "zero_rows": len(range(0, rows, 3)),
+                    "sweep_row_counts": {str(r): n for r, n in
+                                         sorted(rows_launches.items())},
+                    "library_call": "_foreach_addcmul(w, scale rows "
+                                    "expanded, g, value=-1)",
+                    "library_max_abs_diff": lib_err}, kernel="sgd_update")
+            del ws, gs, got, col
+
+    checked_rows: set = set()
 
     # ----------------------------------------------------------- hieavg_agg
     def hieavg_inputs(nb, n, L):
@@ -1276,6 +1600,15 @@ def main() -> int:
         check("resume", line["resumed_bitwise"] and line["close_to_run"],
               f"{label}: {line}")
 
+    # ------------------------------------------------------ the sweeps
+    sweep_launches = sweep_phase(
+        torch, build, fl, dataclasses.replace(DEFAULT,
+                                              t_global_rounds=SWEEP_T),
+        sgd_rows_check)
+    check("sgd_update[rows]", "sgd_update[rows]" in results,
+          "no sweep bucket took the per-row SGD path")
+    kstar_phase(torch, core)
+
     # --------------------------------------------------- the serving path
     served = serve_runs(torch, serve, build, serve_cfg.n_layers)
     serve_parity(torch, serve, served)
@@ -1284,6 +1617,11 @@ def main() -> int:
         emit({"profile": profile_run(torch, lambda: BHFLSimulator(
             setting, "hieavg", "temporary", "temporary", device="cuda",
             kernel_mode="auto").run())})
+        emit({"profile_sweep": {"plan": "switched", **profile_run(
+            torch, lambda: fl.run_sweep(
+                dataclasses.replace(DEFAULT, t_global_rounds=SWEEP_T),
+                SWITCHED_SEEDS, overrides=list(SWITCHED), device="cuda",
+                kernel_mode="auto", **SWEEP_KW))}})
         for label, gen in (("prefill", 1), ("decode", SERVE_GEN)):
             # gen 1 is the prefill alone; the decode's share is the rest
             emit({"profile_serve": {"part": label, **profile_run(
@@ -1296,6 +1634,7 @@ def main() -> int:
             emit({"full_run": full_runs(torch, BHFLSimulator, DEFAULT,
                                         label)})
         emit({"fig2": fig2_runs(run_comparison, DEFAULT)})
+        emit({"fig3": fig3_full(torch, fl, DEFAULT)})
         torch.cuda.reset_peak_memory_stats()
         res = serve.run(SERVE_ARCH, smoke=False, batch=1,
                         prompt_len=SERVE_LONG_PROMPT, gen=SERVE_GEN,
@@ -1309,8 +1648,9 @@ def main() -> int:
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}})
 
     launches = {k: runs[LAUNCHES_FROM.get(k, "hieavg"), "auto"][1].get(k, 0)
-                for k in REPLACES if k != "flash_attention"}
+                for k in REPLACES if k in RUN_LAUNCHES}
     launches["flash_attention"] = served["auto"][1].get("flash_attention", 0)
+    launches["sgd_update[rows]"] = sweep_launches.get("sgd_update[rows]", 0)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE[k],
          "replaces": REPLACES[k], "launches": launches[k],

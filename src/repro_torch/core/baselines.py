@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from .hieavg import _bshape
+from .hieavg import _bshape, per_row
 
 f32 = torch.float32
 
@@ -90,12 +90,14 @@ def delayed_grad(stacked_w: dict, mask: torch.Tensor, pending: dict,
     1`` consecutive misses, and not at all once ``k' > delta``; the
     coefficients are renormalized.  Returns (aggregate, new pending =
     ``stacked_w``, new age: 0 where present, ``age + 1`` where missing).
-    First-round semantics (everyone present) are the caller's job."""
+    First-round semantics (everyone present) are the caller's job.
+    ``beta``/``delta``: host scalars or per-row tensors (``per_row``)."""
     m = mask.to(f32)
     if part_weights is None:
         part_weights = torch.ones_like(m)
     k_prime = age + 1.0
-    stale_c = (beta ** k_prime) * (k_prime <= delta).to(f32)
+    stale_c = (per_row(beta, m) ** k_prime) \
+        * (k_prime <= per_row(delta, m)).to(f32)
     coef = part_weights * (m + (1.0 - m) * stale_c)
     filled = _fill(stacked_w, m, pending)
     return _weighted_mean(filled, coef), stacked_w, (age + 1.0) * (1.0 - m)

@@ -54,6 +54,17 @@ def _bshape(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     return v.reshape(tuple(v.shape) + (1,) * (leaf.dim() - v.dim()))
 
 
+def per_row(x, like: torch.Tensor):
+    """A per-row scalar (``gamma0``, ``lam``, the delayed-gradient ``beta``
+    and ``delta``) against ``[*batch, n]`` coefficients: a host scalar as it
+    is, a tensor of the leading batch axes (``[B]`` for ``[B, n]``, a
+    sweep's ``[P]`` for ``[P, N, J]``) reshaped to broadcast over the
+    rest."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(tuple(x.shape) + (1,) * (like.dim() - x.dim()))
+    return x
+
+
 @dataclasses.dataclass
 class History:
     """Per-participant submission history: ``prev_w``/``delta_mean`` leaves
@@ -85,9 +96,12 @@ def init_history(stacked_w: dict, dtype=None) -> History:
     return _init(stacked_w, 1, dtype)
 
 
-def init_history_batched(stacked_w: dict, dtype=None) -> History:
-    """Cold-boot history for dense ``[N, J, ...]`` stacked weights."""
-    return _init(stacked_w, 2, dtype)
+def init_history_batched(stacked_w: dict, dtype=None, lead: int = 2
+                         ) -> History:
+    """Cold-boot history for dense ``[N, J, ...]`` stacked weights
+    (``lead`` batch and participant axes: 3 for a sweep's
+    ``[P, N, J, ...]``)."""
+    return _init(stacked_w, lead, dtype)
 
 
 def update_history(history: History, stacked_w: dict,
@@ -131,9 +145,11 @@ def _mix_and_update(stacked_w: dict, mask: torch.Tensor, history: History,
                     part_weights: torch.Tensor, gamma0, lam,
                     normalize: bool) -> tuple[dict, History]:
     """Aggregate (eq. 4/5) and history update in one pass per leaf: float32
-    math, the new history in its storage dtype."""
+    math, the new history in its storage dtype.  ``gamma0``/``lam``: host
+    scalars or per-row tensors (``per_row``)."""
     m = mask.to(f32)
-    gamma = gamma0 * torch.pow(lam, history.miss_count + 1.0)   # k' >= 1
+    gamma = per_row(gamma0, m) * torch.pow(per_row(lam, m),
+                                           history.miss_count + 1.0)  # k'>=1
     coef = part_weights * (m + (1.0 - m) * gamma)
     if normalize:
         coef = coef / torch.clamp(coef.sum(-1, keepdim=True), min=1e-12)

@@ -11,7 +11,9 @@ the host plane and drives ``repro_torch.fl.engine.run_engine``, and
 ``hieavg`` (the paper), ``t_fedavg`` (drop stragglers), ``d_fedavg``
 (reuse their last weights), ``delayed_grad`` (stale updates arrive one
 round late, staleness-discounted), ``fedavg`` (the oracle, meaningful with
-no stragglers); ``run_comparison`` runs the paper's Fig. 2 set.
+no stragglers), ``switched`` (the sweeps' per-point choice among HieAvg,
+delayed-gradient and FedAvg); ``run_comparison`` runs the paper's Fig. 2
+set, ``repro_torch.fl.sweep`` grids of deployments.
 
 The simulator runs on a CUDA device: ``device=None`` means ``"cuda"`` and
 raises when no GPU is present.  ``device="cpu"`` runs the plain PyTorch
@@ -100,13 +102,11 @@ class BHFLSimulator:
         (float32), ``torch.bfloat16`` or ``torch.float8_e4m3fn``; the math
         stays float32.
 
-        ``aggregator="switched"`` and population mode raise
-        ``NotImplementedError``: they come with later slices of the
-        port."""
-        if aggregator == "switched":
-            raise NotImplementedError(
-                f"aggregator='switched' {_LATER} (the sweeps, which set its "
-                "per-point selector)")
+        ``aggregator="switched"`` runs the aggregator its ``agg_sel``
+        names (``engine.AGG_SEL``; HieAvg for a standalone run), as the
+        reference's traced tri-select does; the sweeps set it per point.
+        Population mode raises ``NotImplementedError``: it comes with a
+        later slice of the port."""
         if aggregator not in _engine.AGGREGATORS:
             raise ValueError(f"unknown aggregator {aggregator!r}; expected "
                              f"one of {_engine.AGGREGATORS}")

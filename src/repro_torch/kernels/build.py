@@ -64,8 +64,9 @@ SIGNATURES = {
     "conv3x3_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _P),
     # host arrays of the leaves' w and g pointers and of their element
-    # counts, the number of leaves, the flat output, scale, stream
-    "sgd_update_launch": (_P, _P, _P, _I, _P, _F, _P),
+    # counts, the number of leaves, the flat output, scale, the row scales
+    # (may be null), rows, stream
+    "sgd_update_launch": (_P, _P, _P, _I, _P, _F, _P, _L, _P),
     # host arrays of the leaves' (w, prev, dmean) pointers, of their
     # columns and of their first output columns, the number of leaves, the
     # host array of the four coefficient vectors, agg, nprev, ndmean, B, n,

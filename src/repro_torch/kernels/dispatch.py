@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.hieavg import History
+from repro_torch.core.hieavg import History, per_row
 
 from . import ops
 from .conv3x3 import conv3x3_bias_relu as _conv3x3_bias_relu
@@ -46,9 +46,10 @@ def global_aggregate(stacked_w: dict, mask: torch.Tensor, history: History,
                                     gamma0, lam, normalize, mode=mode)
 
 
-def sgd_update(params: dict, grads: dict, scale: float, *,
+def sgd_update(params: dict, grads: dict, scale, *,
                mode: str = "auto") -> dict:
-    """The train step's ``w - scale * g`` per leaf."""
+    """The train step's ``w - scale * g`` per leaf; ``scale`` a host float
+    or one scale per row of the leaves' leading (device) axis."""
     return ops.fused_sgd_update(params, grads, scale, mode=mode)
 
 
@@ -73,9 +74,10 @@ def edge_aggregate_cold_batched(stacked_w: dict, valid: torch.Tensor, *,
 
 def global_aggregate_cold(stacked_w: dict, j_per_edge: torch.Tensor, *,
                           mode: str = "auto") -> dict:
-    """Cold-boot global J_i-weighted mean (eq. 3)."""
+    """Cold-boot global J_i-weighted mean (eq. 3), over the last axis of
+    ``j_per_edge`` (``[N]``, or a sweep's ``[P, N]``)."""
     j = j_per_edge.to(torch.float32)
-    pw = j / torch.clamp(j.sum(), min=1e-12)
+    pw = j / torch.clamp(j.sum(-1, keepdim=True), min=1e-12)
     return ops.fused_coef_aggregate(stacked_w, pw, mode=mode)
 
 
@@ -99,7 +101,8 @@ def delayed_grad(stacked_w: dict, mask: torch.Tensor, pending: dict,
     new age = ``(age + 1) * (1 - m)``)."""
     m = mask.to(torch.float32)
     k_prime = age + 1.0
-    stale_c = (beta ** k_prime) * (k_prime <= delta).to(torch.float32)
+    stale_c = (per_row(beta, m) ** k_prime) \
+        * (k_prime <= per_row(delta, m)).to(torch.float32)
     coef = part_weights * (m + (1.0 - m) * stale_c)
     coef = coef / torch.clamp(coef.sum(-1, keepdim=True), min=1e-12)
     agg = ops.fused_coef_aggregate_pair(stacked_w, pending, coef * m,

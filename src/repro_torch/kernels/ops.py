@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.hieavg import History
+from repro_torch.core.hieavg import History, per_row
 
 from .coef_agg import coef_agg_many, coef_agg_pair_many
 from .flash_attention import flash_attention  # noqa: F401  (GQA front-end)
@@ -27,9 +27,11 @@ def fused_mix_and_update(stacked_w: dict, mask: torch.Tensor,
                          gamma0, lam, normalize: bool = False, *,
                          mode: str = "auto") -> tuple[dict, History]:
     """``hieavg._mix_and_update`` (eq. 4/5) with the heavy mix and history
-    update of every leaf in one ``hieavg_agg`` launch."""
+    update of every leaf in one ``hieavg_agg`` launch; ``gamma0``/``lam``
+    host scalars or per-row tensors (``hieavg.per_row``)."""
     m = mask.to(torch.float32)
-    gamma = gamma0 * torch.pow(lam, history.miss_count + 1.0)   # k' >= 1
+    gamma = per_row(gamma0, m) * torch.pow(per_row(lam, m),
+                                           history.miss_count + 1.0)  # k'>=1
     coef = part_weights * (m + (1.0 - m) * gamma)
     if normalize:
         coef = coef / torch.clamp(coef.sum(-1, keepdim=True), min=1e-12)
@@ -80,11 +82,12 @@ def fused_coef_aggregate_pair(stacked_w: dict, aux: dict, ca: torch.Tensor,
         mode=mode)))
 
 
-def fused_sgd_update(params: dict, grads: dict, scale: float, *,
+def fused_sgd_update(params: dict, grads: dict, scale, *,
                      mode: str = "auto") -> dict:
     """``w - scale * g`` per leaf, every leaf in one ``sgd_update`` launch;
-    ``scale`` is a host float.  (Autograd may hand a leaf's gradient over
-    as a strided view.)"""
+    ``scale`` is a host float or a ``[rows]`` vector of per-row scales
+    (``sgd_update_many``).  (Autograd may hand a leaf's gradient over as a
+    strided view.)"""
     names = list(params)
     out = sgd_update_many([params[k] for k in names],
                           [grads[k].contiguous() for k in names], scale,

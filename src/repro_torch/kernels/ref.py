@@ -49,9 +49,13 @@ def hieavg_agg_ref(w, prev, dmean, mask, coef_present, coef_est, n_obs):
 
 
 # -------------------------------------------------------------- sgd_update
-def sgd_update_ref(w, g, scale: float):
-    """``w - scale * g`` in float32, cast back to ``w``'s dtype; a scale of
-    0 is an exact identity."""
+def sgd_update_ref(w, g, scale):
+    """``w - scale * g`` in float32, cast back to ``w``'s dtype, the
+    product and the difference rounded apart; a scale of 0 is an exact
+    identity.  ``scale``: a host float, or a ``[rows]`` tensor whose entry
+    d scales row d of the ``[rows, ...]`` leaf."""
+    if isinstance(scale, torch.Tensor):
+        scale = scale.to(f32).reshape((-1,) + (1,) * (w.dim() - 1))
     return (w.to(f32) - scale * g.to(f32)).to(w.dtype)
 
 

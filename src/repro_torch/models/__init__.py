@@ -1,4 +1,4 @@
-from .cnn import (cnn_accuracy, cnn_features, cnn_logits, cnn_loss,
+from .cnn import (cnn_accuracy, cnn_accuracy_many, cnn_features, cnn_logits, cnn_loss,
                   cnn_specs, params_from_numpy, stack_params)
 from .config import ArchConfig, InputShape
 from .spec import ParamSpec, init_from_specs, init_params
@@ -6,7 +6,7 @@ from .transformer import (cache_specs, decode_step, forward_train,
                           param_specs, prefill)
 
 __all__ = ["ArchConfig", "InputShape", "ParamSpec", "cache_specs",
-           "cnn_accuracy", "cnn_features", "cnn_logits", "cnn_loss",
+           "cnn_accuracy", "cnn_accuracy_many", "cnn_features", "cnn_logits", "cnn_loss",
            "cnn_specs", "decode_step", "forward_train", "init_from_specs",
            "init_params", "param_specs", "params_from_numpy", "prefill",
            "stack_params"]

@@ -81,14 +81,26 @@ def cnn_loss(params: dict, images: torch.Tensor, labels: torch.Tensor,
     return -picked[..., 0].mean(-1)
 
 
+def cnn_accuracy_many(params: dict, images: torch.Tensor,
+                      labels: torch.Tensor, kernel_mode: str = "auto"
+                      ) -> torch.Tensor:
+    """Test accuracy of P models (stacked leaves ``[P, ...]``), model p on
+    its own images ``[P, n, H, W, C]`` and labels ``[P, n]``: the conv
+    blocks of all P at once, then each model's classifier head
+    correct-count (``dispatch.eval_head``) over the row count.  A float32
+    ``[P]`` tensor on the models' device."""
+    feats = cnn_features(params, images, kernel_mode)
+    counts = [_kd.eval_head(feats[p], params["dense"][p], params["b3"][p],
+                            labels[p], mode=kernel_mode)
+              for p in range(feats.shape[0])]
+    return torch.stack([c.to(torch.float32) / labels.shape[1]
+                        for c in counts])
+
+
 def cnn_accuracy(params: dict, images: torch.Tensor, labels: torch.Tensor,
                  kernel_mode: str = "auto") -> torch.Tensor:
-    """Test accuracy of ONE model (unstacked leaves) on images [n, H, W, C]:
-    the conv blocks, then the classifier head's correct-count
-    (``dispatch.eval_head``) over the row count.  A 0-dim float32 tensor on
-    the model's device."""
-    stacked = {k: v[None] for k, v in params.items()}
-    feats = cnn_features(stacked, images[None], kernel_mode)[0]
-    count = _kd.eval_head(feats, params["dense"], params["b3"], labels,
-                          mode=kernel_mode)
-    return count.to(torch.float32) / labels.shape[0]
+    """Test accuracy of ONE model (unstacked leaves) on images [n, H, W, C]
+    (``cnn_accuracy_many`` of one model).  A 0-dim float32 tensor on the
+    model's device."""
+    return cnn_accuracy_many({k: v[None] for k, v in params.items()},
+                             images[None], labels[None], kernel_mode)[0]

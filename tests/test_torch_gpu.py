@@ -18,14 +18,16 @@ bfloat16 one unit in the last place beyond that bound (both versions
 widen, sum in float32, which may differ by 2e-5 where a sum cancels to
 near 0, and round once), rows that see no key exactly 0, at unit-scale and
 at sharp (q scaled by 24) logits.  The multi-leaf SGD update is bitwise
-the plain version, one launch a call; a bfloat16 operand that breaks a
-TMA precondition raises before any launch.  The multi-leaf HieAvg mix is
+the plain version, one launch a call, with one scale or one a row; a
+bfloat16 operand that breaks a TMA precondition raises before any
+launch.  The multi-leaf HieAvg mix is
 one launch a call at the bounds of the one-leaf one, and so are the
 multi-leaf coefficient aggregates, bitwise on repeat.  The correct-count
 at any number of classes equals the plain count up to the rows whose two
 largest logits lie within float32 reach (``rel 1e-4``) of each other, and
 is the same on repeat.  The conv wrapper splits more devices than the
-grid's z extent across launches, at the conv bounds.
+grid's z extent across launches, at the conv bounds.  A TINY mixed sweep
+with the kernels is within the engine-parity bounds of its plain run.
 """
 import numpy as np
 import pytest
@@ -314,6 +316,64 @@ def test_gpu_flash_attention_bf16_refuses_what_tma_cannot_load(cuda):
 #: 28x28), D = 25 devices: 144266 parameters in six leaves
 CNN_LEAVES = [(25, 3, 3, 1, 32), (25, 32), (25, 3, 3, 32, 64), (25, 64),
               (25, 12544, 10), (25, 10)]
+
+
+def test_gpu_sgd_update_per_row_scale_is_one_bitwise_launch(cuda):
+    """One scale a leading row (a sweep's points x devices): bitwise the
+    plain version, one launch, a zero row exactly its w whatever its
+    gradient, a leaf of 10 columns a row (b3) and of 1 among them."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(9)
+    leaves = [(50,) + s[1:] for s in CNN_LEAVES] + [(50, 1), (50, 7)]
+    ws = [torch.randn(s, generator=g, device=cuda) for s in leaves]
+    gs = [torch.randn(s, generator=g, device=cuda) * 1e3 for s in leaves]
+    scale = torch.rand((50,), generator=g, device=cuda) * 0.01
+    scale[::3] = 0.0
+    before = dict(build.LAUNCHES)
+    got = sgd_update_many(ws, gs, scale, "cuda")
+    assert build.LAUNCHES["sgd_update[rows]"] == \
+        before.get("sgd_update[rows]", 0) + 1
+    assert build.LAUNCHES["sgd_update"] == before.get("sgd_update", 0)
+    for a, b, w in zip(got, sgd_update_many(ws, gs, scale, "torch"), ws):
+        assert a.shape == w.shape and torch.equal(a, b)
+        assert torch.equal(a[::3], w[::3])
+    # one scale in every row is the host-float launch, bitwise
+    same = sgd_update_many(ws, gs, torch.full((50,), 0.00095238,
+                                              device=cuda), "cuda")
+    for a, b in zip(same, sgd_update_many(ws, gs, 0.00095238, "cuda")):
+        assert torch.equal(a, b)
+
+
+def test_gpu_mixed_sweep_kernels_match_plain(cuda):
+    """A TINY sweep mixing HieAvg, delayed-gradient and FedAvg points with
+    ragged round counts and a point of its own lr, on the card with the
+    kernels and with the plain versions: the engine-parity bounds, clock
+    and energy equal, and every kernel of the path launched (the SGD
+    update with one scale a row among them)."""
+    import dataclasses
+
+    from repro_torch.configs import REDUCED
+    from repro_torch.fl import run_sweep
+    tiny = dataclasses.replace(REDUCED, t_global_rounds=3, n_edges=3,
+                               j_per_edge=3, image_hw=8)
+    ovs = [{"aggregation": a, "straggler_frac": f}
+           for a in ("hieavg", "delayed_grad", "fedavg") for f in (0.2, 0.4)]
+    ovs += [{"t_global_rounds": 4, "j_per_edge": [1, 2, 3]}, {"lr0": 0.05}]
+    kw = dict(n_train=300, n_test=100, steps_per_epoch=2,
+              bucket_cost="proxy", device="cuda")
+    build.reset_launch_counts()
+    got = run_sweep(tiny, overrides=ovs, kernel_mode="auto", **kw)
+    launches = dict(build.LAUNCHES)
+    ref = run_sweep(tiny, overrides=ovs, kernel_mode="torch", **kw)
+    for k in ("conv3x3_fwd", "conv3x3_bwd", "sgd_update", "sgd_update[rows]",
+              "hieavg_agg", "coef_agg", "coef_agg_pair", "eval_head"):
+        assert launches.get(k, 0) > 0, (k, launches)
+    np.testing.assert_allclose(got.accuracy, ref.accuracy, atol=0.02)
+    np.testing.assert_allclose(got.loss, ref.loss, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got.grad_norm, ref.grad_norm, rtol=0.01,
+                               atol=1e-4)
+    np.testing.assert_array_equal(got.sim_clock, ref.sim_clock)
+    np.testing.assert_array_equal(got.sim_energy, ref.sim_energy)
 
 
 def test_gpu_sgd_update_many_is_one_bitwise_launch(cuda):

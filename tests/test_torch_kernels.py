@@ -196,6 +196,58 @@ def test_fused_sgd_update_matches_pallas_per_leaf(scale):
             assert torch.equal(got[k], t(w))
 
 
+#: per-row (a sweep's per-point) scales: two points' lr and a padded
+#: step's 0, each repeated over a point's device rows
+ROW_SCALES = [0.37, 0.0, 0.0125]
+
+
+@pytest.mark.parametrize("length", L_TAILS)
+def test_sgd_update_per_row_scale_matches_vmapped_pallas(length):
+    """One scale a row (``[rows]``): ``jax.vmap`` of the Pallas kernel over
+    the points, each point's ``[J, L]`` rows with its own scale; a zero
+    row is exactly its w."""
+    rng = np.random.default_rng(length)
+    J = 3
+    P = len(ROW_SCALES)
+    w, g = np32(rng, P, J, length), np32(rng, P, J, length, scale=1e3)
+    s = np.asarray(ROW_SCALES, np.float32)
+    ref = jax.vmap(lambda a, b, c: jax_sgd(a, b, c, interpret=True))(
+        w, g, s)
+    got = sgd_update(t(w.reshape(P * J, length)),
+                     t(g.reshape(P * J, length)), t(np.repeat(s, J)))
+    np.testing.assert_allclose(got.numpy().reshape(P, J, length),
+                               np.asarray(ref), rtol=1e-6, atol=1e-7)
+    assert torch.equal(got[J:2 * J], t(w[1]))          # scale 0: exact
+
+
+def test_fused_sgd_update_per_row_scale_matches_pallas_per_leaf():
+    """Every leaf of a step with one scale a leading row, the ragged leaf
+    set of the one-scale test (the empty leaf aside); zero rows exact."""
+    rng = np.random.default_rng(12)
+    leaves = {k: shp for k, shp in RAGGED.items() if shp[0] == 3}
+    params = {k: np32(rng, *shp) for k, shp in leaves.items()}
+    grads = {k: np32(rng, *shp, scale=1e3) for k, shp in leaves.items()}
+    s = np.asarray(ROW_SCALES, np.float32)
+    got = ops.fused_sgd_update({k: t(w) for k, w in params.items()},
+                               {k: t(g) for k, g in grads.items()}, t(s))
+    for k, w in params.items():
+        rows = w.reshape(3, -1)
+        ref = np.stack([np.asarray(jax_sgd(
+            rows[i:i + 1], grads[k].reshape(3, -1)[i:i + 1], s[i],
+            interpret=True))[0] for i in range(3)]).reshape(w.shape) \
+            if w.size else w
+        np.testing.assert_allclose(got[k].numpy(), ref, rtol=1e-6, atol=1e-7)
+        assert torch.equal(got[k][1], t(w[1]))
+
+
+def test_sgd_update_row_scales_must_match_the_rows():
+    w = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="3 row scales"):
+        sgd_update(w, w, torch.ones(3))
+    with pytest.raises(TypeError, match="host float"):
+        sgd_update(w, w, torch.ones(4, 1))
+
+
 def test_sgd_update_many_checks_its_leaves():
     w = torch.zeros(2, 3)
     with pytest.raises(ValueError, match="2 leaves, 1 grads"):

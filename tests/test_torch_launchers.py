@@ -98,3 +98,45 @@ def test_tma_strides_refuse_what_tma_cannot_load():
     odd = torch.zeros(2, 64, 8, 84, dtype=torch.bfloat16)[..., :80]
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
         _tma_strides("k", odd)
+
+
+class _StubLibrary:
+    """Records each launcher call in place of the built library."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.endswith("_launch"):
+            raise AttributeError(name)
+
+        def launcher(*args):
+            self.calls.append((name, args))
+            return 0
+        return launcher
+
+
+@pytest.mark.parametrize("rows", [False, True], ids=["one_scale", "per_row"])
+def test_sgd_update_launch_passes_one_scale_or_the_row_vector(monkeypatch,
+                                                              rows):
+    """The host path of ``sgd_update_many`` (``build.use_kernel`` forced on,
+    a stub library): one launch a call with the leaves' element counts; a
+    host float goes as ``s`` with a null row vector and 0 rows, a ``[D]``
+    vector by its pointer with D rows and ``s`` 0."""
+    from repro_torch.kernels.sgd_update import sgd_update_many
+    lib = _StubLibrary()
+    monkeypatch.setattr(build, "use_kernel", lambda mode, w: True)
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "stream", lambda: 0)
+    ws = [torch.zeros(4, 3, 3), torch.zeros(4, 10), torch.zeros(4, 0)]
+    scale = torch.arange(4, dtype=torch.float32) if rows else 0.25
+    outs = sgd_update_many(ws, [torch.ones_like(w) for w in ws], scale)
+    assert [c[0] for c in lib.calls] == ["sgd_update_launch"]
+    wp, gp, numel, n, flat, s, sp, nrows, stream = lib.calls[0][1]
+    assert n == 3 and [numel[i] for i in range(n)] == [36, 40, 0]
+    if rows:
+        assert (s, sp, nrows) == (0.0, scale.data_ptr(), 4)
+    else:
+        assert (s, sp, nrows) == (0.25, None, 0)
+    assert [o.shape for o in outs] == [w.shape for w in ws]
+    assert outs[0].untyped_storage().data_ptr() == flat

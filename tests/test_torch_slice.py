@@ -141,12 +141,32 @@ def test_simulator_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
         BHFLSimulator(PORT_TINY, device="cpu", kernel_mode="pallas", **KW)
 
 
-@pytest.mark.parametrize("kw", [dict(aggregator="switched"),
-                                dict(j_cohort=2),
+@pytest.mark.parametrize("kw", [dict(j_cohort=2),
                                 dict(population=100)])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         BHFLSimulator(PORT_TINY, device="cpu", **KW, **kw)
+
+
+def test_switched_run_matches_jax():
+    """``aggregator="switched"`` standalone: the aggregator its ``agg_sel``
+    names (HieAvg), as the reference's traced tri-select runs it; within
+    the engine-parity bounds, the clock and energy equal."""
+    args = ("switched", "temporary", "temporary")
+    sim = JaxSim(TINY, *args, kernel_mode="xla", **KW)
+    w0 = {k: np.asarray(v) for k, v in
+          init_from_specs(sim.specs, jax.random.key(sim.seed)).items()}
+    ref = sim.run()
+    got = BHFLSimulator(PORT_TINY, *args, device="cpu", init_params=w0,
+                        **KW).run()
+    np.testing.assert_allclose(got.accuracy, ref.accuracy, atol=ACC_TOL)
+    np.testing.assert_allclose(got.loss, ref.loss, rtol=LOSS_TOL,
+                               atol=LOSS_TOL)
+    np.testing.assert_allclose(got.grad_norm, ref.grad_norm, rtol=0.01,
+                               atol=1e-4)
+    np.testing.assert_array_equal(got.sim_clock, ref.sim_clock)
+    np.testing.assert_array_equal(got.sim_energy, ref.sim_energy)
+    assert got.blocks == ref.blocks
 
 
 @pytest.mark.parametrize("entry", ["run_legacy"])
