@@ -39,7 +39,20 @@ the plain versions on the same buckets, and every point once more alone:
 each point within the engine-parity bounds of its standalone run and of
 the plain sweep, clock and energy equal.  Then K* over a batched grid
 (``optimize_k_masked`` on the card, 16 ``LatencyParams`` x 3 omega_bar,
-against the host's ``optimize_k``: every K* equal).  Last, the LLM
+against the host's ``optimize_k``: every K* equal).  Then population
+mode at full width (DEFAULT cut to T = 4, a cohort of 5 devices an edge
+resampled every round out of stores of 10^3 and 10^6 devices, each built
+once): HieAvg and delayed-gradient with the kernels and plain, the pair
+within the engine-parity bounds, launch counts those of the standalone
+smoke run, churn resets applied at every occupant change of the
+delayed-gradient run, peak memory the same at both sizes; the 10^6
+delayed-gradient run checkpointed, cut and resumed, bitwise; a static cohort
+of the 10^6 store against ``store.subset`` of its rows, bitwise; the
+mixed grid of ``benchmarks/bench_population.py`` (HieAvg, delayed-gradient
+at beta 0.5 and 0.9) over the 10^6 store as one "switched" stack, each
+point within the engine-parity bounds of its standalone run.  Then
+``run_legacy()`` (the per-edge loop in plain PyTorch, no kernel) against
+the smoke HieAvg ``run()``, within the engine-parity bounds.  Last, the LLM
 serving path: ``repro_torch.launch.serve.run`` on h2o-danube-1.8b at full
 width (24 layers, bfloat16, batch 2, a prompt of 8192 tokens, twice the
 sliding window, 32 greedy tokens), with the flash kernel and with its
@@ -55,7 +68,12 @@ HieAvg's cold rounds and in FedAvg, ``hieavg_agg`` in HieAvg's warm ones,
 per configuration, the resume checks, one ``sweep`` line per plan (its
 buckets, wall seconds of the plan, of its plain run and of its points one
 by one, peak memory, launches, the largest differences and whether they
-are bitwise), the ``kstar`` line, one per serve run, the serve
+are bitwise), the ``kstar`` line, one ``population`` line per store size
+and aggregator (the store's host build seconds, rounds/s, peak memory,
+launches and churn resets of each mode, and their parity), the
+``population_resume``, ``population_parity``, ``population_sweep`` and
+``legacy`` lines, one per
+serve run, the serve
 parity, the ``kernels`` summary, and last ``{"ok": true, "device":
 {...}}``.  ``--profile`` adds one more HieAvg run and the switched sweep
 under ``torch.profiler``, a line of device time per kernel each;
@@ -63,8 +81,10 @@ under ``torch.profiler``, a line of device time per kernel each;
 HieAvg, FedAvg and delayed-gradient aggregation, its Fig. 2 set
 (``run_comparison`` under temporary and permanent stragglers, with
 HieAvg's eq. (4) as written and normalized), Fig. 3's grid at T = 50 as
-one plan (wall seconds, final and best accuracy per point), and a serve
-run with a prompt of 32768 tokens.
+one plan (wall seconds, final and best accuracy per point), population
+HieAvg at T = 50 over stores of 10^3 to 10^6 devices (``population_full``:
+rounds/s per size, best of 3 in turns, and their max/min ratio), and a
+serve run with a prompt of 32768 tokens.
 Any failed phase raises and exits non-zero; without a CUDA device it
 exits 2 and prints nothing on stdout.  Imports nothing of JAX or of the
 JAX package.
@@ -182,6 +202,21 @@ RUN_LAUNCHES = ("conv3x3_fwd", "conv3x3_bwd", "sgd_update", "hieavg_agg",
                 "coef_agg", "coef_agg_pair", "eval_head")
 #: the configurations whose checkpointed run is cut and resumed
 RESUMED = ("delayed_grad", "hieavg_bf16")
+#: the population cell: DEFAULT (5 edges, a cohort of 5 devices an edge:
+#: 25 a round) cut to T = 4, n_train 4000, n_test 1000, cohorts resampled
+#: every round, temporary stragglers; stores of POP_SIZES devices, each
+#: built once; HieAvg and delayed-gradient, and the sweep's grid
+#: (``benchmarks/bench_population.py``'s mixed grid: HieAvg beside
+#: delayed-gradient at each beta of POP_BETAS) over the largest store.
+#: ``--full`` runs HieAvg at T = 50 over POP_FULL_SIZES in turns, the best
+#: of POP_REPEAT after one warm-up pass
+POP_SIZES = (10 ** 3, 10 ** 6)
+POP_FULL_SIZES = (10 ** 3, 10 ** 4, 10 ** 5, 10 ** 6)
+POP_J_COHORT = 5
+POP_KW = dict(n_train=4000, n_test=1000)
+POP_RUNS = ("hieavg", "delayed_grad")
+POP_BETAS = (0.5, 0.9)
+POP_REPEAT = 3
 ROWS = ("accuracy", "loss", "grad_norm", "sim_clock", "sim_energy")
 
 #: the serve cell: h2o-danube-1.8b at full width, batch 2, a prompt of
@@ -733,6 +768,272 @@ def resume_check(np_run, make_sim) -> dict:
             "max_abs_diff_to_run": {r: float(np.abs(getattr(full, r)
                                                     - getattr(np_run, r))
                                              .max()) for r in ROWS}}
+
+
+def make_store(fl, core, setting, size: int, resample: str = "round"):
+    """The device store ``BHFLSimulator(setting, population=size,
+    j_cohort=POP_J_COHORT)`` builds (seeded on the deployment's
+    ``"population"`` stream), with cohorts resampled by ``resample``."""
+    return fl.DevicePopulation(
+        fl.PopulationSpec(size=size, j_cohort=POP_J_COHORT,
+                          resample=resample),
+        n_classes=setting.n_classes, max_classes=setting.classes_per_device,
+        seed=core.stream_seed(setting.seed, "population"))
+
+
+def within_bounds(a, b, clock: bool = True) -> dict:
+    """Run ``a`` against run ``b``: the largest differences of the
+    accuracy, loss and delta rows and whether they hold the engine-parity
+    bounds, with the clock and energy rows equal (``clock``) and the blocks
+    equal."""
+    ok = bool(np.allclose(a.accuracy, b.accuracy, rtol=0, atol=ACC_TOL)
+              and np.allclose(a.loss, b.loss, rtol=LOSS_TOL, atol=LOSS_TOL)
+              and np.allclose(a.grad_norm, b.grad_norm, rtol=DELTA_RTOL,
+                              atol=DELTA_ATOL)
+              and a.blocks == b.blocks)
+    if clock:
+        ok = ok and bool(np.array_equal(a.sim_clock, b.sim_clock)
+                         and np.array_equal(a.sim_energy, b.sim_energy))
+    return {"within_bounds": ok, "max_abs_diff": {
+        k: float(np.abs(getattr(a, k) - getattr(b, k)).max())
+        for k in ("accuracy", "loss", "grad_norm")}}
+
+
+def population_phase(torch, build, fl, core, setting, smoke_launches) -> dict:
+    """Population mode at full width (the ``population`` cell): a store of
+    each size of POP_SIZES built once (host seconds printed), then HieAvg
+    and delayed-gradient over it with the kernels and plain, each pair
+    within the engine-parity bounds, clock and energy equal.  A run's
+    launch counts must be the smoke run's of its aggregator
+    (``smoke_launches``): the kernels see a cohort of 25 devices whatever
+    the store's size.  The delayed-gradient run must apply a churn reset
+    at every occupant change of its plan (``engine.CHURN_RESETS``), and
+    more than 0; peak device memory must not grow with the store.  The
+    last of them (delayed-gradient over the largest store) is checkpointed,
+    cut and resumed from fresh simulators built with ``population=size,
+    j_cohort=...`` (``population_resume``: bitwise).  Then
+    ``population_parity`` (a static cohort of the largest store against
+    ``store.subset`` of its rows run as a "full" population: bitwise) and
+    ``population_sweep`` (the mixed grid over the largest store as one
+    "switched" stack, each point within the engine-parity bounds of its
+    standalone run).  Returns the stores."""
+    from repro_torch.fl import engine
+    T = setting.t_global_rounds
+    stores, build_s = {}, {}
+    for size in POP_SIZES:
+        t0 = time.time()
+        stores[size] = make_store(fl, core, setting, size)
+        build_s[size] = time.time() - t0
+    peaks: dict = {}
+    for size in POP_SIZES:
+        for label in POP_RUNS:
+            out, res = {}, {}
+            for mode in ("auto", "torch"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                build.reset_launch_counts()
+                engine.CHURN_RESETS.clear()
+                t0 = time.time()
+                sim = fl.BHFLSimulator(setting, label, "temporary",
+                                       "temporary", population=stores[size],
+                                       device="cuda", kernel_mode=mode,
+                                       **POP_KW)
+                r = res[mode] = sim.run()
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                launches = dict(build.LAUNCHES)
+                resets = engine.CHURN_RESETS["slots"]
+                changes = int(sim.cohort_change().sum())
+                peak = torch.cuda.max_memory_allocated()
+                peaks[size, label, mode] = peak
+                for key in ROWS:
+                    row = getattr(r, key)
+                    check("population", row.shape == (T,)
+                          and bool(np.isfinite(row).all()),
+                          f"{size} {label} {mode} {key}: {row}")
+                check("population", r.blocks == T and r.chain_valid,
+                      f"{size} {label} {mode}: chain {r.blocks}")
+                want = smoke_launches[label] if mode == "auto" else {}
+                check("launches", launches == want,
+                      f"population {size} {label} {mode}: {launches}, the "
+                      f"standalone run's {want}")
+                check("population", changes > 0 and resets == (
+                    changes if label == "delayed_grad" else 0),
+                      f"{size} {label} {mode}: {resets} churn resets for "
+                      f"{changes} occupant changes")
+                out[mode] = {"wall_s": wall, "run_s": r.wall_time,
+                             "rounds_per_s": T / wall,
+                             "peak_memory_gb": peak / 1e9,
+                             "launches": launches, "churn_resets": resets,
+                             "final_accuracy": float(r.accuracy[-1]),
+                             **{k: [float(v) for v in getattr(r, k)]
+                                for k in ("loss", "sim_clock")}}
+            if (size, label) == (POP_SIZES[-1], "delayed_grad"):
+                resumed_from = res["auto"]
+            parity = within_bounds(res["auto"], res["torch"])
+            emit({"population": {
+                "size": size, "config": label, "j_cohort": POP_J_COHORT,
+                "devices_a_round": sim.D, "resample": "round",
+                "t_global_rounds": T, **POP_KW,
+                "store_build_s": build_s[size], "occupant_changes": changes,
+                **out, "auto_vs_torch": parity}})
+            check("population", parity["within_bounds"],
+                  f"{size} {label}: {parity}")
+    # ---- the largest delayed-gradient run checkpointed, cut and resumed
+    # from fresh simulators given the store's size (each builds its store)
+    line = resume_check(resumed_from, lambda: fl.BHFLSimulator(
+        setting, "delayed_grad", "temporary", "temporary",
+        population=POP_SIZES[-1], j_cohort=POP_J_COHORT, device="cuda",
+        **POP_KW))
+    emit({"population_resume": {"size": POP_SIZES[-1],
+                                "config": "delayed_grad", "every": 2,
+                                **line}})
+    check("population_resume", line["resumed_bitwise"]
+          and line["close_to_run"], f"{line}")
+    for label in POP_RUNS:
+        for mode in ("auto", "torch"):
+            a, b = (peaks[size, label, mode] for size in POP_SIZES)
+            check("population", abs(b - a) <= 0.01 * a,
+                  f"{label} {mode}: peak memory {a} B at {POP_SIZES[0]} "
+                  f"devices, {b} B at {POP_SIZES[-1]}")
+
+    # ---- a gathered cohort against its materialized subset, bitwise
+    big_size = POP_SIZES[-1]
+    static = make_store(fl, core, setting, big_size, "static")
+    line = {"size": big_size}
+    for label in POP_RUNS:
+        big = fl.BHFLSimulator(setting, label, "temporary", "temporary",
+                               population=static, device="cuda", **POP_KW)
+        small = fl.BHFLSimulator(
+            setting, label, "temporary", "temporary",
+            population=static.subset(big.cohort_ids[0]), device="cuda",
+            **POP_KW)
+        a, b = big.run(), small.run()
+        diff = {k: float(np.abs(getattr(a, k) - getattr(b, k)).max())
+                for k in ROWS}
+        bitwise = all(np.array_equal(getattr(a, k), getattr(b, k))
+                      for k in ROWS) and a.blocks == b.blocks
+        line[label] = {"bitwise": bitwise, "max_abs_diff": diff}
+        check("population_parity", bitwise, f"{label}: {diff}")
+    emit({"population_parity": line})
+
+    # ---- the mixed grid over the largest store, one "switched" stack
+    store = stores[big_size]
+    overrides = [{"aggregation": "hieavg"}] + [
+        {"aggregation": "delayed_grad", "staleness_discount": b}
+        for b in POP_BETAS]
+    t0 = time.time()
+    plan = fl.plan_sweep(setting, (0,), overrides=overrides, device="cuda",
+                         kernel_mode="auto", population=store, **POP_KW)
+    plan_s = time.time() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    engine.CHURN_RESETS.clear()
+    t0 = time.time()
+    got = fl.run_plan(plan)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(build.LAUNCHES)
+    resets = engine.CHURN_RESETS["slots"]
+    peak = torch.cuda.max_memory_allocated()
+    alone, alone_s = [], []
+    for ov, seed in got.points:
+        ov = dict(ov)
+        agg = ov.pop("aggregation")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sim = fl.BHFLSimulator(dataclasses.replace(setting, **ov), agg,
+                               "temporary", "temporary", population=store,
+                               seed=seed, device="cuda", **POP_KW)
+        alone.append(sim.run())
+        torch.cuda.synchronize()
+        alone_s.append(time.time() - t0)
+    changes = int(sim.cohort_change().sum())
+    missing = [k for k in SWEEP_KERNELS["switched"] if not launches.get(k)]
+    vs_alone = _rows_diff(got, alone, got.t_valid)
+    emit({"population_sweep": {
+        "size": big_size, "points": len(got.points),
+        "aggregator": plan.aggregator, "betas": list(POP_BETAS),
+        "buckets": plan.describe().splitlines(), "plan_s": plan_s,
+        "wall_s": wall, "points_s": alone_s, "one_by_one_s": sum(alone_s),
+        "peak_memory_gb": peak / 1e9, "launches": launches,
+        "churn_resets": resets, "vs_standalone": vs_alone,
+        "final_accuracy": [float(got.accuracy[p, -1])
+                           for p in range(len(got.points))]}})
+    check("launches", not missing,
+          f"population sweep: never launched {missing} ({launches})")
+    check("population_sweep", resets == len(POP_BETAS) * changes > 0,
+          f"{resets} churn resets for {len(POP_BETAS)} delayed-gradient "
+          f"points of {changes} occupant changes")
+    check("population_sweep", vs_alone["within_bounds"],
+          f"sweep against standalone runs {vs_alone}")
+    return stores
+
+
+def legacy_phase(torch, build, simulator, setting, engine_run) -> dict:
+    """``run_legacy()`` (the reference's per-edge loop in plain PyTorch, no
+    kernel) of the smoke HieAvg configuration on the card, against
+    ``run()`` with the kernels (``engine_run``): within the engine-parity
+    bounds, blocks equal, both chains valid, and no kernel launched."""
+    sim = simulator(setting, "hieavg", "temporary", "temporary",
+                    device="cuda")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    res = sim.run_legacy()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    T = setting.t_global_rounds
+    for key in ("accuracy", "loss", "grad_norm"):
+        row = getattr(res, key)
+        check("legacy", row.shape == (T,) and bool(np.isfinite(row).all()),
+              f"{key}: {row}")
+    line = within_bounds(res, engine_run, clock=False)
+    out = {"config": "hieavg", "wall_s": res.wall_time,
+           "engine_wall_s": engine_run.wall_time, "launches": launches,
+           "blocks": res.blocks, "chain_valid": res.chain_valid,
+           "engine_chain_valid": engine_run.chain_valid,
+           "vs_run": line,
+           "accuracy": [float(v) for v in res.accuracy],
+           "loss": [float(v) for v in res.loss]}
+    emit({"legacy": out})
+    check("legacy", not launches, f"run_legacy launched {launches}")
+    check("legacy", line["within_bounds"] and res.chain_valid
+          and engine_run.chain_valid, f"{out}")
+    return out
+
+
+def population_full(torch, fl, core, setting) -> dict:
+    """``--full``: HieAvg at T = 50 over stores of POP_FULL_SIZES devices,
+    each built once; a warm-up pass, then POP_REPEAT passes with the sizes
+    in turns, the best wall seconds of each (the simulator built and run,
+    as ``benchmarks/bench_population.py`` times it): rounds per second per
+    size and their max/min ratio."""
+    stores = {size: make_store(fl, core, setting, size)
+              for size in POP_FULL_SIZES}
+
+    def one(size) -> float:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fl.BHFLSimulator(setting, "hieavg", "temporary", "temporary",
+                         population=stores[size], device="cuda",
+                         **POP_KW).run()
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    for size in POP_FULL_SIZES:
+        one(size)
+    best = {size: float("inf") for size in POP_FULL_SIZES}
+    for _ in range(POP_REPEAT):
+        for size in POP_FULL_SIZES:
+            best[size] = min(best[size], one(size))
+    rps = {str(size): setting.t_global_rounds / best[size]
+           for size in POP_FULL_SIZES}
+    return {"t_global_rounds": setting.t_global_rounds,
+            "j_cohort": POP_J_COHORT, "repeat": POP_REPEAT,
+            "best_wall_s": {str(k): v for k, v in best.items()},
+            "rounds_per_s": rps,
+            "max_min_ratio": max(rps.values()) / min(rps.values())}
 
 
 def fig3_overrides() -> list:
@@ -1609,6 +1910,12 @@ def main() -> int:
           "no sweep bucket took the per-row SGD path")
     kstar_phase(torch, core)
 
+    # ------------------------------------ population mode, the legacy loop
+    population_phase(torch, build, fl, core, setting, {
+        label: runs[label, "auto"][1] for label in POP_RUNS})
+    legacy_phase(torch, build, BHFLSimulator, setting,
+                 runs["hieavg", "auto"][0])
+
     # --------------------------------------------------- the serving path
     served = serve_runs(torch, serve, build, serve_cfg.n_layers)
     serve_parity(torch, serve, served)
@@ -1635,6 +1942,7 @@ def main() -> int:
                                         label)})
         emit({"fig2": fig2_runs(run_comparison, DEFAULT)})
         emit({"fig3": fig3_full(torch, fl, DEFAULT)})
+        emit({"population_full": population_full(torch, fl, core, DEFAULT)})
         torch.cuda.reset_peak_memory_stats()
         res = serve.run(SERVE_ARCH, smoke=False, batch=1,
                         prompt_len=SERVE_LONG_PROMPT, gen=SERVE_GEN,

@@ -1,6 +1,7 @@
 """Core library: the paper's contribution (HieAvg, stragglers, the
 consensus chain, latency and the convergence bound), for the port."""
 from .hieavg import (History, init_history, update_history,
+                     edge_aggregate, global_aggregate, edge_aggregate_cold,
                      global_aggregate_cold)
 from .baselines import fedavg, t_fedavg, d_fedavg, delayed_grad
 from .rng import STREAMS, stream_rng, stream_seed, stream_seq
@@ -21,7 +22,8 @@ from .latency import (LatencyParams, shannon_rate, comm_latency,
 from .convergence import BoundParams, omega_bound, omega_bound_k
 
 __all__ = [
-    "History", "init_history", "update_history", "global_aggregate_cold",
+    "History", "init_history", "update_history", "edge_aggregate",
+    "global_aggregate", "edge_aggregate_cold", "global_aggregate_cold",
     "fedavg", "t_fedavg", "d_fedavg", "delayed_grad",
     "STREAMS", "stream_rng", "stream_seed", "stream_seq",
     "no_stragglers", "permanent", "temporary", "from_fraction",

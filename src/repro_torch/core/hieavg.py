@@ -6,7 +6,10 @@ kernel route (``repro_torch.kernels.dispatch``) is tested against it, and
 it against the JAX functions.  Weights are dicts of *stacked* tensors: the
 leading ``mask.dim()`` axes are batch axes then the participant axis
 (``[n, ...]`` for one layer, ``[N, J, ...]`` for all N edges at once), so
-every function below works on both without a ``vmap``.
+every function below works on both without a ``vmap``.  The single-model
+entry points (``edge_aggregate``, ``global_aggregate``,
+``edge_aggregate_cold``, ``global_aggregate_cold`` on ``[n, ...]``
+weights) serve ``run_legacy``.
 
 History storage (``history_dtype``): ``prev_w``/``delta_mean`` may be kept
 in ``torch.bfloat16`` or ``torch.float8_e4m3fn``; the math stays float32
@@ -180,6 +183,34 @@ def aggregate(stacked_w: dict, mask: torch.Tensor, history: History,
     """Eq. (4)/(5) with caller-normalized ``part_weights``."""
     return _mix_and_update(stacked_w, mask, history, part_weights, gamma0,
                            lam, normalize)
+
+
+def edge_aggregate(stacked_w: dict, mask: torch.Tensor, history: History,
+                   *, gamma0: float = 0.9, lam: float = 0.9,
+                   normalize: bool = False) -> tuple[dict, History]:
+    """Eq. (4) at one edge: ``[n, ...]`` weights, part weights ``1/n``.
+    Returns (edge model, updated history)."""
+    n = mask.shape[0]
+    pw = torch.full((n,), 1.0 / n, dtype=f32, device=mask.device)
+    return _mix_and_update(stacked_w, mask, history, pw, gamma0, lam,
+                           normalize)
+
+
+def global_aggregate(stacked_w: dict, mask: torch.Tensor, history: History,
+                     j_per_edge: torch.Tensor, *, gamma0: float = 0.9,
+                     lam: float = 0.9, normalize: bool = False
+                     ) -> tuple[dict, History]:
+    """Eq. (5) on the leader: ``[N, ...]`` edge models weighted by
+    ``J_i / sum J``.  Returns (global model, updated history)."""
+    j = j_per_edge.to(f32)
+    return _mix_and_update(stacked_w, mask, history, j / j.sum(), gamma0,
+                           lam, normalize)
+
+
+def edge_aggregate_cold(stacked_w: dict) -> dict:
+    """Eq. (2) during cold boot at one edge: the plain mean over its
+    ``[n, ...]`` devices."""
+    return {k: w.mean(0) for k, w in stacked_w.items()}
 
 
 def edge_aggregate_batched(stacked_w: dict, mask: torch.Tensor,

@@ -43,6 +43,7 @@ and they match it exactly.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional
 
@@ -53,6 +54,7 @@ from repro_torch.core import baselines, hieavg
 from repro_torch.core import latency as lat
 from repro_torch.core import rng as rng_streams
 from repro_torch.core import straggler as strag
+from repro_torch.data import partition
 from repro_torch.fl import faults as _faults
 from repro_torch.kernels import dispatch as kernel_dispatch
 from repro_torch.models import cnn_accuracy_many, cnn_loss
@@ -63,8 +65,8 @@ from repro_torch.optim import paper_lr
 # --------------------------------------------------------------- local step
 def train_epoch_body(params: dict, images: torch.Tensor,
                      labels: torch.Tensor, lr, kernel_mode: str = "auto",
-                     step_ok: Optional[torch.Tensor] = None
-                     ) -> tuple[dict, torch.Tensor]:
+                     step_ok: Optional[torch.Tensor] = None,
+                     loss_fn=None) -> tuple[dict, torch.Tensor]:
     """One local epoch for all devices.  params: stacked [D, ...];
     images [D, steps, B, H, W, 1]; labels [D, steps, B].  Returns (new
     stacked params, mean loss per device [D]).
@@ -80,13 +82,20 @@ def train_epoch_body(params: dict, images: torch.Tensor,
     Each step takes the gradient of the sum of the per-device mean losses:
     the devices' weights are independent, so every device gets its own
     gradient, as JAX's ``vmap(value_and_grad)`` gives it.
+
+    ``loss_fn``: None, the engine's loss (``models.cnn_loss``, its conv
+    blocks through ``kernel_mode``'s route); or a ``(params, images,
+    labels) -> [D]`` loss used as it is (``run_legacy``'s shifted-sum
+    ``models.cnn_loss_shifted``).
     """
     total = None
     steps = images.shape[1]
     for s in range(steps):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
-        loss = cnn_loss(leaves, images[:, s], labels[:, s], kernel_mode)
+        loss = cnn_loss(leaves, images[:, s], labels[:, s], kernel_mode) \
+            if loss_fn is None else loss_fn(leaves, images[:, s],
+                                            labels[:, s])
         names = list(leaves)
         grads = torch.autograd.grad(loss.sum(), [leaves[k] for k in names])
         params = kernel_dispatch.sgd_update(
@@ -140,6 +149,10 @@ class EngineInputs:
     cons_time: np.ndarray     # [T] f32 per-round consensus latency
     cons_energy: np.ndarray   # [T] f32 per-round consensus energy (J)
     edge_hop: np.ndarray      # scalar f32 — 2 * E[LM'] edge<->leader hop
+    cohort_change: np.ndarray  # [T, N, J] bool — the slot's occupant
+    #                           changed at the start of global round t
+    #                           (population churn; all False for a fixed
+    #                           fleet and on padding)
     agg_sel: np.ndarray       # scalar i32 — the "switched" engine's
     #                           aggregator (AGG_SEL)
     stale_beta: np.ndarray    # scalar f32 — delayed-grad discount beta
@@ -184,6 +197,18 @@ def replay_chain(sim) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     if failed_edge is not None:
         edge_avail[crash_at - 1:, failed_edge] = False
     return cons, energy, edge_avail
+
+
+def initial_model(sim, init_params: Optional[dict] = None) -> dict:
+    """The run's initial global model as float32 numpy arrays in the JAX
+    layouts: ``init_params`` when given, else the port's own draw from a
+    CPU generator seeded with the deployment's seed (so the model does not
+    depend on the device)."""
+    if init_params is None:
+        g = torch.Generator()
+        g.manual_seed(int(sim.seed))
+        init_params = _spec.init_params(sim.specs, g)
+    return {k: np.array(v, dtype=np.float32) for k, v in init_params.items()}
 
 
 def build_inputs(sim, *, t_max: Optional[int] = None,
@@ -241,22 +266,38 @@ def build_inputs(sim, *, t_max: Optional[int] = None,
     # deployment's "batches" stream
     rng = rng_streams.stream_rng(sim.seed, "batches")
     R = T * K
-    flat_idx = np.zeros((R, sim.D, steps, bs), np.int32)
-    flat_has = np.zeros((sim.D,), np.float32)
-    for r in range(R):
-        for d, idx in enumerate(sim.device_idx):
-            if len(idx) == 0:
-                continue
-            flat_idx[r, d] = rng.choice(idx, size=(steps, bs), replace=True)
-            flat_has[d] = 1.0
+    pop = getattr(sim, "pop", None)
+    if pop is not None:
+        # population mode: one vectorized draw for every (round, slot);
+        # the occupant's classes select the pools, O(R x cohort)
+        ids_r = np.repeat(sim.cohort_ids, K, axis=0).reshape(R, sim.D)
+        cls_rd = pop.classes[ids_r.reshape(-1)]          # [R*D, M]
+        flat_idx = partition.sample_class_batches(
+            sim._pool, sim._pool_off, sim._pool_cnt, cls_rd, steps, bs,
+            rng).reshape(R, sim.D, steps, bs)
+        flat_has = np.ones((sim.D,), np.float32)
+    else:
+        flat_idx = np.zeros((R, sim.D, steps, bs), np.int32)
+        flat_has = np.zeros((sim.D,), np.float32)
+        for r in range(R):
+            for d, idx in enumerate(sim.device_idx):
+                if len(idx) == 0:
+                    continue
+                flat_idx[r, d] = rng.choice(idx, size=(steps, bs),
+                                            replace=True)
+                flat_has[d] = 1.0
     # per-device round-time draws on their own stream (the batch draws stay
-    # untouched by the latency accounting), over the real extents only
+    # untouched by the latency accounting), over the real extents only;
+    # population mode scales each slot's draw by its occupant's time_scale
     lp = sim.lat
     lrng = rng_streams.stream_rng(sim.seed, "latency")
     jm = lrng.uniform(1.0 - lp.lm_jitter, 1.0 + lp.lm_jitter, (R, sim.D))
     jp = lrng.uniform(1.0 - lp.lp_jitter, 1.0 + lp.lp_jitter, (R, sim.D))
     draw = 2.0 * lp.lm_device * jm + lp.lp_device * jp
-    if lp.rate_mult is not None:
+    spd = sim.cohort_time_scale() if pop is not None else None
+    if spd is not None:
+        draw = draw * spd
+    elif lp.rate_mult is not None:
         rm = np.asarray(lp.rate_mult, np.float64).reshape(-1)
         if rm.shape != (sim.D,):
             raise ValueError(
@@ -290,21 +331,17 @@ def build_inputs(sim, *, t_max: Optional[int] = None,
     lr[:T, :K] = paper_lr(np.arange(R), s.lr0, s.lr_decay).reshape(T, K)
     j_arr = np.zeros((Nm,), np.float32)
     j_arr[:N] = sim.j_per_edge
+    # cohort churn: padded rounds and edges stay False
+    cohort_change = np.zeros((Tm, Nm, J), dtype=bool)
+    chg = sim.cohort_change()
+    cohort_change[:T, :N, :chg.shape[2]] = chg
 
     if share_data_from is not None:
         src = share_data_from
         data = dict(train_x=src.train_x, train_y=src.train_y,
                     test_x=src.test_x, test_y=src.test_y, init_w=src.init_w)
     else:
-        if init_params is None:
-            # the port's own draw: a CPU generator seeded with the
-            # deployment's seed, so the initial model does not depend on
-            # the device
-            g = torch.Generator()
-            g.manual_seed(int(sim.seed))
-            init_params = _spec.init_params(sim.specs, g)
-        w0 = {k: np.array(v, dtype=np.float32)
-              for k, v in init_params.items()}
+        w0 = initial_model(sim, init_params)
         data = dict(train_x=np.asarray(sim.train_x)[None],
                     train_y=np.asarray(sim.train_y)[None],
                     test_x=np.asarray(sim.test_x)[None],
@@ -319,7 +356,7 @@ def build_inputs(sim, *, t_max: Optional[int] = None,
         t_valid=np.int32(T), k_valid=np.int32(K), n_valid=np.int32(N),
         s_valid=np.int32(steps),
         dev_time=dev_time, cons_time=cons_time, cons_energy=cons_energy,
-        edge_hop=np.float32(2.0 * lp.lm_edge),
+        edge_hop=np.float32(2.0 * lp.lm_edge), cohort_change=cohort_change,
         agg_sel=np.int32(AGG_SEL.get(sim.aggregator, 0)),
         stale_beta=np.float32(s.staleness_discount),
         delay_delta=np.float32(s.delay_delta))
@@ -387,6 +424,11 @@ def host_clock(inp: EngineInputs) -> tuple[np.ndarray, np.ndarray]:
         clocks[t], energies[t] = clock, energy
     return clocks, energies
 
+
+#: the delayed-gradient churn resets the engine has applied (``"slots"``:
+#: slot resets summed over rounds), counted on the host where it applies
+#: them; ``CHURN_RESETS.clear()`` sets it to 0
+CHURN_RESETS: collections.Counter = collections.Counter()
 
 #: the aggregators ``run_engine_chunk`` runs; ``"switched"`` runs per point
 #: the one its ``agg_sel`` names (``AGG_SEL``)
@@ -623,6 +665,9 @@ def run_engine_chunk(inp: EngineInputs, carry: EngineCarry, t0: int,
     batch_idx = put(gidx.transpose(1, 2, 0, 3, 4, 5, 6))  # [C, K, P, ...]
     dev_masks = put(inp.dev_masks[:, t0:t1].transpose(1, 2, 0, 3, 4))
     edge_masks = put(inp.edge_masks[:, t0:t1].transpose(1, 0, 2))
+    churn = inp.cohort_change[:, t0:t1]                   # host [P, C, N, J]
+    cohort_change = put(churn.transpose(1, 0, 2, 3)) if churn.any() \
+        else None
     hd = put(inp.has_data)
     valid = put(inp.valid)
     v32 = valid.to(f32)
@@ -703,9 +748,23 @@ def run_engine_chunk(inp: EngineInputs, carry: EngineCarry, t0: int,
                         sc["gamma0"], sc["lam"], normalize, mode=kernel_mode)
                     ehist_a = G.put(ehist_a, h)
                 elif a == "delayed_grad":
+                    pend, age = G.take(elast_a), G.take(eage_a)
+                    n_chg = 0 if k or cohort_change is None else int(
+                        churn[act_ids[G.ids], tt].sum())
+                    if n_chg:
+                        # population churn at the round's first edge
+                        # round: a slot with a new occupant starts from
+                        # its fresh weights, age 0 (the d_fedavg store and
+                        # the HieAvg histories stay keyed to the slot)
+                        chg = G.take(A.take(cohort_change[tt]))
+                        pend = {n: torch.where(
+                            chg.reshape(chg.shape + (1,) * (w.dim() - 3)),
+                            w, pend[n]) for n, w in w_g.items()}
+                        age = age * (1.0 - chg.to(f32))
+                        CHURN_RESETS["slots"] += n_chg
                     em, el, ea = kernel_dispatch.delayed_grad(
-                        w_g, m_eff, G.take(elast_a), G.take(eage_a),
-                        sc["beta"], sc["delta"], v_g, mode=kernel_mode)
+                        w_g, m_eff, pend, age, sc["beta"], sc["delta"], v_g,
+                        mode=kernel_mode)
                     elast_a, eage_a = G.put(elast_a, el), G.put(eage_a, ea)
                 elif a == "t_fedavg":
                     em = baselines.t_fedavg(w_g, m_g, v_g)

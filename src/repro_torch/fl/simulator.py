@@ -7,7 +7,11 @@ round, Raft consensus overlapped with the edge rounds, HieAvg on the
 leader).  The host-side set-up (data, partition, straggler schedules,
 chain, fault schedule) is the reference's, draw for draw; ``run`` builds
 the host plane and drives ``repro_torch.fl.engine.run_engine``, and
-``run_checkpointed`` the same run in resumable chunks.  Aggregators:
+``run_checkpointed`` the same run in resumable chunks.  Population mode
+(``population=``, ``repro_torch.fl.population``) samples each round's
+cohort of ``[N, j_cohort]`` devices from a store of device profiles that
+stays on the host.  ``run_legacy`` is the reference's per-edge loop, the
+numerics cross-check of ``run``, in plain PyTorch.  Aggregators:
 ``hieavg`` (the paper), ``t_fedavg`` (drop stragglers), ``d_fedavg``
 (reuse their last weights), ``delayed_grad`` (stale updates arrive one
 round late, staleness-discounted), ``fedavg`` (the oracle, meaningful with
@@ -30,19 +34,21 @@ import torch
 
 from repro_torch.checkpoint import ckpt as _ckpt
 from repro_torch.configs.bhfl_cnn import BHFLSetting
+from repro_torch.core import baselines
 from repro_torch.core import consensus as _consensus
 from repro_torch.core import hieavg
 from repro_torch.core import latency as lat
 from repro_torch.core import rng as rng_streams
 from repro_torch.core import straggler as strag
-from repro_torch.data import by_class, class_images
+from repro_torch.data import by_class, class_images, class_pools
 from repro_torch.kernels.build import KERNEL_MODES
-from repro_torch.models import cnn_specs
+from repro_torch.models import (cnn_accuracy_shifted, cnn_loss_shifted,
+                                cnn_specs, stack_params)
+from repro_torch.optim import paper_lr
 
 from . import engine as _engine
 from . import faults as _faults
-
-_LATER = "comes with a later slice of the port"
+from . import population as _population
 
 
 @dataclasses.dataclass
@@ -56,6 +62,7 @@ class RunResult:
     chain_valid: bool
     sim_clock: Optional[np.ndarray] = None   # [T] cumulative simulated s
     sim_energy: Optional[np.ndarray] = None  # [T] cumulative consensus J
+    #   (run_legacy leaves both None, as the reference's does)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -105,8 +112,16 @@ class BHFLSimulator:
         ``aggregator="switched"`` runs the aggregator its ``agg_sel``
         names (``engine.AGG_SEL``; HieAvg for a standalone run), as the
         reference's traced tri-select does; the sweeps set it per point.
-        Population mode raises ``NotImplementedError``: it comes with a
-        later slice of the port."""
+
+        ``population`` (with ``j_cohort``): population mode, as the
+        reference's: an int population size, a ``PopulationSpec`` or a
+        prebuilt ``DevicePopulation`` (share one across sweep points).
+        Each global round gathers a cohort ``[N, j_cohort]`` by index; the
+        occupant's profile gives its straggling, data shard and speed, and
+        every per-round draw is keyed by the slot.  The store stays on the
+        host; what the engine puts on the device is cohort-sized.
+        ``j_per_edge`` and ``device_rates`` are refused with a population,
+        and device stragglers must be ``"temporary"`` or ``"none"``."""
         if aggregator not in _engine.AGGREGATORS:
             raise ValueError(f"unknown aggregator {aggregator!r}; expected "
                              f"one of {_engine.AGGREGATORS}")
@@ -115,8 +130,6 @@ class BHFLSimulator:
             raise ValueError(
                 f"history_dtype must be None or one of "
                 f"{hieavg.HISTORY_DTYPES}, got {history_dtype!r}")
-        if population is not None or j_cohort is not None:
-            raise NotImplementedError(f"population mode {_LATER}")
         if kernel_mode not in KERNEL_MODES:
             raise ValueError(f"unknown kernel_mode {kernel_mode!r}; expected "
                              f"one of {KERNEL_MODES}")
@@ -131,7 +144,20 @@ class BHFLSimulator:
         self.normalize = normalize
         self.seed = setting.seed if seed is None else seed
         self.N = setting.n_edges
-        self.j_per_edge = j_per_edge or [setting.j_per_edge] * self.N
+        # population mode: the store fixes the cohort's shape
+        if population is not None:
+            if j_per_edge is not None:
+                raise ValueError(
+                    "population mode fixes the per-edge device count to "
+                    "j_cohort; pass j_cohort instead of j_per_edge")
+            self.pop = _population.as_population(
+                population, j_cohort, n_classes=setting.n_classes,
+                max_classes=setting.classes_per_device,
+                seed=rng_streams.stream_seed(self.seed, "population"))
+            self.j_per_edge = [self.pop.spec.j_cohort] * self.N
+        else:
+            self.pop = None
+            self.j_per_edge = j_per_edge or [setting.j_per_edge] * self.N
         if len(self.j_per_edge) != self.N:
             raise ValueError(
                 f"j_per_edge has {len(self.j_per_edge)} entries for "
@@ -150,26 +176,45 @@ class BHFLSimulator:
         self.test_x = imgs[n_train:]
         self.test_y = labels[n_train:]
         self.train_x, self.train_y = imgs[:n_train], labels[:n_train]
-        parts = by_class(labels[:n_train], self.N, self.j_per_edge,
-                         max_classes=setting.classes_per_device,
-                         seed=rng_streams.stream_seed(self.seed, "partition"))
-        self.device_idx = [idx for edge in parts for idx in edge]
+        if self.pop is None:
+            parts = by_class(labels[:n_train], self.N, self.j_per_edge,
+                             max_classes=setting.classes_per_device,
+                             seed=rng_streams.stream_seed(self.seed,
+                                                          "partition"))
+            self.device_idx = [idx for edge in parts for idx in edge]
+        else:
+            # population shards are the class pools themselves: the
+            # occupant's classes select pools, batches sample from them
+            self.device_idx = None
+            self._pool, self._pool_off, self._pool_cnt = class_pools(
+                labels[:n_train])
+            used = np.unique(self.pop.classes)
+            if (self._pool_cnt[used] == 0).any():
+                raise ValueError(
+                    "population mode needs every assigned class present in "
+                    "the train split; increase n_train or n_classes")
 
         # ---- straggler schedules (submission masks per round)
         rounds = setting.t_global_rounds * setting.k_edge_rounds + 1
-        n_dev_strag = int(round(setting.straggler_frac * setting.j_per_edge))
-        dev_masks = []
-        for e in range(self.N):
-            kw = dict(stop_round=setting.permanent_stop_round
-                      * setting.k_edge_rounds) \
-                if device_stragglers == "permanent" else {}
-            dev_masks.append(strag.from_fraction(
-                rounds, self.j_per_edge[e],
-                n_dev_strag / max(setting.j_per_edge, 1),
-                kind=device_stragglers,
-                seed=rng_streams.stream_seed(self.seed, "dev_masks", e),
-                **kw))
-        self.dev_masks = dev_masks                      # list of [rounds, J_e]
+        if self.pop is not None:
+            self.cohort_ids, self.dev_masks = self._population_schedules(
+                rounds, device_stragglers)
+        else:
+            self.cohort_ids = None
+            n_dev_strag = int(round(setting.straggler_frac
+                                    * setting.j_per_edge))
+            dev_masks = []
+            for e in range(self.N):
+                kw = dict(stop_round=setting.permanent_stop_round
+                          * setting.k_edge_rounds) \
+                    if device_stragglers == "permanent" else {}
+                dev_masks.append(strag.from_fraction(
+                    rounds, self.j_per_edge[e],
+                    n_dev_strag / max(setting.j_per_edge, 1),
+                    kind=device_stragglers,
+                    seed=rng_streams.stream_seed(self.seed, "dev_masks", e),
+                    **kw))
+            self.dev_masks = dev_masks                  # list of [rounds, J_e]
         kw = dict(stop_round=setting.permanent_stop_round) \
             if edge_stragglers == "permanent" else {}
         self.edge_masks = strag.from_fraction(
@@ -183,6 +228,11 @@ class BHFLSimulator:
         # ---- latency fabric and the consensus chain
         rate_mult = None
         if device_rates is not None:
+            if self.pop is not None:
+                raise ValueError(
+                    "population mode draws per-device rates from the "
+                    "store's time_scale profiles; device_rates only "
+                    "applies to fixed fleets")
             rate_mult = np.asarray(device_rates, np.float64).reshape(-1)
             if rate_mult.shape != (self.D,):
                 raise ValueError(
@@ -214,6 +264,73 @@ class BHFLSimulator:
             faults, t_rounds=setting.t_global_rounds,
             k_rounds=setting.k_edge_rounds, n_edges=self.N,
             j_per_edge=list(self.j_per_edge), seed=self.seed)
+
+    # ----------------------------------------------------- population plane
+    def _population_schedules(self, rounds: int, device_stragglers: str
+                              ) -> tuple[np.ndarray, list[np.ndarray]]:
+        """The cohort plan ``[T, N, J]`` and its straggler masks (a list of
+        ``[rounds, J]``), as the reference draws them.  Straggling is
+        i.i.d. Bernoulli from the occupant's ``miss_prob``, drawn as
+        slot-keyed uniforms on the ``"dev_masks"`` stream once for every
+        edge (a gathered cohort and ``store.subset`` of its rows see the
+        same masks); cold-boot edge rounds are never missed, and the
+        trailing schedule row reuses the last cohort."""
+        s, N, J = self.s, self.N, self.pop.spec.j_cohort
+        T, K = s.t_global_rounds, s.k_edge_rounds
+        cohort_ids = self.pop.cohort_ids(
+            T, N, rng_streams.stream_seed(self.seed, "cohort"))
+        if device_stragglers not in ("temporary", "none"):
+            raise ValueError(
+                "population mode draws straggling from per-device "
+                "propensity profiles; device_stragglers must be "
+                f"'temporary' or 'none', got {device_stragglers!r}")
+        if device_stragglers == "none":
+            masks = np.ones((rounds, N, J), dtype=bool)
+        else:
+            ids_r = np.repeat(cohort_ids, K, axis=0)
+            ids_r = np.concatenate([ids_r, ids_r[-1:]])[:rounds]
+            u = rng_streams.stream_rng(self.seed, "dev_masks").random(
+                (rounds, N, J))
+            masks = u >= self.pop.miss_prob[ids_r]
+            masks[:s.t_cold_boot * K] = True
+        return cohort_ids, [masks[:, e, :] for e in range(N)]
+
+    def cohort_change(self) -> np.ndarray:
+        """``[T, N, J]`` bool: the slot's occupant changed at the start of
+        global round t (always False at t = 0 and for a fixed fleet).  The
+        engine resets the slot's delayed-gradient pending update and age
+        there."""
+        T = self.s.t_global_rounds
+        J = max(self.j_per_edge)
+        chg = np.zeros((T, self.N, J), dtype=bool)
+        if self.cohort_ids is not None:
+            chg[1:] = self.cohort_ids[1:] != self.cohort_ids[:-1]
+        return chg
+
+    def cohort_time_scale(self) -> Optional[np.ndarray]:
+        """``[T*K, D]`` round-time multipliers of each round's occupants
+        for the latency draws (None for a fixed fleet)."""
+        if self.cohort_ids is None:
+            return None
+        K = self.s.k_edge_rounds
+        ids_r = np.repeat(self.cohort_ids, K, axis=0)    # [T*K, N, J]
+        return self.pop.time_scale[ids_r].reshape(ids_r.shape[0], self.D)
+
+    def _epoch_batches(self, rng) -> tuple[torch.Tensor, torch.Tensor]:
+        """``[D, steps, B]`` batches from each device's own shard, on the
+        simulator's device."""
+        bs = self.s.batch_size
+        xs = np.zeros((self.D, self.steps, bs, self.s.image_hw,
+                       self.s.image_hw, 1), np.float32)
+        ys = np.zeros((self.D, self.steps, bs), np.int32)
+        for d, idx in enumerate(self.device_idx):
+            if len(idx) == 0:
+                continue
+            take = rng.choice(idx, size=(self.steps, bs), replace=True)
+            xs[d] = self.train_x[take]
+            ys[d] = self.train_y[take]
+        return (torch.from_numpy(xs).to(self.device),
+                torch.from_numpy(ys).to(self.device))
 
     def paper_latency(self) -> float:
         """The paper's latency model total (Sec. 5.1.4) for this deployment."""
@@ -296,8 +413,159 @@ class BHFLSimulator:
         return self._result(t0, outs["accuracy"], outs["loss"],
                             outs["delta"], outs["clock"], outs["energy"])
 
-    def run_legacy(self, *args, **kwargs) -> RunResult:
-        raise NotImplementedError(f"run_legacy {_LATER}")
+    def run_legacy(self, progress: bool = False) -> RunResult:
+        """The reference's per-edge Python loop (``run_legacy``), the
+        numerics cross-check of ``run``: per edge round one local epoch of
+        every device, then each edge's aggregate in turn; per global round
+        the leader's aggregate, the block commit and the test accuracy.
+
+        An entry point of its own, not a fallback of ``run``: it launches
+        no kernel, by design, as the reference's reaches no Pallas kernel.
+        The conv is the shifted sum of nine matmuls
+        (``models.cnn_loss_shifted``), the update the plain ``w - lr * g``,
+        the aggregates ``core.hieavg``/``core.baselines``, all in float32
+        PyTorch on the simulator's device.  The shifted sum adds in
+        another order than the conv kernels, so it matches ``run`` within
+        the engine-parity bounds, not bitwise.  Each call opens a fresh
+        ``"batches"`` stream (repeated runs are identical) and derives
+        failover availability afresh; the chain advances per call.  Leaves
+        ``sim_clock``/``sim_energy`` None.  Population mode and stochastic
+        faults raise, as in the reference."""
+        if self.pop is not None:
+            raise ValueError(
+                "population mode runs on the engine path only; use run()")
+        if self.fault_spec.any_faults:
+            raise ValueError(
+                "stochastic fault injection (repro_torch.fl.faults) runs "
+                "on the engine path only; use run()")
+        s, dev, N = self.s, self.device, self.N
+        t0 = time.time()
+        batch_rng = rng_streams.stream_rng(self.seed, "batches")
+        test_x = torch.from_numpy(np.array(self.test_x)).to(dev)
+        test_y = torch.from_numpy(np.array(self.test_y)).to(dev)
+        global_w = {k: torch.from_numpy(v).to(dev) for k, v in
+                    _engine.initial_model(self, self.init_params).items()}
+        device_w = stack_params(global_w, self.D)
+        edge_slices = np.cumsum([0] + self.j_per_edge)
+        j_arr = torch.tensor(self.j_per_edge, dtype=torch.float32,
+                             device=dev)
+        # each device slot's edge, for the sync to the edge models
+        edge_of = torch.from_numpy(np.repeat(np.arange(N),
+                                             self.j_per_edge)).to(dev)
+        dev_hist = dev_last = glob_hist = glob_last = None
+        accs, losses, deltas = [], [], []
+        prev_global = global_w
+        round_ctr = 0        # edge-round counter t*K + k for masks and lr
+        failed_edge: Optional[int] = None
+        # failover availability is derived per run, never written back
+        edge_avail = np.ones(N, dtype=bool)
+        for t in range(1, s.t_global_rounds + 1):
+            # Raft: the election overlaps the K edge rounds
+            self.chain.elect_leader()
+            if self.fail_leader_at is not None and t == self.fail_leader_at:
+                failed_edge = self.chain.leader
+                self.chain.fail_node(failed_edge)
+            if failed_edge is not None:
+                edge_avail[failed_edge] = False
+            edge_models = None
+            for _ in range(s.k_edge_rounds):
+                lr = float(paper_lr(round_ctr, s.lr0, s.lr_decay))
+                bx, by = self._epoch_batches(batch_rng)
+                device_w, dev_loss = _engine.train_epoch_body(
+                    device_w, bx, by, lr, kernel_mode="torch",
+                    loss_fn=cnn_loss_shifted)
+                new_models, new_hists, new_lasts = [], [], []
+                for e in range(N):
+                    sl = slice(int(edge_slices[e]), int(edge_slices[e + 1]))
+                    mask = torch.from_numpy(np.ascontiguousarray(
+                        self.dev_masks[e][round_ctr])).to(dev)
+                    agg, hist_e, last_e = self._agg(
+                        {k: v[sl] for k, v in device_w.items()}, mask, t,
+                        None if dev_hist is None else dev_hist[e],
+                        None if dev_last is None else dev_last[e], None)
+                    new_models.append(agg)
+                    new_hists.append(hist_e)
+                    new_lasts.append(last_e)
+                dev_hist, dev_last = new_hists, new_lasts
+                edge_models = {k: torch.stack([m[k] for m in new_models])
+                               for k in new_models[0]}
+                # devices sync to their edge model for the next epoch
+                device_w = {k: v.index_select(0, edge_of)
+                            for k, v in edge_models.items()}
+                round_ctr += 1
+
+            # global aggregation on the leader, then the block commit
+            emask = torch.from_numpy(self.edge_masks[t - 1]
+                                     & edge_avail).to(dev)
+            global_w, glob_hist, glob_last = self._agg(
+                edge_models, emask, t, glob_hist, glob_last, j_arr)
+            device_w = stack_params(global_w, self.D)
+            self.chain.commit_block(f"edges@t={t}", f"global@t={t}")
+
+            acc = float(cnn_accuracy_shifted(global_w, test_x, test_y))
+            accs.append(acc)
+            losses.append(float(dev_loss.mean()))
+            deltas.append(float(sum(
+                float(torch.square(global_w[k] - prev_global[k]).sum())
+                for k in sorted(global_w))) ** 0.5)
+            prev_global = global_w
+            if progress and (t % 10 == 0 or t == 1):
+                print(f"  t={t:3d} acc={acc:.4f} loss={losses[-1]:.4f}")
+        return RunResult(
+            accuracy=np.asarray(accs), loss=np.asarray(losses),
+            grad_norm=np.asarray(deltas), wall_time=time.time() - t0,
+            sim_latency=self.paper_latency(),
+            blocks=len(self.chain.blocks) - 1,
+            chain_valid=self.chain.validate())
+
+    def _agg(self, ws: dict, mask: torch.Tensor, t: int, hist, last,
+             part_weights: Optional[torch.Tensor]):
+        """One aggregate of ``run_legacy``: an edge's (``part_weights``
+        None) or the leader's (the J_i).  Returns (aggregate, new history,
+        new store), as the reference's ``_agg``."""
+        s = self.s
+        if self.aggregator == "hieavg":
+            if hist is None:                       # first-ever submission
+                hist = hieavg.init_history(ws)
+            if t <= s.t_cold_boot:                 # Alg. 1: cold boot
+                if part_weights is None:
+                    agg = hieavg.edge_aggregate_cold(ws)
+                else:
+                    agg = hieavg.global_aggregate_cold(ws, part_weights)
+                return agg, hieavg.update_history(hist, ws, mask), last
+            if part_weights is None:
+                agg, hist = hieavg.edge_aggregate(
+                    ws, mask, hist, gamma0=s.gamma0, lam=s.lam,
+                    normalize=self.normalize)
+            else:
+                agg, hist = hieavg.global_aggregate(
+                    ws, mask, hist, part_weights, gamma0=s.gamma0,
+                    lam=s.lam, normalize=self.normalize)
+            return agg, hist, last
+        if self.aggregator == "t_fedavg":
+            return baselines.t_fedavg(ws, mask, part_weights), hist, last
+        if self.aggregator == "d_fedavg":
+            if last is None:
+                # first round: everyone counts present for the store
+                last = {k: torch.zeros_like(v) for k, v in ws.items()}
+                mask = torch.ones_like(mask)
+            agg, last = baselines.d_fedavg(ws, mask, last, part_weights)
+            return agg, hist, last
+        if self.aggregator == "delayed_grad":
+            if last is None:
+                # first round: everyone counts present (nothing in flight)
+                last = ({k: torch.zeros_like(v) for k, v in ws.items()},
+                        torch.zeros(mask.shape, dtype=torch.float32,
+                                    device=mask.device))
+                mask = torch.ones_like(mask)
+            pending, age = last
+            agg, pending, age = baselines.delayed_grad(
+                ws, mask, pending, age, s.staleness_discount,
+                float(s.delay_delta), part_weights)
+            return agg, hist, (pending, age)
+        if self.aggregator == "fedavg":
+            return baselines.fedavg(ws, part_weights), hist, last
+        raise ValueError(f"unknown aggregator {self.aggregator!r}")
 
 
 def run_comparison(setting: BHFLSetting = BHFLSetting(),

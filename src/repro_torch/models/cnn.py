@@ -6,6 +6,10 @@ max-pool, one dense layer.  Layouts are the JAX package's: images ``[..., H, W, 
 weights ``[3, 3, Cin, Cout]``, dense ``[F, C]``.  The engine's functions
 take a stacked model, every leaf with a leading device axis ``[D, ...]``,
 and images ``[D, B, H, W, C]``; the devices' weights are independent.
+
+The ``*_shifted`` functions are ``run_legacy``'s model: the reference's
+``cnn_apply``/``cnn_loss``/``cnn_accuracy``, whose conv is the sum of nine
+shifted matmuls (``conv3x3_same_shifted``), in plain float32 PyTorch.
 """
 from __future__ import annotations
 
@@ -104,3 +108,49 @@ def cnn_accuracy(params: dict, images: torch.Tensor, labels: torch.Tensor,
     model's device."""
     return cnn_accuracy_many({k: v[None] for k, v in params.items()},
                              images[None], labels[None], kernel_mode)[0]
+
+
+# ------------------------------------------------ the shifted-sum model
+def conv3x3_same_shifted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3x3 SAME conv as the sum of nine shifted matmuls, the reference's
+    ``_conv3x3_same``: x ``[D, B, H, W, Cin]``, w ``[D, 3, 3, Cin, Cout]``
+    -> ``[D, B, H, W, Cout]``, the terms added in (i, j) order."""
+    h, wd = x.shape[-3], x.shape[-2]
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    out = None
+    for i in range(3):
+        for j in range(3):
+            term = torch.einsum("dbhwc,dco->dbhwo",
+                                xp[:, :, i:i + h, j:j + wd, :], w[:, i, j])
+            out = term if out is None else out + term
+    return out
+
+
+def cnn_logits_shifted(params: dict, images: torch.Tensor) -> torch.Tensor:
+    """Logits ``[D, B, n_classes]`` of a stacked model with the shifted-sum
+    conv (the reference's ``cnn_apply`` per device)."""
+    x = images
+    for w, b in (("conv1", "b1"), ("conv2", "b2")):
+        x = torch.relu(conv3x3_same_shifted(x, params[w])
+                       + params[b][:, None, None, None, :])
+    feats = _pool_flatten(x)
+    return torch.bmm(feats, params["dense"]) + params["b3"][:, None, :]
+
+
+def cnn_loss_shifted(params: dict, images: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """Per-device mean cross-entropy ``[D]`` with the shifted-sum conv (the
+    reference's ``cnn_loss`` per device)."""
+    logp = torch.log_softmax(cnn_logits_shifted(params, images), dim=-1)
+    picked = torch.take_along_dim(logp, labels.long()[..., None], dim=-1)
+    return -picked[..., 0].mean(-1)
+
+
+def cnn_accuracy_shifted(params: dict, images: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    """Test accuracy of ONE model (unstacked leaves) on images
+    ``[n, H, W, C]`` with the shifted-sum conv (the reference's
+    ``cnn_accuracy``): a 0-dim float32 tensor on the model's device."""
+    logits = cnn_logits_shifted({k: v[None] for k, v in params.items()},
+                                images[None])[0]
+    return (logits.argmax(-1) == labels.long()).to(torch.float32).mean()

@@ -4,6 +4,9 @@
 builds, the array ``repro.fl.engine.build_inputs`` emits for the same
 deployment — same dtypes, shapes and bits — except ``init_w``, which the
 port draws from its own ``torch.Generator`` (or takes carried over).  The
+population cases (``resample`` "round", "static" and "full") hold the
+cohort's batch draw, its occupants' time scales and the ``cohort_change``
+plane the same way.  The
 numpy helpers it stands on (``paper_lr``, ``class_images``) are pinned the
 same way.
 """
@@ -18,10 +21,11 @@ from repro.configs.bhfl_cnn import REDUCED  # noqa: E402
 from repro.data import class_images as jax_class_images  # noqa: E402
 from repro.fl import BHFLSimulator as JaxSim  # noqa: E402
 from repro.fl.engine import build_inputs as jax_build_inputs  # noqa: E402
+from repro.fl.population import PopulationSpec as JaxSpec  # noqa: E402
 from repro.optim import paper_lr as jax_paper_lr  # noqa: E402
 from repro_torch.configs import REDUCED as PORT_REDUCED  # noqa: E402
 from repro_torch.data import class_images  # noqa: E402
-from repro_torch.fl import BHFLSimulator  # noqa: E402
+from repro_torch.fl import BHFLSimulator, PopulationSpec  # noqa: E402
 from repro_torch.fl.engine import build_inputs, host_clock  # noqa: E402
 from repro_torch.models import cnn_specs, init_params  # noqa: E402
 from repro_torch.optim import paper_lr  # noqa: E402
@@ -33,17 +37,30 @@ PORT_TINY = dataclasses.replace(PORT_REDUCED, t_global_rounds=4, n_edges=3,
 KW = dict(n_train=300, n_test=100, steps_per_epoch=2)
 
 
-def _pair(**kw):
+def _pair(pop=None, **kw):
+    """Both host planes; ``pop``: ``(size, resample)`` of a population of
+    cohorts of 3, each side with its own ``PopulationSpec``."""
+    ref_kw, got_kw = dict(kw), dict(kw)
+    if pop is not None:
+        ref_kw["population"] = JaxSpec(size=pop[0], j_cohort=3,
+                                       resample=pop[1])
+        got_kw["population"] = PopulationSpec(size=pop[0], j_cohort=3,
+                                              resample=pop[1])
     ref = jax_build_inputs(JaxSim(TINY, "hieavg", "temporary", "temporary",
-                                  **KW, **kw))
+                                  **KW, **ref_kw))
     got = build_inputs(BHFLSimulator(PORT_TINY, "hieavg", "temporary",
-                                     "temporary", device="cpu", **KW, **kw))
+                                     "temporary", device="cpu", **KW,
+                                     **got_kw))
     return ref, got
 
 
 @pytest.mark.parametrize("kw", [{}, {"j_per_edge": [3, 2, 3]},
-                                {"fail_leader_at": 3}],
-                         ids=["tiny", "ragged", "leader_crash"])
+                                {"fail_leader_at": 3},
+                                {"pop": (200, "round")},
+                                {"pop": (200, "static")},
+                                {"pop": (9, "full")}],
+                         ids=["tiny", "ragged", "leader_crash", "pop_round",
+                              "pop_static", "pop_full"])
 def test_build_inputs_is_bitwise_the_reference(kw):
     ref, got = _pair(**kw)
     names = [f.name for f in dataclasses.fields(got)]
@@ -68,6 +85,19 @@ def test_ragged_and_crash_planes_are_not_trivial():
     assert not ragged.valid.all() and ragged.has_data[1, 2] == 0
     _, crash = _pair(fail_leader_at=3)
     assert (~crash.edge_masks[2:]).any(axis=0).any()
+
+
+def test_population_planes_are_not_trivial():
+    """The population cases exercise what they claim: churn every round
+    under "round" and none under "static", occupants' time scales in the
+    latency draws, every slot with data."""
+    _, rnd = _pair(pop=(200, "round"))
+    _, static = _pair(pop=(200, "static"))
+    _, fixed = _pair()
+    assert rnd.cohort_change[1:].any() and not rnd.cohort_change[0].any()
+    assert not static.cohort_change.any() and not fixed.cohort_change.any()
+    assert rnd.has_data.all() and rnd.valid.all()
+    assert not np.array_equal(rnd.dev_time, fixed.dev_time)
 
 
 def test_host_clock_is_bitwise_the_reference_engine_clock():

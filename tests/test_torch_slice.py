@@ -141,10 +141,14 @@ def test_simulator_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
         BHFLSimulator(PORT_TINY, device="cpu", kernel_mode="pallas", **KW)
 
 
-@pytest.mark.parametrize("kw", [dict(j_cohort=2),
-                                dict(population=100)])
+@pytest.mark.parametrize("kw", [
+    dict(population=100, j_cohort=3, j_per_edge=[3, 3, 3]),
+    dict(population=100, j_cohort=3, device_rates=[1.0] * 9)])
 def test_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """Population mode refuses a ragged device list and per-device rates
+    with the reference's messages (the occupants' profiles set both)."""
+    with pytest.raises(ValueError, match="j_cohort instead|device_rates "
+                                         "only applies"):
         BHFLSimulator(PORT_TINY, device="cpu", **KW, **kw)
 
 
@@ -171,8 +175,10 @@ def test_switched_run_matches_jax():
 
 @pytest.mark.parametrize("entry", ["run_legacy"])
 def test_later_entry_points_raise(entry):
-    sim = BHFLSimulator(PORT_TINY, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """``run_legacy`` refuses population mode, as the reference does."""
+    sim = BHFLSimulator(PORT_TINY, device="cpu", population=100, j_cohort=3,
+                        **KW)
+    with pytest.raises(ValueError, match="engine path only"):
         getattr(sim, entry)()
 
 
