@@ -57,7 +57,17 @@ serving path: ``repro_torch.launch.serve.run`` on h2o-danube-1.8b at full
 width (24 layers, bfloat16, batch 2, a prompt of 8192 tokens, twice the
 sliding window, 32 greedy tokens), with the flash kernel and with its
 plain version on the same seeded weights, and the parity of the two,
-layer by layer (see ``serve_parity``).
+layer by layer (see ``serve_parity``).  Then the training path: the flash
+backward kernels against their plain version (``flash_bwd_phase``: tail
+cases in float32 and bfloat16 and the serving shape, the forward's
+``lse`` against the plain forward's, each backward against the plain one
+fed the plain forward's output and ``lse``), ``repro_torch.launch.train.run``
+on h2o-danube-1.8b at full width cut to 4 layers (one edge of two
+clients, 2 x 8192 tokens a client a step) with the kernels and plain, its
+parity and danube-smoke's on the card (``train_parity``), and one
+client's gradients at full width, kernels against plain, beside the same
+reading for a plain version whose attention backward is broken
+(``train_grads``).
 
 Output, one line each: the card as ``nvidia-smi`` names it, then JSON
 objects: the build, one per kernel check (with ``flash_design`` before
@@ -74,17 +84,21 @@ launches and churn resets of each mode, and their parity), the
 ``population_resume``, ``population_parity``, ``population_sweep`` and
 ``legacy`` lines, one per
 serve run, the serve
-parity, the ``kernels`` summary, and last ``{"ok": true, "device":
-{...}}``.  ``--profile`` adds one more HieAvg run and the switched sweep
-under ``torch.profiler``, a line of device time per kernel each;
+parity, one ``train`` line per mode, ``train_parity``, ``train_grads``,
+the ``kernels`` summary, and last ``{"ok": true, "device":
+{...}}``.  ``--profile`` adds one more HieAvg run, the switched sweep,
+one train round and the serve path's prefill and decode under
+``torch.profiler``, a line of device time per kernel each;
 ``--full`` adds the paper's whole DEFAULT run (T = 50) per mode of
 HieAvg, FedAvg and delayed-gradient aggregation, its Fig. 2 set
 (``run_comparison`` under temporary and permanent stragglers, with
 HieAvg's eq. (4) as written and normalized), Fig. 3's grid at T = 50 as
 one plan (wall seconds, final and best accuracy per point), population
 HieAvg at T = 50 over stores of 10^3 to 10^6 devices (``population_full``:
-rounds/s per size, best of 3 in turns, and their max/min ratio), and a
-serve run with a prompt of 32768 tokens.
+rounds/s per size, best of 3 in turns, and their max/min ratio), a
+serve run with a prompt of 32768 tokens, the 24-layer train run with the
+kernels (time and memory: its random weights diverge at that depth), and
+one client's gradients at 12 and 24 layers (``train_grads_depth``).
 Any failed phase raises and exits non-zero; without a CUDA device it
 exits 2 and prints nothing on stdout.  Imports nothing of JAX or of the
 JAX package.
@@ -92,6 +106,7 @@ JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -135,6 +150,8 @@ REPLACES = {
     "coef_agg_pair": "src/repro/kernels/coef_agg.py:88",
     "eval_head": "src/repro/kernels/eval_head.py:48",
     "flash_attention": "src/repro/kernels/flash_attention.py:77",
+    # the Pallas kernel has no backward: this is the gradient of its function
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:77",
 }
 SOURCE = {
     "conv3x3_fwd": "src/repro_torch/kernels/csrc/conv3x3.cu",
@@ -146,6 +163,8 @@ SOURCE = {
     "coef_agg_pair": "src/repro_torch/kernels/csrc/coef_agg.cu",
     "eval_head": "src/repro_torch/kernels/csrc/eval_head.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 
 #: the sweep phase: DEFAULT geometry cut to T = 4, one epoch over each
@@ -248,6 +267,59 @@ FLASH_SHARP = ((300, 8192, 80, True, 4096, 24.0), (129, 129, 128, False, None,
 #: the reference's float32 flash bound (tests/test_kernels.py)
 FLASH_F32_ATOL = 2e-5
 
+#: the flash backward's check cases besides the serving shape: ((Sq, Skv),
+#: Dh, (H, Hkv), causal, window, q_offset): every head dim, tails of the
+#: 64-row tiles, GQA groups 1 and 4, windows, a chunked prefill's offset and
+#: rows that see no key (tests/test_torch_gpu.py's FLASH_BWD_CASES)
+FLASH_BWD_CASES = (((100, 100), 32, (4, 4), True, None, 0),
+                   ((129, 129), 64, (8, 2), True, 50, 0),
+                   ((65, 130), 80, (4, 1), False, None, 0),
+                   ((130, 130), 128, (2, 2), False, 64, 0),
+                   ((70, 200), 80, (8, 2), True, 40, 130),
+                   ((64, 64), 80, (4, 1), True, None, -10),
+                   ((1, 300), 64, (4, 1), True, 100, 299))
+#: the backward's bounds against its plain version (each side fed its own
+#: forward's output and lse), relative to each gradient's largest
+#: magnitude: float32 1e-4 (the same float32 sums in another order),
+#: bfloat16 2^-7 (one bfloat16 ulp at the top binade: both sum in float32
+#: and round once, which may land one ulp apart)
+FLASH_BWD_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+#: the forward kernel's lse against the plain forward's, relative to
+#: max(1, |lse|): the same float32 exponentials summed in another order
+#: (tests/test_torch_gpu.py holds it to 1e-5 too); rows that see no key
+#: are +inf on both sides
+FLASH_LSE_REL = 1e-5
+
+#: the train cell: h2o-danube-1.8b at full width (d_model 2560, 32 heads,
+#: 8 kv heads, head dim 80, d_ff 6912, vocab 32000, window 4096, bf16) cut
+#: to TRAIN_LAYERS layers, one edge of two clients, 2 x 8192 tokens a
+#: client a step, T = 2 global rounds of K = 2 edge rounds; ``--full`` the
+#: 24-layer model with the kernels
+TRAIN_ARCH, TRAIN_LAYERS = "h2o-danube-1.8b", 4
+TRAIN_KW = dict(smoke=False, n_edges=1, n_clients=2, batch=2, seq=8192,
+                steps=2, k_edge=2, progress=False)
+#: train parity, stated before the first call: the kernel run's first
+#: reported loss within 1e-2 (relative) of the plain run's, clock and
+#: blocks equal; danube-smoke (float32, head dim 32), T = 3, K = 2: the
+#: first round's loss within the engine-parity bound (1e-3), every round's
+#: within 2e-2: training the random weights is chaotic, and the
+#: reference's own jit and eager steps end its third round 9.6e-3 apart
+#: (tests/test_torch_train.py)
+TRAIN_LOSS_REL, SMOKE_LOSS_TOL, SMOKE_CHAOS_REL = 1e-2, 1e-3, 2e-2
+#: the train path's gradient parity (``train_grads``): one client's
+#: gradients at full width, TRAIN_LAYERS layers, float32 weights, with the
+#: kernels against the plain versions, the worst leaf's max |diff| within
+#: 0.15 of that leaf's largest gradient, at two data seeds.  Set from a
+#: first reading on the card: sound 0.046; the plain version with its
+#: attention backward scaled by 0.9 0.34, with dq or dk/dv dropped
+#: 1.06-1.09.  Every run measures every control of FAULTS and fails if
+#: one of TRAIN_GRAD_FAULTS reads within the bound (a scale of 0.99 reads
+#: within it: the check's resolution).  bfloat16 weights are read, not checked:
+#: their sound reading (1.07) is a dropped gradient's, the random weights
+#: amplifying bfloat16 rounding
+TRAIN_GRAD_REL = 0.15
+TRAIN_GRAD_FAULTS = ("dq_dropped", "scaled_0.9")
+
 #: mantissa bits and least normal exponent of the narrow history dtypes
 NARROW = {"bfloat16": (7, -126), "float8_e4m3fn": (3, -6)}
 #: float32 values at the edges of float8_e4m3fn: the largest finite value
@@ -332,7 +404,10 @@ KERNEL_SYMBOLS = (("conv3x3_fwd_kernel", "conv3x3_fwd"),
                   ("eval_head_kernel", "eval_head"),
                   ("eval_head_argmax_kernel", "eval_head argmax"),
                   ("flash_attention_kernel", "flash_attention"),
-                  ("flash_attention_wgmma_kernel", "flash_attention"))
+                  ("flash_attention_wgmma_kernel", "flash_attention"),
+                  ("flash_bwd_delta_kernel", "flash_attention_bwd delta"),
+                  ("flash_bwd_dkdv_kernel", "flash_attention_bwd dk/dv"),
+                  ("flash_bwd_dq_kernel", "flash_attention_bwd dq"))
 
 
 def symbols_of(kernel: str) -> tuple:
@@ -740,6 +815,315 @@ def serve_parity(torch, serve, runs) -> dict:
     check("serve_parity", max(attn_ulp) <= 1.0,
           f"attention output over 1 bf16 ulp: {attn_ulp}")
     return out
+
+
+def flash_bwd_phase(torch, cfg, kern, randn, record) -> dict:
+    """The flash backward kernels against their plain version: the tail
+    cases (``FLASH_BWD_CASES``) in float32 and bfloat16, rows that see no
+    key giving dq exactly 0, and the serving shape of h2o-danube-1.8b in
+    bfloat16, checked (``FLASH_BWD_REL``), bitwise on repeat and timed
+    beside the plain version and the library's backward
+    (``scaled_dot_product_attention`` through autograd, bool mask,
+    ``enable_gqa``).  The bound counts 10 Dh FLOPs a visible pair at the
+    bf16 tensor-core peak (the FP32 one beside it)."""
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_fwd_ref)
+    fwd, bwd = kern.flash_attention_fwd, kern.flash_attention_bwd
+    worst = {"float32_rel": 0.0, "bfloat16_rel": 0.0, "lse_rel": 0.0,
+             "cases": 0}
+
+    def grads_err(got, want):
+        return max((g.float() - w.float()).abs().max().item()
+                   / max(w.float().abs().max().item(), 1e-30)
+                   for g, w in zip(got, want))
+
+    def lse_err(case, got, want):
+        """The kernel's lse against the plain forward's: +inf on the same
+        rows, the finite values within FLASH_LSE_REL of max(1, |lse|)."""
+        check("flash_attention_bwd", torch.equal(torch.isinf(got),
+                                                 torch.isinf(want))
+              and not bool(torch.isnan(got).any()),
+              f"{case}: lse's +inf rows differ from the plain version's")
+        fin = torch.isfinite(want)
+        err = ((got[fin] - want[fin]).abs()
+               / want[fin].abs().clamp(min=1.0)).max().item() \
+            if bool(fin.any()) else 0.0
+        check("flash_attention_bwd", err <= FLASH_LSE_REL,
+              f"{case}: lse {err} over {FLASH_LSE_REL}")
+        worst["lse_rel"] = max(worst["lse_rel"], err)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for (sq, skv), dh, (h, hkv), causal, window, off in FLASH_BWD_CASES:
+            q = randn(2, sq, 2 * h, dh).to(dtype)[:, :, :h]     # strided
+            k, v = (randn(2, skv, hkv, dh).to(dtype) for _ in range(2))
+            do = randn(2, sq, h, dh).to(dtype)
+            kw = dict(causal=causal, window=window, q_offset=off)
+            o, lse = fwd(q, k, v, lse=True, mode="cuda", **kw)
+            got = bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+            o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+            case = f"{((sq, skv), dh, (h, hkv), causal, window, off, name)}"
+            lse_err(case, lse, lse_ref)
+            rel = grads_err(got, flash_attention_bwd_ref(
+                q, k, v, o_ref, lse_ref, do, **kw))
+            check("flash_attention_bwd", rel <= FLASH_BWD_REL[name],
+                  f"{case}: {rel}")
+            if off < 0:
+                check("flash_attention_bwd", bool((got[0][:, :-off] == 0)
+                                                  .all()),
+                      f"{case}: dq of rows that see no key is not 0")
+            worst[f"{name}_rel"] = max(worst[f"{name}_rel"], rel)
+            worst["cases"] += 1
+
+    # the serving shape, bf16
+    b, s, h, hkv, dh, win = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, \
+        cfg.n_kv_heads, cfg.resolved_head_dim, cfg.sliding_window
+    q = randn(b, s, h, dh).to(torch.bfloat16)
+    k, v = (randn(b, s, hkv, dh).to(torch.bfloat16) for _ in range(2))
+    do = randn(b, s, h, dh).to(torch.bfloat16)
+    kw = dict(causal=True, window=win)
+    o, lse = fwd(q, k, v, lse=True, mode="cuda", **kw)
+    got = bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+    check("flash_attention_bwd", all(torch.equal(a, c) for a, c in zip(
+        got, bwd(q, k, v, o, lse, do, mode="cuda", **kw))),
+        "not bitwise on repeat")
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+    lse_err("serving shape", lse, lse_ref)
+    want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    del o_ref, lse_ref
+    rel = grads_err(got, want)
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    check("flash_attention_bwd", rel <= FLASH_BWD_REL["bfloat16"],
+          f"serving shape: {rel}")
+    del got, want
+    qpos = torch.arange(s, device=q.device)
+    mask = (qpos[None, :] <= qpos[:, None]) & \
+        (qpos[None, :] > qpos[:, None] - win)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    flops = 10.0 * dh * b * h * flash_pairs(s, s, True, win)
+    record("flash_attention_bwd", err, FLASH_BWD_REL["bfloat16"],
+           lambda: bwd(q, k, v, o, lse, do, mode="cuda", **kw),
+           timed_ms(torch, lambda: flash_attention_bwd_ref(
+               q, k, v, o, lse, do, **kw), iters=2, warmup=1),
+           timed_ms(torch, library, iters=5),
+           2.0 * (3 * b * s * h * dh + 4 * b * s * hkv * dh)
+           + 4.0 * b * h * s, flops,
+           {"shape": {"q": [b, s, h, dh], "kv": [b, s, hkv, dh],
+                      "dtype": "bfloat16", "causal": True, "window": win},
+            "max_rel_err": rel,
+            "tolerance": f"{FLASH_BWD_REL['bfloat16']} x max|grad|",
+            "flops": flops, "bound_flop_rate": BF16_TC_FLOP_PER_S,
+            "bound_fp32_ms": flops / FP32_FLOP_PER_S * 1e3,
+            "executed_flops": 14.0 * dh * b * h * flash_pairs(s, s, True,
+                                                              win),
+            "bitwise_on_repeat": True,
+            "library_call": "autograd of scaled_dot_product_attention("
+                            "attn_mask=causal & window, enable_gqa=True)",
+            "device_ms_kernels": {part: device_ms(
+                torch, lambda: bwd(q, k, v, o, lse, do, mode="cuda", **kw),
+                (sym,)) for sym, part in (
+                ("flash_bwd_delta_kernel", "delta"),
+                ("flash_bwd_dkdv_kernel", "dk_dv"),
+                ("flash_bwd_dq_kernel", "dq"))},
+            "grid": worst},
+           flop_rate=BF16_TC_FLOP_PER_S)
+    return worst
+
+
+def train_runs(torch, train, build, n_layers: int, modes=("auto", "torch"),
+               finite: bool = True) -> dict:
+    """``train.run`` on TRAIN_ARCH at full width cut to ``n_layers`` layers
+    (``TRAIN_KW``), once per kernel mode, the launch counts set to 0 just
+    before each run and read just after: seconds per edge round, tokens a
+    second, peak memory, the losses, the clock and the blocks.  With the
+    kernels, every layer launches the flash forward twice a client step
+    (remat runs it again before its backward) and the backward's three
+    kernels once; the plain run launches nothing.  ``finite=False`` (the
+    24-layer run) does not require finite losses: the random weights'
+    gradients grow with depth (``train_grads_depth``; the reference's do
+    too, ``tests/test_torch_train.py``) and the paper's lr then throws the
+    model to inf and NaN after one step, with or without the kernels; that
+    line measures time and memory only."""
+    kw = dict(TRAIN_KW, n_layers=n_layers, device="cuda")
+    rounds = kw["steps"] * kw["k_edge"]
+    tokens = rounds * kw["n_edges"] * kw["n_clients"] * kw["batch"] \
+        * kw["seq"]
+    steps = rounds * kw["n_edges"] * kw["n_clients"]
+    out = {}
+    for mode in modes:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        res = train.run(TRAIN_ARCH, kernel_mode=mode, **kw)
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        losses_finite = bool(np.isfinite(res["losses"]).all())
+        check("train", len(res["losses"]) == kw["steps"]
+              and (losses_finite or not finite)
+              and res["blocks"] == kw["steps"] and res["chain_valid"],
+              f"{mode}: {res}")
+        line = {"arch": TRAIN_ARCH, "kernel_mode": mode, "layers": n_layers,
+                **{k: kw[k] for k in ("n_edges", "n_clients", "batch", "seq",
+                                      "steps", "k_edge")},
+                "wall_s": res["wall"], "s_per_edge_round": res["wall"]
+                / rounds, "tokens_per_s": tokens / res["wall"],
+                "peak_memory_gb": peak / 1e9,
+                "losses": [x if math.isfinite(x) else None
+                           for x in res["losses"]],
+                "losses_finite": losses_finite,
+                "sim_clock": [float(x) for x in res["sim_clock"]],
+                "blocks": res["blocks"], "launches": launches}
+        emit({"train": line})
+        out[mode] = (res, launches, line)
+        if mode == "auto":
+            want = {"flash_attention": 2 * n_layers * steps,
+                    "flash_attention_bwd": 3 * n_layers * steps}
+            check("launches", {k: launches.get(k, 0) for k in want} == want,
+                  f"train auto: {launches}, expected {want}")
+        else:
+            check("launches", not launches,
+                  f"train {mode} launched {launches}")
+    return out
+
+
+def train_parity(torch, train, runs) -> dict:
+    """The full-width kernel run against the plain run (first reported loss
+    within TRAIN_LOSS_REL, clock and blocks equal), and danube-smoke on the
+    card (float32, head dim 32; T = 3, K = 2) with the kernels against
+    plain: clock and blocks equal, the first round's loss within the
+    engine-parity bound, every round's within SMOKE_CHAOS_REL."""
+    a, p = runs["auto"][0], runs["torch"][0]
+    full = {
+        "first_loss_rel": abs(a["losses"][0] - p["losses"][0])
+        / abs(p["losses"][0]),
+        "losses_rel": [abs(x - y) / abs(y) for x, y in
+                       zip(a["losses"], p["losses"])],
+        "clock_equal": bool(np.array_equal(a["sim_clock"], p["sim_clock"])),
+        "blocks_equal": a["blocks"] == p["blocks"]}
+    smoke = {m: train.run(TRAIN_ARCH, smoke=True, steps=3, k_edge=2,
+                          device="cuda", kernel_mode=m, progress=False)
+             for m in ("auto", "torch")}
+    sa, sp = (np.asarray(smoke[m]["losses"]) for m in ("auto", "torch"))
+    small = {
+        "losses_auto": sa.tolist(), "losses_torch": sp.tolist(),
+        "first_round_within": bool(np.allclose(sa[0], sp[0],
+                                               rtol=SMOKE_LOSS_TOL,
+                                               atol=SMOKE_LOSS_TOL)),
+        "rounds_within": bool(np.allclose(sa, sp, rtol=SMOKE_CHAOS_REL)),
+        "clock_equal": bool(np.array_equal(smoke["auto"]["sim_clock"],
+                                           smoke["torch"]["sim_clock"])),
+        "blocks_equal": smoke["auto"]["blocks"] == smoke["torch"]["blocks"]}
+    out = {"full_width": full, "smoke": small,
+           "tolerances": {"full_first_loss_rel": TRAIN_LOSS_REL,
+                          "smoke_first_round": SMOKE_LOSS_TOL,
+                          "smoke_rounds_rel": SMOKE_CHAOS_REL}}
+    emit({"train_parity": out})
+    check("train_parity", full["first_loss_rel"] <= TRAIN_LOSS_REL
+          and full["clock_equal"] and full["blocks_equal"], f"{full}")
+    check("train_parity", small["first_round_within"]
+          and small["rounds_within"] and small["clock_equal"]
+          and small["blocks_equal"], f"{small}")
+    return out
+
+
+def train_grads(torch, kern, n_layers: int, dtype: str, seed: int = 1,
+                faults: tuple = ()) -> dict:
+    """One client's ``loss_fn`` gradients on TRAIN_ARCH at full width cut to
+    ``n_layers`` layers (the weights ``train.run`` draws, seed 0, in
+    ``dtype``; one batch of 2 x 8192 tokens, ``lm_tokens`` from ``seed``;
+    remat on) with the kernels and with the plain versions: each run's
+    loss, largest |gradient| and its leaf, whether every gradient is
+    finite, and ``rel``, the worst leaf's max |auto - torch| over that
+    leaf's largest |gradient| under ``torch``.  Each of ``faults``
+    (FAULTS' names) reruns the plain version with its attention broken or
+    perturbed so, and gives the same reading against the sound plain
+    gradients."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_tokens
+    from repro_torch.launch.serve import make_params
+    from repro_torch.launch.steps import flatten, unflatten
+    from repro_torch.models import loss_fn
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=n_layers,
+                              param_dtype=dtype)
+    dev = torch.device("cuda")
+    params = flatten(make_params(cfg, 0, dev))
+    rows = torch.as_tensor(lm_tokens(2, TRAIN_KW["seq"] + 1, cfg.vocab,
+                                     seed=seed), device=dev).long()
+    tok, lab = rows[:, :-1], rows[:, 1:]
+
+    def grads(mode):
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss = loss_fn(unflatten(leaves), tok, lab, cfg, remat=True,
+                       kernel_mode=mode)
+        g = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+        top = max(g, key=lambda k: g[k].float().abs().max().item())
+        return g, {"loss": loss.item(), "leaf": top,
+                   "max_abs_grad": g[top].float().abs().max().item(),
+                   "finite": all(bool(torch.isfinite(x).all())
+                                 for x in g.values())}
+
+    def rel(got, want):
+        errs = {k: ((got[k].float() - want[k].float()).abs().max()
+                    / want[k].float().abs().max().clamp(min=1e-30)).item()
+                for k in want}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+
+    plain, out = grads("torch"), {"layers": n_layers, "dtype": dtype,
+                                  "seed": seed}
+    auto = grads("auto")
+    out.update(auto=auto[1], torch=plain[1])
+    out["rel"], out["rel_leaf"] = rel(auto[0], plain[0])
+    del auto
+    for name in faults:
+        attr, broken = FAULTS[name]
+        sound = getattr(kern, attr)
+        setattr(kern, attr, functools.partial(broken, sound))
+        try:
+            out[f"fault_{name}"] = rel(grads("torch")[0], plain[0])[0]
+        finally:
+            setattr(kern, attr, sound)
+    return out
+
+
+def _o_noise(fwd, *a, **k):
+    """The forward's output times 1 + 2^-20 n, n standard normal from a
+    fixed seed: a perturbation of a few float32 ulps."""
+    import torch
+    o, lse = fwd(*a, **k)
+    g = torch.Generator(device=o.device)
+    g.manual_seed(0)
+    return o * (1 + 2.0 ** -20 * torch.randn(
+        o.shape, generator=g, device=o.device, dtype=o.dtype)), lse
+
+
+#: what ``train_grads`` reruns the plain version with: the attention
+#: wrapper it replaces, and the replacement (given the sound wrapper).
+#: Faults of the backward: dq dropped, dk and dv dropped, all three scaled
+#: by 0.9 or 0.99; ``o_noise`` perturbs the forward's output by a few
+#: float32 ulps, what rounding alone can do
+FAULTS = {
+    "dq_dropped": ("flash_attention_bwd", lambda bwd, *a, **k: (
+        lambda g: (g[0] * 0, g[1], g[2]))(bwd(*a, **k))),
+    "dkdv_dropped": ("flash_attention_bwd", lambda bwd, *a, **k: (
+        lambda g: (g[0], g[1] * 0, g[2] * 0))(bwd(*a, **k))),
+    "scaled_0.9": ("flash_attention_bwd", lambda bwd, *a, **k: tuple(
+        x * 0.9 for x in bwd(*a, **k))),
+    "scaled_0.99": ("flash_attention_bwd", lambda bwd, *a, **k: tuple(
+        x * 0.99 for x in bwd(*a, **k))),
+    "o_noise": ("flash_attention_fwd", _o_noise),
+}
 
 
 def resume_check(np_run, make_sim) -> dict:
@@ -1278,7 +1662,8 @@ def main() -> int:
     from repro_torch.kernels.hieavg_agg import hieavg_agg, hieavg_agg_many
     from repro_torch.kernels.ref import im2col3x3
     from repro_torch.kernels.sgd_update import sgd_update, sgd_update_many
-    from repro_torch.launch import serve
+    from repro_torch.kernels import flash_attention as flash_kernels
+    from repro_torch.launch import serve, train
     from repro_torch.models import cnn_specs
     from repro_torch.models.spec import count_params
 
@@ -1803,6 +2188,7 @@ def main() -> int:
     flash_designs(torch, flash_attention, FLASH_DESIGNS, randn,
                   build.compile_library())
     flash_phase(torch, serve_cfg, flash_attention, randn, record)
+    flash_bwd_phase(torch, serve_cfg, flash_kernels, randn, record)
 
     # ----------------------------------------------------------- the runs
     # every configuration with the kernels and with the plain versions; the
@@ -1920,6 +2306,25 @@ def main() -> int:
     served = serve_runs(torch, serve, build, serve_cfg.n_layers)
     serve_parity(torch, serve, served)
 
+    # ----------------------------------------------- the training path
+    # a short run first takes the first-call costs
+    train.run(TRAIN_ARCH, **dict(TRAIN_KW, n_layers=1, steps=1, k_edge=1,
+                                 seq=1024), device="cuda")
+    trained = train_runs(torch, train, build, TRAIN_LAYERS)
+    train_parity(torch, train, trained)
+    sound = [train_grads(torch, flash_kernels, TRAIN_LAYERS, "float32", seed,
+                         tuple(FAULTS) if seed == 1 else ())
+             for seed in (1, 2)]
+    emit({"train_grads": {"tolerance": TRAIN_GRAD_REL, "float32": sound,
+                          "bfloat16": train_grads(
+                              torch, flash_kernels, TRAIN_LAYERS, "bfloat16",
+                              faults=tuple(FAULTS))}})
+    check("train_grads", all(r["rel"] <= TRAIN_GRAD_REL for r in sound),
+          f"kernels against plain: {[r['rel'] for r in sound]}")
+    check("train_grads", all(sound[0][f"fault_{f}"] > TRAIN_GRAD_REL
+                             for f in TRAIN_GRAD_FAULTS),
+          f"a broken attention backward reads within the bound: {sound[0]}")
+
     if "--profile" in sys.argv[1:]:
         emit({"profile": profile_run(torch, lambda: BHFLSimulator(
             setting, "hieavg", "temporary", "temporary", device="cuda",
@@ -1929,6 +2334,10 @@ def main() -> int:
                 dataclasses.replace(DEFAULT, t_global_rounds=SWEEP_T),
                 SWITCHED_SEEDS, overrides=list(SWITCHED), device="cuda",
                 kernel_mode="auto", **SWEEP_KW))}})
+        emit({"profile_train": {"layers": TRAIN_LAYERS, **profile_run(
+            torch, lambda: train.run(
+                TRAIN_ARCH, **dict(TRAIN_KW, n_layers=TRAIN_LAYERS, steps=1,
+                                   k_edge=1), device="cuda"))}})
         for label, gen in (("prefill", 1), ("decode", SERVE_GEN)):
             # gen 1 is the prefill alone; the decode's share is the rest
             emit({"profile_serve": {"part": label, **profile_run(
@@ -1954,10 +2363,18 @@ def main() -> int:
             "gen": SERVE_GEN, "prefill_s": res["t_prefill"],
             "decode_tokens_per_s": SERVE_GEN / res["t_decode"],
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}})
+        emit({"train_full": train_runs(
+            torch, train, build, get_config(TRAIN_ARCH).n_layers,
+            modes=("auto",), finite=False)["auto"][2]})
+        for n in (12, get_config(TRAIN_ARCH).n_layers):
+            emit({"train_grads_depth": train_grads(torch, flash_kernels, n,
+                                                   "bfloat16")})
 
     launches = {k: runs[LAUNCHES_FROM.get(k, "hieavg"), "auto"][1].get(k, 0)
                 for k in REPLACES if k in RUN_LAUNCHES}
     launches["flash_attention"] = served["auto"][1].get("flash_attention", 0)
+    launches["flash_attention_bwd"] = trained["auto"][1].get(
+        "flash_attention_bwd", 0)
     launches["sgd_update[rows]"] = sweep_launches.get("sgd_update[rows]", 0)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE[k],

@@ -88,6 +88,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Sq], or null: not written
   int H, G, Sq, Skv;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   int causal, window, q_offset;  // window < 0: none
@@ -230,6 +231,9 @@ __global__ void __launch_bounds__(THREADS)
     T* orow = O + (((size_t)b * p.Sq + row) * p.H + h) * DH;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) put(orow + tx + 16 * j, acc[i][j] / den);
+    if (p.lse != nullptr && tx == 0)  // the half-warp agrees on m and l
+      p.lse[((size_t)b * p.H + h) * p.Sq + row] =
+          l[i] == 0.f ? INFINITY : m[i] + logf(l[i]);
   }
 }
 
@@ -276,6 +280,7 @@ struct Layout {               // byte offsets in shared memory
 
 struct Params {
   void* o;
+  float* lse;  // [B, H, Sq], or null: not written
   int H, G, Sq, Skv, causal, window, q_offset;  // window < 0: none
   float scale;
 };
@@ -831,6 +836,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
   }
+  if (p.lse != nullptr && (lane & 3) == 0) {  // the quad agrees on m and l
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (r0 + 8 * j < p.Sq)
+        p.lse[((size_t)b * p.H + h) * p.Sq + r0 + 8 * j] =
+            rows.l[j] == 0.f ? INFINITY : rows.m[j] + logf(rows.l[j]);
+  }
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -905,10 +917,13 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
 // dtype: 0 float32 (the FMA design), 1 bfloat16 (wgmma + TMA; every
 // pointer 16-byte aligned and every stride of a dim longer than 1 a
 // multiple of 8 elements, which the wrapper checks); window < 0: none.
+// lse: each row's log-sum-exp of its scaled logits, [B, H, Sq] float32
+// (+inf for a row that sees no key), for the backward; null writes none.
 // Returns a cudaError_t, or 1000 + the CUresult of a failed tensor-map
 // encoding.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int B, int H,
     int Hkv, int Sq, int Skv, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, int causal, int window,
@@ -918,9 +933,9 @@ extern "C" int flash_attention_launch(
   const float scale = (float)(1.0 / sqrt((double)D));
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
-    f32::Params p{q,   k,   v,   o,   H,   H / Hkv, Sq,     Skv,      qsb,
-                  qss, qsh, ksb, kss, ksh, vsb,     vss,    vsh,      causal,
-                  window, q_offset, scale};
+    f32::Params p{q,   k,   v,   o,   lse, H,   H / Hkv, Sq,     Skv,
+                  qsb, qss, qsh, ksb, kss, ksh, vsb,     vss,    vsh,
+                  causal, window, q_offset, scale};
     switch (D) {
       case 32: return f32::launch<32, float>(p, B, st);
       case 64: return f32::launch<64, float>(p, B, st);
@@ -930,7 +945,8 @@ extern "C" int flash_attention_launch(
     }
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const bf16::Params p{o, H, H / Hkv, Sq, Skv, causal, window, q_offset, scale};
+  const bf16::Params p{o,      lse,    H,        H / Hkv, Sq,
+                       Skv,    causal, window,   q_offset, scale};
 #define WG_LAUNCH(DH)                                                      \
   bf16::launch<DH>(q, k, v, p, B, Hkv, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, \
                  vsh, st)

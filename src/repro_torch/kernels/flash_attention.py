@@ -7,6 +7,13 @@ batch, kv-head and group ``vmap`` of ``repro.kernels.ops.flash_attention``
 as the kernel's grid axes.  The input type picks the kernel: bfloat16 runs
 on tensor cores (``wgmma``, operands loaded by TMA), float32 on FP32 FMA
 (``DESIGNS``).  Plain version: ``ref.flash_attention_ref``.
+
+The gradient (``FlashAttentionFn``, which ``ops.flash_attention`` takes
+when an input requires one) runs the three kernels of
+``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``) from the
+forward's output and its rows' log-sum-exp; their plain version is
+``ref.flash_attention_bwd_ref``.  The Pallas kernel has no backward: the
+JAX package differentiates its XLA attention (``_sdpa``) instead.
 """
 from __future__ import annotations
 
@@ -44,57 +51,160 @@ def _tma_strides(name: str, t: torch.Tensor) -> list:
     return strides
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None, q_offset: int = 0,
-                    mode: str = "auto"):
+def _check_shapes(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or q.shape[2] % k.shape[2]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+def _check_kernel_args(name: str, window, *ts) -> None:
+    """What every flash kernel takes: a built head dim, one input type of
+    ``DTYPES``, the head dim contiguous, one CUDA device, grid extents."""
+    q = ts[0]
+    B, H, Dh = q.shape[0], q.shape[2], q.shape[3]
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {Dh}; the kernel is built for "
+                         f"{HEAD_DIMS}")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"{name}: operands in one of {list(DTYPES)}, got "
+                        f"{[t.dtype for t in ts]}")
+    for t in ts:
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: every operand's head dim must be "
+                             "contiguous")
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name}: an operand on {t.device}, expected "
+                             f"{q.device}")
+    if window is not None and window < 0:
+        raise ValueError(f"{name}: window {window} < 0")
+    if B > 65535 or H > 65535:           # the grid's y and z limits
+        raise ValueError(f"{name}: batch {B} or heads {H} over 65535")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset: int = 0,
+                        mode: str = "auto", lse: bool = False):
     """GQA flash attention: q [B, Sq, H, Dh]; k, v [B, Skv, Hkv, Dh], H a
-    multiple of Hkv -> [B, Sq, H, Dh] in ``v.dtype`` (scale 1/sqrt(Dh)).
+    multiple of Hkv -> (out [B, Sq, H, Dh] in ``v.dtype``, and with ``lse``
+    each row's log-sum-exp of its scaled logits, [B, H, Sq] float32, +inf
+    for a row that sees no key; else None).  Scale 1/sqrt(Dh).
 
     The query heads are (Hkv, G) in that order, as the reference's reshape
     to [B, Sq, Hkv, G, Dh]: head h reads kv head ``h // G``.  Query row i
     sits at absolute position ``q_offset + i``.  The kernel reads the
     operands through their strides (the head dim contiguous) and takes
     float32 or bfloat16, all three alike; a bfloat16 operand whose address
-    or strides break a TMA precondition raises before any launch."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
-            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
-            or q.shape[2] % k.shape[2]:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    or strides break a TMA precondition raises before any launch.  Asking
+    for ``lse`` changes no value of ``out``."""
+    _check_shapes(q, k, v)
     if not build.use_kernel(mode, q):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset)
+        o, l = ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                           window=window, q_offset=q_offset)
+        return o, (l if lse else None)
+    _check_kernel_args("flash_attention", window, q, k, v)
     B, Sq, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {Dh}; the kernel is "
-                         f"built for {HEAD_DIMS}")
-    if q.dtype not in DTYPES or not q.dtype == k.dtype == v.dtype:
-        raise TypeError(f"flash_attention: q, k, v in one of {list(DTYPES)}"
-                        f", got {q.dtype}, {k.dtype}, {v.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"flash_attention: {name}'s head dim must be "
-                             "contiguous")
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} on {t.device}, "
-                             f"expected {q.device}")
-    if window is not None and window < 0:
-        raise ValueError(f"flash_attention: window {window} < 0")
-    if B > 65535 or H > 65535:           # the grid's y and z limits
-        raise ValueError(f"flash_attention: batch {B} or heads {H} over "
-                         "65535")
     if q.dtype == torch.bfloat16:
         strides = [_tma_strides(n, t) for n, t in (("q", q), ("k", k),
                                                     ("v", v))]
     else:
         strides = [t.stride()[:3] for t in (q, k, v)]
     out = torch.empty((B, Sq, H, Dh), dtype=v.dtype, device=q.device)
+    rows = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if lse else None
     build.LAUNCHES["flash_attention"] += 1
     build.check(build.library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if rows is None else rows.data_ptr(), B, H, Hkv,
         Sq, Skv, Dh, *strides[0], *strides[1], *strides[2],
         int(causal), -1 if window is None else int(window), int(q_offset),
         DTYPES[q.dtype], build.stream()), "flash_attention")
-    return out
+    return out, rows
 
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None, q_offset: int = 0,
+                    mode: str = "auto"):
+    """The output of ``flash_attention_fwd`` alone (no ``lse`` written)."""
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, mode=mode)[0]
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset: int = 0,
+                        mode: str = "auto"):
+    """The gradients (dq, dk, dv) of ``flash_attention``'s output against
+    ``do``, from the forward's ``o`` and ``lse`` (``flash_attention_fwd``
+    with ``lse=True``), each in its input's dtype.
+
+    Three launches, each counted under ``flash_attention_bwd``: delta =
+    rowsum(do o), then dk and dv (one block a kv tile, the query heads of
+    its group summed in the block), then dq.  The arguments are checked as
+    the forward's are; q, k and v are read through their strides, ``o``
+    and ``do`` (autograd may hand over a strided one) are made
+    contiguous."""
+    _check_shapes(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}, q {tuple(q.shape)}")
+    B, Sq, H, Dh = q.shape
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype}, expected {(B, H, Sq)} float32")
+    if not build.use_kernel(mode, q):
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal, window=window,
+                                           q_offset=q_offset)
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    _check_kernel_args("flash_attention_bwd", window, q, k, v, o, do)
+    if lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse on {lse.device}, "
+                         f"expected {q.device}")
+    Skv, Hkv = k.shape[1], k.shape[2]
+    code, st = DTYPES[q.dtype], build.stream()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    lib = build.library()
+    tail = (B, H, Hkv, Sq, Skv, Dh, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], int(causal), -1 if window is None
+            else int(window), int(q_offset), code, st)
+    build.LAUNCHES["flash_attention_bwd"] += 1
+    build.check(lib.flash_attention_bwd_delta_launch(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, H, Sq, Dh, code,
+        st), "flash_attention_bwd (delta)")
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    build.LAUNCHES["flash_attention_bwd"] += 1
+    build.check(lib.flash_attention_bwd_dkdv_launch(
+        *inputs, dk.data_ptr(), dv.data_ptr(), *tail),
+        "flash_attention_bwd (dk, dv)")
+    build.LAUNCHES["flash_attention_bwd"] += 1
+    build.check(lib.flash_attention_bwd_dq_launch(
+        *inputs, dq.data_ptr(), *tail), "flash_attention_bwd (dq)")
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the forward kernel with
+    ``lse``, saved with q, k, v and the output; the backward kernels (or,
+    on the CPU and under ``kernel_mode="torch"``, their plain versions).
+    A kernel that fails to build or launch raises: nothing falls back."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, mode):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, mode=mode, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset,
+                      mode=mode)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None

@@ -1,6 +1,7 @@
 """The port's kernel wrappers applied to whole stacked models, and the GQA
-flash attention (``flash_attention``, from ``kernels.flash_attention``:
-batch and heads are its kernel's grid axes where the JAX package vmaps).
+flash attention (``flash_attention``, on ``kernels.flash_attention``:
+batch and heads are its kernel's grid axes where the JAX package vmaps;
+with its gradient when an input requires one).
 
 Port of ``repro.kernels.ops``.  Weights are dicts of stacked leaves; the
 leading ``mask.dim()`` axes are batch axes then the participant axis.
@@ -16,10 +17,24 @@ import torch
 
 from repro_torch.core.hieavg import History, per_row
 
+from . import flash_attention as _flash
 from .coef_agg import coef_agg_many, coef_agg_pair_many
-from .flash_attention import flash_attention  # noqa: F401  (GQA front-end)
 from .hieavg_agg import hieavg_agg_many
 from .sgd_update import sgd_update_many
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    q_offset: int = 0, mode: str = "auto"):
+    """The GQA flash attention (``kernels.flash_attention``).  When an
+    input requires a gradient (and grad mode is on) it goes through
+    ``FlashAttentionFn``, whose backward is the backward kernels; else the
+    forward alone, which writes no ``lse``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _flash.FlashAttentionFn.apply(q, k, v, causal, window,
+                                             q_offset, mode)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, mode=mode)
 
 
 def fused_mix_and_update(stacked_w: dict, mask: torch.Tensor,

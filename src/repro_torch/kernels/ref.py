@@ -130,44 +130,127 @@ def coef_agg_pair_ref(w, aux, ca, cb):
 FLASH_Q_CHUNK = 512
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None, q_offset: int = 0):
+def _flash_mask(c0: int, n: int, skv: int, causal: bool, window,
+                q_offset: int, device) -> torch.Tensor:
+    """[n, skv]: which keys query rows ``c0 .. c0 + n - 1`` see."""
+    kpos = torch.arange(skv, device=device)
+    qpos = torch.arange(c0, c0 + n, device=device)[:, None] + q_offset
+    ok = torch.ones((n, skv), dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window is not None:
+        ok = ok & (kpos > qpos - window)
+    return ok
+
+
+def _heads(t: torch.Tensor, hkv: int) -> torch.Tensor:
+    """[B, n, H, Dh] -> [B, Hkv, G * n, Dh] in float32, the query heads of
+    kv head j at rows ``j``'s block, group-major."""
+    b, n, h, dh = t.shape
+    return t.to(f32).reshape(b, n, hkv, h // hkv, dh).permute(
+        0, 2, 3, 1, 4).reshape(b, hkv, h // hkv * n, dh)
+
+
+def _unheads(t: torch.Tensor, n: int) -> torch.Tensor:
+    """The inverse of ``_heads``: [B, Hkv, G * n, Dh] -> [B, n, H, Dh]."""
+    b, hkv, gn, dh = t.shape
+    return t.view(b, hkv, gn // n, n, dh).permute(0, 3, 1, 2, 4).reshape(
+        b, n, hkv * (gn // n), dh)
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
+                            window: Optional[int] = None, q_offset: int = 0):
     """``softmax(q kᵀ / sqrt(Dh)) v`` over GQA heads: q [B, Sq, H, Dh],
-    k/v [B, Skv, Hkv, Dh] -> [B, Sq, H, Dh] in ``v.dtype``.
+    k/v [B, Skv, Hkv, Dh] -> (o [B, Sq, H, Dh] in ``v.dtype``, lse
+    [B, H, Sq] float32).
 
     Query head h reads kv head ``h // (H // Hkv)``.  Query row i sits at
     absolute position ``q_offset + i``; ``causal`` keeps keys at or before
     it, ``window`` (None: no window) keys less than ``window`` positions
-    behind it.  float32 math, in chunks of ``FLASH_Q_CHUNK`` query rows.
-    A row that sees no key gives exactly 0, as the Pallas kernel does
-    (``repro.kernels.ref.flash_attention_ref`` gives the mean of v there).
+    behind it.  float32 math, in chunks of ``FLASH_Q_CHUNK`` query rows,
+    out of place (autograd can run through it).  ``lse`` is each row's
+    log-sum-exp of its scaled logits; a row that sees no key gives exactly
+    0, as the Pallas kernel does (``repro.kernels.ref.flash_attention_ref``
+    gives the mean of v there), and lse ``+inf``, so that ``exp(t - lse)``
+    is 0 for every logit t of it.
     """
     b, sq, h, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     kt = k.to(f32).permute(0, 2, 3, 1)                  # [B, Hkv, Dh, Skv]
     vf = v.to(f32).permute(0, 2, 1, 3)                  # [B, Hkv, Skv, Dh]
-    kpos = torch.arange(skv, device=q.device)
-    out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
+    outs, lses = [], []
     for c0 in range(0, sq, FLASH_Q_CHUNK):
-        qc = q[:, c0:c0 + FLASH_Q_CHUNK].to(f32)
+        qc = q[:, c0:c0 + FLASH_Q_CHUNK]
         n = qc.shape[1]
-        qc = qc.reshape(b, n, hkv, g, dh).permute(0, 2, 3, 1, 4)
-        logits = torch.matmul(qc.reshape(b, hkv, g * n, dh), kt)
-        logits = logits.div_(math.sqrt(dh)).view(b, hkv, g, n, skv)
-        qpos = torch.arange(c0, c0 + n, device=q.device)[:, None] + q_offset
-        ok = torch.ones((n, skv), dtype=torch.bool, device=q.device)
-        if causal:
-            ok &= kpos <= qpos
-        if window is not None:
-            ok &= kpos > qpos - window
-        logits.masked_fill_(~ok, -math.inf)
+        logits = torch.matmul(_heads(qc, hkv), kt) / math.sqrt(dh)
+        logits = logits.view(b, hkv, g, n, skv)
+        ok = _flash_mask(c0, n, skv, causal, window, q_offset, q.device)
+        logits = logits.masked_fill(~ok, -math.inf)
         m = logits.amax(-1, keepdim=True)
         m = torch.where(m == -math.inf, 0.0, m)          # rows with no key
-        p = logits.sub_(m).exp_()
+        p = (logits - m).exp()
         l = p.sum(-1, keepdim=True)
         o = torch.matmul(p.view(b, hkv, g * n, skv), vf).view(b, hkv, g, n, dh)
         o = o / torch.where(l == 0.0, 1.0, l)
-        out[:, c0:c0 + n] = o.permute(0, 3, 1, 2, 4).reshape(
-            b, n, h, dh).to(v.dtype)
-    return out
+        outs.append(_unheads(o.view(b, hkv, g * n, dh), n).to(v.dtype))
+        seen = l != 0.0
+        lse = torch.where(seen, m + torch.log(torch.where(seen, l, 1.0)),
+                          math.inf)
+        lses.append(lse.reshape(b, h, n))
+    return torch.cat(outs, 1), torch.cat(lses, 2)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset: int = 0):
+    """The output of ``flash_attention_fwd_ref`` alone."""
+    return flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)[0]
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: Optional[int] = None, q_offset: int = 0):
+    """The gradients (dq, dk, dv) of ``flash_attention_fwd_ref``'s output
+    against ``do``, from its ``o`` and ``lse``, written out and chunked over
+    query rows as the forward is (float32 math, each gradient in its
+    input's dtype):
+
+      delta = rowsum(do * o)
+      P     = exp(qkᵀ / sqrt(Dh) - lse) where the masks keep the pair, else 0
+      dv    = sum_g Pᵀ do
+      dS    = P * (do vᵀ - delta)
+      dq    = dS k / sqrt(Dh)
+      dk    = sum_g dSᵀ q / sqrt(Dh)
+
+    The sum over the G query heads of a kv head is the matmul over the
+    group-major rows.  delta is summed in float64 and rounded once, as the
+    kernel does.  A row that sees no key has P = 0: its dq is 0 and it
+    adds nothing to dk, dv."""
+    b, sq, h, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(dh)
+    kf = k.to(f32).permute(0, 2, 1, 3)                  # [B, Hkv, Skv, Dh]
+    vf = v.to(f32).permute(0, 2, 1, 3)
+    delta = (do.double() * o.double()).sum(-1).to(f32)  # [B, Sq, H]
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    dqs = []
+    for c0 in range(0, sq, FLASH_Q_CHUNK):
+        qc = _heads(q[:, c0:c0 + FLASH_Q_CHUNK], hkv)   # [B, Hkv, G n, Dh]
+        n = qc.shape[2] // g
+        doc = _heads(do[:, c0:c0 + n], hkv)
+        dc = delta[:, c0:c0 + n].reshape(b, n, hkv, g).permute(0, 2, 3, 1)
+        lc = lse[:, :, c0:c0 + n].reshape(b, hkv, g, n)
+        t = (torch.matmul(qc, kf.transpose(2, 3)) / math.sqrt(dh)).view(
+            b, hkv, g, n, skv)
+        ok = _flash_mask(c0, n, skv, causal, window, q_offset, q.device)
+        p = torch.where(ok, torch.exp(t - lc[..., None]), 0.0)
+        dp = torch.matmul(doc, vf.transpose(2, 3)).view(b, hkv, g, n, skv)
+        ds = (p * (dp - dc[..., None])).view(b, hkv, g * n, skv)
+        p = p.view(b, hkv, g * n, skv)
+        dv += torch.matmul(p.transpose(2, 3), doc)
+        dk += torch.matmul(ds.transpose(2, 3), qc) * scale
+        dqs.append(_unheads(torch.matmul(ds, kf) * scale, n).to(q.dtype))
+    return (torch.cat(dqs, 1), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))

@@ -1,0 +1,237 @@
+"""End-to-end hierarchical BHFL training driver for the LLM zoo, on one GPU.
+
+Port of ``repro.launch.train``: K edge rounds per global round, HieAvg at
+both layers, the Raft chain's latency accounting, straggler schedules,
+checkpoints.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
+      --steps 20 --batch 4 --seq 64 [--no-smoke] [--device cpu]
+
+The host plane consumes the reference's RNG streams in its order
+(``dev_masks``, ``edge_masks``, ``chain``, ``data``, ``batches``), so the
+masks, the batch indices, the chain and the simulated clock are bitwise
+the reference's.  The weights are drawn from ``seed`` on the device in the
+config's ``param_dtype`` (the reference's ``run`` leaves them float32),
+unless ``init_params`` carries the reference's own across.  With ``fused``
+(the default) every batch is drawn and the chain replayed up front, which
+gives ``sim_clock``, then the T x K steps run; without it, the per-round
+loop with a checkpoint every 10 global rounds.  Both call the same step
+(``make_hfl_train_step``), whose full-sequence attention runs the flash
+kernels, forward and backward, under ``kernel_mode="auto"`` on the card.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+from repro_torch.core import (LatencyParams, RaftChain, RaftParams,
+                              straggler, stream_rng, stream_seed)
+from repro_torch.data import lm_tokens
+from repro_torch.fl.simulator import resolve_device
+from repro_torch.kernels.build import KERNEL_MODES
+from repro_torch.launch.serve import make_params
+from repro_torch.launch.steps import init_fl_histories, make_hfl_train_step
+from repro_torch.models.transformer import params_from_numpy
+from repro_torch.optim import paper_lr
+from repro_torch.optim.sgd import tree_map
+
+
+def run(arch: str, *, smoke: bool = True, steps: int = 20, k_edge: int = 2,
+        n_clients: int = 2, batch: int = 4, seq: int = 64,
+        straggler_frac: float = 0.2, gamma0: float = 0.9, lam: float = 0.9,
+        normalize: bool = True, ckpt_dir: Optional[str] = None,
+        seed: int = 0, progress: bool = True, fused: bool = True,
+        kernel_mode: str = "auto",
+        lat_params: Optional[LatencyParams] = None, device=None,
+        init_params: Optional[dict] = None, n_layers: Optional[int] = None,
+        n_edges: Optional[int] = None) -> dict:
+    """Train ``arch`` for ``steps`` global rounds of ``k_edge`` edge rounds.
+
+    ``device=None`` means ``"cuda"`` and raises without a GPU.
+    ``init_params``: the reference's initial weights (``base``, a nested
+    dict of numpy arrays), carried over by ``params_from_numpy``.
+    ``n_layers`` cuts the config's depth (None: its own) and ``n_edges``
+    its number of edges E (None: the reference's, 1 at smoke and 2 else),
+    for the card's smoke run.  Returns the reference's keys: ``losses``
+    (each global round's last edge-round loss), ``wall`` (seconds, the
+    device synchronized), ``blocks``, ``chain_valid`` and, when fused,
+    ``sim_clock``."""
+    dev = resolve_device(device)
+    if kernel_mode not in KERNEL_MODES:
+        raise ValueError(f"unknown kernel_mode {kernel_mode!r}; expected one "
+                         f"of {KERNEL_MODES}")
+    cfg = get_smoke(arch) if smoke else get_config(arch)
+    if n_layers is not None:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    e = (1 if smoke else 2) if n_edges is None else n_edges
+    c = n_clients
+
+    if init_params is None:
+        base = make_params(cfg, seed, dev)
+    else:
+        base = tree_map(lambda x: x.to(cfg.torch_param_dtype),
+                        params_from_numpy(init_params, dev))
+    params = tree_map(lambda x: x[None, None].expand(
+        (e, c) + tuple(x.shape)).contiguous(), base)
+    del base
+    dev_hist, glob_hist = init_fl_histories(params)
+    step = make_hfl_train_step(cfg, gamma0=gamma0, lam=lam,
+                               normalize=normalize, kernel_mode=kernel_mode)
+
+    # straggler schedules + Raft chain: each consumer on its own stream
+    dev_masks = straggler.from_fraction(steps * k_edge + 1, e * c,
+                                        straggler_frac,
+                                        seed=stream_seed(seed, "dev_masks"))
+    edge_masks = straggler.from_fraction(steps + 1, e, straggler_frac,
+                                         seed=stream_seed(seed, "edge_masks"))
+    lp = lat_params or LatencyParams(T=steps, N=e, J=c)
+    chain = RaftChain(max(e, 1), RaftParams(),
+                      seed=stream_seed(seed, "chain"))
+    data = lm_tokens(e * c * batch * 4, seq + 1, cfg.vocab,
+                     seed=stream_seed(seed, "data"))
+    rng = stream_rng(seed, "batches")
+
+    state = dict(params=params, dev_hist=dev_hist, glob_hist=glob_hist)
+    kw = dict(steps=steps, k_edge=k_edge, e=e, c=c, batch=batch, seq=seq,
+              progress=progress, dev=dev)
+    t0 = time.perf_counter()
+    if fused:
+        out = _run_fused(step, state, chain, dev_masks, edge_masks, data,
+                         rng, lp, **kw)
+        if ckpt_dir:
+            save_checkpoint(ckpt_dir, steps, _global_model(state),
+                            metadata={"round": steps,
+                                      "block": len(chain.blocks) - 1})
+    else:
+        out = _run_loop(step, state, chain, dev_masks, edge_masks, data,
+                        rng, ckpt_dir=ckpt_dir, **kw)
+    _sync(dev)
+    return {**out, "wall": time.perf_counter() - t0,
+            "blocks": len(chain.blocks) - 1, "chain_valid": chain.validate()}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _global_model(state: dict) -> dict:
+    """Client slot (0, 0): after a global step, the global model."""
+    return tree_map(lambda x: x[0, 0], state["params"])
+
+
+def _batch(chunk: np.ndarray, dev: torch.device) -> dict:
+    """tokens and labels [E, C, b, S] of [E, C, b, S + 1] token rows."""
+    t = torch.as_tensor(chunk, device=dev).long()
+    return {"tokens": t[..., :-1], "labels": t[..., 1:]}
+
+
+def _step(step, state: dict, batch: dict, dm, em, lr, dev) -> torch.Tensor:
+    state["params"], state["dev_hist"], state["glob_hist"], loss = step(
+        state["params"], state["dev_hist"], state["glob_hist"], batch,
+        torch.as_tensor(dm, device=dev), torch.as_tensor(em, device=dev),
+        torch.as_tensor(lr, device=dev))
+    return loss
+
+
+def _run_loop(step, state, chain, dev_masks, edge_masks, data, rng, *,
+              steps, k_edge, e, c, batch, seq, progress, dev,
+              ckpt_dir) -> dict:
+    """The per-round loop: a batch drawn per edge round, the chain elected
+    before and committed after each global round."""
+    losses = []
+    for t in range(steps):
+        chain.elect_leader()
+        for k in range(k_edge):
+            idx = rng.integers(0, data.shape[0], e * c * batch)
+            chunk = data[idx].reshape(e, c, batch, seq + 1)
+            loss = _step(step, state, _batch(chunk, dev),
+                         dev_masks[t * k_edge + k].reshape(e, c),
+                         edge_masks[t], paper_lr(t * k_edge + k, 1e-2, 0.3),
+                         dev)
+        chain.commit_block(f"edges@{t}", f"global@{t}")
+        losses.append(float(loss))
+        if progress and (t % 5 == 0 or t == steps - 1):
+            print(f"  global round {t:3d}  loss {losses[-1]:.4f}")
+        if ckpt_dir and (t + 1) % 10 == 0:
+            save_checkpoint(ckpt_dir, t + 1, _global_model(state),
+                            metadata={"round": t + 1,
+                                      "block": len(chain.blocks) - 1})
+    return {"losses": losses}
+
+
+def _run_fused(step, state, chain, dev_masks, edge_masks, data, rng,
+               lp: LatencyParams, *, steps, k_edge, e, c, batch, seq,
+               progress, dev) -> dict:
+    """Every batch drawn up front in the loop's order (the same ``rng``
+    draws), the chain replayed up front (its election + commit latency
+    a global round feeds the simulated clock: the K-round edge window
+    ``k_edge (2 lm_device + lp_device)``, the edge-leader hop and any
+    consensus stall past the window), then the T x K steps."""
+    r_n = steps * k_edge
+    idx = np.stack([rng.integers(0, data.shape[0], e * c * batch)
+                    for _ in range(r_n)])
+    chunks = data[idx].reshape(r_n, e, c, batch, seq + 1)
+    dms = dev_masks[:r_n].reshape(r_n, e, c)
+    ems = edge_masks[np.arange(r_n) // k_edge]
+    lrs = paper_lr(np.arange(r_n, dtype=np.float32), 1e-2, 0.3)
+
+    cons = np.zeros(steps)
+    for t in range(steps):
+        _, t_elect = chain.elect_leader()
+        _, t_commit = chain.commit_block(f"edges@{t}", f"global@{t}")
+        cons[t] = t_elect + t_commit
+    window = k_edge * (2.0 * lp.lm_device + lp.lp_device)
+    sim_clock = np.cumsum(window + 2.0 * lp.lm_edge
+                          + np.maximum(0.0, cons - window))
+
+    batches = _batch(chunks, dev)
+    losses_r = [_step(step, state, {k: v[r] for k, v in batches.items()},
+                      dms[r], ems[r], lrs[r], dev) for r in range(r_n)]
+    # the loop reports each global round's last edge-round loss
+    losses = [float(x) for x in
+              torch.stack(losses_r).cpu().numpy().reshape(
+                  steps, k_edge)[:, -1]]
+    if progress:
+        for t in range(steps):
+            if t % 5 == 0 or t == steps - 1:
+                print(f"  global round {t:3d}  loss {losses[t]:.4f}  "
+                      f"clock {sim_clock[t]:.1f}s")
+    return {"losses": losses, "sim_clock": sim_clock}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="h2o-danube-1.8b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--no-smoke", dest="smoke", action="store_false")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--k-edge", type=int, default=2)
+    ap.add_argument("--clients", type=int, default=2)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--n-layers", type=int, default=None)
+    ap.add_argument("--n-edges", type=int, default=None)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--kernel-mode", choices=KERNEL_MODES, default="auto")
+    args = ap.parse_args()
+    out = run(args.arch, smoke=args.smoke, steps=args.steps,
+              k_edge=args.k_edge, n_clients=args.clients, batch=args.batch,
+              seq=args.seq, ckpt_dir=args.ckpt_dir, device=args.device,
+              kernel_mode=args.kernel_mode, n_layers=args.n_layers,
+              n_edges=args.n_edges)
+    print(f"done: loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, "
+          f"{out['blocks']} blocks, chain_valid={out['chain_valid']}, "
+          f"{out['wall']:.1f}s")
+
+
+if __name__ == "__main__":
+    main()

@@ -6,11 +6,13 @@ self-attention + SwiGLU MLP); the other kinds raise
 ``NotImplementedError`` until they are ported (``ROADMAP.md``).  Tail
 layers and the encoder stack are not ported: ``repro_torch.configs``
 refuses the configs that have them.  The stack is a Python loop that
-indexes the stacked leaves, where the reference scans; there is no remat
-on the serving path.
+indexes the stacked leaves, where the reference scans; ``remat`` (the
+training loss only) checkpoints each unit, as the reference's
+``jax.checkpoint`` of its scan body.
 
 Three modes: ``train`` (full sequence, causal), ``prefill`` (train + cache
-fill), ``decode`` (one token against the cache).  ``kernel_mode`` picks
+fill), ``decode`` (one token against the cache); ``loss_fn`` is the
+training objective (mean next-token cross-entropy).  ``kernel_mode`` picks
 the flash kernel or its plain version for full-sequence attention
 (``kernels.build.use_kernel``).
 """
@@ -20,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as att
 from .config import ArchConfig
@@ -58,7 +61,8 @@ def params_from_numpy(tree: dict, device="cpu") -> dict:
             continue
         a = np.asarray(v)
         if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+            t = torch.from_numpy(np.array(a.view(np.int16))).view(
+                torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(a))
         out[k] = t.to(device)
@@ -88,16 +92,23 @@ def _apply_layer(kind: str, p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 def _run_stack(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
-               mode: str, caches: Optional[dict], pos, kernel_mode: str
-               ) -> torch.Tensor:
-    """The repeating units in order.  Caches are written in place."""
+               mode: str, caches: Optional[dict], pos, kernel_mode: str,
+               remat: bool = False) -> torch.Tensor:
+    """The repeating units in order.  Caches are written in place.  With
+    ``remat`` each unit runs under ``torch.utils.checkpoint``: only its
+    input is kept for the backward, which runs the unit again (the flash
+    forward included) before its gradient."""
     for u in range(cfg.n_units):
-        up = _index(params["unit"], u)
-        uc = _index(caches["unit"], u) if caches else {}
-        for i, kind in enumerate(cfg.block_pattern):
-            x = _apply_layer(kind, up[str(i)], x, cfg, mode=mode,
-                             cache=uc.get(str(i)), pos=pos,
-                             kernel_mode=kernel_mode)
+        def unit(x, u=u):
+            up = _index(params["unit"], u)
+            uc = _index(caches["unit"], u) if caches else {}
+            for i, kind in enumerate(cfg.block_pattern):
+                x = _apply_layer(kind, up[str(i)], x, cfg, mode=mode,
+                                 cache=uc.get(str(i)), pos=pos,
+                                 kernel_mode=kernel_mode)
+            return x
+
+        x = checkpoint(unit, x, use_reentrant=False) if remat else unit(x)
     return x
 
 
@@ -111,6 +122,45 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
                    kernel_mode=kernel_mode)
     return (unembed_apply(params["embed"], x, cfg),
             torch.zeros((), device=x.device))
+
+
+#: sequence-chunked cross-entropy: threshold and chunk length
+LOSS_CHUNK = 512
+
+
+def _nll(params: dict, x: torch.Tensor, labels: torch.Tensor,
+         cfg: ArchConfig) -> torch.Tensor:
+    """Per-position negative log-likelihood of ``labels`` (float32
+    log-softmax of the logits).  A negative label reads class 0, which the
+    caller's mask then drops (the reference's gather wraps it to the last
+    class, as finite)."""
+    logits = unembed_apply(params["embed"], x, cfg)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: ArchConfig, *, remat: bool = False,
+            kernel_mode: str = "auto") -> torch.Tensor:
+    """Mean next-token cross-entropy over the positions with ``labels >=
+    0`` (tokens, labels [B, S]), as ``repro.models.loss_fn``; the dense
+    kinds add no auxiliary loss.  Past ``LOSS_CHUNK`` positions, when the
+    length is a multiple of it, the cross-entropy runs one chunk of
+    positions at a time under ``torch.utils.checkpoint``, so the float32
+    [B, S, V] logits never exist whole."""
+    x = embed_apply(params["embed"], tokens, cfg.torch_param_dtype)
+    x = _run_stack(params, x, cfg, mode="train", caches=None, pos=None,
+                   kernel_mode=kernel_mode, remat=remat)
+    valid = (labels >= 0).to(torch.float32)
+    s = labels.shape[-1]
+    if s <= LOSS_CHUNK or s % LOSS_CHUNK:
+        nll = _nll(params, x, labels, cfg)
+    else:
+        nll = torch.cat([
+            checkpoint(_nll, params, x[:, c:c + LOSS_CHUNK],
+                       labels[:, c:c + LOSS_CHUNK], cfg, use_reentrant=False)
+            for c in range(0, s, LOSS_CHUNK)], dim=1)
+    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,

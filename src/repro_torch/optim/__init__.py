@@ -1,3 +1,5 @@
-from .sgd import paper_lr
+from .sgd import (OptState, adam_init, adam_step, paper_lr, sgd_init,
+                  sgd_step)
 
-__all__ = ["paper_lr"]
+__all__ = ["OptState", "adam_init", "adam_step", "paper_lr", "sgd_init",
+           "sgd_step"]

@@ -17,7 +17,13 @@ attention: float32 ``atol 2e-5`` (``tests/test_kernels.py``'s bound),
 bfloat16 one unit in the last place beyond that bound (both versions
 widen, sum in float32, which may differ by 2e-5 where a sum cancels to
 near 0, and round once), rows that see no key exactly 0, at unit-scale and
-at sharp (q scaled by 24) logits.  The multi-leaf SGD update is bitwise
+at sharp (q scaled by 24) logits; each row's log-sum-exp of both designs
+``rtol = atol = 1e-5`` of the plain version's (+inf where a row sees no
+key), the output bitwise the same with or without it.  The flash
+backward: float32 ``rel 1e-4`` of each gradient's largest magnitude,
+bfloat16 ``2^-7`` of it (one bfloat16 ulp at the top: both sum in float32
+and round once), a row that sees no key dq exactly 0, bitwise on
+repeat.  The multi-leaf SGD update is bitwise
 the plain version, one launch a call, with one scale or one a row; a
 bfloat16 operand that breaks a TMA precondition raises before any
 launch.  The multi-leaf HieAvg mix is
@@ -42,7 +48,9 @@ from repro_torch.kernels.coef_agg import (coef_agg,  # noqa: E402
 from repro_torch.kernels.conv3x3 import (MAX_DEVICES,  # noqa: E402
                                          conv3x3_bwd, conv3x3_fwd)
 from repro_torch.kernels.eval_head import eval_head  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_bwd, flash_attention_fwd)
+from repro_torch.kernels.ref import flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.hieavg_agg import (hieavg_agg,  # noqa: E402
                                             hieavg_agg_many)
 from repro_torch.kernels import build  # noqa: E402
@@ -552,3 +560,86 @@ def test_gpu_conv_refuses_weights_too_wide_for_shared_memory(cuda):
     w = torch.zeros((1, 3, 3, 4096, 64), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         conv3x3_fwd(x, w, torch.zeros((1, 64), device=cuda), "cuda")
+
+
+#: the backward's cases: ((Sq, Skv), Dh, (H, Hkv), causal, window,
+#: q_offset): every head dim, tails of the 64-row tiles, GQA groups 1 and
+#: 4, windows, a chunked prefill's offset and rows that see no key
+FLASH_BWD_CASES = [((100, 100), 32, (4, 4), True, None, 0),
+                   ((129, 129), 64, (8, 2), True, 50, 0),
+                   ((65, 130), 80, (4, 1), False, None, 0),
+                   ((130, 130), 128, (2, 2), False, 64, 0),
+                   ((70, 200), 80, (8, 2), True, 40, 130),
+                   ((64, 64), 80, (4, 1), True, None, -10),
+                   ((1, 300), 64, (4, 1), True, 100, 299)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gpu_flash_attention_lse_matches_plain(cuda, dtype):
+    """Both forward designs' lse against the plain version's, +inf on rows
+    that see no key; the output bitwise the same without lse."""
+    rng = np.random.default_rng(11)
+    for (sq, skv), dh, (h, hkv), causal, window, off in FLASH_BWD_CASES:
+        q, k, v = (t(np32(rng, 2, n, hh, dh)).to(cuda, dtype)
+                   for n, hh in ((sq, h), (skv, hkv), (skv, hkv)))
+        kw = dict(causal=causal, window=window, q_offset=off)
+        o, lse = flash_attention_fwd(q, k, v, lse=True, mode="cuda", **kw)
+        _, want = flash_attention_fwd(q, k, v, lse=True, mode="torch", **kw)
+        assert lse.shape == (2, h, sq) and lse.dtype == torch.float32
+        assert torch.equal(torch.isinf(lse), torch.isinf(want))
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(lse[fin], want[fin], rtol=1e-5, atol=1e-5)
+        assert torch.equal(o, flash_attention(q, k, v, mode="cuda", **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gpu_flash_attention_bwd_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(12)
+    for (sq, skv), dh, (h, hkv), causal, window, off in FLASH_BWD_CASES:
+        q = t(np32(rng, 2, sq, 2 * h, dh)).to(cuda, dtype)[:, :, :h]
+        k, v = (t(np32(rng, 2, skv, hkv, dh)).to(cuda, dtype)
+                for _ in range(2))
+        do = t(np32(rng, 2, sq, h, dh)).to(cuda, dtype)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        o, lse = flash_attention_fwd(q, k, v, lse=True, mode="cuda", **kw)
+        before = build.LAUNCHES["flash_attention_bwd"]
+        got = flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+        assert build.LAUNCHES["flash_attention_bwd"] == before + 3
+        # the plain backward gets the plain forward's output and lse, so
+        # that a wrong lse cannot scale both sides alike
+        want = flash_attention_bwd_ref(
+            q, k, v, *flash_attention_fwd(q, k, v, lse=True, mode="torch",
+                                          **kw), do, **kw)
+        rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            err = (g.float() - w.float()).abs().max().item()
+            assert err <= rel * w.float().abs().max().item(), \
+                ((sq, skv, dh, h, hkv, causal, window, off), err)
+        if off < 0:   # rows that see no key
+            assert torch.equal(got[0][:, :-off],
+                               torch.zeros_like(got[0][:, :-off]))
+        again = flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_gpu_flash_attention_function_runs_the_kernels(cuda):
+    """Autograd through ``ops.flash_attention``: one forward and three
+    backward launches, the gradients those of the backward wrapper."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(13)
+    q, k, v = (t(np32(rng, 1, 96, n, 64)).to(cuda, torch.bfloat16)
+               .requires_grad_() for n in (8, 2, 2))
+    do = t(np32(rng, 1, 96, 8, 64)).to(cuda, torch.bfloat16)
+    build.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=True, window=32)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert dict(build.LAUNCHES) == {"flash_attention": 1,
+                                    "flash_attention_bwd": 3}
+    o, lse = flash_attention_fwd(q.detach(), k.detach(), v.detach(),
+                                 causal=True, window=32, lse=True)
+    want = flash_attention_bwd(q.detach(), k.detach(), v.detach(), o, lse,
+                               do, causal=True, window=32)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))

@@ -12,16 +12,21 @@ its kernels, runs with the kernels (``kernel_mode="auto"``):
     cut to T = 4, every single-run aggregator, HieAvg with float32,
     bfloat16 and float8 history): their rows;
   * the whole DEFAULT HieAvg run (T = 50), twice: wall seconds and final
-    accuracy (the smoke runs before it take the first-call costs).
+    accuracy (the smoke runs before it take the first-call costs);
+  * the serve run of ``chip_smoke.py`` (h2o-danube-1.8b at full width,
+    batch 2, a prompt of 8192 tokens) with 4 generated tokens: the SHA-256
+    of its logits and tokens, and its prefill seconds.
 
 Prints one JSON line per process, then a summary: whether every smoke
-configuration's rows are bitwise the same in all four processes, and the
-T = 50 wall seconds per tree.  Needs one CUDA device; exits 2 without one.
+configuration's rows are bitwise the same in all four processes, whether
+the serve run's logits and tokens are, and the T = 50 wall seconds and
+prefill seconds per tree.  Needs one CUDA device; exits 2 without one.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -36,7 +41,7 @@ def one() -> dict:
     """The rows and the T = 50 run of the tree on ``PYTHONPATH``."""
     import torch
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import RUNS
+    from chip_smoke import RUNS, SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT
     from repro_torch.configs import DEFAULT
     from repro_torch.fl import BHFLSimulator
     from repro_torch.kernels import build
@@ -60,6 +65,13 @@ def one() -> dict:
         runs.append({"wall_s": res.wall_time,
                      "final_accuracy": float(res.accuracy[-1])})
     out[f"hieavg_t{DEFAULT.t_global_rounds}"] = runs
+    from repro_torch.launch import serve
+    res = serve.run(SERVE_ARCH, smoke=False, batch=SERVE_BATCH,
+                    prompt_len=SERVE_PROMPT, gen=4, device="cuda",
+                    progress=False)
+    out["serve"] = {"sha256": hashlib.sha256(
+        res["logits"].tobytes() + res["tokens"].tobytes()).hexdigest(),
+        "prefill_s": res["t_prefill"]}
     return out
 
 
@@ -96,10 +108,16 @@ def main() -> int:
         "order": [x["side"] for x in lines],
         "rows_bitwise": {label: all(x[label] == lines[0][label]
                                     for x in lines) for label in labels},
+        "serve_bitwise": all(x["serve"]["sha256"]
+                             == lines[0]["serve"]["sha256"] for x in lines),
+        "prefill_s": {side: [x["serve"]["prefill_s"] for x in lines
+                             if x["side"] == side]
+                      for side in ("parent", "change")},
         key: {side: [r for x in lines if x["side"] == side for r in x[key]]
               for side in ("parent", "change")}}
     print(json.dumps({"ab_standalone": summary}), flush=True)
-    return 0 if all(summary["rows_bitwise"].values()) else 1
+    return 0 if all(summary["rows_bitwise"].values()) \
+        and summary["serve_bitwise"] else 1
 
 
 if __name__ == "__main__":
