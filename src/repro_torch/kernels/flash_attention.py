@@ -31,6 +31,15 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DESIGNS = {torch.float32: "flash_attention_kernel (FP32 FMA)",
            torch.bfloat16: "flash_attention_wgmma_kernel (bf16 wgmma, TMA "
                            "kv ring)"}
+#: the backward's design per input type, by its dk/dv and dq kernels' names
+BWD_DESIGNS = {torch.float32: "flash_bwd_dkdv_kernel, flash_bwd_dq_kernel "
+                              "(FP32 FMA)",
+               torch.bfloat16: "flash_bwd_dkdv_wgmma_kernel, "
+                               "flash_bwd_dq_wgmma_kernel (bf16 wgmma, TMA "
+                               "ring, P and dS in BWD_TERMS bf16 terms)"}
+#: bf16 terms each of P and dS is split into in the bfloat16 backward
+#: (``TERMS`` in csrc/flash_attention_bwd.cu)
+BWD_TERMS = 2
 
 
 def _tma_strides(name: str, t: torch.Tensor) -> list:
@@ -141,10 +150,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
     Three launches, each counted under ``flash_attention_bwd``: delta =
     rowsum(do o), then dk and dv (one block a kv tile, the query heads of
-    its group summed in the block), then dq.  The arguments are checked as
-    the forward's are; q, k and v are read through their strides, ``o``
-    and ``do`` (autograd may hand over a strided one) are made
-    contiguous."""
+    its group summed in the block), then dq; the input type picks the
+    design (``BWD_DESIGNS``).  The arguments are checked as the forward's
+    are (a bfloat16 q, k or v that breaks a TMA precondition raises before
+    any launch, and so does ``do``); q, k and v are read through their
+    strides, ``o`` and ``do`` (autograd may hand over a strided one) are
+    made contiguous."""
     _check_shapes(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
@@ -163,14 +174,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: lse on {lse.device}, "
                          f"expected {q.device}")
     Skv, Hkv = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16:
+        strides = [_tma_strides(n, t) for n, t in (("q", q), ("k", k),
+                                                    ("v", v), ("do", do))][:3]
+    else:
+        strides = [t.stride()[:3] for t in (q, k, v)]
     code, st = DTYPES[q.dtype], build.stream()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     lib = build.library()
-    tail = (B, H, Hkv, Sq, Skv, Dh, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], int(causal), -1 if window is None
+    tail = (B, H, Hkv, Sq, Skv, Dh, *strides[0], *strides[1], *strides[2],
+            int(causal), -1 if window is None
             else int(window), int(q_offset), code, st)
     build.LAUNCHES["flash_attention_bwd"] += 1
     build.check(lib.flash_attention_bwd_delta_launch(

@@ -320,6 +320,24 @@ def test_gpu_flash_attention_bf16_refuses_what_tma_cannot_load(cuda):
     assert build.LAUNCHES["flash_attention"] == before
 
 
+def test_gpu_flash_attention_bwd_bf16_refuses_what_tma_cannot_load(cuda):
+    """The bfloat16 backward loads q, k, v and do by TMA too: a q or a
+    contiguous do offset by one element raises before any launch."""
+    def offset(*shape):
+        n = int(np.prod(shape))
+        return torch.zeros(n + 1, device=cuda,
+                           dtype=torch.bfloat16)[1:].view(*shape)
+    q, do = (torch.zeros(2, 64, 4, 80, device=cuda, dtype=torch.bfloat16)
+             for _ in range(2))
+    k = torch.zeros(2, 64, 2, 80, device=cuda, dtype=torch.bfloat16)
+    o, lse = flash_attention_fwd(q, k, k, lse=True, mode="cuda")
+    before = build.LAUNCHES["flash_attention_bwd"]
+    for qq, dd in ((offset(2, 64, 4, 80), do), (q, offset(2, 64, 4, 80))):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention_bwd(qq, k, k, o, lse, dd, mode="cuda")
+    assert build.LAUNCHES["flash_attention_bwd"] == before
+
+
 #: the paper's CNN leaves at DEFAULT width (c1 32, c2 64, 10 classes,
 #: 28x28), D = 25 devices: 144266 parameters in six leaves
 CNN_LEAVES = [(25, 3, 3, 1, 32), (25, 32), (25, 3, 3, 32, 64), (25, 64),
@@ -563,15 +581,24 @@ def test_gpu_conv_refuses_weights_too_wide_for_shared_memory(cuda):
 
 
 #: the backward's cases: ((Sq, Skv), Dh, (H, Hkv), causal, window,
-#: q_offset): every head dim, tails of the 64-row tiles, GQA groups 1 and
-#: 4, windows, a chunked prefill's offset and rows that see no key
+#: q_offset): every head dim, tails of the 64-row tiles and, at Dh 80 with
+#: G = 4, of the bf16 design's 64- and 128-row tiles (127, 129, 257) under
+#: windows that are no multiple of a tile, GQA groups 1 and 4, a chunked
+#: prefill's offset and rows that see no key, before and after the ones
+#: that do (chip_smoke.py's FLASH_BWD_CASES)
 FLASH_BWD_CASES = [((100, 100), 32, (4, 4), True, None, 0),
                    ((129, 129), 64, (8, 2), True, 50, 0),
                    ((65, 130), 80, (4, 1), False, None, 0),
                    ((130, 130), 128, (2, 2), False, 64, 0),
                    ((70, 200), 80, (8, 2), True, 40, 130),
                    ((64, 64), 80, (4, 1), True, None, -10),
-                   ((1, 300), 64, (4, 1), True, 100, 299)]
+                   ((1, 300), 64, (4, 1), True, 100, 299),
+                   ((127, 127), 80, (8, 2), True, None, 0),
+                   ((129, 129), 80, (8, 2), True, 100, 0),
+                   ((257, 257), 80, (8, 2), True, 150, 0),
+                   ((129, 257), 80, (8, 2), True, 100, 128),
+                   ((257, 129), 80, (4, 1), False, 90, 0),
+                   ((257, 127), 80, (8, 2), True, 70, 5)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -609,18 +636,17 @@ def test_gpu_flash_attention_bwd_matches_plain(cuda, dtype):
         assert build.LAUNCHES["flash_attention_bwd"] == before + 3
         # the plain backward gets the plain forward's output and lse, so
         # that a wrong lse cannot scale both sides alike
-        want = flash_attention_bwd_ref(
-            q, k, v, *flash_attention_fwd(q, k, v, lse=True, mode="torch",
-                                          **kw), do, **kw)
+        o_ref, lse_ref = flash_attention_fwd(q, k, v, lse=True,
+                                             mode="torch", **kw)
+        want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
         rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
         for g, w in zip(got, want):
             assert g.dtype == dtype and g.shape == w.shape
             err = (g.float() - w.float()).abs().max().item()
             assert err <= rel * w.float().abs().max().item(), \
                 ((sq, skv, dh, h, hkv, causal, window, off), err)
-        if off < 0:   # rows that see no key
-            assert torch.equal(got[0][:, :-off],
-                               torch.zeros_like(got[0][:, :-off]))
+        unseen = torch.isinf(lse_ref).permute(0, 2, 1)  # rows that see no key
+        assert bool((got[0][unseen] == 0).all())
         again = flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
 

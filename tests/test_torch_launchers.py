@@ -1,5 +1,8 @@
 """The ctypes signatures of the port's CUDA launchers against their C
-declarations, and the host-side arithmetic of the bfloat16 flash kernel.
+declarations, and the host-side arithmetic of the bfloat16 flash kernels:
+the forward's p split, and a plain-PyTorch model of the bfloat16 flash
+backward's arithmetic (bf16 operands, P and dS split into ``BWD_TERMS``
+bf16 terms, float32 sums) against ``ref.flash_attention_bwd_ref``.
 
 ``build.SIGNATURES`` sets each launcher's ``argtypes``; ctypes converts
 every argument by it without looking at the C function, so a pointer
@@ -8,6 +11,7 @@ parses every ``extern "C" int *_launch(`` in ``kernels/csrc/*.cu`` and
 holds its arity, and pointer or integer per argument, against the table.
 No compiler or card is needed.
 """
+import math
 import re
 
 import numpy as np
@@ -15,8 +19,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.flash_attention import _tma_strides  # noqa: E402
+from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (BWD_TERMS,  # noqa: E402
+                                                 _tma_strides)
 
 #: C scalar types of the launchers and their ctypes
 C_SCALARS = {"int": build._I, "long long": build._L, "float": build._F}
@@ -81,6 +86,111 @@ def test_p_split_rebuilds_p_within_its_bound(terms, rel):
     assert all(t.dtype == torch.bfloat16 for t in parts)
     if terms == 2:     # why the kernel takes three: two leave more
         assert float(err.max()) > 2.0 ** -24
+
+
+#: chip_smoke.py's FLASH_BWD_REL["bfloat16"]: each gradient within one
+#: bfloat16 ulp at the top binade of its largest magnitude
+BWD_REL_BF16 = 2.0 ** -7
+#: (Sq, Skv, H, Hkv, Dh, causal, window, q_offset, q scale): GQA groups 1
+#: and 4, tails of the 64- and 128-row tiles, windows that are no multiple
+#: of a tile, rows that see no key after (window) and before (q_offset < 0)
+#: the ones that do, a chunked prefill's offset, sharp logits (q x 24)
+BWD_MODEL_CASES = [(129, 129, 8, 2, 80, True, 100, 0, 1.0),
+                   (257, 129, 4, 1, 80, False, 90, 0, 1.0),
+                   (96, 96, 4, 1, 32, True, None, -10, 1.0),
+                   (200, 300, 8, 2, 64, True, 70, 100, 1.0),
+                   (128, 256, 4, 1, 128, True, None, 128, 24.0)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: the suite runs six workers on eight cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _bwd_model(q, k, v, o, lse, do, terms, causal, window, q_offset):
+    """The bfloat16 backward kernels' arithmetic in plain PyTorch: S = q kᵀ
+    and dP = do vᵀ of bf16 values summed in float32, P = 2^((S/√Dh - lse)
+    log2 e) (0 where the masks drop the pair), dS = P (dP - delta) with
+    delta summed in float64, P and dS each split into ``terms`` bf16 terms
+    (each the round to nearest of what the terms before it left) whose
+    products with the bf16 operands are summed in float32, the scale on the
+    float32 sums of dk and dq, each gradient rounded once to bf16."""
+    b, sq, h, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(dh)
+    qf, dof = (x.float().permute(0, 2, 1, 3) for x in (q, do))
+    kf, vf = (x.float().permute(0, 2, 1, 3).repeat_interleave(g, 1)
+              for x in (k, v))
+    delta = (do.double() * o.double()).sum(-1).float().permute(0, 2, 1)
+    qpos = q_offset + torch.arange(sq)[:, None]
+    kpos = torch.arange(skv)[None]
+    ok = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    t = (qf @ kf.transpose(2, 3)) * scale - lse[..., None]
+    p = torch.where(ok, torch.exp2(t * math.log2(math.e)), 0.0)
+    ds = p * (dof @ vf.transpose(2, 3) - delta[..., None])
+    ps = [x.float() for x in _split(p, terms)]
+    dss = [x.float() for x in _split(ds, terms)]
+    dv = sum(x.transpose(2, 3) @ dof for x in ps)
+    dk = sum(x.transpose(2, 3) @ qf for x in dss) * scale
+    dq = sum(x @ kf for x in dss) * scale
+    dk, dv = (x.view(b, hkv, g, skv, dh).sum(2) for x in (dk, dv))
+    return tuple(x.permute(0, 2, 1, 3).to(torch.bfloat16)
+                 for x in (dq, dk, dv))
+
+
+def _bwd_model_rel(case, terms):
+    """The model's worst gradient against the plain backward, over
+    BWD_REL_BF16 x that gradient's largest magnitude, and the model's dq
+    on the rows that see no key (lse +inf)."""
+    sq, skv, h, hkv, dh, causal, window, off, qs = case
+    rng = np.random.default_rng(sq * 7 + skv)
+
+    def bf16(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * scale).to(torch.bfloat16)
+
+    q, k, v, do = (bf16(2, sq, h, dh, scale=qs), bf16(2, skv, hkv, dh),
+                   bf16(2, skv, hkv, dh), bf16(2, sq, h, dh))
+    kw = dict(causal=causal, window=window, q_offset=off)
+    o, lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    got = _bwd_model(q, k, v, o, lse, do, terms, **kw)
+    rel = max(((a.float() - w.float()).abs().max()
+               / w.float().abs().max()).item() for a, w in zip(got, want))
+    return rel / BWD_REL_BF16, got[0][torch.isinf(lse).permute(0, 2, 1)]
+
+
+@pytest.mark.parametrize("case", BWD_MODEL_CASES,
+                         ids=[f"case{i}" for i in range(len(BWD_MODEL_CASES))])
+def test_bwd_split_model_holds_the_bf16_bound(case):
+    """The bfloat16 backward's arithmetic with P and dS in BWD_TERMS bf16
+    terms holds chip_smoke.py's bound against the plain backward, within
+    half of it, and a row that sees no key gets dq exactly 0."""
+    frac, unseen = _bwd_model_rel(case, BWD_TERMS)
+    assert frac <= 0.5, frac
+    assert bool((unseen == 0).all())
+
+
+def test_bwd_split_terms_why_two():
+    """Why the kernels take two terms: one (P and dS rounded to bf16)
+    reads above half the bound at some case and more than twice the worst
+    reading of two; and the kernel source splits into the terms the
+    wrapper names."""
+    one = max(_bwd_model_rel(c, 1)[0] for c in BWD_MODEL_CASES)
+    two = max(_bwd_model_rel(c, 2)[0] for c in BWD_MODEL_CASES)
+    assert one > 0.5 and two <= 0.5 and one > 2 * two, (one, two)
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    m = re.search(r"constexpr int TERMS = (\d+);", src)
+    assert m and int(m.group(1)) == BWD_TERMS
 
 
 def test_tma_strides_refuse_what_tma_cannot_load():

@@ -15,12 +15,17 @@ its kernels, runs with the kernels (``kernel_mode="auto"``):
     accuracy (the smoke runs before it take the first-call costs);
   * the serve run of ``chip_smoke.py`` (h2o-danube-1.8b at full width,
     batch 2, a prompt of 8192 tokens) with 4 generated tokens: the SHA-256
-    of its logits and tokens, and its prefill seconds.
+    of its logits and tokens, and its prefill seconds;
+  * the train run of ``chip_smoke.py`` (h2o-danube-1.8b at full width cut
+    to 4 layers, one edge of two clients, 2 x 8192 tokens a client, T = 2,
+    K = 2) after a short run that takes the first-call costs: seconds per
+    edge round, tokens a second and the losses.
 
 Prints one JSON line per process, then a summary: whether every smoke
 configuration's rows are bitwise the same in all four processes, whether
 the serve run's logits and tokens are, and the T = 50 wall seconds and
-prefill seconds per tree.  Needs one CUDA device; exits 2 without one.
+prefill seconds and the train round's seconds per tree.  Needs one CUDA
+device; exits 2 without one.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -41,7 +46,8 @@ def one() -> dict:
     """The rows and the T = 50 run of the tree on ``PYTHONPATH``."""
     import torch
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import RUNS, SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT
+    from chip_smoke import (RUNS, SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT,
+                            TRAIN_ARCH, TRAIN_KW, TRAIN_LAYERS)
     from repro_torch.configs import DEFAULT
     from repro_torch.fl import BHFLSimulator
     from repro_torch.kernels import build
@@ -72,6 +78,17 @@ def one() -> dict:
     out["serve"] = {"sha256": hashlib.sha256(
         res["logits"].tobytes() + res["tokens"].tobytes()).hexdigest(),
         "prefill_s": res["t_prefill"]}
+    from repro_torch.launch import train
+    kw = dict(TRAIN_KW, n_layers=TRAIN_LAYERS, device="cuda")
+    train.run(TRAIN_ARCH, **dict(kw, n_layers=1, steps=1, k_edge=1,
+                                 seq=1024))
+    res = train.run(TRAIN_ARCH, **kw)
+    rounds = kw["steps"] * kw["k_edge"]
+    tokens = rounds * kw["n_edges"] * kw["n_clients"] * kw["batch"] \
+        * kw["seq"]
+    out["train"] = {"s_per_edge_round": res["wall"] / rounds,
+                    "tokens_per_s": tokens / res["wall"],
+                    "losses": [float(x) for x in res["losses"]]}
     return out
 
 
@@ -114,7 +131,10 @@ def main() -> int:
                              if x["side"] == side]
                       for side in ("parent", "change")},
         key: {side: [r for x in lines if x["side"] == side for r in x[key]]
-              for side in ("parent", "change")}}
+              for side in ("parent", "change")},
+        "train_s_per_edge_round": {
+            side: [x["train"]["s_per_edge_round"] for x in lines
+                   if x["side"] == side] for side in ("parent", "change")}}
     print(json.dumps({"ab_standalone": summary}), flush=True)
     return 0 if all(summary["rows_bitwise"].values()) \
         and summary["serve_bitwise"] else 1
