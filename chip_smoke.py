@@ -57,7 +57,18 @@ serving path: ``repro_torch.launch.serve.run`` on h2o-danube-1.8b at full
 width (24 layers, bfloat16, batch 2, a prompt of 8192 tokens, twice the
 sliding window, 32 greedy tokens), with the flash kernel and with its
 plain version on the same seeded weights, and the parity of the two,
-layer by layer (see ``serve_parity``).  Then the training path: the flash
+layer by layer (see ``serve_parity``); then the same for the two models
+with cross-attention at full width and depth: llama-3.2-vision-11b (40
+layers, 8 of them cross-attention over 1601 image tokens, a prompt of
+8192) and seamless-m4t-large-v2 (a 24-layer encoder over 1500 frames, 24
+decoder layers, a prompt of 2048), each kernel run's flash launches
+counted at each layer kind's shape, their parity with random memory and
+gates 1.0 at every encoder, self- and cross-attention layer, and against
+``serve.run`` itself fed that memory and those gates (its timed run reads
+zero memory under zero gates, which leaves cross-attention inert).  (The
+flash kernels at those models' non-causal shapes are checked in the flash
+phases' grids and timed, forward and backward, in
+``flash_model_timing``.)  Then the training path: the flash
 backward kernels against their plain version (``flash_bwd_phase``: tail
 cases in float32 and bfloat16 and the serving shape, the forward's
 ``lse`` against the plain forward's, each backward against the plain one
@@ -70,7 +81,14 @@ card (``train_parity``), one client's float32 gradients at full width,
 kernels against plain, beside the same reading for a plain version
 whose attention backward is broken (``train_grads``), and its bfloat16
 gradients layer by layer: every backward call of the model recorded and
-the kernel held against the plain backward on it (``train_grads_bf16``).
+the kernel held against the plain backward on it (``train_grads_bf16``);
+then ``train.run`` on seamless-m4t-large-v2 cut to 4 decoder and 4
+encoder layers (2 x 2048 tokens a client) with the kernels and plain and
+its parity, one HFL step of it in float32 with random memory and gates
+1.0, kernels against plain (``xattn_step_parity``: the train line's zero
+memory and zero gates leave its encoder and cross-attention inert), and
+``train_grads_bf16`` on seamless at that cut and on llama-vision cut to
+one unit, with random memory and gates 1.0.
 
 Output, one line each: the card as ``nvidia-smi`` names it, then JSON
 objects: the build, one per kernel check (with ``flash_design`` before
@@ -86,11 +104,10 @@ are bitwise), the ``kstar`` line, one ``population`` line per store size
 and aggregator (the store's host build seconds, rounds/s, peak memory,
 launches and churn resets of each mode, and their parity), the
 ``population_resume``, ``population_parity``, ``population_sweep`` and
-``legacy`` lines, one per
-serve run, the serve
-parity, one ``train`` line per mode, ``train_parity``, ``train_grads``,
-``train_grads_bf16``, the ``kernels`` summary, and last ``{"ok": true, "device":
-{...}}``.  ``--profile`` adds one more HieAvg run, the switched sweep,
+``legacy`` lines, one per serve run, the serve parity, one ``train``
+line per mode, ``train_parity``, ``train_grads``, ``train_grads_bf16``,
+``xattn_step_parity``, the ``kernels`` summary, and last ``{"ok": true,
+"device": {...}}``.  ``--profile`` adds one more HieAvg run, the switched sweep,
 one train round and the serve path's prefill and decode under
 ``torch.profiler``, a line of device time per kernel each;
 ``--full`` adds the paper's whole DEFAULT run (T = 50) per mode of
@@ -109,6 +126,8 @@ JAX package.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -156,6 +175,14 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:77",
     # the Pallas kernel has no backward: this is the gradient of its function
     "flash_attention_bwd": "src/repro/kernels/flash_attention.py:77",
+    # the same two kernels at the cross-attention and encoder cells'
+    # shapes (FLASH_TIMED)
+    "flash_attention[xattn]": "src/repro/kernels/flash_attention.py:77",
+    "flash_attention[enc]": "src/repro/kernels/flash_attention.py:77",
+    "flash_attention[xattn_m4t]": "src/repro/kernels/flash_attention.py:77",
+    "flash_attention_bwd[enc]": "src/repro/kernels/flash_attention.py:77",
+    "flash_attention_bwd[xattn_m4t]":
+        "src/repro/kernels/flash_attention.py:77",
 }
 SOURCE = {
     "conv3x3_fwd": "src/repro_torch/kernels/csrc/conv3x3.cu",
@@ -168,6 +195,16 @@ SOURCE = {
     "eval_head": "src/repro_torch/kernels/csrc/eval_head.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_bwd":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention[xattn]":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention[enc]":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention[xattn_m4t]":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd[enc]":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd[xattn_m4t]":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 
@@ -248,6 +285,18 @@ ROWS = ("accuracy", "loss", "grad_norm", "sim_clock", "sim_energy")
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = \
     "h2o-danube-1.8b", 2, 8192, 32
 SERVE_LONG_PROMPT = 32768
+#: the cross-attention and encoder serve cells, full width and depth, at
+#: SERVE_BATCH and SERVE_GEN: llama-3.2-vision-11b (40 layers, every fifth
+#: a gated cross-attention layer over 1601 patch embeddings, bf16 weights
+#: 19.6 GB) with a prompt of 8192 tokens, and seamless-m4t-large-v2 (a
+#: 24-layer encoder over 1500 frames, 24 decoder layers alternating self-
+#: and cross-attention, 3.9 GB) with a prompt of 2048; the arch -> its
+#: prompt length
+XATTN_SERVE = {"llama-3.2-vision-11b": 8192, "seamless-m4t-large-v2": 2048}
+#: their parity runs' memory and gates: N(0, 1) memory in bf16 from this
+#: seed, every ``xattn_gate`` 1.0 (the reference's zero gate and its
+#: drivers' zero memory leave cross-attention inert)
+XATTN_MEMORY_SEED, XATTN_GATE = 3, 1.0
 #: auto-vs-torch bound on each layer's output and on the logits, relative
 #: to their largest magnitude: 4 bfloat16 ulps at the top binade.  The two
 #: flash versions differ by one ulp in a few elements; the layer's bf16
@@ -270,14 +319,35 @@ FLASH_SHARP = ((300, 8192, 80, True, 4096, 24.0), (129, 129, 128, False, None,
                                                   60.0))
 #: the reference's float32 flash bound (tests/test_kernels.py)
 FLASH_F32_ATOL = 2e-5
+#: the flash kernels at the cross-attention and encoder cells' shapes,
+#: non-causal, at batch SERVE_BATCH: ((Sq, Skv), Dh, (H, Hkv)) of
+#: llama-vision's cross layers, seamless's encoder and its cross layers;
+#: checked in the forward's grid and in FLASH_BWD_CASES, forward and
+#: backward timed at each (FLASH_TIMED: label -> shape)
+FLASH_MODEL = (((8192, 1601), 128, (32, 8)), ((1500, 1500), 64, (16, 16)),
+               ((2048, 1500), 64, (16, 16)))
+FLASH_TIMED = {"xattn": FLASH_MODEL[0], "enc": FLASH_MODEL[1],
+               "xattn_m4t": FLASH_MODEL[2]}
+#: the ``kernels`` line's entries at FLASH_TIMED's shapes: (kernel, label)
+#: -> the main-path run whose launches at that shape the entry reports (the
+#: serve runs' prefill at batch SERVE_BATCH, the enc-dec train run's
+#: clients at TRAIN_KW's batch).  The cross-attention backward at
+#: llama-vision's shape is timed but launched by no main-path run (no
+#: llama-vision train line): it is left out of the ``kernels`` line
+FLASH_TIMED_RUNS = {("flash_attention", "xattn"): "llama-3.2-vision-11b",
+                    ("flash_attention", "enc"): "seamless-m4t-large-v2",
+                    ("flash_attention", "xattn_m4t"): "seamless-m4t-large-v2",
+                    ("flash_attention_bwd", "enc"): "train",
+                    ("flash_attention_bwd", "xattn_m4t"): "train"}
 
 #: the flash backward's check cases besides the serving shape: ((Sq, Skv),
 #: Dh, (H, Hkv), causal, window, q_offset): every head dim, tails of the
 #: 64-row tiles and, at Dh 80 with G = 4, of the bf16 design's 64- and
 #: 128-row tiles (127, 129, 257) under windows that are no multiple of a
 #: tile, GQA groups 1 and 4, a chunked prefill's offset and rows that see
-#: no key, before and after the ones that do (tests/test_torch_gpu.py's
-#: FLASH_BWD_CASES)
+#: no key, before and after the ones that do, and last FLASH_MODEL's
+#: shapes (tests/test_torch_gpu.py's FLASH_BWD_CASES, those three at
+#: reduced lengths)
 FLASH_BWD_CASES = (((100, 100), 32, (4, 4), True, None, 0),
                    ((129, 129), 64, (8, 2), True, 50, 0),
                    ((65, 130), 80, (4, 1), False, None, 0),
@@ -290,7 +360,8 @@ FLASH_BWD_CASES = (((100, 100), 32, (4, 4), True, None, 0),
                    ((257, 257), 80, (8, 2), True, 150, 0),
                    ((129, 257), 80, (8, 2), True, 100, 128),
                    ((257, 129), 80, (4, 1), False, 90, 0),
-                   ((257, 127), 80, (8, 2), True, 70, 5))
+                   ((257, 127), 80, (8, 2), True, 70, 5)) + tuple(
+    (sqkv, dh, hh, False, None, 0) for sqkv, dh, hh in FLASH_MODEL)
 #: the backward's bounds against its plain version (each side fed its own
 #: forward's output and lse), relative to each gradient's largest
 #: magnitude: float32 1e-4 (the same float32 sums in another order),
@@ -311,6 +382,19 @@ FLASH_LSE_REL = 1e-5
 TRAIN_ARCH, TRAIN_LAYERS = "h2o-danube-1.8b", 4
 TRAIN_KW = dict(smoke=False, n_edges=1, n_clients=2, batch=2, seq=8192,
                 steps=2, k_edge=2, progress=False)
+#: the enc-dec train cell: seamless-m4t-large-v2 at full width (d_model
+#: 1024, 16 heads, head dim 64, d_ff 8192, vocab 256206, bf16) cut to
+#: XATTN_TRAIN_LAYERS decoder and as many encoder layers (0.76 B
+#: parameters), 2 x XATTN_TRAIN_SEQ tokens a client, zero memory of 1500
+#: frames (as the reference's driver feeds it), the rest as TRAIN_KW
+XATTN_TRAIN_ARCH, XATTN_TRAIN_LAYERS, XATTN_TRAIN_SEQ = \
+    "seamless-m4t-large-v2", 4, 2048
+#: ``train_grads_bf16`` on the cross-attention archs, random memory
+#: (XATTN_MEMORY_SEED) and gates XATTN_GATE: (arch, layers, rows, tokens a
+#: row): seamless at the train cell's cut; llama-vision cut to one unit
+#: (4 self-attention layers and a cross-attention one), 1 x 4096 tokens
+XATTN_GRADS = (("seamless-m4t-large-v2", XATTN_TRAIN_LAYERS, 2,
+                XATTN_TRAIN_SEQ), ("llama-3.2-vision-11b", 5, 1, 4096))
 #: train parity, stated before the first call: the kernel run's first
 #: reported loss within 1e-2 (relative) of the plain run's, clock and
 #: blocks equal; danube-smoke (float32, head dim 32), T = 3, K = 2: the
@@ -341,6 +425,17 @@ TRAIN_GRAD_FAULTS = ("dq_dropped", "scaled_0.9")
 #: where TRAIN_GRAD_FAULTS' controls read this factor above both
 FLASH_BWD_FAULTS = ("dq_dropped", "scaled_0.9")
 TRAIN_GRAD_ANCHOR_FACTOR = 2.0
+#: the enc-dec step's loss with random memory and gates XATTN_GATE
+#: (``xattn_step_parity``, float32), kernels against plain, relative.
+#: Set from a first reading on the card (NVIDIA H100 80GB HBM3, 700 W):
+#: the kernels 1.458e-4; the plain step with a few-ulp forward perturbation
+#: (``o_noise``) 1.49e-5; with every non-causal forward output (encoder
+#: and cross-attention) scaled by 0.9 1.63e-3, which every run measures
+#: and must read above it.  The leaves' changes over that step are read,
+#: not held: the few-ulp perturbation alone moves them by 0.49-2.59 of
+#: their largest (the random weights amplify rounding), as much as the
+#: kernels (0.43-2.17) or a dropped dq (1.0)
+XATTN_LOSS_REL = 5e-4
 
 #: mantissa bits and least normal exponent of the narrow history dtypes
 NARROW = {"bfloat16": (7, -126), "float8_e4m3fn": (3, -6)}
@@ -648,7 +743,9 @@ def flash_phase(torch, cfg, flash_attention, randn, record) -> dict:
     bfloat16 (one ulp beyond that bound: both versions sum in float32,
     which may differ by 2e-5 where a sum cancels to near 0, and round once),
     q read through strides and a chunked prefill's ``q_offset``, and the
-    same bounds at sharp attention (``FLASH_SHARP``); rows that see no key
+    same bounds at sharp attention (``FLASH_SHARP``) and at the
+    cross-attention and encoder cells' shapes (``FLASH_MODEL``, batch 2,
+    non-causal, kv lengths no multiple of a tile); rows that see no key
     exactly 0; then the serving shape of h2o-danube-1.8b, checked and
     timed."""
     worst = {"float32_abs": 0.0, "bfloat16_ulp": 0.0, "cases": 0}
@@ -658,6 +755,9 @@ def flash_phase(torch, cfg, flash_attention, randn, record) -> dict:
                 FLASH_HEADS, (torch.float32, torch.bfloat16))]
     grid += [(sq, skv, dh, causal, window, (8, 2), qs, dtype)
              for sq, skv, dh, causal, window, qs in FLASH_SHARP
+             for dtype in (torch.float32, torch.bfloat16)]
+    grid += [(sq, skv, dh, False, None, hh, 1.0, dtype)
+             for (sq, skv), dh, hh in FLASH_MODEL
              for dtype in (torch.float32, torch.bfloat16)]
     for sq, skv, dh, causal, window, (h, hkv), qs, dtype in grid:
         q = randn(2, sq, 2 * h, dh, scale=qs).to(dtype)[:, :, :h]  # strided
@@ -754,60 +854,206 @@ def flash_phase(torch, cfg, flash_attention, randn, record) -> dict:
     return worst
 
 
-def serve_runs(torch, serve, build, n_layers: int) -> dict:
-    """``serve.run`` at full width with the kernels and with the plain
-    versions, on the same seeded weights, each decoding its own greedy
-    tokens: the launch counts are set to 0 just before each run and read
-    just after.  A short run first takes the first-call costs."""
-    kw = dict(smoke=False, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+def flash_key(name: str, b: int, sq: int, skv: int, h: int, hkv: int,
+              dh: int, causal: bool) -> tuple:
+    """The key ``shape_launches`` counts a flash call's launches under."""
+    return name, b, sq, skv, h, hkv, dh, causal
+
+
+def timed_key(name: str, label: str) -> tuple:
+    """``flash_key`` of FLASH_TIMED[label] at batch SERVE_BATCH."""
+    (sq, skv), dh, (h, hkv) = FLASH_TIMED[label]
+    return flash_key(name, SERVE_BATCH, sq, skv, h, hkv, dh, False)
+
+
+def flash_shapes(cfg, batch: int, seq: int,
+                 name: str = "flash_attention") -> collections.Counter:
+    """The flash calls of one full-sequence pass of ``cfg`` over ``batch``
+    rows of ``seq`` tokens, by ``flash_key``: one a self-attention layer
+    (causal), a cross-attention layer (over the memory's frames) and an
+    encoder layer (frames over frames)."""
+    from repro_torch.launch.inputs import memory_shape
+    heads = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    frames = (memory_shape(cfg) or (0,))[0]
+    out = collections.Counter()
+    for kind in cfg.block_pattern:
+        skv, causal = {"attn": (seq, True), "xattn": (frames, False)}[kind]
+        out[flash_key(name, batch, seq, skv, *heads, causal)] += cfg.n_units
+    if cfg.encoder:
+        out[flash_key(name, batch, frames, frames, *heads, False)] += \
+            cfg.encoder.n_layers
+    return out
+
+
+def flash_layers(cfg) -> int:
+    """The flash calls of one full-sequence pass of ``cfg``: one a self- or
+    cross-attention layer of the decoder, one an encoder layer."""
+    return sum(flash_shapes(cfg, 1, 1).values())
+
+
+@contextlib.contextmanager
+def shape_launches(kern, build):
+    """While open, each flash forward and backward call's launches (its own
+    increment of ``build.LAUNCHES``) are added to the yielded Counter under
+    the call's ``flash_key``: a run's launches at each shape.  The kernels'
+    wrappers are swapped for counting ones (the attribute swap FAULTS
+    uses) and restored on exit."""
+    into = collections.Counter()
+    names = {"flash_attention_fwd": "flash_attention",
+             "flash_attention_bwd": "flash_attention_bwd"}
+    sound = {attr: getattr(kern, attr) for attr in names}
+
+    def counted(attr, q, k, *a, **kw):
+        before = build.LAUNCHES[names[attr]]
+        try:
+            return sound[attr](q, k, *a, **kw)
+        finally:
+            n = build.LAUNCHES[names[attr]] - before
+            if n:
+                b, sq, h, dh = q.shape
+                into[flash_key(names[attr], b, sq, k.shape[1], h, k.shape[2],
+                               dh, bool(kw.get("causal", True)))] += n
+
+    for attr in names:
+        setattr(kern, attr, functools.partial(counted, attr))
+    try:
+        yield into
+    finally:
+        for attr, fn in sound.items():
+            setattr(kern, attr, fn)
+
+
+def set_gates(params: dict) -> None:
+    """Every ``xattn_gate`` of a nested parameter dict to XATTN_GATE."""
+    for unit in params["unit"].values():
+        if "xattn_gate" in unit["mixer"]:
+            unit["mixer"]["xattn_gate"].fill_(XATTN_GATE)
+
+
+def xattn_memory(torch, cfg, lead: tuple, dtype=None):
+    """N(0, 1) raw memory ``[*lead, *memory shape]`` from XATTN_MEMORY_SEED
+    on the card, in ``dtype`` (default the parameters')."""
+    from repro_torch.launch.inputs import memory_shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(XATTN_MEMORY_SEED)
+    return torch.randn(lead + memory_shape(cfg), generator=g,
+                       device="cuda").to(dtype or cfg.torch_param_dtype)
+
+
+def serve_runs(torch, serve, build, kern, arch: str = SERVE_ARCH,
+               prompt: int = SERVE_PROMPT) -> dict:
+    """``serve.run`` of ``arch`` at full width and depth, batch
+    SERVE_BATCH, a prompt of ``prompt`` tokens, with the kernels and with
+    the plain versions, on the same seeded weights, each decoding its own
+    greedy tokens, after a short run that takes the first-call costs: the
+    launch counts are set to 0 just before each run and read just after,
+    in all and at each shape (``shape_launches``); the kernel run launches
+    the flash kernel once a self-attention, cross-attention and encoder
+    layer at that layer's shape (``flash_shapes``: the encoder runs once,
+    inside the timed prefill), decode none."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    kw = dict(smoke=False, batch=SERVE_BATCH, prompt_len=prompt,
               gen=SERVE_GEN, device="cuda", progress=False)
-    serve.run(SERVE_ARCH, **{**kw, "prompt_len": 512, "gen": 2})
+    serve.run(arch, **{**kw, "prompt_len": 512, "gen": 2})
     runs = {}
     for mode in ("auto", "torch"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launch_counts()
-        res = serve.run(SERVE_ARCH, kernel_mode=mode, **kw)
+        with shape_launches(kern, build) as shapes:
+            res = serve.run(arch, kernel_mode=mode, **kw)
         launches = dict(build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         check("serve", res["tokens"].shape == (SERVE_BATCH, SERVE_GEN)
               and bool(np.isfinite(res["logits"]).all()),
-              f"{mode}: tokens {res['tokens'].shape}, logits not finite")
-        runs[mode] = (res, launches)
+              f"{arch} {mode}: tokens {res['tokens'].shape}, logits not "
+              "finite")
+        runs[mode] = (res, launches, shapes)
         emit({"serve": {
-            "arch": SERVE_ARCH, "kernel_mode": mode, "layers": n_layers,
-            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+            "arch": arch, "kernel_mode": mode, "layers": cfg.n_layers,
+            "encoder_layers": cfg.encoder.n_layers if cfg.encoder else 0,
+            "batch": SERVE_BATCH, "prompt": prompt, "gen": SERVE_GEN,
             "prefill_s": res["t_prefill"], "decode_s": res["t_decode"],
             "decode_tokens_per_s": SERVE_GEN * SERVE_BATCH / res["t_decode"],
-            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
-            / res["t_prefill"],
-            "peak_memory_gb": peak / 1e9, "launches": launches}})
-    check("launches", runs["auto"][1].get("flash_attention", 0) == n_layers,
-          f"auto: {runs['auto'][1]}, expected {n_layers} flash launches")
+            "prefill_tokens_per_s": SERVE_BATCH * prompt / res["t_prefill"],
+            "peak_memory_gb": peak / 1e9, "launches": launches,
+            "launches_by_shape": [[*k, n] for k, n in shapes.items()]}})
+    want = flash_shapes(cfg, SERVE_BATCH, prompt)
+    check("launches", runs["auto"][1].get("flash_attention", 0)
+          == sum(want.values()) and runs["auto"][2] == want,
+          f"{arch} auto: {runs['auto'][1]}, by shape {runs['auto'][2]}, "
+          f"expected {want}")
     check("launches", not runs["torch"][1],
-          f"torch mode launched {runs['torch'][1]}")
+          f"{arch} torch mode launched {runs['torch'][1]}")
     return runs
 
 
-def serve_parity(torch, serve, runs) -> dict:
-    """Auto against torch on the same inputs.  Every layer of the prefill
-    is fed the auto run's input in both modes (the kernel's one-ulp
-    differences would otherwise flip the sharp attention of random weights
-    and the runs diverge).  Per layer, the attention output itself (before
-    ``wo`` and the residual) within one bf16 ulp beyond ``FLASH_F32_ATOL``
-    times the layer's largest ``|v|``: the flash phase's bound, scaled as
-    the float32 error of a convex combination of v's rows scales; the
-    kernel on the model's own activations.  The layer's output and the
-    last position's logits of the two last layers within ``SERVE_REL_TOL``
-    of their largest magnitude.  Then torch mode's
-    decode from its caches of that pass, fed the auto run's tokens, against
-    the auto run's decode logits: decode launches no kernel and the caches
-    hold k and v from before attention, so this checks only that the
-    decode is deterministic.  The free-running runs' own differences and
-    greedy-token agreement are reported, not checked."""
+def serve_live(torch, serve, arch: str, prompt: int, raw) -> dict:
+    """``serve.run`` with the kernels, as ``serve_runs`` drives it, but with
+    every ``xattn_gate`` at XATTN_GATE as its weights are made and its zero
+    memory swapped for ``raw`` at its ``encode`` call: the serving path
+    itself (the encoder inside the prefill, each decode step fed its
+    output) on inputs that make cross-attention count."""
+    make_params, encode = serve.make_params, serve.encode
+    fed = []
+
+    def gated(cfg, seed, device):
+        params = make_params(cfg, seed, device)
+        set_gates(params)
+        return params
+
+    def encode_raw(params, zeros, cfg, **kw):
+        fed.append(tuple(zeros.shape) == tuple(raw.shape)
+                   and not bool(zeros.any()))
+        return encode(params, raw, cfg, **kw)
+
+    serve.make_params, serve.encode = gated, encode_raw
+    try:
+        res = serve.run(arch, smoke=False, batch=SERVE_BATCH,
+                        prompt_len=prompt, gen=SERVE_GEN, device="cuda",
+                        progress=False)
+    finally:
+        serve.make_params, serve.encode = make_params, encode
+    check("serve_parity", fed == [True],
+          f"{arch}: serve.run's memory at its encode call: {fed}")
+    return res
+
+
+def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
+                 prompt: int = SERVE_PROMPT) -> dict:
+    """Auto against torch on the same inputs, through the model functions.
+    Every layer of the prefill is fed the auto pass's input in both modes
+    (the kernel's one-ulp differences would otherwise flip the sharp
+    attention of random weights and the runs diverge): the encoder's
+    layers (over the memory), then the decoder's self- and
+    cross-attention layers (the cross layers reading the auto pass's
+    encoder output).  A model with cross-attention gets N(0, 1) bf16
+    memory (XATTN_MEMORY_SEED) and every ``xattn_gate`` at XATTN_GATE, so
+    that the path is not inert.  Per layer, the attention output itself
+    (before ``wo`` and the residual) within one bf16 ulp beyond
+    ``FLASH_F32_ATOL`` times the layer's largest ``|v|``: the flash
+    phase's bound, scaled as the float32 error of a convex combination of
+    v's rows scales; the kernel on the model's own activations.  The
+    layer's output, and the last position's logits of the two last
+    layers, within ``SERVE_REL_TOL`` of their largest magnitude.
+
+    Then the serving path's own output against the auto pass: the timed
+    kernel ``serve.run`` of ``serve_runs`` (``runs["auto"]``) for a model
+    without memory, and for one with memory ``serve_live``'s run on the
+    same memory and gates (the timed run reads zero memory under zero
+    gates, which leaves cross-attention inert): its prefill logits against
+    the auto pass's, and its decode logits against torch mode's decode
+    from its caches of that pass, fed the run's tokens and the auto pass's
+    encoder output.  Decode launches no kernel and the caches hold k and v
+    from before attention, so for the decode this checks that ``serve.run``
+    decodes from the encoded memory and deterministically.  The
+    free-running ``serve.run`` pair's own differences and greedy-token
+    agreement are reported, not checked."""
     from repro_torch.configs import get_config
     from repro_torch.data import lm_tokens
     from repro_torch.launch import make_serve_step
+    from repro_torch.launch.inputs import memory_shape
     from repro_torch.models import attention as A
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import embed_apply, rms_norm, \
@@ -817,49 +1063,84 @@ def serve_parity(torch, serve, runs) -> dict:
         a, b = a.float(), b.float()
         return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     dev = torch.device("cuda")
-    auto = {k: torch.as_tensor(v, device=dev)
-            for k, v in runs["auto"][0].items() if k in ("tokens", "logits")}
+    modes = ("auto", "torch")
+    ms = memory_shape(cfg)
+    raw = None if ms is None else xattn_memory(torch, cfg, (SERVE_BATCH,))
+    served = runs["auto"][0] if ms is None else serve_live(
+        torch, serve, arch, prompt, raw)
+    auto = {k: torch.as_tensor(served[k], device=dev)
+            for k in ("tokens", "logits")}
     params = serve.make_params(cfg, 0, dev)
-    prompts = torch.as_tensor(lm_tokens(SERVE_BATCH, SERVE_PROMPT, cfg.vocab,
+    if ms is not None:
+        set_gates(params)
+    prompts = torch.as_tensor(lm_tokens(SERVE_BATCH, prompt, cfg.vocab,
                                         seed=0), device=dev).long()
-    caches = {m: serve.make_caches(cfg, SERVE_BATCH,
-                                   SERVE_PROMPT + SERVE_GEN, dev, smoke=False)
-              for m in ("auto", "torch")}
-    x = embed_apply(params["embed"], prompts, cfg.torch_param_dtype)
-    pos = torch.arange(SERVE_PROMPT, device=dev)
-    layers, attn_ulp, attn_rel = [], [], []
-    for u in range(cfg.n_units):
-        up = T._index(params["unit"], u)
-        mp = up["0"]["mixer"]
-        q, k, v = A._qkv(mp, rms_norm(x, mp["norm"], cfg.norm_eps), cfg)
-        q, k = (A.apply_rope(t, pos, cfg.rope_theta) for t in (q, k))
-        a = {m: A._sdpa(q, k, v, causal=True, window=cfg.sliding_window,
-                        kernel_mode=m) for m in ("auto", "torch")}
+    caches = {m: serve.make_caches(cfg, SERVE_BATCH, prompt + SERVE_GEN,
+                                   dev, smoke=False) for m in modes}
+    kinds, layers, attn_ulp, attn_rel = [], [], [], []
+
+    def layer(kind, p, x, memory, pos, cache):
+        """One layer fed ``x`` in both modes: its attention output and its
+        output read; the outputs returned."""
+        mp = p["mixer"]
+        h = rms_norm(x, mp["norm"], cfg.norm_eps)
+        causal = kind == "attn"
+        if kind == "xattn":
+            q, k, v = A._qkv(mp, h, cfg, kv_x=memory)
+        else:
+            q, k, v = A._qkv(mp, h, cfg)
+            q, k = (A.apply_rope(t, pos, cfg.rope_theta) for t in (q, k))
+        a = {m: A._sdpa(q, k, v, causal=causal,
+                        window=cfg.sliding_window if causal else None,
+                        kernel_mode=m) for m in modes}
         attn_ulp.append(bf16_ulps(a["auto"], a["torch"], FLASH_F32_ATOL
                                   * v.float().abs().max().item()))
         attn_rel.append(rel(a["auto"], a["torch"]))
         del q, k, v, a
-        y = {m: T._apply_layer("attn", up["0"], x, cfg, mode="prefill",
-                               cache=T._index(c["unit"], u)["0"], pos=None,
-                               kernel_mode=m) for m, c in caches.items()}
+        y = {m: T._apply_layer(kind, p, x, cfg, mode="prefill",
+                               cache=cache(m), pos=None, memory=memory,
+                               kernel_mode=m) for m in modes}
+        kinds.append(kind)
         layers.append(rel(y["torch"], y["auto"]))
-        x = y["auto"]
+        return y
+
+    memory = raw
+    if cfg.encoder:
+        frames = torch.arange(ms[0], device=dev)
+        for u in range(cfg.encoder.n_layers):
+            memory = layer("enc_attn", T._index(params["encoder"]["unit"],
+                                                u)["0"],
+                           memory, None, frames, lambda m: None)["auto"]
+    x = embed_apply(params["embed"], prompts, cfg.torch_param_dtype)
+    pos = torch.arange(prompt, device=dev)
+    for u in range(cfg.n_units):
+        up = T._index(params["unit"], u)
+        for i, kind in enumerate(cfg.block_pattern):
+            y = layer(kind, up[str(i)], x, memory, pos, lambda m: T._index(
+                caches[m]["unit"], u).get(str(i)))
+            x = y["auto"]
     logits = {m: unembed_apply(params["embed"], y[m][:, -1:], cfg)[:, 0]
               for m in y}
+    del x, y
     decode = make_serve_step(cfg)
     c, steps = caches["torch"], []
     for i in range(SERVE_GEN - 1):
-        lg, c = decode(params, auto["tokens"][:, i:i + 1].long(),
-                       SERVE_PROMPT + i, c)
+        lg, c = decode(params, auto["tokens"][:, i:i + 1].long(), prompt + i,
+                       c, memory)
         steps.append(lg.float())
     torch_run = runs["torch"][0]
     out = {
-        "tolerance_rel": SERVE_REL_TOL,
+        "arch": arch, "prompt": prompt, "tolerance_rel": SERVE_REL_TOL,
         "attn_tolerance": f"1 bf16 ulp beyond atol {FLASH_F32_ATOL} "
                           "x max|v|",
-        "attn_ulp": attn_ulp, "attn_rel": attn_rel,
+        "memory": None if ms is None else {
+            "shape": [SERVE_BATCH, *ms], "seed": XATTN_MEMORY_SEED,
+            "xattn_gate": XATTN_GATE},
+        "served_by": "serve_runs' kernel run" if ms is None
+        else "serve.run with the kernels, this memory and these gates",
+        "layer_kinds": kinds, "attn_ulp": attn_ulp, "attn_rel": attn_rel,
         "layer_rel": layers,
         "prefill_logits_rel": rel(logits["torch"], logits["auto"]),
         "forced_auto_vs_run_rel": rel(logits["auto"], auto["logits"][:, 0]),
@@ -881,9 +1162,9 @@ def serve_parity(torch, serve, runs) -> dict:
            if out[k] > SERVE_REL_TOL}
     worst_layer = max(layers)
     check("serve_parity", not bad and worst_layer <= SERVE_REL_TOL,
-          f"over {SERVE_REL_TOL}: {bad}, worst layer {worst_layer}")
+          f"{arch}: over {SERVE_REL_TOL}: {bad}, worst layer {worst_layer}")
     check("serve_parity", max(attn_ulp) <= 1.0,
-          f"attention output over 1 bf16 ulp: {attn_ulp}")
+          f"{arch}: attention output over 1 bf16 ulp: {attn_ulp}")
     return out
 
 
@@ -1012,21 +1293,102 @@ def flash_bwd_phase(torch, cfg, kern, randn, record, design) -> dict:
     return worst
 
 
-def train_runs(torch, train, build, n_layers: int, modes=("auto", "torch"),
-               finite: bool = True) -> dict:
-    """``train.run`` on TRAIN_ARCH at full width cut to ``n_layers`` layers
-    (``TRAIN_KW``), once per kernel mode, the launch counts set to 0 just
-    before each run and read just after: seconds per edge round, tokens a
+def flash_model_timing(torch, kern, randn, record) -> None:
+    """The flash forward and backward at the shapes FLASH_TIMED names
+    (llama-vision's cross-attention, seamless's encoder; bf16, batch
+    SERVE_BATCH, non-causal, random data), each checked against its plain
+    version (the flash phases' bounds) and timed beside the plain version,
+    the bound and the library's ``scaled_dot_product_attention`` (no mask,
+    ``enable_gqa``; its backward through autograd).  The bounds count
+    4 Dh FLOPs a (query, key) pair forward and 10 Dh backward at the bf16
+    tensor-core peak."""
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_fwd_ref)
+    fwd, bwd = kern.flash_attention_fwd, kern.flash_attention_bwd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, ((sq, skv), dh, (h, hkv)) in FLASH_TIMED.items():
+        b = SERVE_BATCH
+        q = randn(b, sq, h, dh).to(torch.bfloat16)
+        k, v = (randn(b, skv, hkv, dh).to(torch.bfloat16) for _ in range(2))
+        do = randn(b, sq, h, dh).to(torch.bfloat16)
+        kw = dict(causal=False)
+        o, lse = fwd(q, k, v, lse=True, mode="cuda", **kw)
+        o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+        u = bf16_ulps(o, o_ref, FLASH_F32_ATOL)
+        check("flash_attention", u <= 1.0, f"{label} shape: {u} ulp")
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        shape = {"q": [b, sq, h, dh], "kv": [b, skv, hkv, dh],
+                 "dtype": "bfloat16", "causal": False, "window": None}
+        flops = 4.0 * dh * b * h * sq * skv
+        record(f"flash_attention[{label}]",
+               (o.float() - o_ref.float()).abs().max().item(),
+               2.0 ** (math.floor(math.log2(o_ref.float().abs().max()
+                                            .item())) - 7),
+               lambda: fwd(q, k, v, mode="cuda", **kw)[0],
+               timed_ms(torch, lambda: fwd(q, k, v, mode="torch", **kw),
+                        iters=5),
+               timed_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True),
+                        iters=5),
+               2.0 * (2 * b * sq * h * dh + 2 * b * skv * hkv * dh), flops,
+               {"shape": shape, "max_ulp_beyond_atol": u,
+                "tolerance": f"1 bf16 ulp beyond atol {FLASH_F32_ATOL}",
+                "flops": flops, "bound_flop_rate": BF16_TC_FLOP_PER_S,
+                "library_call": "scaled_dot_product_attention(enable_gqa="
+                                "True)"},
+               kernel="flash_attention", flop_rate=BF16_TC_FLOP_PER_S)
+        got = bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+        want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+        rel = max((g.float() - w.float()).abs().max().item()
+                  / max(w.float().abs().max().item(), 1e-30)
+                  for g, w in zip(got, want))
+        check("flash_attention_bwd", rel <= FLASH_BWD_REL["bfloat16"],
+              f"{label} shape: {rel}")
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        del got, want, o_ref, lse_ref
+        lib_out = sdpa(qt, kt, vt, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        flops = 10.0 * dh * b * h * sq * skv
+        record(f"flash_attention_bwd[{label}]", err,
+               FLASH_BWD_REL["bfloat16"],
+               lambda: bwd(q, k, v, o, lse, do, mode="cuda", **kw),
+               timed_ms(torch, lambda: flash_attention_bwd_ref(
+                   q, k, v, o, lse, do, **kw), iters=2, warmup=1),
+               timed_ms(torch, lambda: torch.autograd.grad(
+                   lib_out, (qt, kt, vt), dot, retain_graph=True),
+                   iters=5),
+               2.0 * (3 * b * sq * h * dh + 4 * b * skv * hkv * dh)
+               + 4.0 * b * h * sq, flops,
+               {"shape": shape, "max_rel_err": rel,
+                "tolerance": f"{FLASH_BWD_REL['bfloat16']} x max|grad|",
+                "flops": flops, "bound_flop_rate": BF16_TC_FLOP_PER_S,
+                "library_call": "autograd of scaled_dot_product_attention("
+                                "enable_gqa=True)"},
+               kernel="flash_attention_bwd", flop_rate=BF16_TC_FLOP_PER_S)
+        del q, k, v, do, o, lse, qt, kt, vt, lib_out
+
+
+def train_runs(torch, train, build, kern, n_layers: int,
+               modes=("auto", "torch"), finite: bool = True,
+               arch: str = TRAIN_ARCH, seq: int = TRAIN_KW["seq"]) -> dict:
+    """``train.run`` on ``arch`` at full width cut to ``n_layers`` layers
+    (``TRAIN_KW``, ``seq`` tokens a row), once per kernel mode, the launch
+    counts set to 0 just before each run and read just after, in all and
+    at each shape (``shape_launches``): seconds per edge round, tokens a
     second, peak memory, the losses, the clock and the blocks.  With the
-    kernels, every layer launches the flash forward twice a client step
+    kernels, every layer that attends (``flash_shapes`` of the cut config:
+    the encoder's too) launches the flash forward twice a client step
     (remat runs it again before its backward) and the backward's three
-    kernels once; the plain run launches nothing.  ``finite=False`` (the
-    24-layer run) does not require finite losses: the random weights'
-    gradients grow with depth (``train_grads_depth``; the reference's do
-    too, ``tests/test_torch_train.py``) and the paper's lr then throws the
-    model to inf and NaN after one step, with or without the kernels; that
-    line measures time and memory only."""
-    kw = dict(TRAIN_KW, n_layers=n_layers, device="cuda")
+    kernels once, at its own shape; the plain run launches nothing.
+    ``finite=False`` (the 24-layer run) does not require finite losses:
+    the random weights' gradients grow with depth (``train_grads_depth``;
+    the reference's do too, ``tests/test_torch_train.py``) and the paper's
+    lr then throws the model to inf and NaN after one step, with or
+    without the kernels; that line measures time and memory only."""
+    from repro_torch.configs import cut_depth, get_config
+    kw = dict(TRAIN_KW, n_layers=n_layers, device="cuda", seq=seq)
+    cfg = cut_depth(get_config(arch), n_layers)
     rounds = kw["steps"] * kw["k_edge"]
     tokens = rounds * kw["n_edges"] * kw["n_clients"] * kw["batch"] \
         * kw["seq"]
@@ -1036,15 +1398,16 @@ def train_runs(torch, train, build, n_layers: int, modes=("auto", "torch"),
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launch_counts()
-        res = train.run(TRAIN_ARCH, kernel_mode=mode, **kw)
+        with shape_launches(kern, build) as shapes:
+            res = train.run(arch, kernel_mode=mode, **kw)
         launches = dict(build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         losses_finite = bool(np.isfinite(res["losses"]).all())
         check("train", len(res["losses"]) == kw["steps"]
               and (losses_finite or not finite)
               and res["blocks"] == kw["steps"] and res["chain_valid"],
-              f"{mode}: {res}")
-        line = {"arch": TRAIN_ARCH, "kernel_mode": mode, "layers": n_layers,
+              f"{arch} {mode}: {res}")
+        line = {"arch": arch, "kernel_mode": mode, "layers": n_layers,
                 **{k: kw[k] for k in ("n_edges", "n_clients", "batch", "seq",
                                       "steps", "k_edge")},
                 "wall_s": res["wall"], "s_per_edge_round": res["wall"]
@@ -1054,26 +1417,37 @@ def train_runs(torch, train, build, n_layers: int, modes=("auto", "torch"),
                            for x in res["losses"]],
                 "losses_finite": losses_finite,
                 "sim_clock": [float(x) for x in res["sim_clock"]],
-                "blocks": res["blocks"], "launches": launches}
+                "blocks": res["blocks"], "launches": launches,
+                "launches_by_shape": [[*k, n] for k, n in shapes.items()]}
         emit({"train": line})
-        out[mode] = (res, launches, line)
+        out[mode] = (res, launches, line, shapes)
         if mode == "auto":
-            want = {"flash_attention": 2 * n_layers * steps,
-                    "flash_attention_bwd": 3 * n_layers * steps}
-            check("launches", {k: launches.get(k, 0) for k in want} == want,
-                  f"train auto: {launches}, expected {want}")
+            by_shape = collections.Counter()
+            for name, per in (("flash_attention", 2),
+                              ("flash_attention_bwd", 3)):
+                for key, n in flash_shapes(cfg, kw["batch"], seq,
+                                           name).items():
+                    by_shape[key] = per * n * steps
+            want = {name: sum(n for k, n in by_shape.items()
+                              if k[0] == name)
+                    for name in ("flash_attention", "flash_attention_bwd")}
+            check("launches", {k: launches.get(k, 0) for k in want} == want
+                  and shapes == by_shape,
+                  f"train {arch} auto: {launches}, by shape {shapes}, "
+                  f"expected {by_shape}")
         else:
             check("launches", not launches,
-                  f"train {mode} launched {launches}")
+                  f"train {arch} {mode} launched {launches}")
     return out
 
 
-def train_parity(torch, train, runs) -> dict:
+def train_parity(torch, train, runs, arch: str = TRAIN_ARCH) -> dict:
     """The full-width kernel run against the plain run (first reported loss
-    within TRAIN_LOSS_REL, clock and blocks equal), and danube-smoke on the
-    card (float32, head dim 32; T = 3, K = 2) with the kernels against
-    plain: clock and blocks equal, the first round's loss within the
-    engine-parity bound, every round's within SMOKE_CHAOS_REL."""
+    within TRAIN_LOSS_REL, clock and blocks equal), and for TRAIN_ARCH
+    danube-smoke on the card (float32, head dim 32; T = 3, K = 2) with the
+    kernels against plain: clock and blocks equal, the first round's loss
+    within the engine-parity bound, every round's within
+    SMOKE_CHAOS_REL."""
     a, p = runs["auto"][0], runs["torch"][0]
     full = {
         "first_loss_rel": abs(a["losses"][0] - p["losses"][0])
@@ -1082,6 +1456,13 @@ def train_parity(torch, train, runs) -> dict:
                        zip(a["losses"], p["losses"])],
         "clock_equal": bool(np.array_equal(a["sim_clock"], p["sim_clock"])),
         "blocks_equal": a["blocks"] == p["blocks"]}
+    tol = {"full_first_loss_rel": TRAIN_LOSS_REL}
+    check("train_parity", full["first_loss_rel"] <= TRAIN_LOSS_REL
+          and full["clock_equal"] and full["blocks_equal"], f"{arch}: {full}")
+    if arch != TRAIN_ARCH:
+        out = {"arch": arch, "full_width": full, "tolerances": tol}
+        emit({"train_parity": out})
+        return out
     smoke = {m: train.run(TRAIN_ARCH, smoke=True, steps=3, k_edge=2,
                           device="cuda", kernel_mode=m, progress=False)
              for m in ("auto", "torch")}
@@ -1095,46 +1476,145 @@ def train_parity(torch, train, runs) -> dict:
         "clock_equal": bool(np.array_equal(smoke["auto"]["sim_clock"],
                                            smoke["torch"]["sim_clock"])),
         "blocks_equal": smoke["auto"]["blocks"] == smoke["torch"]["blocks"]}
-    out = {"full_width": full, "smoke": small,
-           "tolerances": {"full_first_loss_rel": TRAIN_LOSS_REL,
-                          "smoke_first_round": SMOKE_LOSS_TOL,
+    out = {"arch": arch, "full_width": full, "smoke": small,
+           "tolerances": {**tol, "smoke_first_round": SMOKE_LOSS_TOL,
                           "smoke_rounds_rel": SMOKE_CHAOS_REL}}
     emit({"train_parity": out})
-    check("train_parity", full["first_loss_rel"] <= TRAIN_LOSS_REL
-          and full["clock_equal"] and full["blocks_equal"], f"{full}")
     check("train_parity", small["first_round_within"]
           and small["rounds_within"] and small["clock_equal"]
           and small["blocks_equal"], f"{small}")
     return out
 
 
-def grad_inputs(torch, n_layers: int, dtype: str, seed: int = 1):
-    """TRAIN_ARCH at full width cut to ``n_layers`` layers: its config in
-    ``dtype``, the weights ``train.run`` draws (seed 0), flattened, and one
-    client's batch of 2 x 8192 tokens and labels (``lm_tokens`` from
-    ``seed``), on the card."""
-    from repro_torch.configs import get_config
+def xattn_step_parity(torch, kern, arch: str = XATTN_TRAIN_ARCH,
+                      n_layers: int = XATTN_TRAIN_LAYERS,
+                      seq: int = XATTN_TRAIN_SEQ) -> dict:
+    """The enc-dec train step where the ``train`` line cannot see it: that
+    line feeds zero memory under zero gates, as the reference's driver
+    does, so ``encode(0) = 0``, every cross-attention output is multiplied
+    by ``tanh(0) = 0``, the gates' gradients are 0 and the encoder and
+    cross layers get ``do = 0``.
+
+    One ``make_hfl_train_step`` step of ``arch`` at full width cut to
+    ``n_layers`` decoder and as many encoder layers, in float32, one edge
+    of one client of TRAIN_KW's rows x ``seq`` tokens, with N(0, 1) memory
+    (XATTN_MEMORY_SEED) in its batch and every ``xattn_gate`` at
+    XATTN_GATE, the lr of ``train.run``'s first step, with the kernels and
+    with the plain versions.  Checked: the step's loss within
+    XATTN_LOSS_REL, the plain step with its non-causal forward broken
+    (XATTN_FWD_FAULTS) above it, and every gate moved in both runs.  Read:
+    per leaf of the encoder and of the cross-attention layers, the leaf's
+    change over the step (the aggregated model minus the initial weights),
+    max |auto - torch| over that leaf's largest plain change, beside the
+    same reading for the plain step with a few-ulp perturbation of its
+    forward (``o_noise``: the reading's resolution).  The backward of those
+    layers is held call by call in ``train_grads_bf16``."""
+    from repro_torch.configs import cut_depth, get_config
     from repro_torch.data import lm_tokens
     from repro_torch.launch.serve import make_params
+    from repro_torch.launch.steps import (flatten, init_fl_histories,
+                                          make_hfl_train_step, unflatten)
+    from repro_torch.optim import paper_lr
+    cfg = dataclasses.replace(cut_depth(get_config(arch), n_layers),
+                              param_dtype="float32")
+    dev, rows = torch.device("cuda"), TRAIN_KW["batch"]
+    tree = make_params(cfg, 0, dev)
+    set_gates(tree)
+    base = flatten(tree)
+    del tree
+    toks = torch.as_tensor(lm_tokens(rows, seq + 1, cfg.vocab, seed=1),
+                           device=dev).long()[None, None]
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
+             "memory": xattn_memory(torch, cfg, (1, 1, rows))}
+    cross = tuple(f"unit/{i}/" for i, kind in enumerate(cfg.block_pattern)
+                  if kind == "xattn")
+    watched = [k for k in base if k.startswith(("encoder/",) + cross)]
+    gates = [k for k in watched if k.endswith("xattn_gate")]
+    ones = torch.ones((1, 1), dtype=torch.bool, device=dev)
+    lr = float(paper_lr(0, 1e-2, 0.3))
+
+    def step(mode):
+        params = unflatten({k: v[None, None].clone()
+                            for k, v in base.items()})
+        dev_hist, glob_hist = init_fl_histories(params)
+        params, _, _, loss = make_hfl_train_step(cfg, kernel_mode=mode)(
+            params, dev_hist, glob_hist, batch, ones, ones[:, 0], lr)
+        flat = flatten(params)
+        return loss.item(), {k: flat[k][0, 0] - base[k] for k in watched}
+
+    def per_leaf(got, want):
+        return {k: ((got[k] - want[k]).abs().max()
+                    / want[k].abs().max().clamp(min=1e-30)).item()
+                for k in want}
+
+    plain = step("torch")
+    auto = step("auto")
+    noise = faulty(kern, "o_noise", lambda: step("torch"))
+    broken = faulty(kern, "noncausal_fwd_0.9", lambda: step("torch"),
+                    XATTN_FWD_FAULTS)[0]
+    out = {"arch": arch, "layers": n_layers, "encoder_layers": n_layers,
+           "dtype": "float32", "tokens": [rows, seq],
+           "memory": {"shape": list(batch["memory"].shape),
+                      "seed": XATTN_MEMORY_SEED, "xattn_gate": XATTN_GATE},
+           "lr": lr, "loss": {"auto": auto[0], "torch": plain[0]},
+           "loss_rel": abs(auto[0] - plain[0]) / abs(plain[0]),
+           "loss_rel_noncausal_fwd_0.9": abs(broken - plain[0])
+           / abs(plain[0]),
+           "loss_rel_o_noise": abs(noise[0] - plain[0]) / abs(plain[0]),
+           "gate_change": {k: {"auto": auto[1][k].flatten().tolist(),
+                               "torch": plain[1][k].flatten().tolist()}
+                           for k in gates},
+           "leaf_change_rel": {"auto": per_leaf(auto[1], plain[1]),
+                               "o_noise": per_leaf(noise[1], plain[1])},
+           "tolerance": XATTN_LOSS_REL}
+    emit({"xattn_step_parity": out})
+    check("xattn_step_parity", out["loss_rel"] <= XATTN_LOSS_REL,
+          f"loss {out['loss']}: {out['loss_rel']}")
+    check("xattn_step_parity", out["loss_rel_noncausal_fwd_0.9"]
+          > XATTN_LOSS_REL, "a broken encoder and cross-attention forward "
+          f"reads within the bound: {out['loss_rel_noncausal_fwd_0.9']}")
+    check("xattn_step_parity", all(v != 0 for leaf in
+                                   out["gate_change"].values()
+                                   for mode in leaf.values() for v in mode),
+          f"a gate did not move: {out['gate_change']}")
+    return out
+
+
+def grad_inputs(torch, n_layers: int, dtype: str, seed: int = 1,
+                arch: str = TRAIN_ARCH, rows: int = 2,
+                seq: int = TRAIN_KW["seq"]):
+    """``arch`` at full width cut to ``n_layers`` layers (``cut_depth``):
+    its config in ``dtype``, the weights ``train.run`` draws (seed 0),
+    flattened, one client's batch of ``rows`` x ``seq`` tokens and labels
+    (``lm_tokens`` from ``seed``), and for a model with cross-attention
+    N(0, 1) memory (XATTN_MEMORY_SEED) in ``dtype`` with every
+    ``xattn_gate`` at XATTN_GATE (else None), on the card."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.data import lm_tokens
+    from repro_torch.launch.inputs import memory_shape
+    from repro_torch.launch.serve import make_params
     from repro_torch.launch.steps import flatten
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=n_layers,
+    cfg = dataclasses.replace(cut_depth(get_config(arch), n_layers),
                               param_dtype=dtype)
     dev = torch.device("cuda")
-    params = flatten(make_params(cfg, 0, dev))
-    rows = torch.as_tensor(lm_tokens(2, TRAIN_KW["seq"] + 1, cfg.vocab,
-                                     seed=seed), device=dev).long()
-    return cfg, params, rows[:, :-1], rows[:, 1:]
+    tree, mem = make_params(cfg, 0, dev), None
+    if memory_shape(cfg) is not None:
+        set_gates(tree)
+        mem = xattn_memory(torch, cfg, (rows,))
+    toks = torch.as_tensor(lm_tokens(rows, seq + 1, cfg.vocab, seed=seed),
+                           device=dev).long()
+    return cfg, flatten(tree), toks[:, :-1], toks[:, 1:], mem
 
 
-def client_grads(torch, cfg, params, tok, lab, mode):
-    """One client's ``loss_fn`` gradients (remat on) in ``mode``: the
-    gradient per leaf, and the loss, the largest |gradient| and its leaf,
-    whether every gradient is finite."""
+def client_grads(torch, cfg, params, tok, lab, mem, mode):
+    """One client's ``loss_fn`` gradients (remat on, ``mem`` the raw
+    memory or None) in ``mode``: the gradient per leaf, and the loss, the
+    largest |gradient| and its leaf, whether every gradient is finite."""
     from repro_torch.launch.steps import unflatten
     from repro_torch.models import loss_fn
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-    loss = loss_fn(unflatten(leaves), tok, lab, cfg, remat=True,
-                   kernel_mode=mode)
+    loss = loss_fn(unflatten(leaves), tok, lab, cfg, memory_embeds=mem,
+                   remat=True, kernel_mode=mode)
     g = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     top = max(g, key=lambda k: g[k].float().abs().max().item())
     return g, {"loss": loss.item(), "leaf": top,
@@ -1153,10 +1633,10 @@ def worst_leaf(got, want):
     return errs[worst], worst
 
 
-def faulty(kern, name, fn):
-    """``fn()`` with the attention wrapper that FAULTS[name] names replaced
-    by its broken or perturbed version."""
-    attr, broken = FAULTS[name]
+def faulty(kern, name, fn, faults=None):
+    """``fn()`` with the attention wrapper that ``faults[name]`` (default
+    FAULTS) names replaced by its broken or perturbed version."""
+    attr, broken = (faults or FAULTS)[name]
     sound = getattr(kern, attr)
     setattr(kern, attr, functools.partial(broken, sound))
     try:
@@ -1189,21 +1669,27 @@ def train_grads(torch, kern, n_layers: int, dtype: str, seed: int = 1,
     return out
 
 
-def train_grads_bf16(torch, kern, n_layers: int, seed: int = 1) -> dict:
+def train_grads_bf16(torch, build, kern, n_layers: int, seed: int = 1,
+                     arch: str = TRAIN_ARCH, rows: int = 2,
+                     seq: int = TRAIN_KW["seq"]) -> dict:
     """The bfloat16 train path's gradients, checked where the whole-model
     reading cannot be (its sound reading equals a dropped dq's).
 
     Per layer: one client's bfloat16 ``loss_fn`` gradient with the kernels
-    (``grad_inputs``), every call of ``flash_attention_bwd`` recorded on
-    the model's own activations (q, k, v, o, lse, do; the attribute swap
-    FAULTS uses), then each call's kernel backward held against the plain
-    backward fed the plain forward's (o, lse) on the same q, k, v, do
+    (``grad_inputs`` of ``arch`` at ``n_layers`` layers, ``rows`` x
+    ``seq`` tokens; a cross-attention model's random memory and gates),
+    every call of ``flash_attention_bwd`` recorded on the model's own
+    activations (q, k, v, o, lse, do; the attribute swap FAULTS uses): one
+    a layer that attends (``flash_layers``: causal self-attention,
+    non-causal encoder and cross-attention), their launches counted;
+    then each call's kernel backward held against the plain backward fed
+    the plain forward's (o, lse) on the same q, k, v, do
     (``flash_bwd_phase``'s rule), to FLASH_BWD_REL["bfloat16"] of each
     gradient's largest magnitude; FLASH_BWD_FAULTS applied to the kernel's
     gradients must read above it on every layer.
 
-    Against float32: the kernel's and the plain version's bfloat16
-    gradients, each against the plain float32 gradient on the same
+    For TRAIN_ARCH, against float32: the kernel's and the plain version's
+    bfloat16 gradients, each against the plain float32 gradient on the same
     bf16-rounded weights and tokens (the worst leaf, as ``train_grads``
     reads it), their ratio, and every control of FAULTS rerun on the plain
     bfloat16 path.  Checked (the ratio within TRAIN_GRAD_ANCHOR_FACTOR) only
@@ -1211,7 +1697,8 @@ def train_grads_bf16(torch, kern, n_layers: int, seed: int = 1) -> dict:
     above both sound readings; read otherwise."""
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_fwd_ref)
-    cfg, params, tok, lab = grad_inputs(torch, n_layers, "bfloat16", seed)
+    cfg, params, tok, lab, mem = grad_inputs(torch, n_layers, "bfloat16",
+                                             seed, arch, rows, seq)
     calls, sound = [], kern.flash_attention_bwd
 
     def recorded(*a, **k):
@@ -1219,12 +1706,15 @@ def train_grads_bf16(torch, kern, n_layers: int, seed: int = 1) -> dict:
         return sound(*a, **k)
 
     kern.flash_attention_bwd = recorded
+    build.reset_launch_counts()
     try:
-        auto = client_grads(torch, cfg, params, tok, lab, "auto")
+        auto = client_grads(torch, cfg, params, tok, lab, mem, "auto")
     finally:
         kern.flash_attention_bwd = sound
-    check("train_grads_bf16", len(calls) == n_layers,
-          f"{len(calls)} backward calls for {n_layers} layers")
+    launches = dict(build.LAUNCHES)
+    check("train_grads_bf16", len(calls) == flash_layers(cfg),
+          f"{arch}: {len(calls)} backward calls for {flash_layers(cfg)} "
+          "layers that attend")
 
     def rel(got, want):
         return max((g.float() - w.float()).abs().max().item()
@@ -1237,7 +1727,8 @@ def train_grads_bf16(torch, kern, n_layers: int, seed: int = 1) -> dict:
         got = sound(q, k, v, o, lse, do, mode="cuda", **kw)
         o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
         want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
-        layer = {"rel": rel(got, want),
+        layer = {"rel": rel(got, want), "causal": kw["causal"],
+                 "shape": {"q": list(q.shape), "kv": list(k.shape)},
                  "max_abs_grad": [w.float().abs().max().item()
                                   for w in want]}
         for name in FLASH_BWD_FAULTS:
@@ -1245,20 +1736,24 @@ def train_grads_bf16(torch, kern, n_layers: int, seed: int = 1) -> dict:
         layers.append(layer)
         del got, want, o_ref, lse_ref
     del calls
-    out = {"layers": n_layers, "seed": seed, "tolerance": bound,
+    out = {"arch": arch, "layers": n_layers, "tokens": [rows, seq],
+           "seed": seed, "tolerance": bound, "launches": launches,
            "per_layer": layers}
     check("train_grads_bf16", all(x["rel"] <= bound for x in layers),
-          f"kernel backward against plain per layer: {layers}")
+          f"{arch}: kernel backward against plain per layer: {layers}")
     check("train_grads_bf16", all(x[f] > bound for x in layers
                                   for f in FLASH_BWD_FAULTS),
-          f"a broken backward reads within the bound: {layers}")
+          f"{arch}: a broken backward reads within the bound: {layers}")
+    if arch != TRAIN_ARCH:
+        emit({"train_grads_bf16": out})
+        return out
 
-    plain = client_grads(torch, cfg, params, tok, lab, "torch")
+    plain = client_grads(torch, cfg, params, tok, lab, mem, "torch")
     out["auto"], out["torch"] = auto[1], plain[1]
     out["rel_auto_torch"] = worst_leaf(auto[0], plain[0])[0]
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     ref32 = client_grads(torch, cfg32, {k: v.float() for k, v in
-                                        params.items()}, tok, lab,
+                                        params.items()}, tok, lab, mem,
                          "torch")[0]
     anchor = {"auto": worst_leaf(auto[0], ref32),
               "torch": worst_leaf(plain[0], ref32)}
@@ -1266,7 +1761,7 @@ def train_grads_bf16(torch, kern, n_layers: int, seed: int = 1) -> dict:
     for name in FAULTS:
         anchor[f"fault_{name}"] = worst_leaf(faulty(
             kern, name, lambda: client_grads(torch, cfg, params, tok, lab,
-                                             "torch"))[0], ref32)
+                                             mem, "torch"))[0], ref32)
     sound_max = max(anchor["auto"][0], anchor["torch"][0])
     separated = all(anchor[f"fault_{f}"][0]
                     >= TRAIN_GRAD_ANCHOR_FACTOR * sound_max
@@ -1299,6 +1794,16 @@ def _o_noise(fwd, *a, **k):
 #: Faults of the backward: dq dropped, dk and dv dropped, all three scaled
 #: by 0.9 or 0.99; ``o_noise`` perturbs the forward's output by a few
 #: float32 ulps, what rounding alone can do
+def _noncausal_scaled(fwd, *a, **k):
+    """The forward's output times 0.9 on a non-causal call (an encoder or
+    cross-attention layer), as it is on a causal one."""
+    o, lse = fwd(*a, **k)
+    return (o if k.get("causal", True) else o * 0.9), lse
+
+
+#: the forward broken on the enc-dec path alone (``xattn_step_parity``)
+XATTN_FWD_FAULTS = {"noncausal_fwd_0.9": ("flash_attention_fwd",
+                                          _noncausal_scaled)}
 FAULTS = {
     "dq_dropped": ("flash_attention_bwd", lambda bwd, *a, **k: (
         lambda g: (g[0] * 0, g[1], g[2]))(bwd(*a, **k))),
@@ -2377,6 +2882,7 @@ def main() -> int:
     flash_bwd_phase(torch, serve_cfg, flash_kernels, randn, record,
                     flash_bwd_design(torch, flash_kernels, randn,
                                      build.compile_library()))
+    flash_model_timing(torch, flash_kernels, randn, record)
 
     # ----------------------------------------------------------- the runs
     # every configuration with the kernels and with the plain versions; the
@@ -2491,14 +2997,19 @@ def main() -> int:
                  runs["hieavg", "auto"][0])
 
     # --------------------------------------------------- the serving path
-    served = serve_runs(torch, serve, build, serve_cfg.n_layers)
+    served = serve_runs(torch, serve, build, flash_kernels)
     serve_parity(torch, serve, served)
+    xserved = {}
+    for arch, prompt in XATTN_SERVE.items():
+        xserved[arch] = serve_runs(torch, serve, build, flash_kernels, arch,
+                                   prompt)
+        serve_parity(torch, serve, xserved[arch], arch, prompt)
 
     # ----------------------------------------------- the training path
     # a short run first takes the first-call costs
     train.run(TRAIN_ARCH, **dict(TRAIN_KW, n_layers=1, steps=1, k_edge=1,
                                  seq=1024), device="cuda")
-    trained = train_runs(torch, train, build, TRAIN_LAYERS)
+    trained = train_runs(torch, train, build, flash_kernels, TRAIN_LAYERS)
     train_parity(torch, train, trained)
     sound = [train_grads(torch, flash_kernels, TRAIN_LAYERS, "float32", seed,
                          tuple(FAULTS) if seed == 1 else ())
@@ -2509,7 +3020,15 @@ def main() -> int:
     check("train_grads", all(sound[0][f"fault_{f}"] > TRAIN_GRAD_REL
                              for f in TRAIN_GRAD_FAULTS),
           f"a broken attention backward reads within the bound: {sound[0]}")
-    train_grads_bf16(torch, flash_kernels, TRAIN_LAYERS)
+    train_grads_bf16(torch, build, flash_kernels, TRAIN_LAYERS)
+    xtrained = train_runs(torch, train, build, flash_kernels,
+                          XATTN_TRAIN_LAYERS, arch=XATTN_TRAIN_ARCH,
+                          seq=XATTN_TRAIN_SEQ)
+    train_parity(torch, train, xtrained, XATTN_TRAIN_ARCH)
+    xattn_step_parity(torch, flash_kernels)
+    for arch, n, rows, seq in XATTN_GRADS:
+        train_grads_bf16(torch, build, flash_kernels, n, arch=arch,
+                         rows=rows, seq=seq)
 
     if "--profile" in sys.argv[1:]:
         emit({"profile": profile_run(torch, lambda: BHFLSimulator(
@@ -2524,13 +3043,18 @@ def main() -> int:
             torch, lambda: train.run(
                 TRAIN_ARCH, **dict(TRAIN_KW, n_layers=TRAIN_LAYERS, steps=1,
                                    k_edge=1), device="cuda"))}})
-        for label, gen in (("prefill", 1), ("decode", SERVE_GEN)):
-            # gen 1 is the prefill alone; the decode's share is the rest
-            emit({"profile_serve": {"part": label, **profile_run(
-                torch, lambda: serve.run(
-                    SERVE_ARCH, smoke=False, batch=SERVE_BATCH,
-                    prompt_len=SERVE_PROMPT, gen=gen, device="cuda",
-                    progress=False))}})
+        for arch, prompt in ((SERVE_ARCH, SERVE_PROMPT),
+                             *XATTN_SERVE.items()):
+            for label, gen in (("prefill", 1), ("decode", SERVE_GEN)):
+                # gen 1 is the prefill alone; the decode's share is the
+                # rest
+                emit({"profile_serve": {"arch": arch, "part": label,
+                                        **profile_run(torch, lambda: serve.run(
+                                            arch, smoke=False,
+                                            batch=SERVE_BATCH,
+                                            prompt_len=prompt, gen=gen,
+                                            device="cuda",
+                                            progress=False))}})
     if "--full" in sys.argv[1:]:
         for label in ("hieavg", "fedavg", "delayed_grad"):
             emit({"full_run": full_runs(torch, BHFLSimulator, DEFAULT,
@@ -2550,7 +3074,8 @@ def main() -> int:
             "decode_tokens_per_s": SERVE_GEN / res["t_decode"],
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}})
         emit({"train_full": train_runs(
-            torch, train, build, get_config(TRAIN_ARCH).n_layers,
+            torch, train, build, flash_kernels,
+            get_config(TRAIN_ARCH).n_layers,
             modes=("auto",), finite=False)["auto"][2]})
         for n in (12, get_config(TRAIN_ARCH).n_layers):
             emit({"train_grads_depth": train_grads(torch, flash_kernels, n,
@@ -2561,6 +3086,9 @@ def main() -> int:
     launches["flash_attention"] = served["auto"][1].get("flash_attention", 0)
     launches["flash_attention_bwd"] = trained["auto"][1].get(
         "flash_attention_bwd", 0)
+    for (name, label), run in FLASH_TIMED_RUNS.items():
+        shapes = (xtrained if run == "train" else xserved[run])["auto"][-1]
+        launches[f"{name}[{label}]"] = shapes[timed_key(name, label)]
     launches["sgd_update[rows]"] = sweep_launches.get("sgd_update[rows]", 0)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE[k],

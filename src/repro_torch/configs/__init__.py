@@ -2,13 +2,15 @@
 architecture registry (``get_config(arch_id)`` / ``get_smoke(arch_id)``,
 as ``repro.configs``).
 
-The registry knows all ten architecture ids of the reference.  Only the
-dense ones run in the port so far (the ``"attn"`` layer kind); the others
-raise ``NotImplementedError`` until their layer kinds are ported
-(``ROADMAP.md``, Queue 1).
+The registry knows all ten architecture ids of the reference.  The port
+runs the dense ones (the ``"attn"`` layer kind), the VLM and the
+encoder-decoder (``"xattn"`` and ``"enc_attn"``); the others raise
+``NotImplementedError`` until their layer kinds are ported (``ROADMAP.md``,
+Queue 1).
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from .bhfl_cnn import DEFAULT, REDUCED, BHFLSetting
@@ -18,15 +20,15 @@ _MODULES = {
     "deepseek-7b": "deepseek_7b",
     "qwen3-14b": "qwen3_14b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 #: the reference's other architectures, and the layer kinds they wait for
 _NOT_PORTED = {
-    "seamless-m4t-large-v2": "the encoder stack and cross-attention",
     "minicpm3-4b": "mla",
     "deepseek-v2-lite-16b": "mla and moe",
     "grok-1-314b": "moe",
     "recurrentgemma-9b": "rglru",
-    "llama-3.2-vision-11b": "cross-attention (xattn)",
     "mamba2-130m": "ssd",
 }
 
@@ -56,5 +58,12 @@ def get_smoke(arch_id: str):
     return _mod(arch_id).make_smoke()
 
 
-__all__ = ["ARCH_IDS", "BHFLSetting", "DEFAULT", "REDUCED", "get_config",
-           "get_smoke"]
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` cut to ``n_layers`` decoder layers and, for a config with an
+    encoder, as many encoder layers: one knob for both stacks."""
+    enc = cfg.encoder and dataclasses.replace(cfg.encoder, n_layers=n_layers)
+    return dataclasses.replace(cfg, n_layers=n_layers, encoder=enc)
+
+
+__all__ = ["ARCH_IDS", "BHFLSetting", "DEFAULT", "REDUCED", "cut_depth",
+           "get_config", "get_smoke"]

@@ -1,6 +1,6 @@
 """Batched serving driver: prefill a prompt batch, decode N tokens.
 
-Port of ``repro.launch.serve`` for the dense LLM zoo, on one GPU:
+Port of ``repro.launch.serve`` for the LLM zoo, on one GPU:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --batch 4 --prompt-len 32 --gen 16 [--no-smoke] [--device cpu]
@@ -9,7 +9,13 @@ The weights are random, drawn from ``seed`` on the device they run on, in
 the config's own ``param_dtype`` (bfloat16 at full width; the reference's
 ``run`` leaves them float32, which its bfloat16 embedding then rejects).
 The KV caches are float32 at smoke width and bfloat16 at full width, as
-the reference makes them.
+the reference makes them.  A model with cross-attention reads zero memory
+of the stubbed frontend's shape (``inputs.memory_shape``) in the
+parameters' dtype, as the reference's driver feeds it.  The encoder runs
+once, inside the timed prefill, and every decode step reads its output;
+the reference's driver hands its decode steps the raw embeddings instead,
+against ``decode_step``'s own contract (``ROADMAP.md``, "Faults of the
+reference").
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 from repro_torch.data import lm_tokens
 from repro_torch.fl.simulator import resolve_device
 from repro_torch.kernels.build import KERNEL_MODES
+from repro_torch.launch.inputs import memory_shape
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.models import cache_specs, init_from_specs, param_specs
+from repro_torch.models import (cache_specs, encode, init_from_specs,
+                                param_specs)
 
 
 def _sync(dev: torch.device) -> None:
@@ -61,8 +69,9 @@ def run(arch: str, *, smoke: bool = True, batch: int = 4,
 
     Returns ``tokens`` [batch, gen] int32, ``logits`` [batch, gen, vocab]
     float32 (the logits each token was picked from: the prefill's last
-    position, then each decode step's), and ``t_prefill`` / ``t_decode``
-    in seconds, each ended by a device synchronize.
+    position, then each decode step's), and ``t_prefill`` (the encoder's
+    run included) / ``t_decode`` in seconds, each ended by a device
+    synchronize.
     """
     dev = resolve_device(device)
     if kernel_mode not in KERNEL_MODES:
@@ -76,6 +85,9 @@ def run(arch: str, *, smoke: bool = True, batch: int = 4,
     caches = make_caches(cfg, batch, max_len, dev, smoke=smoke)
     prompts = torch.as_tensor(lm_tokens(batch, prompt_len, cfg.vocab,
                                         seed=seed), device=dev).long()
+    ms = memory_shape(cfg)
+    raw = (torch.zeros((batch,) + ms, dtype=cfg.torch_param_dtype,
+                       device=dev) if ms is not None else None)
     sampler = torch.Generator(device=dev)
     sampler.manual_seed(seed + 2)
 
@@ -90,14 +102,15 @@ def run(arch: str, *, smoke: bool = True, batch: int = 4,
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = prefill(params, prompts, caches)
+    memory = encode(params, raw, cfg, kernel_mode=kernel_mode)
+    logits, caches = prefill(params, prompts, caches, memory=memory)
     seen, toks = [logits], [pick(logits)]
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     t0 = time.perf_counter()
     for i in range(gen - 1):
         logits, caches = decode(params, toks[-1][:, None], prompt_len + i,
-                                caches)
+                                caches, memory)
         seen.append(logits)
         toks.append(pick(logits))
     out = torch.stack(toks, dim=1)

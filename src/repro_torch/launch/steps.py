@@ -17,7 +17,8 @@ Layout A (train): every parameter leaf is ``[E, C, *shape]``: E edges
      global step, each edge's model into its clients' slots).
 
 The port updates the parameters and both histories in place, and walks
-the aggregation one piece at a time (each unit of a stacked leaf apart):
+the aggregation one piece at a time (each unit of a stacked leaf apart,
+and each layer of the encoder's):
 the math is elementwise, so the result is the reference's, and the float32
 temporaries stay one piece large.  Histories are ``core.hieavg.History``
 with flat leaves keyed by the parameter's path (``"unit/0/ffn/gate"``).
@@ -60,13 +61,17 @@ def unflatten(flat: dict) -> dict:
     return out
 
 
+#: the stacked leaves' prefixes: the decoder's units, the encoder's layers
+STACKED = ("unit/", "encoder/unit/")
+
+
 def _pieces(flat: dict, lead: int) -> list:
-    """(key, index) pieces of ``[*lead axes, ...]`` leaves: a stacked unit
-    leaf (``unit/...``, its unit axis after the lead axes) one unit at a
-    time, any other leaf whole."""
+    """(key, index) pieces of ``[*lead axes, ...]`` leaves: a stacked leaf
+    (``STACKED``, its unit axis after the lead axes) one unit at a time,
+    any other leaf whole."""
     out = []
     for k, v in flat.items():
-        if k.startswith("unit/"):
+        if k.startswith(STACKED):
             out += [(k, (slice(None),) * lead + (u,))
                     for u in range(v.shape[lead])]
         else:
@@ -75,29 +80,31 @@ def _pieces(flat: dict, lead: int) -> list:
 
 
 def _client_grads(slot: dict, tokens, labels, cfg: ArchConfig, *,
-                  remat: bool, n_micro: int, kernel_mode: str):
-    """(loss, flat gradients) of one client's ``[b, S]`` batch against its
-    parameter slot (detached leaves).  ``n_micro`` > 1: the mean over
-    microbatches of ``b // n_micro`` rows, accumulated in float32."""
+                  memory=None, remat: bool, n_micro: int, kernel_mode: str):
+    """(loss, flat gradients) of one client's ``[b, S]`` batch (and its raw
+    memory ``[b, *memory shape]``, or None) against its parameter slot
+    (detached leaves).  ``n_micro`` > 1: the mean over microbatches of
+    ``b // n_micro`` rows, accumulated in float32."""
     leaves = {k: v.detach().requires_grad_() for k, v in
               flatten(slot).items()}
     tree = unflatten(leaves)
 
-    def one(tk, lb):
-        loss = loss_fn(tree, tk, lb, cfg, remat=remat,
+    def one(rows):
+        mem = None if memory is None else memory[rows]
+        loss = loss_fn(tree, tokens[rows], labels[rows], cfg,
+                       memory_embeds=mem, remat=remat,
                        kernel_mode=kernel_mode)
         return loss, torch.autograd.grad(loss, list(leaves.values()))
 
     if n_micro == 1:
-        loss, grads = one(tokens, labels)
+        loss, grads = one(slice(None))
         return loss.detach(), dict(zip(leaves, grads))
     mb = tokens.shape[0] // n_micro
     loss_acc = torch.zeros((), dtype=f32, device=tokens.device)
     acc = {k: torch.zeros(v.shape, dtype=f32, device=v.device)
            for k, v in leaves.items()}
     for i in range(n_micro):
-        loss, grads = one(tokens[i * mb:(i + 1) * mb],
-                          labels[i * mb:(i + 1) * mb])
+        loss, grads = one(slice(i * mb, (i + 1) * mb))
         loss_acc = loss_acc + loss.detach()
         for k, g in zip(leaves, grads):
             acc[k] += g
@@ -140,8 +147,10 @@ def make_hfl_train_step(cfg: ArchConfig, *, gamma0: float = 0.9,
     edge device histories, counts [E, C]), ``glob_hist`` leaves [E, ...]
     (the edge models' history at the leader, float32, counts [E]), both
     from ``init_fl_histories``.  ``batch``: dict(tokens [E, C, b, S],
-    labels [E, C, b, S]).  ``dev_mask`` [E, C] bool; ``edge_mask`` [E]
-    bool; ``lr`` float32 (the paper's decayed eta^{t,k}).  ``n_micro`` > 1
+    labels [E, C, b, S], and for a model with cross-attention memory
+    [E, C, b, *memory shape], the raw embeddings).  ``dev_mask`` [E, C]
+    bool; ``edge_mask`` [E] bool; ``lr`` float32 (the paper's decayed
+    eta^{t,k}).  ``n_micro`` > 1
     splits each client's batch into microbatches with gradient
     accumulation (a mean): the same SGD math, 1/n_micro the activations.
     The parameters and histories are updated in place and returned;
@@ -151,6 +160,7 @@ def make_hfl_train_step(cfg: ArchConfig, *, gamma0: float = 0.9,
 
     def step(params, dev_hist, glob_hist, batch, dev_mask, edge_mask, lr):
         tokens, labels = batch["tokens"], batch["labels"]
+        memory = batch.get("memory")
         e_n, c_n = dev_mask.shape
         if tokens.shape[2] % n_micro:
             raise ValueError(f"batch {tokens.shape[2]} not a multiple of "
@@ -164,6 +174,7 @@ def make_hfl_train_step(cfg: ArchConfig, *, gamma0: float = 0.9,
                 slot = {k: v[e, c] for k, v in flat.items()}
                 loss, grads = _client_grads(
                     unflatten(slot), tokens[e, c], labels[e, c], cfg,
+                    memory=None if memory is None else memory[e, c],
                     remat=remat, n_micro=n_micro, kernel_mode=kernel_mode)
                 losses.append(loss)
                 for k, w in slot.items():
@@ -217,13 +228,14 @@ def init_fl_histories(params: dict) -> tuple[History, History]:
 def make_train_step(cfg: ArchConfig, remat: bool = True,
                     kernel_mode: str = "auto"):
     """Plain (non-FL) train step for Layout B params, the W/O-stragglers
-    oracle: step(params, tokens [B, S], labels [B, S], lr) -> (new
-    params, loss)."""
+    oracle: step(params, tokens [B, S], labels [B, S], lr, memory=None)
+    -> (new params, loss); ``memory`` the raw memory [B, *memory shape]."""
 
-    def step(params, tokens, labels, lr):
+    def step(params, tokens, labels, lr, memory=None):
         leaves = {k: v.detach().requires_grad_()
                   for k, v in flatten(params).items()}
-        loss = loss_fn(unflatten(leaves), tokens, labels, cfg, remat=remat,
+        loss = loss_fn(unflatten(leaves), tokens, labels, cfg,
+                       memory_embeds=memory, remat=remat,
                        kernel_mode=kernel_mode)
         grads = unflatten(dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values())))))
@@ -235,21 +247,27 @@ def make_train_step(cfg: ArchConfig, remat: bool = True,
 
 
 def make_prefill_step(cfg: ArchConfig, kernel_mode: str = "auto"):
-    """(params, tokens [B, S], caches) -> (logits [B, V], caches)."""
+    """(params, tokens [B, S], caches, memory_embeds=None, *, memory=None)
+    -> (logits [B, V], caches): the raw memory (encoded inside, as the
+    reference's step takes it) or the encoded one (``encode``'s output),
+    for a model with cross-attention."""
 
-    def step(params, tokens, caches):
-        return prefill(params, tokens, cfg, caches, kernel_mode=kernel_mode)
+    def step(params, tokens, caches, memory_embeds=None, *, memory=None):
+        return prefill(params, tokens, cfg, caches,
+                       memory_embeds=memory_embeds, memory=memory,
+                       kernel_mode=kernel_mode)
 
     return step
 
 
 def make_serve_step(cfg: ArchConfig):
-    """One-token decode: (params, token [B, 1], pos, caches) -> (logits
-    [B, V], caches).  ``pos`` is the current absolute position, a host int
-    (the cache holds positions < pos).  Decode attends through its mask,
-    not the flash kernel, so it takes no kernel mode."""
+    """One-token decode: (params, token [B, 1], pos, caches, memory=None)
+    -> (logits [B, V], caches).  ``pos`` is the current absolute position,
+    a host int (the cache holds positions < pos); ``memory`` the *encoded*
+    cross-attention memory.  Decode attends through its mask, not the
+    flash kernel, so it takes no kernel mode."""
 
-    def step(params, token, pos, caches):
-        return decode_step(params, token, pos, cfg, caches)
+    def step(params, token, pos, caches, memory=None):
+        return decode_step(params, token, pos, cfg, caches, memory=memory)
 
     return step

@@ -18,6 +18,9 @@ gives ``sim_clock``, then the T x K steps run; without it, the per-round
 loop with a checkpoint every 10 global rounds.  Both call the same step
 (``make_hfl_train_step``), whose full-sequence attention runs the flash
 kernels, forward and backward, under ``kernel_mode="auto"`` on the card.
+A model with cross-attention gets zero memory of the stubbed frontend's
+shape (``inputs.memory_shape``) in the parameters' dtype with every
+edge-round batch, as the reference's driver feeds it.
 """
 from __future__ import annotations
 
@@ -29,12 +32,13 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+from repro_torch.configs import ARCH_IDS, cut_depth, get_config, get_smoke
 from repro_torch.core import (LatencyParams, RaftChain, RaftParams,
                               straggler, stream_rng, stream_seed)
 from repro_torch.data import lm_tokens
 from repro_torch.fl.simulator import resolve_device
 from repro_torch.kernels.build import KERNEL_MODES
+from repro_torch.launch.inputs import memory_shape
 from repro_torch.launch.serve import make_params
 from repro_torch.launch.steps import init_fl_histories, make_hfl_train_step
 from repro_torch.models.transformer import params_from_numpy
@@ -56,20 +60,20 @@ def run(arch: str, *, smoke: bool = True, steps: int = 20, k_edge: int = 2,
     ``device=None`` means ``"cuda"`` and raises without a GPU.
     ``init_params``: the reference's initial weights (``base``, a nested
     dict of numpy arrays), carried over by ``params_from_numpy``.
-    ``n_layers`` cuts the config's depth (None: its own) and ``n_edges``
-    its number of edges E (None: the reference's, 1 at smoke and 2 else),
-    for the card's smoke run.  Returns the reference's keys: ``losses``
-    (each global round's last edge-round loss), ``wall`` (seconds, the
-    device synchronized), ``blocks``, ``chain_valid`` and, when fused,
-    ``sim_clock``."""
+    ``n_layers`` cuts the config's depth (None: its own; for a config with
+    an encoder, the encoder's depth too, to the same count: one knob) and
+    ``n_edges`` its number of edges E (None: the reference's, 1 at smoke
+    and 2 else), for the card's smoke run.  Returns the reference's keys:
+    ``losses`` (each global round's last edge-round loss), ``wall``
+    (seconds, the device synchronized), ``blocks``, ``chain_valid`` and,
+    when fused, ``sim_clock``."""
     dev = resolve_device(device)
     if kernel_mode not in KERNEL_MODES:
         raise ValueError(f"unknown kernel_mode {kernel_mode!r}; expected one "
                          f"of {KERNEL_MODES}")
     cfg = get_smoke(arch) if smoke else get_config(arch)
     if n_layers is not None:
-        import dataclasses
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cfg = cut_depth(cfg, n_layers)
     e = (1 if smoke else 2) if n_edges is None else n_edges
     c = n_clients
 
@@ -84,6 +88,10 @@ def run(arch: str, *, smoke: bool = True, steps: int = 20, k_edge: int = 2,
     dev_hist, glob_hist = init_fl_histories(params)
     step = make_hfl_train_step(cfg, gamma0=gamma0, lam=lam,
                                normalize=normalize, kernel_mode=kernel_mode)
+    ms = memory_shape(cfg)
+    if ms is not None:
+        step = _with_memory(step, torch.zeros(
+            (e, c, batch) + ms, dtype=cfg.torch_param_dtype, device=dev))
 
     # straggler schedules + Raft chain: each consumer on its own stream
     dev_masks = straggler.from_fraction(steps * k_edge + 1, e * c,
@@ -125,6 +133,14 @@ def _sync(dev: torch.device) -> None:
 def _global_model(state: dict) -> dict:
     """Client slot (0, 0): after a global step, the global model."""
     return tree_map(lambda x: x[0, 0], state["params"])
+
+
+def _with_memory(step, memory: torch.Tensor):
+    """``step`` with ``memory`` [E, C, b, *memory shape] in every batch."""
+    def wrapped(params, dev_hist, glob_hist, batch, dm, em, lr):
+        return step(params, dev_hist, glob_hist, {**batch, "memory": memory},
+                    dm, em, lr)
+    return wrapped
 
 
 def _batch(chunk: np.ndarray, dev: torch.device) -> dict:

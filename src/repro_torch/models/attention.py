@@ -1,10 +1,14 @@
-"""GQA self-attention with RoPE, qk-norm, sliding window and a KV cache.
+"""GQA attention with RoPE, qk-norm, sliding window, a KV cache and gated
+cross-attention.
 
-Port of the self-attention parts of ``repro.models.attention``:
+Port of ``repro.models.attention``:
 
-  * ``attn_train``   — full-sequence causal (optionally windowed) attention;
+  * ``attn_train``   — full-sequence causal (optionally windowed) attention,
+    or non-causal (the encoder's);
   * ``attn_prefill`` — the same, and it also fills the KV cache;
-  * ``attn_decode``  — one query token against the cache.
+  * ``attn_decode``  — one query token against the cache;
+  * ``xattn_train``  — gated cross-attention to a static memory (no RoPE,
+    no mask, no cache); ``xattn_decode`` is the same for one query row.
 
 Caches are dicts ``{"k": [B, S, Hkv, Dh], "v": ...}``; a sliding-window
 cache is a ring that holds the last ``window`` positions.  The port fills
@@ -53,7 +57,11 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float
 
 
 # ------------------------------------------------------------------ specs
-def attn_specs(cfg: ArchConfig, stacked: Optional[int]) -> dict:
+def attn_specs(cfg: ArchConfig, stacked: Optional[int],
+               cross: bool = False) -> dict:
+    """The projections and norms; ``cross`` adds the cross-attention's
+    tanh gate ``xattn_gate`` [stacked, 1], zeros (the layer starts as an
+    identity)."""
     pre = (stacked,) if stacked else ()
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
         cfg.resolved_head_dim
@@ -67,6 +75,8 @@ def attn_specs(cfg: ArchConfig, stacked: Optional[int]) -> dict:
     if cfg.qk_norm:
         out["q_norm"] = norm_spec(dh, pre)
         out["k_norm"] = norm_spec(dh, pre)
+    if cross:
+        out["xattn_gate"] = ParamSpec(pre + (1,), "zeros")
     return out
 
 
@@ -100,7 +110,9 @@ def _sdpa(q, k, v, *, causal: bool, window=None, q_offset: int = 0,
     """With a ``bias`` (decode) the masked softmax of ``_sdpa_block``; a
     full sequence (``sq > 1``) goes to the flash kernel or its plain
     version per ``kernel_mode``; a single query row without a bias to
-    ``_sdpa_block`` with the causal mask, as the reference does."""
+    ``_sdpa_block`` with the causal mask (the zero mask where neither
+    causal nor windowed: cross-attention's decode), as the reference
+    does."""
     sq, skv = q.shape[1], k.shape[1]
     if bias is not None:
         return _sdpa_block(q, k, v, bias)
@@ -113,19 +125,29 @@ def _sdpa(q, k, v, *, causal: bool, window=None, q_offset: int = 0,
     return _sdpa_block(q, k, v, m)
 
 
-def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
+def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
+         kv_x: Optional[torch.Tensor] = None):
+    """q from ``x``; k and v from ``kv_x`` where given (cross-attention's
+    memory, taken as it is: not normalised), else from ``x``."""
     d = x.shape[-1]
+    src = x if kv_x is None else kv_x
     q = (x @ p["wq"].reshape(d, -1)).unflatten(-1, p["wq"].shape[-2:])
-    k = (x @ p["wk"].reshape(d, -1)).unflatten(-1, p["wk"].shape[-2:])
-    v = (x @ p["wv"].reshape(d, -1)).unflatten(-1, p["wv"].shape[-2:])
+    k = (src @ p["wk"].reshape(d, -1)).unflatten(-1, p["wk"].shape[-2:])
+    v = (src @ p["wv"].reshape(d, -1)).unflatten(-1, p["wv"].shape[-2:])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
-def _proj_out(p: dict, attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return x + attn.flatten(-2) @ p["wo"].reshape(-1, p["wo"].shape[-1])
+def _proj_out(p: dict, attn: torch.Tensor, x: torch.Tensor,
+              cross: bool = False) -> torch.Tensor:
+    """``x + attn wo``; cross-attention scales ``attn wo`` by
+    ``tanh(xattn_gate)`` first."""
+    out = attn.flatten(-2) @ p["wo"].reshape(-1, p["wo"].shape[-1])
+    if cross:
+        out = out * torch.tanh(p["xattn_gate"]).to(out.dtype)
+    return x + out
 
 
 # ------------------------------------------------------------- full-seq ops
@@ -142,6 +164,26 @@ def attn_train(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                 window=cfg.sliding_window if causal else None,
                 kernel_mode=kernel_mode)
     return _proj_out(p, out, x)
+
+
+def xattn_train(p: dict, x: torch.Tensor, memory: torch.Tensor,
+                cfg: ArchConfig, *, kernel_mode: str = "auto"
+                ) -> torch.Tensor:
+    """Gated cross-attention of x [B, S, D] to ``memory`` [B, S_mem, D]:
+    no RoPE on either side, no mask, no window.  A full-length query goes
+    to the flash kernel (``causal=False``), a single row (decode) to
+    ``_sdpa_block`` with the zero mask, as the reference routes them."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    q, k, v = _qkv(p, h, cfg, kv_x=memory)
+    out = _sdpa(q, k, v, causal=False, kernel_mode=kernel_mode)
+    return _proj_out(p, out, x, cross="xattn_gate" in p)
+
+
+def xattn_decode(p: dict, x: torch.Tensor, memory: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """Cross-attention for decode: k and v are taken from the static memory
+    again at every step (no cache, as the reference does)."""
+    return xattn_train(p, x, memory, cfg)
 
 
 # ------------------------------------------------------------------- cache

@@ -1,14 +1,28 @@
-"""Model assembly for the dense LLM zoo: a stack of ``n_units`` repeating
-units of ``block_pattern`` layers, each leaf stacked ``[n_units, ...]``.
+"""Model assembly for the LLM zoo: a stack of ``n_units`` repeating units of
+``block_pattern`` layers, each leaf stacked ``[n_units, ...]``, and an
+optional encoder stack (``encoder.unit.0``, stacked ``[encoder.n_layers,
+...]``) over the stubbed frontend's embeddings.
 
-Port of ``repro.models.transformer`` for the ``"attn"`` layer kind (GQA
-self-attention + SwiGLU MLP); the other kinds raise
-``NotImplementedError`` until they are ported (``ROADMAP.md``).  Tail
-layers and the encoder stack are not ported: ``repro_torch.configs``
-refuses the configs that have them.  The stack is a Python loop that
+Port of ``repro.models.transformer`` for the layer kinds
+
+  attn      GQA self-attention + SwiGLU MLP
+  xattn     gated cross-attention to the memory + SwiGLU MLP
+  enc_attn  the encoder's non-causal self-attention + SwiGLU MLP
+
+The other kinds raise ``NotImplementedError`` until they are ported
+(``ROADMAP.md``); tail layers are not ported: ``repro_torch.configs``
+refuses the configs that have them.  Each stack is a Python loop that
 indexes the stacked leaves, where the reference scans; ``remat`` (the
-training loss only) checkpoints each unit, as the reference's
-``jax.checkpoint`` of its scan body.
+training loss only) checkpoints each unit, and each encoder layer, as the
+reference's ``jax.checkpoint`` of its scan body.
+
+The memory that ``xattn`` attends to is the encoder's output over the
+frame embeddings (enc-dec), or the patch embeddings themselves (the VLM,
+whose vision tower is a stub in the reference too).  ``forward_train``,
+``loss_fn`` and ``prefill`` take the raw embeddings (``memory_embeds``)
+and encode them inside; ``decode_step`` takes the encoded memory
+(``memory``), which ``encode`` gives, and so may ``prefill``, so that a
+serve run encodes once.
 
 Three modes: ``train`` (full sequence, causal), ``prefill`` (train + cache
 fill), ``decode`` (one token against the cache); ``loss_fn`` is the
@@ -29,25 +43,43 @@ from .config import ArchConfig
 from .layers import embed_apply, embed_specs, mlp_apply, mlp_specs, \
     unembed_apply
 
+#: the ported layer kinds, each its mixer and a SwiGLU MLP
+KINDS = ("attn", "xattn", "enc_attn")
+
+
+def _kind(kind: str) -> str:
+    if kind not in KINDS:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    return kind
+
+
 # ------------------------------------------------------------------- specs
-def _layer_specs(cfg: ArchConfig, stacked: Optional[int]) -> dict:
-    """An ``"attn"`` layer: GQA self-attention + SwiGLU MLP."""
-    return {"mixer": att.attn_specs(cfg, stacked),
+def _layer_specs(kind: str, cfg: ArchConfig, stacked: Optional[int]) -> dict:
+    """A layer's mixer (self- or cross-attention) and its SwiGLU MLP."""
+    return {"mixer": att.attn_specs(cfg, stacked,
+                                    cross=_kind(kind) == "xattn"),
             "ffn": mlp_specs(cfg, stacked)}
 
 
 def param_specs(cfg: ArchConfig) -> dict:
-    return {"embed": embed_specs(cfg),
-            "unit": {str(i): _layer_specs(cfg, cfg.n_units)
-                     for i, _ in enumerate(cfg.block_pattern)}}
+    specs = {"embed": embed_specs(cfg),
+             "unit": {str(i): _layer_specs(k, cfg, cfg.n_units)
+                      for i, k in enumerate(cfg.block_pattern)}}
+    if cfg.encoder:
+        specs["encoder"] = {"unit": {"0": _layer_specs(
+            "enc_attn", cfg, cfg.encoder.n_layers)}}
+    return specs
 
 
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16) -> dict:
-    """KV cache specs; ``dtype`` bf16 in production, f32 in tests."""
+    """KV cache specs of the self-attention positions (cross-attention
+    attends to a static memory and keeps no cache); ``dtype`` bf16 in
+    production, f32 in tests."""
     return {"unit": {str(i): att.init_cache_spec(cfg, batch, max_len,
                                                  cfg.n_units, dtype)
-                     for i, _ in enumerate(cfg.block_pattern)}}
+                     for i, k in enumerate(cfg.block_pattern)
+                     if _kind(k) == "attn"}}
 
 
 def params_from_numpy(tree: dict, device="cpu") -> dict:
@@ -77,11 +109,22 @@ def _index(tree: dict, i: int) -> dict:
 
 
 def _apply_layer(kind: str, p: dict, x: torch.Tensor, cfg: ArchConfig, *,
-                 mode: str, cache: Optional[dict], pos, kernel_mode: str):
-    """One layer in the given mode; the cache is written in place."""
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    if mode == "train":
+                 mode: str, cache: Optional[dict], pos, memory,
+                 kernel_mode: str):
+    """One layer in the given mode; the cache is written in place.  The
+    encoder's layers and cross-attention run as in training in every mode
+    (they keep no cache)."""
+    mixer = _kind(kind)
+    if mixer == "enc_attn":
+        x = att.attn_train(p["mixer"], x, cfg, causal=False,
+                           kernel_mode=kernel_mode)
+    elif mixer == "xattn":
+        if memory is None:
+            raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                             "the memory (memory_embeds or memory)")
+        x = att.xattn_train(p["mixer"], x, memory, cfg,
+                            kernel_mode=kernel_mode)
+    elif mode == "train":
         x = att.attn_train(p["mixer"], x, cfg, kernel_mode=kernel_mode)
     elif mode == "prefill":
         x, _ = att.attn_prefill(p["mixer"], x, cfg, cache,
@@ -91,35 +134,70 @@ def _apply_layer(kind: str, p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     return mlp_apply(p["ffn"], x, cfg.norm_eps)
 
 
-def _run_stack(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
-               mode: str, caches: Optional[dict], pos, kernel_mode: str,
-               remat: bool = False) -> torch.Tensor:
-    """The repeating units in order.  Caches are written in place.  With
+def _run_stack(params: dict, x: torch.Tensor, cfg: ArchConfig, pattern,
+               n_units: int, *, mode: str, caches: Optional[dict], pos,
+               memory, kernel_mode: str, remat: bool = False
+               ) -> torch.Tensor:
+    """The ``n_units`` stacked units of ``params["unit"]`` in order, each
+    the layers of ``pattern``.  Caches are written in place.  With
     ``remat`` each unit runs under ``torch.utils.checkpoint``: only its
-    input is kept for the backward, which runs the unit again (the flash
-    forward included) before its gradient."""
-    for u in range(cfg.n_units):
-        def unit(x, u=u):
+    input and the memory are kept for the backward, which runs the unit
+    again (the flash forward included) before its gradient."""
+    for u in range(n_units):
+        def unit(x, memory, u=u):
             up = _index(params["unit"], u)
             uc = _index(caches["unit"], u) if caches else {}
-            for i, kind in enumerate(cfg.block_pattern):
+            for i, kind in enumerate(pattern):
                 x = _apply_layer(kind, up[str(i)], x, cfg, mode=mode,
                                  cache=uc.get(str(i)), pos=pos,
-                                 kernel_mode=kernel_mode)
+                                 memory=memory, kernel_mode=kernel_mode)
             return x
 
-        x = checkpoint(unit, x, use_reentrant=False) if remat else unit(x)
+        x = checkpoint(unit, x, memory, use_reentrant=False) if remat \
+            else unit(x, memory)
     return x
+
+
+def _decoder(params: dict, x: torch.Tensor, cfg: ArchConfig, **kw
+             ) -> torch.Tensor:
+    return _run_stack(params, x, cfg, cfg.block_pattern, cfg.n_units, **kw)
+
+
+def _encode(params: dict, memory_embeds: torch.Tensor, cfg: ArchConfig, *,
+            remat: bool, kernel_mode: str) -> torch.Tensor:
+    """The encoder stack over the stubbed frontend's embeddings: its own
+    stacked length (``encoder.n_layers``), one ``enc_attn`` layer a unit."""
+    return _run_stack(params["encoder"], memory_embeds, cfg, ("enc_attn",),
+                      cfg.encoder.n_layers, mode="train", caches=None,
+                      pos=None, memory=None, kernel_mode=kernel_mode,
+                      remat=remat)
+
+
+def _memory(params: dict, cfg: ArchConfig, memory_embeds, *, remat: bool,
+            kernel_mode: str):
+    """The cross-attention memory of the raw embeddings: encoded (enc-dec),
+    or the VLM's patch embeddings as they are (its projector's output)."""
+    if memory_embeds is None:
+        return None
+    if cfg.encoder:
+        return _encode(params, memory_embeds, cfg, remat=remat,
+                       kernel_mode=kernel_mode)
+    return memory_embeds
 
 
 # ------------------------------------------------------------- public API
 def forward_train(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
+                  memory_embeds: Optional[torch.Tensor] = None,
                   kernel_mode: str = "auto"
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S, V], aux loss (0 for dense kinds))."""
+    """tokens [B, S] (and the raw memory embeddings [B, S_mem, D] of a
+    model with cross-attention) -> (logits [B, S, V], aux loss (0 for the
+    ported kinds))."""
     x = embed_apply(params["embed"], tokens, cfg.torch_param_dtype)
-    x = _run_stack(params, x, cfg, mode="train", caches=None, pos=None,
-                   kernel_mode=kernel_mode)
+    mem = _memory(params, cfg, memory_embeds, remat=False,
+                  kernel_mode=kernel_mode)
+    x = _decoder(params, x, cfg, mode="train", caches=None, pos=None,
+                 memory=mem, kernel_mode=kernel_mode)
     return (unembed_apply(params["embed"], x, cfg),
             torch.zeros((), device=x.device))
 
@@ -140,17 +218,21 @@ def _nll(params: dict, x: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
-            cfg: ArchConfig, *, remat: bool = False,
+            cfg: ArchConfig, *, memory_embeds=None, remat: bool = False,
             kernel_mode: str = "auto") -> torch.Tensor:
     """Mean next-token cross-entropy over the positions with ``labels >=
-    0`` (tokens, labels [B, S]), as ``repro.models.loss_fn``; the dense
-    kinds add no auxiliary loss.  Past ``LOSS_CHUNK`` positions, when the
-    length is a multiple of it, the cross-entropy runs one chunk of
-    positions at a time under ``torch.utils.checkpoint``, so the float32
-    [B, S, V] logits never exist whole."""
+    0`` (tokens, labels [B, S]), as ``repro.models.loss_fn``; the ported
+    kinds add no auxiliary loss.  ``memory_embeds``: the raw memory
+    [B, S_mem, D], encoded inside (under ``remat`` too).  Past
+    ``LOSS_CHUNK`` positions, when the length is a multiple of it, the
+    cross-entropy runs one chunk of positions at a time under
+    ``torch.utils.checkpoint``, so the float32 [B, S, V] logits never exist
+    whole."""
     x = embed_apply(params["embed"], tokens, cfg.torch_param_dtype)
-    x = _run_stack(params, x, cfg, mode="train", caches=None, pos=None,
-                   kernel_mode=kernel_mode, remat=remat)
+    mem = _memory(params, cfg, memory_embeds, remat=remat,
+                  kernel_mode=kernel_mode)
+    x = _decoder(params, x, cfg, mode="train", caches=None, pos=None,
+                 memory=mem, kernel_mode=kernel_mode, remat=remat)
     valid = (labels >= 0).to(torch.float32)
     s = labels.shape[-1]
     if s <= LOSS_CHUNK or s % LOSS_CHUNK:
@@ -164,22 +246,42 @@ def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
-            caches: dict, *, kernel_mode: str = "auto"):
+            caches: dict, *, memory_embeds=None, memory=None,
+            kernel_mode: str = "auto"):
     """tokens [B, S] -> (logits of the last position [B, V], caches filled
-    in place)."""
+    in place).  A model with cross-attention takes either the raw memory
+    ``memory_embeds`` (encoded here, as the reference's ``prefill``) or
+    the encoded ``memory`` (``encode``'s output, as ``decode_step`` takes
+    it), not both."""
+    if memory_embeds is not None and memory is not None:
+        raise ValueError("prefill takes memory_embeds or memory, not both")
     x = embed_apply(params["embed"], tokens, cfg.torch_param_dtype)
-    x = _run_stack(params, x, cfg, mode="prefill", caches=caches, pos=None,
-                   kernel_mode=kernel_mode)
+    if memory is None:
+        memory = _memory(params, cfg, memory_embeds, remat=False,
+                         kernel_mode=kernel_mode)
+    x = _decoder(params, x, cfg, mode="prefill", caches=caches, pos=None,
+                 memory=memory, kernel_mode=kernel_mode)
     logits = unembed_apply(params["embed"], x[..., -1:, :], cfg)
     return logits[..., 0, :], caches
 
 
+def encode(params: dict, memory_embeds: torch.Tensor, cfg: ArchConfig, *,
+           remat: bool = False, kernel_mode: str = "auto"):
+    """The cross-attention memory of the raw embeddings: the encoder run
+    once (enc-dec serving runs it at prefill time), or the VLM's patch
+    embeddings as they are; None for None."""
+    return _memory(params, cfg, memory_embeds, remat=remat,
+                   kernel_mode=kernel_mode)
+
+
 def decode_step(params: dict, token: torch.Tensor, pos: int,
-                cfg: ArchConfig, caches: dict):
+                cfg: ArchConfig, caches: dict, *, memory=None):
     """token [B, 1], pos the current position (a host int) -> (logits
-    [B, V], caches updated in place)."""
+    [B, V], caches updated in place).  ``memory`` is the *encoded*
+    cross-attention memory (``encode``'s output): the encoder runs once at
+    prefill, not per decode step."""
     x = embed_apply(params["embed"], token, cfg.torch_param_dtype)
-    x = _run_stack(params, x, cfg, mode="decode", caches=caches, pos=pos,
-                   kernel_mode="auto")
+    x = _decoder(params, x, cfg, mode="decode", caches=caches, pos=pos,
+                 memory=memory, kernel_mode="auto")
     logits = unembed_apply(params["embed"], x, cfg)
     return logits[..., 0, :], caches

@@ -33,7 +33,11 @@ at any number of classes equals the plain count up to the rows whose two
 largest logits lie within float32 reach (``rel 1e-4``) of each other, and
 is the same on repeat.  The conv wrapper splits more devices than the
 grid's z extent across launches, at the conv bounds.  A TINY mixed sweep
-with the kernels is within the engine-parity bounds of its plain run.
+with the kernels is within the engine-parity bounds of its plain run.  A
+smoke-width llama-vision and seamless prefill (random memory, gates 0.5)
+launches the flash kernel once a self-attention, cross-attention and
+encoder layer, its logits within ``3e-4`` of their largest magnitude of
+the plain version's.
 """
 import numpy as np
 import pytest
@@ -259,7 +263,13 @@ FLASH_CASES = [((1, 256), 64, (4, 4), True, None),
                ((1, 129), 128, (2, 2), False, None),
                # kv of 3 and 5 tiles: not a whole number of ring stages
                ((100, 384), 80, (4, 2), True, None),
-               ((200, 640), 64, (4, 1), False, 300)]
+               ((200, 640), 64, (4, 1), False, 300),
+               # the cross-attention and encoder shapes at reduced lengths
+               # (chip_smoke.py's FLASH_MODEL): llama-vision's Dh 128,
+               # G 4, kv 1601 -> 257; seamless's Dh 64, G 1, 1500 -> 129
+               ((300, 257), 128, (8, 2), False, None),
+               ((129, 129), 64, (4, 4), False, None),
+               ((200, 129), 64, (4, 4), False, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -598,7 +608,10 @@ FLASH_BWD_CASES = [((100, 100), 32, (4, 4), True, None, 0),
                    ((257, 257), 80, (8, 2), True, 150, 0),
                    ((129, 257), 80, (8, 2), True, 100, 128),
                    ((257, 129), 80, (4, 1), False, 90, 0),
-                   ((257, 127), 80, (8, 2), True, 70, 5)]
+                   ((257, 127), 80, (8, 2), True, 70, 5),
+                   ((300, 257), 128, (8, 2), False, None, 0),
+                   ((129, 129), 64, (4, 4), False, None, 0),
+                   ((200, 129), 64, (4, 4), False, None, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -669,3 +682,40 @@ def test_gpu_flash_attention_function_runs_the_kernels(cuda):
     want = flash_attention_bwd(q.detach(), k.detach(), v.detach(), o, lse,
                                do, causal=True, window=32)
     assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+
+@pytest.mark.parametrize("arch,want", [("llama-3.2-vision-11b", 5),
+                                       ("seamless-m4t-large-v2", 4)])
+def test_gpu_cross_attention_prefill_launches_the_flash_kernel(cuda, arch,
+                                                               want):
+    """A smoke-width prefill with random memory and gates 0.5 on the card:
+    one flash launch for every self-attention, cross-attention and
+    encoder layer (llama-vision 4 + 1; seamless 1 + 1 and its encoder's
+    2), logits within 3e-4 of their largest magnitude of the plain
+    version's (``tests/test_torch_serve.py``'s bound)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.inputs import memory_shape
+    from repro_torch.models import cache_specs, init_from_specs, param_specs
+    from repro_torch.models.transformer import prefill
+    cfg = get_smoke(arch)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    params = init_from_specs(param_specs(cfg), g, cuda)
+    for unit in params["unit"].values():
+        if "xattn_gate" in unit["mixer"]:
+            unit["mixer"]["xattn_gate"].fill_(0.5)
+    mem = torch.randn((2,) + memory_shape(cfg), generator=g, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=g, device=cuda)
+    out = {}
+    for mode in ("cuda", "torch"):
+        caches = init_from_specs(cache_specs(cfg, 2, 40, torch.float32),
+                                 None, cuda)
+        build.reset_launch_counts()
+        out[mode] = prefill(params, tokens, cfg, caches, memory_embeds=mem,
+                            kernel_mode=mode)[0]
+        launches = dict(build.LAUNCHES)
+        assert launches == ({"flash_attention": want} if mode == "cuda"
+                            else {}), launches
+    want_l = out["torch"]
+    assert (out["cuda"] - want_l).abs().max().item() \
+        <= 3e-4 * want_l.abs().max().item()

@@ -180,7 +180,8 @@ def _shapes(tree, leaf_type):
             if isinstance(v, leaf_type)}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ("llama-3.2-vision-11b",
+                                           "seamless-m4t-large-v2"))
 def test_full_configs_and_specs_match_jax(arch):
     """The FULL configs field for field, and ``param_specs`` /
     ``cache_specs`` names and shapes (nothing is allocated)."""
@@ -199,7 +200,10 @@ def test_full_configs_and_specs_match_jax(arch):
 
 def test_registry_knows_every_arch():
     assert tcfgs.ARCH_IDS == jcfgs.ARCH_IDS
-    for arch in set(tcfgs.ARCH_IDS) - set(DENSE):
+    unported = set(tcfgs.ARCH_IDS) - set(DENSE) - {
+        "llama-3.2-vision-11b", "seamless-m4t-large-v2"}
+    assert len(unported) == 5
+    for arch in unported:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tcfgs.get_config(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
