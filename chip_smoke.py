@@ -88,7 +88,19 @@ its parity, one HFL step of it in float32 with random memory and gates
 1.0, kernels against plain (``xattn_step_parity``: the train line's zero
 memory and zero gates leave its encoder and cross-attention inert), and
 ``train_grads_bf16`` on seamless at that cut and on llama-vision cut to
-one unit, with random memory and gates 1.0.
+one unit, with random memory and gates 1.0.  Last, multi-head latent
+attention and mixture-of-experts (``MOE_SERVE``, ``MOE_TRAIN``):
+``serve.run`` on minicpm3-4b and deepseek-v2-lite-16b at full width and
+depth and on grok-1-314b cut to 2 of its 64 layers (batch 2, a prompt of
+8192, 32 greedy tokens), kernels and plain, each with its
+``serve_parity`` (every MLA layer's attention at Dh 96 or 192 within the
+flash bound and its padded columns exactly 0, every MoE block bitwise in
+both modes, logits and decode against ``serve.run`` itself); then
+``train.run`` on the two MLA models cut to 4 layers (2 x 8192 tokens a
+client), kernels and plain, ``train_parity`` and ``train_grads_bf16`` at
+Dh 96 and 192.  The flash phases hold the kernels at those head dims and
+at grok's group of 6 (``FLASH_MLA``, ``FLASH_BWD_CASES``), and
+``flash_model_timing`` times them at the three models' causal shapes.
 
 Output, one line each: the card as ``nvidia-smi`` names it, then JSON
 objects: the build, one per kernel check (with ``flash_design`` before
@@ -106,9 +118,12 @@ launches and churn resets of each mode, and their parity), the
 ``population_resume``, ``population_parity``, ``population_sweep`` and
 ``legacy`` lines, one per serve run, the serve parity, one ``train``
 line per mode, ``train_parity``, ``train_grads``, ``train_grads_bf16``,
-``xattn_step_parity``, the ``kernels`` summary, and last ``{"ok": true,
+``xattn_step_parity``, the MLA and MoE models' ``serve``,
+``serve_parity``, ``train``, ``train_parity`` and ``train_grads_bf16``
+lines, the ``kernels`` summary, and last ``{"ok": true,
 "device": {...}}``.  ``--profile`` adds one more HieAvg run, the switched sweep,
-one train round and the serve path's prefill and decode under
+one train round and the serve path's prefill and decode (danube, the
+two cross-attention models, minicpm3, deepseek-v2-lite) under
 ``torch.profiler``, a line of device time per kernel each;
 ``--full`` adds the paper's whole DEFAULT run (T = 50) per mode of
 HieAvg, FedAvg and delayed-gradient aggregation, its Fig. 2 set
@@ -183,6 +198,14 @@ REPLACES = {
     "flash_attention_bwd[enc]": "src/repro/kernels/flash_attention.py:77",
     "flash_attention_bwd[xattn_m4t]":
         "src/repro/kernels/flash_attention.py:77",
+    # the same two kernels at the multi-head latent attention and
+    # mixture-of-experts cells' shapes (FLASH_TIMED)
+    "flash_attention[mla96]": "src/repro/kernels/flash_attention.py:77",
+    "flash_attention[mla192]": "src/repro/kernels/flash_attention.py:77",
+    "flash_attention[grok]": "src/repro/kernels/flash_attention.py:77",
+    "flash_attention_bwd[mla96]": "src/repro/kernels/flash_attention.py:77",
+    "flash_attention_bwd[mla192]":
+        "src/repro/kernels/flash_attention.py:77",
 }
 SOURCE = {
     "conv3x3_fwd": "src/repro_torch/kernels/csrc/conv3x3.cu",
@@ -205,6 +228,16 @@ SOURCE = {
     "flash_attention_bwd[enc]":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd[xattn_m4t]":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention[mla96]":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention[mla192]":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention[grok]":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd[mla96]":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd[mla192]":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 
@@ -297,6 +330,19 @@ XATTN_SERVE = {"llama-3.2-vision-11b": 8192, "seamless-m4t-large-v2": 2048}
 #: seed, every ``xattn_gate`` 1.0 (the reference's zero gate and its
 #: drivers' zero memory leave cross-attention inert)
 XATTN_MEMORY_SEED, XATTN_GATE = 3, 1.0
+#: the multi-head latent attention and mixture-of-experts serve cells, full
+#: width, at SERVE_BATCH, SERVE_PROMPT and SERVE_GEN: arch -> its depth
+#: (None: its own).  minicpm3-4b (62 MLA layers, 4.07 B parameters, bf16
+#: 8.1 GB), deepseek-v2-lite-16b (27 MLA + MoE layers, 64 experts top 6 and
+#: 2 shared, 16.21 B, 32.4 GB) and grok-1-314b cut to 2 of its 64 layers
+#: (GQA 48 over 8 heads, 8 experts top 2 of width 32768: 11.45 B, 22.9 GB;
+#: its 316.5 B parameters hold on no single card)
+MOE_SERVE = {"minicpm3-4b": None, "deepseek-v2-lite-16b": None,
+             "grok-1-314b": 2}
+#: their train cells: full width cut to TRAIN_LAYERS layers, TRAIN_KW
+#: (minicpm3 0.44 B parameters, deepseek 2.76 B); and ``train_grads_bf16``
+#: on each at that cut, 2 x 8192 tokens
+MOE_TRAIN = ("minicpm3-4b", "deepseek-v2-lite-16b")
 #: auto-vs-torch bound on each layer's output and on the logits, relative
 #: to their largest magnitude: 4 bfloat16 ulps at the top binade.  The two
 #: flash versions differ by one ulp in a few elements; the layer's bf16
@@ -316,29 +362,60 @@ FLASH_HEADS = ((2, 2), (8, 2))
 FLASH_SHARP = ((300, 8192, 80, True, 4096, 24.0), (129, 129, 128, False, None,
                                                    24.0),
                (512, 1000, 32, True, 256, 24.0), (300, 300, 64, True, 100,
-                                                  60.0))
+                                                  60.0),
+               (300, 1000, 96, True, None, 24.0), (257, 300, 192, True,
+                                                   None, 24.0))
+#: the flash kernels at multi-head latent attention's head dims (96 = 64 +
+#: 32, 192 = 128 + 64; 64-row kv tiles in the bf16 forward above Dh 128, a
+#: dV and a dK pass in its backward) and at grok's group of 6: (Sq, Skv,
+#: Dh, causal, window, (H, Hkv)), lengths no multiple of a tile, in the
+#: forward's grid (float32 and bfloat16) and, with a q offset,
+#: FLASH_BWD_CASES (like tests/test_torch_gpu.py's FLASH_MLA_CASES)
+FLASH_MLA = ((300, 300, 96, True, None, (8, 8)),
+             (129, 257, 96, False, None, (4, 4)),
+             (257, 129, 96, True, 70, (8, 2)),
+             (257, 127, 128, True, None, (12, 2)),
+             (65, 130, 192, False, None, (4, 1)),
+             (300, 300, 192, True, None, (4, 4)),
+             (129, 257, 192, True, 100, (8, 2)),
+             (1, 300, 192, True, None, (4, 1)))
 #: the reference's float32 flash bound (tests/test_kernels.py)
 FLASH_F32_ATOL = 2e-5
 #: the flash kernels at the cross-attention and encoder cells' shapes,
 #: non-causal, at batch SERVE_BATCH: ((Sq, Skv), Dh, (H, Hkv)) of
 #: llama-vision's cross layers, seamless's encoder and its cross layers;
-#: checked in the forward's grid and in FLASH_BWD_CASES, forward and
-#: backward timed at each (FLASH_TIMED: label -> shape)
+#: checked in the forward's grid and in FLASH_BWD_CASES
 FLASH_MODEL = (((8192, 1601), 128, (32, 8)), ((1500, 1500), 64, (16, 16)),
                ((2048, 1500), 64, (16, 16)))
-FLASH_TIMED = {"xattn": FLASH_MODEL[0], "enc": FLASH_MODEL[1],
-               "xattn_m4t": FLASH_MODEL[2]}
+#: the shapes ``flash_model_timing`` checks and times, label -> ((Sq, Skv),
+#: Dh, (H, Hkv), causal, backward timed too): FLASH_MODEL's, and the
+#: causal self-attention of the MLA and MoE cells at SERVE_PROMPT:
+#: minicpm3 (Dh 96, G 1), deepseek-v2-lite (Dh 192, G 1), grok (Dh 128,
+#: G 6; no grok train line, so its backward is not timed)
+FLASH_TIMED = {
+    "xattn": (*FLASH_MODEL[0], False, True),
+    "enc": (*FLASH_MODEL[1], False, True),
+    "xattn_m4t": (*FLASH_MODEL[2], False, True),
+    "mla96": ((SERVE_PROMPT, SERVE_PROMPT), 96, (40, 40), True, True),
+    "mla192": ((SERVE_PROMPT, SERVE_PROMPT), 192, (16, 16), True, True),
+    "grok": ((SERVE_PROMPT, SERVE_PROMPT), 128, (48, 8), True, False)}
 #: the ``kernels`` line's entries at FLASH_TIMED's shapes: (kernel, label)
 #: -> the main-path run whose launches at that shape the entry reports (the
 #: serve runs' prefill at batch SERVE_BATCH, the enc-dec train run's
 #: clients at TRAIN_KW's batch).  The cross-attention backward at
 #: llama-vision's shape is timed but launched by no main-path run (no
 #: llama-vision train line): it is left out of the ``kernels`` line
-FLASH_TIMED_RUNS = {("flash_attention", "xattn"): "llama-3.2-vision-11b",
-                    ("flash_attention", "enc"): "seamless-m4t-large-v2",
-                    ("flash_attention", "xattn_m4t"): "seamless-m4t-large-v2",
-                    ("flash_attention_bwd", "enc"): "train",
-                    ("flash_attention_bwd", "xattn_m4t"): "train"}
+FLASH_TIMED_RUNS = {
+    ("flash_attention", "xattn"): ("serve", "llama-3.2-vision-11b"),
+    ("flash_attention", "enc"): ("serve", "seamless-m4t-large-v2"),
+    ("flash_attention", "xattn_m4t"): ("serve", "seamless-m4t-large-v2"),
+    ("flash_attention_bwd", "enc"): ("train", "seamless-m4t-large-v2"),
+    ("flash_attention_bwd", "xattn_m4t"): ("train", "seamless-m4t-large-v2"),
+    ("flash_attention", "mla96"): ("serve", "minicpm3-4b"),
+    ("flash_attention", "mla192"): ("serve", "deepseek-v2-lite-16b"),
+    ("flash_attention", "grok"): ("serve", "grok-1-314b"),
+    ("flash_attention_bwd", "mla96"): ("train", "minicpm3-4b"),
+    ("flash_attention_bwd", "mla192"): ("train", "deepseek-v2-lite-16b")}
 
 #: the flash backward's check cases besides the serving shape: ((Sq, Skv),
 #: Dh, (H, Hkv), causal, window, q_offset): every head dim, tails of the
@@ -361,7 +438,9 @@ FLASH_BWD_CASES = (((100, 100), 32, (4, 4), True, None, 0),
                    ((129, 257), 80, (8, 2), True, 100, 128),
                    ((257, 129), 80, (4, 1), False, 90, 0),
                    ((257, 127), 80, (8, 2), True, 70, 5)) + tuple(
-    (sqkv, dh, hh, False, None, 0) for sqkv, dh, hh in FLASH_MODEL)
+    (sqkv, dh, hh, False, None, 0) for sqkv, dh, hh in FLASH_MODEL) + tuple(
+    ((sq, skv), dh, hh, causal, window, 5 if causal else 0)
+    for sq, skv, dh, causal, window, hh in FLASH_MLA)
 #: the backward's bounds against its plain version (each side fed its own
 #: forward's output and lse), relative to each gradient's largest
 #: magnitude: float32 1e-4 (the same float32 sums in another order),
@@ -659,13 +738,15 @@ def hgmma_counts(library: Path) -> dict:
 def flash_designs(torch, flash_attention, designs, randn, library) -> dict:
     """Which kernel each input type launched, read from the profiler's
     kernel names, beside its design and its HGMMA count: bfloat16 must run
-    the wgmma kernel at Dh 80 (the serving head dim), float32 the FMA one
-    with no HGMMA."""
+    the wgmma kernel at Dh 80 (the serving head dim) and at MLA's 96 and
+    192 (``bfloat16_dh96``, ``bfloat16_dh192``), float32 the FMA one with
+    no HGMMA."""
     from torch.profiler import ProfilerActivity, profile
     hgmma = hgmma_counts(library)
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (randn(1, 256, 2, 80).to(dtype) for _ in range(3))
+    for dtype, dh in ((torch.float32, 80), (torch.bfloat16, 80),
+                      (torch.bfloat16, 96), (torch.bfloat16, 192)):
+        q, k, v = (randn(1, 256, 2, dh).to(dtype) for _ in range(3))
         flash_attention(q, k, v, causal=True, mode="cuda")   # warm-up
         names = []
         for calls in (3, 20):   # a short window may record no kernel
@@ -679,11 +760,14 @@ def flash_designs(torch, flash_attention, designs, randn, library) -> dict:
             if names:
                 break
         count = sum(hgmma.get(name, 0) for name in names)
-        out[str(dtype).split(".")[-1]] = {"design": designs[dtype],
-                                          "kernels": names, "hgmma": count}
-    check("flash_attention", out["bfloat16"]["kernels"]
-          == ["flash_attention_wgmma_kernel<80>"]
-          and out["bfloat16"]["hgmma"] > 0
+        key = str(dtype).split(".")[-1] + ("" if dh == 80 else f"_dh{dh}")
+        out[key] = {"design": designs[dtype], "kernels": names,
+                    "hgmma": count}
+    check("flash_attention", all(
+        out[f"bfloat16{sfx}"]["kernels"]
+        == [f"flash_attention_wgmma_kernel<{dh}>"]
+        and out[f"bfloat16{sfx}"]["hgmma"] > 0
+        for dh, sfx in ((80, ""), (96, "_dh96"), (192, "_dh192")))
           and out["float32"]["kernels"] == ["flash_attention_kernel<80>"]
           and out["float32"]["hgmma"] == 0, f"designs launched: {out}")
     out["hgmma_per_kernel"] = {f: n for f, n in hgmma.items() if n}
@@ -695,14 +779,16 @@ def flash_bwd_design(torch, kern, randn, library) -> dict:
     """Which backward kernels each input type launched, read from the
     profiler's kernel names, beside its design and each kernel's HGMMA
     count: bfloat16 must run the two wgmma kernels at Dh 80 (the served
-    head dim), each with HGMMA > 0, float32 the two FMA kernels with
-    none."""
+    head dim) and at MLA's 96 and 192 (``bfloat16_dh96``,
+    ``bfloat16_dh192``; the dk/dv kernel's two passes there share a
+    name), each with HGMMA > 0, float32 the two FMA kernels with none."""
     from torch.profiler import ProfilerActivity, profile
     hgmma = hgmma_counts(library)
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, do = (randn(1, 256, 8, 80).to(dtype) for _ in range(2))
-        k, v = (randn(1, 256, 2, 80).to(dtype) for _ in range(2))
+    for dtype, dh in ((torch.float32, 80), (torch.bfloat16, 80),
+                      (torch.bfloat16, 96), (torch.bfloat16, 192)):
+        q, do = (randn(1, 256, 8, dh).to(dtype) for _ in range(2))
+        k, v = (randn(1, 256, 2, dh).to(dtype) for _ in range(2))
         o, lse = kern.flash_attention_fwd(q, k, v, causal=True, lse=True,
                                           mode="cuda")
 
@@ -722,14 +808,16 @@ def flash_bwd_design(torch, kern, randn, library) -> dict:
                             and "delta" not in ev.key})
             if names:
                 break
-        out[str(dtype).split(".")[-1]] = {
-            "design": kern.BWD_DESIGNS[dtype], "kernels": names,
-            "hgmma": {n: hgmma.get(n, 0) for n in names}}
-    bf, f32 = out["bfloat16"], out["float32"]
-    check("flash_attention_bwd", bf["kernels"]
-          == ["flash_bwd_dkdv_wgmma_kernel<80>",
-              "flash_bwd_dq_wgmma_kernel<80>"]
-          and all(n > 0 for n in bf["hgmma"].values())
+        key = str(dtype).split(".")[-1] + ("" if dh == 80 else f"_dh{dh}")
+        out[key] = {"design": kern.BWD_DESIGNS[dtype], "kernels": names,
+                    "hgmma": {n: hgmma.get(n, 0) for n in names}}
+    f32 = out["float32"]
+    check("flash_attention_bwd", all(
+        out[f"bfloat16{sfx}"]["kernels"]
+        == [f"flash_bwd_dkdv_wgmma_kernel<{dh}>",
+            f"flash_bwd_dq_wgmma_kernel<{dh}>"]
+        and all(n > 0 for n in out[f"bfloat16{sfx}"]["hgmma"].values())
+        for dh, sfx in ((80, ""), (96, "_dh96"), (192, "_dh192")))
           and f32["kernels"] == ["flash_bwd_dkdv_kernel<80>",
                                  "flash_bwd_dq_kernel<80>"]
           and not any(f32["hgmma"].values()), f"designs launched: {out}")
@@ -743,9 +831,10 @@ def flash_phase(torch, cfg, flash_attention, randn, record) -> dict:
     bfloat16 (one ulp beyond that bound: both versions sum in float32,
     which may differ by 2e-5 where a sum cancels to near 0, and round once),
     q read through strides and a chunked prefill's ``q_offset``, and the
-    same bounds at sharp attention (``FLASH_SHARP``) and at the
+    same bounds at sharp attention (``FLASH_SHARP``), at the
     cross-attention and encoder cells' shapes (``FLASH_MODEL``, batch 2,
-    non-causal, kv lengths no multiple of a tile); rows that see no key
+    non-causal, kv lengths no multiple of a tile) and at MLA's head dims
+    and grok's group (``FLASH_MLA``); rows that see no key
     exactly 0; then the serving shape of h2o-danube-1.8b, checked and
     timed."""
     worst = {"float32_abs": 0.0, "bfloat16_ulp": 0.0, "cases": 0}
@@ -758,6 +847,9 @@ def flash_phase(torch, cfg, flash_attention, randn, record) -> dict:
              for dtype in (torch.float32, torch.bfloat16)]
     grid += [(sq, skv, dh, False, None, hh, 1.0, dtype)
              for (sq, skv), dh, hh in FLASH_MODEL
+             for dtype in (torch.float32, torch.bfloat16)]
+    grid += [(sq, skv, dh, causal, window, hh, 1.0, dtype)
+             for sq, skv, dh, causal, window, hh in FLASH_MLA
              for dtype in (torch.float32, torch.bfloat16)]
     for sq, skv, dh, causal, window, (h, hkv), qs, dtype in grid:
         q = randn(2, sq, 2 * h, dh, scale=qs).to(dtype)[:, :, :h]  # strided
@@ -862,25 +954,36 @@ def flash_key(name: str, b: int, sq: int, skv: int, h: int, hkv: int,
 
 def timed_key(name: str, label: str) -> tuple:
     """``flash_key`` of FLASH_TIMED[label] at batch SERVE_BATCH."""
-    (sq, skv), dh, (h, hkv) = FLASH_TIMED[label]
-    return flash_key(name, SERVE_BATCH, sq, skv, h, hkv, dh, False)
+    (sq, skv), dh, (h, hkv), causal, _ = FLASH_TIMED[label]
+    return flash_key(name, SERVE_BATCH, sq, skv, h, hkv, dh, causal)
+
+
+def attn_heads(cfg, kind: str) -> tuple:
+    """(H, Hkv, Dh) of a layer kind's flash calls: multi-head latent
+    attention expands its latent to every head at Dh nope + rope."""
+    if kind.startswith("mla"):
+        m = cfg.mla
+        return cfg.n_heads, cfg.n_heads, m.qk_nope_head_dim \
+            + m.qk_rope_head_dim
+    return cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
 
 
 def flash_shapes(cfg, batch: int, seq: int,
                  name: str = "flash_attention") -> collections.Counter:
     """The flash calls of one full-sequence pass of ``cfg`` over ``batch``
-    rows of ``seq`` tokens, by ``flash_key``: one a self-attention layer
-    (causal), a cross-attention layer (over the memory's frames) and an
-    encoder layer (frames over frames)."""
+    rows of ``seq`` tokens, by ``flash_key``: one a self-attention or MLA
+    layer (causal), a cross-attention layer (over the memory's frames) and
+    an encoder layer (frames over frames)."""
     from repro_torch.launch.inputs import memory_shape
-    heads = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     frames = (memory_shape(cfg) or (0,))[0]
     out = collections.Counter()
     for kind in cfg.block_pattern:
-        skv, causal = {"attn": (seq, True), "xattn": (frames, False)}[kind]
-        out[flash_key(name, batch, seq, skv, *heads, causal)] += cfg.n_units
+        skv, causal = (frames, False) if kind == "xattn" else (seq, True)
+        out[flash_key(name, batch, seq, skv, *attn_heads(cfg, kind),
+                      causal)] += cfg.n_units
     if cfg.encoder:
-        out[flash_key(name, batch, frames, frames, *heads, False)] += \
+        out[flash_key(name, batch, frames, frames,
+                      *attn_heads(cfg, "enc_attn"), False)] += \
             cfg.encoder.n_layers
     return out
 
@@ -940,9 +1043,17 @@ def xattn_memory(torch, cfg, lead: tuple, dtype=None):
                        device="cuda").to(dtype or cfg.torch_param_dtype)
 
 
+def serve_cfg(arch: str, n_layers=None):
+    """``arch``'s full config, cut to ``n_layers`` where given."""
+    from repro_torch.configs import cut_depth, get_config
+    cfg = get_config(arch)
+    return cfg if n_layers is None else cut_depth(cfg, n_layers)
+
+
 def serve_runs(torch, serve, build, kern, arch: str = SERVE_ARCH,
-               prompt: int = SERVE_PROMPT) -> dict:
-    """``serve.run`` of ``arch`` at full width and depth, batch
+               prompt: int = SERVE_PROMPT, n_layers=None) -> dict:
+    """``serve.run`` of ``arch`` at full width and depth (or cut to
+    ``n_layers``), batch
     SERVE_BATCH, a prompt of ``prompt`` tokens, with the kernels and with
     the plain versions, on the same seeded weights, each decoding its own
     greedy tokens, after a short run that takes the first-call costs: the
@@ -951,10 +1062,11 @@ def serve_runs(torch, serve, build, kern, arch: str = SERVE_ARCH,
     the flash kernel once a self-attention, cross-attention and encoder
     layer at that layer's shape (``flash_shapes``: the encoder runs once,
     inside the timed prefill), decode none."""
-    from repro_torch.configs import get_config
-    cfg = get_config(arch)
+    from repro_torch.models import count_params, param_specs
+    cfg = serve_cfg(arch, n_layers)
     kw = dict(smoke=False, batch=SERVE_BATCH, prompt_len=prompt,
-              gen=SERVE_GEN, device="cuda", progress=False)
+              gen=SERVE_GEN, device="cuda", progress=False,
+              n_layers=n_layers)
     serve.run(arch, **{**kw, "prompt_len": 512, "gen": 2})
     runs = {}
     for mode in ("auto", "torch"):
@@ -972,6 +1084,9 @@ def serve_runs(torch, serve, build, kern, arch: str = SERVE_ARCH,
         runs[mode] = (res, launches, shapes)
         emit({"serve": {
             "arch": arch, "kernel_mode": mode, "layers": cfg.n_layers,
+            "depth_cut_from": None if n_layers is None
+            else serve_cfg(arch).n_layers,
+            "params": count_params(param_specs(cfg)),
             "encoder_layers": cfg.encoder.n_layers if cfg.encoder else 0,
             "batch": SERVE_BATCH, "prompt": prompt, "gen": SERVE_GEN,
             "prefill_s": res["t_prefill"], "decode_s": res["t_decode"],
@@ -1021,7 +1136,7 @@ def serve_live(torch, serve, arch: str, prompt: int, raw) -> dict:
 
 
 def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
-                 prompt: int = SERVE_PROMPT) -> dict:
+                 prompt: int = SERVE_PROMPT, n_layers=None) -> dict:
     """Auto against torch on the same inputs, through the model functions.
     Every layer of the prefill is fed the auto pass's input in both modes
     (the kernel's one-ulp differences would otherwise flip the sharp
@@ -1036,7 +1151,12 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
     phase's bound, scaled as the float32 error of a convex combination of
     v's rows scales; the kernel on the model's own activations.  The
     layer's output, and the last position's logits of the two last
-    layers, within ``SERVE_REL_TOL`` of their largest magnitude.
+    layers, within ``SERVE_REL_TOL`` of their largest magnitude.  An MLA
+    layer's attention (Dh nope + rope, v zero-padded) is read the same
+    way, and the padded columns of the kernel's output must be exactly 0
+    (``mla_pad_zero``).  A MoE layer's feed-forward block, which runs no
+    kernel, is fed the auto pass's attention output in both modes and
+    must give bitwise the same output (``moe_bitwise``).
 
     Then the serving path's own output against the auto pass: the timed
     kernel ``serve.run`` of ``serve_runs`` (``runs["auto"]``) for a model
@@ -1050,11 +1170,12 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
     decodes from the encoded memory and deterministically.  The
     free-running ``serve.run`` pair's own differences and greedy-token
     agreement are reported, not checked."""
-    from repro_torch.configs import get_config
     from repro_torch.data import lm_tokens
     from repro_torch.launch import make_serve_step
     from repro_torch.launch.inputs import memory_shape
     from repro_torch.models import attention as A
+    from repro_torch.models import mla as M
+    from repro_torch.models import moe
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import embed_apply, rms_norm, \
         unembed_apply
@@ -1063,7 +1184,7 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
         a, b = a.float(), b.float()
         return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
-    cfg = get_config(arch)
+    cfg = serve_cfg(arch, n_layers)
     dev = torch.device("cuda")
     modes = ("auto", "torch")
     ms = memory_shape(cfg)
@@ -1080,14 +1201,19 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
     caches = {m: serve.make_caches(cfg, SERVE_BATCH, prompt + SERVE_GEN,
                                    dev, smoke=False) for m in modes}
     kinds, layers, attn_ulp, attn_rel = [], [], [], []
+    mla_pad_zero, moe_bitwise = [], []
 
     def layer(kind, p, x, memory, pos, cache):
         """One layer fed ``x`` in both modes: its attention output and its
         output read; the outputs returned."""
         mp = p["mixer"]
         h = rms_norm(x, mp["norm"], cfg.norm_eps)
-        causal = kind == "attn"
-        if kind == "xattn":
+        causal = kind != "xattn" and kind != "enc_attn"
+        width = None
+        if kind.startswith("mla"):
+            q, k, v = M._qkv(mp, h, cfg, pos)[:3]
+            width = cfg.mla.v_head_dim
+        elif kind == "xattn":
             q, k, v = A._qkv(mp, h, cfg, kv_x=memory)
         else:
             q, k, v = A._qkv(mp, h, cfg)
@@ -1098,13 +1224,30 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
         attn_ulp.append(bf16_ulps(a["auto"], a["torch"], FLASH_F32_ATOL
                                   * v.float().abs().max().item()))
         attn_rel.append(rel(a["auto"], a["torch"]))
+        if width is not None:
+            mla_pad_zero.append(not bool(a["auto"][..., width:].any()))
         del q, k, v, a
         y = {m: T._apply_layer(kind, p, x, cfg, mode="prefill",
                                cache=cache(m), pos=None, memory=memory,
-                               kernel_mode=m) for m in modes}
+                               kernel_mode=m)[0] for m in modes}
+        if T.FFN[kind] == "moe":
+            # the feed-forward block alone, fed the auto pass's attention
+            # output (its residual: the layer's output less the block's)
+            mixed = mixer_out(kind, p, x, memory, cache("auto"))
+            outs = [moe.moe_apply(p["ffn"], mixed, cfg) for _ in modes]
+            moe_bitwise.append(torch.equal(outs[0][0], outs[1][0])
+                               and torch.equal(outs[0][1], outs[1][1]))
+            del mixed, outs
         kinds.append(kind)
         layers.append(rel(y["torch"], y["auto"]))
         return y
+
+    def mixer_out(kind, p, x, memory, cache):
+        """The layer's attention with its residual, in auto mode."""
+        mp = p["mixer"]
+        if kind.startswith("mla"):
+            return M.mla_prefill(mp, x, cfg, cache, kernel_mode="auto")[0]
+        return A.attn_prefill(mp, x, cfg, cache, kernel_mode="auto")[0]
 
     memory = raw
     if cfg.encoder:
@@ -1141,7 +1284,8 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
         "served_by": "serve_runs' kernel run" if ms is None
         else "serve.run with the kernels, this memory and these gates",
         "layer_kinds": kinds, "attn_ulp": attn_ulp, "attn_rel": attn_rel,
-        "layer_rel": layers,
+        "layer_rel": layers, "mla_pad_zero": mla_pad_zero,
+        "moe_bitwise": moe_bitwise,
         "prefill_logits_rel": rel(logits["torch"], logits["auto"]),
         "forced_auto_vs_run_rel": rel(logits["auto"], auto["logits"][:, 0]),
         "decode_logits_rel": rel(torch.stack(steps, 1),
@@ -1165,6 +1309,9 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
           f"{arch}: over {SERVE_REL_TOL}: {bad}, worst layer {worst_layer}")
     check("serve_parity", max(attn_ulp) <= 1.0,
           f"{arch}: attention output over 1 bf16 ulp: {attn_ulp}")
+    check("serve_parity", all(mla_pad_zero) and all(moe_bitwise),
+          f"{arch}: MLA's padded columns not 0 ({mla_pad_zero}) or a MoE "
+          f"block not bitwise ({moe_bitwise})")
     return out
 
 
@@ -1295,23 +1442,29 @@ def flash_bwd_phase(torch, cfg, kern, randn, record, design) -> dict:
 
 def flash_model_timing(torch, kern, randn, record) -> None:
     """The flash forward and backward at the shapes FLASH_TIMED names
-    (llama-vision's cross-attention, seamless's encoder; bf16, batch
-    SERVE_BATCH, non-causal, random data), each checked against its plain
-    version (the flash phases' bounds) and timed beside the plain version,
-    the bound and the library's ``scaled_dot_product_attention`` (no mask,
-    ``enable_gqa``; its backward through autograd).  The bounds count
-    4 Dh FLOPs a (query, key) pair forward and 10 Dh backward at the bf16
-    tensor-core peak."""
+    (llama-vision's cross-attention, seamless's encoder and cross
+    attention, non-causal; the MLA cells' and grok's causal
+    self-attention; bf16, batch SERVE_BATCH, random data), each checked
+    against its plain version (the flash phases' bounds) and timed beside
+    the plain version, the bound and the library's
+    ``scaled_dot_product_attention`` (``enable_gqa``, ``is_causal`` where
+    causal; its backward through autograd), the backward only where
+    FLASH_TIMED asks.  The bounds count 4 Dh FLOPs a visible (query, key)
+    pair forward and 10 Dh backward at the bf16 tensor-core peak.  At
+    Dh 192 the forward is timed once more with q scaled by 24
+    (``ms_sharp_q24``): logits in the hundreds take the float32 FMA chain
+    over d of the sharp-logit refinement (``softmax_tile``)."""
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_fwd_ref)
     fwd, bwd = kern.flash_attention_fwd, kern.flash_attention_bwd
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for label, ((sq, skv), dh, (h, hkv)) in FLASH_TIMED.items():
+    for label, ((sq, skv), dh, (h, hkv), causal, with_bwd) in \
+            FLASH_TIMED.items():
         b = SERVE_BATCH
         q = randn(b, sq, h, dh).to(torch.bfloat16)
         k, v = (randn(b, skv, hkv, dh).to(torch.bfloat16) for _ in range(2))
         do = randn(b, sq, h, dh).to(torch.bfloat16)
-        kw = dict(causal=False)
+        kw = dict(causal=causal)
         o, lse = fwd(q, k, v, lse=True, mode="cuda", **kw)
         o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
         u = bf16_ulps(o, o_ref, FLASH_F32_ATOL)
@@ -1319,8 +1472,16 @@ def flash_model_timing(torch, kern, randn, record) -> None:
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         shape = {"q": [b, sq, h, dh], "kv": [b, skv, hkv, dh],
-                 "dtype": "bfloat16", "causal": False, "window": None}
-        flops = 4.0 * dh * b * h * sq * skv
+                 "dtype": "bfloat16", "causal": causal, "window": None}
+        pairs = flash_pairs(sq, skv, True, None) if causal else sq * skv
+        flops = 4.0 * dh * b * h * pairs
+        extra = {}
+        if dh == 192:
+            qs = (q.float() * 24.0).to(torch.bfloat16)
+            extra["ms_sharp_q24"] = float(np.median([timed_ms(
+                torch, lambda: fwd(qs, k, v, mode="cuda", **kw)[0])
+                for _ in range(3)]))
+            del qs
         record(f"flash_attention[{label}]",
                (o.float() - o_ref.float()).abs().max().item(),
                2.0 ** (math.floor(math.log2(o_ref.float().abs().max()
@@ -1328,15 +1489,18 @@ def flash_model_timing(torch, kern, randn, record) -> None:
                lambda: fwd(q, k, v, mode="cuda", **kw)[0],
                timed_ms(torch, lambda: fwd(q, k, v, mode="torch", **kw),
                         iters=5),
-               timed_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True),
-                        iters=5),
+               timed_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                            enable_gqa=True), iters=5),
                2.0 * (2 * b * sq * h * dh + 2 * b * skv * hkv * dh), flops,
                {"shape": shape, "max_ulp_beyond_atol": u,
                 "tolerance": f"1 bf16 ulp beyond atol {FLASH_F32_ATOL}",
                 "flops": flops, "bound_flop_rate": BF16_TC_FLOP_PER_S,
                 "library_call": "scaled_dot_product_attention(enable_gqa="
-                                "True)"},
+                                f"True, is_causal={causal})", **extra},
                kernel="flash_attention", flop_rate=BF16_TC_FLOP_PER_S)
+        if not with_bwd:
+            del q, k, v, do, o, lse, o_ref, lse_ref, qt, kt, vt
+            continue
         got = bwd(q, k, v, o, lse, do, mode="cuda", **kw)
         want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
         rel = max((g.float() - w.float()).abs().max().item()
@@ -1347,9 +1511,9 @@ def flash_model_timing(torch, kern, randn, record) -> None:
         err = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(got, want))
         del got, want, o_ref, lse_ref
-        lib_out = sdpa(qt, kt, vt, enable_gqa=True)
+        lib_out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
         dot = do.transpose(1, 2)
-        flops = 10.0 * dh * b * h * sq * skv
+        flops = 10.0 * dh * b * h * pairs
         record(f"flash_attention_bwd[{label}]", err,
                FLASH_BWD_REL["bfloat16"],
                lambda: bwd(q, k, v, o, lse, do, mode="cuda", **kw),
@@ -1364,7 +1528,13 @@ def flash_model_timing(torch, kern, randn, record) -> None:
                 "tolerance": f"{FLASH_BWD_REL['bfloat16']} x max|grad|",
                 "flops": flops, "bound_flop_rate": BF16_TC_FLOP_PER_S,
                 "library_call": "autograd of scaled_dot_product_attention("
-                                "enable_gqa=True)"},
+                                f"enable_gqa=True, is_causal={causal})",
+                "device_ms_kernels": {part: device_ms(
+                    torch, lambda: bwd(q, k, v, o, lse, do, mode="cuda",
+                                       **kw), (sym,)) for sym, part in (
+                    ("flash_bwd_delta_kernel", "delta"),
+                    ("flash_bwd_dkdv_wgmma_kernel", "dk_dv"),
+                    ("flash_bwd_dq_wgmma_kernel", "dq"))}},
                kernel="flash_attention_bwd", flop_rate=BF16_TC_FLOP_PER_S)
         del q, k, v, do, o, lse, qt, kt, vt, lib_out
 
@@ -1387,6 +1557,7 @@ def train_runs(torch, train, build, kern, n_layers: int,
     lr then throws the model to inf and NaN after one step, with or
     without the kernels; that line measures time and memory only."""
     from repro_torch.configs import cut_depth, get_config
+    from repro_torch.models import count_params, param_specs
     kw = dict(TRAIN_KW, n_layers=n_layers, device="cuda", seq=seq)
     cfg = cut_depth(get_config(arch), n_layers)
     rounds = kw["steps"] * kw["k_edge"]
@@ -1408,6 +1579,7 @@ def train_runs(torch, train, build, kern, n_layers: int,
               and res["blocks"] == kw["steps"] and res["chain_valid"],
               f"{arch} {mode}: {res}")
         line = {"arch": arch, "kernel_mode": mode, "layers": n_layers,
+                "params": count_params(param_specs(cfg)),
                 **{k: kw[k] for k in ("n_edges", "n_clients", "batch", "seq",
                                       "steps", "k_edge")},
                 "wall_s": res["wall"], "s_per_edge_round": res["wall"]
@@ -3030,6 +3202,19 @@ def main() -> int:
         train_grads_bf16(torch, build, flash_kernels, n, arch=arch,
                          rows=rows, seq=seq)
 
+    # ---------------- multi-head latent attention and mixture-of-experts
+    mserved, mtrained = {}, {}
+    for arch, n in MOE_SERVE.items():
+        mserved[arch] = serve_runs(torch, serve, build, flash_kernels, arch,
+                                   SERVE_PROMPT, n)
+        serve_parity(torch, serve, mserved[arch], arch, SERVE_PROMPT, n)
+    for arch in MOE_TRAIN:
+        mtrained[arch] = train_runs(torch, train, build, flash_kernels,
+                                    TRAIN_LAYERS, arch=arch)
+        train_parity(torch, train, mtrained[arch], arch)
+        train_grads_bf16(torch, build, flash_kernels, TRAIN_LAYERS,
+                         arch=arch)
+
     if "--profile" in sys.argv[1:]:
         emit({"profile": profile_run(torch, lambda: BHFLSimulator(
             setting, "hieavg", "temporary", "temporary", device="cuda",
@@ -3044,7 +3229,9 @@ def main() -> int:
                 TRAIN_ARCH, **dict(TRAIN_KW, n_layers=TRAIN_LAYERS, steps=1,
                                    k_edge=1), device="cuda"))}})
         for arch, prompt in ((SERVE_ARCH, SERVE_PROMPT),
-                             *XATTN_SERVE.items()):
+                             *XATTN_SERVE.items(),
+                             ("minicpm3-4b", SERVE_PROMPT),
+                             ("deepseek-v2-lite-16b", SERVE_PROMPT)):
             for label, gen in (("prefill", 1), ("decode", SERVE_GEN)):
                 # gen 1 is the prefill alone; the decode's share is the
                 # rest
@@ -3086,8 +3273,10 @@ def main() -> int:
     launches["flash_attention"] = served["auto"][1].get("flash_attention", 0)
     launches["flash_attention_bwd"] = trained["auto"][1].get(
         "flash_attention_bwd", 0)
-    for (name, label), run in FLASH_TIMED_RUNS.items():
-        shapes = (xtrained if run == "train" else xserved[run])["auto"][-1]
+    main_runs = {"serve": {**xserved, **mserved},
+                 "train": {XATTN_TRAIN_ARCH: xtrained, **mtrained}}
+    for (name, label), (path, arch) in FLASH_TIMED_RUNS.items():
+        shapes = main_runs[path][arch]["auto"][-1]
         launches[f"{name}[{label}]"] = shapes[timed_key(name, label)]
     launches["sgd_update[rows]"] = sweep_launches.get("sgd_update[rows]", 0)
     emit({"kernels": [

@@ -4,7 +4,9 @@ as ``repro.configs``).
 
 The registry knows all ten architecture ids of the reference.  The port
 runs the dense ones (the ``"attn"`` layer kind), the VLM and the
-encoder-decoder (``"xattn"`` and ``"enc_attn"``); the others raise
+encoder-decoder (``"xattn"`` and ``"enc_attn"``), and those with
+multi-head latent attention or mixture-of-experts layers (``"mla"``,
+``"mla_moe"``, ``"attn_moe"``); the recurrent ones raise
 ``NotImplementedError`` until their layer kinds are ported (``ROADMAP.md``,
 Queue 1).
 """
@@ -22,12 +24,12 @@ _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "minicpm3-4b": "minicpm3_4b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "grok-1-314b": "grok_1_314b",
 }
 #: the reference's other architectures, and the layer kinds they wait for
 _NOT_PORTED = {
-    "minicpm3-4b": "mla",
-    "deepseek-v2-lite-16b": "mla and moe",
-    "grok-1-314b": "moe",
     "recurrentgemma-9b": "rglru",
     "mamba2-130m": "ssd",
 }

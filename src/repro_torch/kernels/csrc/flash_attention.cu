@@ -32,13 +32,18 @@
 // moves the producer's registers to the consumers).  Tiles are stored in
 // 16-column chunks of 32-byte rows with TMA's 32-byte swizzle: one chunk
 // is one wgmma k-step, and 16 divides every head dim built (32, 64, 80,
-// 128; 80 is 160 bytes a row, no whole number of 128-byte atoms).
-//   s = q k^T runs on bf16 wgmma (m64n128k16, both operands from shared
+// 96, 128, 192; 80 is 160 bytes a row, no whole number of 128-byte
+// atoms).  Above Dh 128 the kv tile is 64 rows (kv_rows): at 128 the q
+// tile and the two-stage ring would need 240 KB of shared memory at Dh
+// 192, over the 227 KB a block may have; at 64 they take 144 KB, and a
+// consumer thread holds 96 o and 32 s accumulators (multi-head latent
+// attention runs at Dh 96, 64 + 32, and 192, 128 + 64).
+//   s = q k^T runs on bf16 wgmma (m64nBKk16, both operands from shared
 // memory, K-major) into float32: products of bf16 values are exact in
 // float32, so only the order of the float32 sums differs from the plain
 // version.  The online softmax works on the accumulator fragment: each
-// thread holds 2 rows x 32 columns, reduces row max and sum across the quad
-// that shares a row, and takes p = exp(t - m) (on ex2.approx) with t the
+// thread holds 2 rows x BK / 4 columns, reduces row max and sum across the
+// quad that shares a row, and takes p = exp(t - m) (on ex2.approx) with t the
 // scaled float32 sum and m the running max of the t's, so every p and
 // every rescale refer to one exact max (see softmax_tile).  Only tiles that
 // cut a row's visible range are masked, from a per-row column interval;
@@ -256,14 +261,17 @@ namespace bf16 {
 using namespace hopper;
 
 constexpr int BQ = 128;       // query rows per block, 64 per consumer
-constexpr int BK = 128;       // kv rows per tile
 constexpr int STAGES = 2;     // the kv ring
 constexpr int THREADS = 384;  // warpgroups 0, 1 consume, 2 produces
 constexpr int CONSUMER_WARPS = 8;
-constexpr int NS = BK / 2;    // s accumulators per thread
+
+// kv rows per tile: 128, and 64 above Dh 128, where a 128-row ring does
+// not fit in shared memory beside the q tile
+constexpr int kv_rows(int dh) { return dh > 128 ? 64 : 128; }
 
 template <int DH>
 struct Layout {               // byte offsets in shared memory
+  static constexpr int BK = kv_rows(DH);      // kv rows per tile
   static constexpr int NCH = DH / KSTEP;      // chunks per tile row
   static constexpr int QCHUNK = BQ * ROW;     // [BQ rows][16 columns]
   static constexpr int KCHUNK = BK * ROW;     // [BK rows][16 columns]
@@ -274,6 +282,7 @@ struct Layout {               // byte offsets in shared memory
   static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1);
   static constexpr int Q_TX = BQ * DH * 2;               // bytes per load
   static constexpr int KV_TX = 2 * BK * DH * 2;
+  static_assert(BYTES + 1024 <= 232448, "over a block's shared memory");
 };
 
 struct Params {
@@ -296,6 +305,14 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// s (+)= A B^T over a kv tile of N rows, both operands K-major
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 128) wgmma_ss_n128(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
 }
 
 // One consumer thread's rows: r0 and r0 + 8 of its warpgroup's 64.
@@ -330,7 +347,7 @@ struct Rows {
 // inputs of unit scale never take this path.
 constexpr float REFINE_ABOVE = 8.f;   // |logit|: ulp(8) = 2^-20
 constexpr float REFINE_WITHIN = 20.f;  // below the max: p < 2e-9
-template <bool MASK, typename Chain>
+template <bool MASK, int NS, typename Chain>
 __device__ __forceinline__ void softmax_tile(float (&s)[NS], Rows& r, int cq,
                                              float scale, Chain chain) {
   float mx[2] = {r.m[0], r.m[1]};
@@ -392,7 +409,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                                  const __grid_constant__ CUtensorMap tv,
                                  const Params p) {
   using L = Layout<DH>;
-  constexpr int NCH = L::NCH, NO = DH / 2;
+  constexpr int NCH = L::NCH, NO = DH / 2, BK = L::BK, NS = BK / 2;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // the swizzle pattern repeats every 256 bytes: align every chunk to 1024
   const uint32_t base =
@@ -476,8 +493,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
-      wgmma_ss_n128(s, desc32(qa + c * L::QCHUNK, 16, 8 * ROW),
-                    desc32(ka + c * L::KCHUNK, 16, 8 * ROW), c > 0);
+      wgmma_ss<BK>(s, desc32(qa + c * L::QCHUNK, 16, 8 * ROW),
+                   desc32(ka + c * L::KCHUNK, 16, 8 * ROW), c > 0);
     wgmma_commit();
   };
   // o += p v, three terms per k-step; v N-major: 16 kv rows of 32 bytes
@@ -605,6 +622,7 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
   CUtensorMap tq, tk, tv;
   const int skv = p.Skv > 0 ? p.Skv : 1;  // no key: no tile is loaded
   int rc = encode(&tq, q, B, p.Sq, p.H, DH, qsb, qss, qsh, BQ);
+  constexpr int BK = Layout<DH>::BK;
   if (rc == 0) rc = encode(&tk, k, B, skv, Hkv, DH, ksb, kss, ksh, BK);
   if (rc == 0) rc = encode(&tv, v, B, skv, Hkv, DH, vsb, vss, vsh, BK);
   if (rc != 0) return rc;
@@ -649,7 +667,9 @@ extern "C" int flash_attention_launch(
       case 32: return f32::launch<32, float>(p, B, st);
       case 64: return f32::launch<64, float>(p, B, st);
       case 80: return f32::launch<80, float>(p, B, st);
+      case 96: return f32::launch<96, float>(p, B, st);
       case 128: return f32::launch<128, float>(p, B, st);
+      case 192: return f32::launch<192, float>(p, B, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -663,7 +683,9 @@ extern "C" int flash_attention_launch(
     case 32: return WG_LAUNCH(32);
     case 64: return WG_LAUNCH(64);
     case 80: return WG_LAUNCH(80);
+    case 96: return WG_LAUNCH(96);
     case 128: return WG_LAUNCH(128);
+    case 192: return WG_LAUNCH(192);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef WG_LAUNCH

@@ -17,7 +17,8 @@
 //   dk    = sum_g dS^T q / sqrt(Dh)
 //   dq    = dS k / sqrt(Dh)         (kernel c: one block a q tile)
 //
-// Three launches a backward.  Kernel b owns a kv tile of one kv head of one
+// Three launches a backward (kernel b in two passes above Dh 128, see
+// below).  Kernel b owns a kv tile of one kv head of one
 // batch entry: it walks the G query heads of its group and, of each, only
 // the q tiles whose rows can see a key of the tile (query positions in
 // [k0, k1 + window) under the causal and window masks), and accumulates dk
@@ -52,6 +53,12 @@
 // it (+inf and 0 for rows past Sq).  The fragment is then the A operand of
 // dV += P^T do and dK += dS^T q, rs products (m64nDhk16) with do and q
 // N-major from the same tiles: P and dS never go through shared memory.
+//   Above Dh 128 kernel b runs in two passes (two launches of one launcher
+// call): dV alone (S^T, P^T, dV += P^T do), then dK alone (S^T, dP^T,
+// dS^T, dK += dS^T q).  Both accumulators of 64 kv rows at Dh 192 would
+// take 192 registers a consumer thread before S, dP and their split A
+// operands; one a pass leaves 160 (dV) and 192 (dK) under setmaxnreg's
+// 240.  The second pass recomputes S^T: 2 Dh FLOPs more a visible pair.
 //   Kernel c (block: 128 q rows, q and do loaded once; stream: k and v).
 // S = Q K^T and dP = do V^T are ss products; P and dS in the fragment;
 // dQ += dS K an rs product with K N-major.  The separate dq kernel
@@ -398,6 +405,7 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int DH>
 int launch_dkdv(const Params& p, int B, cudaStream_t stream) {
+  static_assert(dkdv_smem<DH>() <= 232448, "over a block's shared memory");
   const size_t smem = dkdv_smem<DH>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkdv_kernel<DH>,
@@ -410,6 +418,7 @@ int launch_dkdv(const Params& p, int B, cudaStream_t stream) {
 
 template <int DH>
 int launch_dq(const Params& p, int B, cudaStream_t stream) {
+  static_assert(dq_smem<DH>() <= 232448, "over a block's shared memory");
   const size_t smem = dq_smem<DH>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<DH>,
@@ -431,7 +440,9 @@ int dispatch(bool dq, const Params& p, int B, int D, cudaStream_t st) {
     case 32: return launch<32>(dq, p, B, st);
     case 64: return launch<64>(dq, p, B, st);
     case 80: return launch<80>(dq, p, B, st);
+    case 96: return launch<96>(dq, p, B, st);
     case 128: return launch<128>(dq, p, B, st);
+    case 192: return launch<192>(dq, p, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -465,7 +476,13 @@ struct Layout {               // byte offsets in shared memory
   static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1);
   static constexpr int OWN_TX = 2 * BM * DH * 2;  // bytes per load
   static constexpr int STR_TX = 2 * BN * DH * 2;
+  static_assert(BYTES + 1024 <= 232448, "over a block's shared memory");
 };
+
+// kernel b's passes: dK and dV in one (BOTH), or, above Dh 128, dV alone
+// then dK alone (header note)
+enum Part { BOTH = 0, DV_ONLY = 1, DK_ONLY = 2 };
+constexpr bool two_pass(int dh) { return dh > 128; }
 
 struct Params {
   const float* lse;    // [B, H, Sq]
@@ -523,6 +540,21 @@ __device__ __forceinline__ void issue_ss(float (&s)[NS], float (&dp)[NS],
   fence_regs(s);
 }
 
+// s = A0w S0^T alone (kernel b's dV pass), waited for
+template <int DH>
+__device__ __forceinline__ void issue_s(float (&s)[NS], uint32_t a0,
+                                        uint32_t b0) {
+  using L = Layout<DH>;
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < L::NCH; ++c)
+    wgmma_ss_n64(s, desc32(a0 + c * L::OWN, 16, 8 * ROW),
+                 desc32(b0 + c * L::STR, 16, 8 * ROW), c > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+}
+
 // x (NS accumulators, k-step kk in registers 8 kk..) into its TERMS bf16
 // terms in the A operand's order
 __device__ __forceinline__ void split_fragment(const float (&x)[NS],
@@ -541,7 +573,7 @@ __device__ __forceinline__ int frag_row(int i) { return 8 * ((i >> 1) & 1); }
 __device__ __forceinline__ int frag_col(int i) { return 8 * (i / 4) + (i & 1); }
 
 // ------------------------------------------ (b) dk, dv: one block a kv tile
-template <int DH>
+template <int DH, int PART>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
@@ -550,6 +582,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                                 const Params p) {
   using L = Layout<DH>;
   constexpr int NCH = L::NCH, NO = DH / 2;
+  constexpr bool WANT_DK = PART != DV_ONLY, WANT_DV = PART != DK_ONLY;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // the swizzle pattern repeats every 256 bytes: align every chunk to 1024
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
@@ -632,10 +665,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t ka = base + L::A0 + wgi * 64 * ROW,
                  va = base + L::A1 + wgi * 64 * ROW;
 
-  float dk[NO], dv[NO], st[NS], dp[NS];
+  float dk[WANT_DK ? NO : 1], dv[WANT_DV ? NO : 1], st[NS], dp[NS];
   uint32_t pa[NA], da[NA];
 #pragma unroll
-  for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < NO; ++i) {
+    if constexpr (WANT_DK) dk[i] = 0.f;
+    if constexpr (WANT_DV) dv[i] = 0.f;
+  }
 
   if (total > 0) mbar_wait(own, 0);
   for (int it = 0; it < total; ++it) {
@@ -650,7 +686,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (seen) {
       const uint32_t qs = base + L::S0 + s * NCH * L::STR,
                      dos = base + L::S1 + s * NCH * L::STR;
-      issue_ss<DH>(st, dp, ka, va, qs, dos);  // S^T = K Q^T, dP^T = V do^T
+      if constexpr (WANT_DK)
+        issue_ss<DH>(st, dp, ka, va, qs, dos);  // S^T = K Q^T, dP^T = V do^T
+      else
+        issue_s<DH>(st, ka, qs);  // S^T alone
       const bool all = (!p.causal || khi <= qlo) &&
                        (p.window < 0 || kw0 > qhi - p.window);
       const float* lr = rows + s * 2 * BN;
@@ -666,30 +705,40 @@ __global__ void __launch_bounds__(THREADS, 1)
             st[i] = 0.f;
         }
       }
-      split_fragment(st, pa);
-      wgmma_wait_all();
-      fence_regs(dp);
-      wgmma_fence();
-      rs_tile<DH>(dv, pa, dos);  // dV += P^T do, while dS^T is formed
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {  // dS^T = P^T (dP^T - delta)
-        const float2 d2 =
-            *reinterpret_cast<const float2*>(lr + BN + 8 * j + cq);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * j + e;
-          dp[i] = st[i] * (dp[i] - (e & 1 ? d2.y : d2.x));
-        }
+      if constexpr (WANT_DV) split_fragment(st, pa);
+      if constexpr (WANT_DK) {
+        wgmma_wait_all();
+        fence_regs(dp);
       }
-      split_fragment(dp, da);
-      wgmma_fence();
-      rs_tile<DH>(dk, da, qs);  // dK += dS^T q
+      if constexpr (WANT_DV) {
+        wgmma_fence();
+        rs_tile<DH>(dv, pa, dos);  // dV += P^T do, while dS^T is formed
+      }
+      if constexpr (WANT_DK) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {  // dS^T = P^T (dP^T - delta)
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(lr + BN + 8 * j + cq);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            dp[i] = st[i] * (dp[i] - (e & 1 ? d2.y : d2.x));
+          }
+        }
+        split_fragment(dp, da);
+        wgmma_fence();
+        rs_tile<DH>(dk, da, qs);  // dK += dS^T q
+      }
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs(dv);
-      fence_regs(dk);
-      fence_regs(pa);
-      fence_regs(da);
+      if constexpr (WANT_DV) {
+        fence_regs(dv);
+        fence_regs(pa);
+      }
+      if constexpr (WANT_DK) {
+        fence_regs(dk);
+        fence_regs(da);
+      }
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * s);
@@ -705,11 +754,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     const size_t at = (((size_t)b * p.Skv + row) * p.Hkv + hk) * DH + cq;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(DK + at + 8 * j) =
-          __floats2bfloat162_rn(dk[4 * j + 2 * hh] * p.scale,
-                                dk[4 * j + 2 * hh + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(DV + at + 8 * j) =
-          __floats2bfloat162_rn(dv[4 * j + 2 * hh], dv[4 * j + 2 * hh + 1]);
+      if constexpr (WANT_DK)
+        *reinterpret_cast<__nv_bfloat162*>(DK + at + 8 * j) =
+            __floats2bfloat162_rn(dk[4 * j + 2 * hh] * p.scale,
+                                  dk[4 * j + 2 * hh + 1] * p.scale);
+      if constexpr (WANT_DV)
+        *reinterpret_cast<__nv_bfloat162*>(DV + at + 8 * j) =
+            __floats2bfloat162_rn(dv[4 * j + 2 * hh],
+                                  dv[4 * j + 2 * hh + 1]);
     }
   }
 }
@@ -869,9 +921,25 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// kernel b (dq = false) or c (dq = true) at head dim DH: the tensor maps
-// (q and do in boxes of the streamed or the owned rows, k and v the other
-// way round), the shared memory, the grid
+typedef void (*Kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+                       Params);
+
+// one launch of `kernel` on its grid with the shared memory of Layout<DH>
+template <int DH>
+int launch_one(Kernel kernel, dim3 grid, const CUtensorMap& tq,
+               const CUtensorMap& tk, const CUtensorMap& tv,
+               const CUtensorMap& tdo, const Params& p, cudaStream_t stream) {
+  const int smem = Layout<DH>::BYTES + 1024;  // + the alignment to 1024
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, tdo, p);
+  return (int)cudaGetLastError();
+}
+
+// kernel b (dq = false; in two passes above Dh 128) or c (dq = true) at
+// head dim DH: the tensor maps (q and do in boxes of the streamed or the
+// owned rows, k and v the other way round), the shared memory, the grid
 template <int DH>
 int launch(bool dq, const void* q, const void* k, const void* v,
            const void* dout, const Params& p, int B, long long qsb,
@@ -890,15 +958,20 @@ int launch(bool dq, const void* q, const void* k, const void* v,
   if (rc == 0) rc = encode(&tk, k, B, skv, p.Hkv, DH, ksb, kss, ksh, krows);
   if (rc == 0) rc = encode(&tv, v, B, skv, p.Hkv, DH, vsb, vss, vsh, krows);
   if (rc != 0) return rc;
-  const int smem = Layout<DH>::BYTES + 1024;  // + the alignment to 1024
-  auto kernel =
-      dq ? flash_bwd_dq_wgmma_kernel<DH> : flash_bwd_dkdv_wgmma_kernel<DH>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
   const dim3 grid(((dq ? p.Sq : p.Skv) + BM - 1) / BM, dq ? p.H : p.Hkv, B);
-  kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, tdo, p);
-  return (int)cudaGetLastError();
+  if (dq)
+    return launch_one<DH>(flash_bwd_dq_wgmma_kernel<DH>, grid, tq, tk, tv,
+                          tdo, p, stream);
+  if constexpr (!two_pass(DH)) {
+    return launch_one<DH>(flash_bwd_dkdv_wgmma_kernel<DH, BOTH>, grid, tq,
+                          tk, tv, tdo, p, stream);
+  } else {
+    rc = launch_one<DH>(flash_bwd_dkdv_wgmma_kernel<DH, DV_ONLY>, grid, tq,
+                        tk, tv, tdo, p, stream);
+    if (rc != 0) return rc;
+    return launch_one<DH>(flash_bwd_dkdv_wgmma_kernel<DH, DK_ONLY>, grid, tq,
+                          tk, tv, tdo, p, stream);
+  }
 }
 
 }  // namespace wg
@@ -931,7 +1004,9 @@ int run(bool dq, const void* q, const void* k, const void* v,
     case 32: return WG_LAUNCH(32);
     case 64: return WG_LAUNCH(64);
     case 80: return WG_LAUNCH(80);
+    case 96: return WG_LAUNCH(96);
     case 128: return WG_LAUNCH(128);
+    case 192: return WG_LAUNCH(192);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef WG_LAUNCH

@@ -23,20 +23,23 @@ import torch
 
 from . import build, ref
 
-#: the head dims the kernel is built for (csrc/flash_attention.cu)
-HEAD_DIMS = (32, 64, 80, 128)
+#: the head dims the kernels are built for (csrc/flash_attention.cu,
+#: csrc/flash_attention_bwd.cu); 96 and 192 are multi-head latent
+#: attention's (``models.mla``: nope + rope)
+HEAD_DIMS = (32, 64, 80, 96, 128, 192)
 #: input types and the launcher's code for each
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the design each input type launches, by its kernel's name
 DESIGNS = {torch.float32: "flash_attention_kernel (FP32 FMA)",
            torch.bfloat16: "flash_attention_wgmma_kernel (bf16 wgmma, TMA "
-                           "kv ring)"}
+                           "kv ring; 64-row kv tiles above Dh 128)"}
 #: the backward's design per input type, by its dk/dv and dq kernels' names
 BWD_DESIGNS = {torch.float32: "flash_bwd_dkdv_kernel, flash_bwd_dq_kernel "
                               "(FP32 FMA)",
                torch.bfloat16: "flash_bwd_dkdv_wgmma_kernel, "
                                "flash_bwd_dq_wgmma_kernel (bf16 wgmma, TMA "
-                               "ring, P and dS in BWD_TERMS bf16 terms)"}
+                               "ring, P and dS in BWD_TERMS bf16 terms; "
+                               "dk/dv in a dV and a dK pass above Dh 128)"}
 #: bf16 terms each of P and dS is split into in the bfloat16 backward
 #: (``TERMS`` in csrc/flash_attention_bwd.cu)
 BWD_TERMS = 2

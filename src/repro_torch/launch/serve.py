@@ -3,7 +3,8 @@
 Port of ``repro.launch.serve`` for the LLM zoo, on one GPU:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
-      --batch 4 --prompt-len 32 --gen 16 [--no-smoke] [--device cpu]
+      --batch 4 --prompt-len 32 --gen 16 [--no-smoke] [--n-layers N] \\
+      [--device cpu]
 
 The weights are random, drawn from ``seed`` on the device they run on, in
 the config's own ``param_dtype`` (bfloat16 at full width; the reference's
@@ -21,9 +22,11 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
+
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+from repro_torch.configs import ARCH_IDS, cut_depth, get_config, get_smoke
 from repro_torch.data import lm_tokens
 from repro_torch.fl.simulator import resolve_device
 from repro_torch.kernels.build import KERNEL_MODES
@@ -59,11 +62,13 @@ def make_caches(cfg, batch: int, max_len: int, device, *,
 def run(arch: str, *, smoke: bool = True, batch: int = 4,
         prompt_len: int = 32, gen: int = 16, temperature: float = 0.0,
         seed: int = 0, device=None, kernel_mode: str = "auto",
-        progress: bool = True) -> dict:
+        progress: bool = True, n_layers: Optional[int] = None) -> dict:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens (``lm_tokens``
     from ``seed``) and decode ``gen`` tokens.
 
-    ``device=None`` means ``"cuda"`` and raises without a GPU.  Greedy at
+    ``device=None`` means ``"cuda"`` and raises without a GPU.
+    ``n_layers`` cuts the config's depth (``configs.cut_depth``; None: its
+    own), for a model too deep for one card (grok-1-314b).  Greedy at
     ``temperature == 0``; above it, sampling from a ``torch.Generator``
     seeded with ``seed + 2``, whose draws differ from ``jax.random``'s.
 
@@ -79,6 +84,8 @@ def run(arch: str, *, smoke: bool = True, batch: int = 4,
     if kernel_mode == "cuda" and dev.type != "cuda":
         raise ValueError("kernel_mode='cuda' needs device='cuda'")
     cfg = get_smoke(arch) if smoke else get_config(arch)
+    if n_layers is not None:
+        cfg = cut_depth(cfg, n_layers)
     max_len = prompt_len + gen
 
     params = make_params(cfg, seed, dev)
@@ -133,6 +140,7 @@ def main():
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--n-layers", type=int, default=None)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
@@ -141,7 +149,8 @@ def main():
     out = run(args.arch, smoke=args.smoke, batch=args.batch,
               prompt_len=args.prompt_len, gen=args.gen,
               temperature=args.temperature, seed=args.seed,
-              device=args.device, kernel_mode=args.kernel_mode)
+              device=args.device, kernel_mode=args.kernel_mode,
+              n_layers=args.n_layers)
     print("sample token ids:", out["tokens"][0, :10])
 
 

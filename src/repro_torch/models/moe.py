@@ -1,0 +1,130 @@
+"""Mixture-of-Experts MLP with top-k routing (Grok-1, DeepSeek-V2-Lite).
+
+Port of ``repro.models.moe``: capacity-based dispatch in blocks of
+``MOE_BLOCK`` tokens (the whole sequence when it does not divide).  Each
+block's tokens go to ``[E, capacity, D]`` buffers through a one-hot
+dispatch tensor, run through the batched expert SwiGLU, and come back
+weighted by the renormalised router probabilities through a one-hot
+combine tensor; a token past its expert's capacity in the block is
+dropped (its slot adds nothing).  The shared experts (DeepSeek) are a
+dense SwiGLU on every token.  Returns the Switch-style load-balance
+auxiliary loss beside the output.
+
+The routing (probabilities -> expert index, buffer position, keep) is
+``route``, apart, so that it can be fed given probabilities.  Its top-k
+orders ties as ``jax.lax.top_k`` does, the lower expert index first:
+random weights can saturate the router's softmax, several experts then
+read exactly 0, and the order among them decides who takes a capacity
+slot.
+
+The reference's mesh hints are left out: ``EXPERT_PARALLEL_SPEC`` and the
+launch layer's ``_set_moe_hint`` pin its all-to-all on a mesh, and the
+port runs on one card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .config import ArchConfig
+from .layers import norm_spec, rms_norm
+from .spec import ParamSpec
+
+f32 = torch.float32
+
+#: token-block size for dispatch (a module attribute: tests set it)
+MOE_BLOCK = 256
+
+
+def moe_specs(cfg: ArchConfig, stacked: Optional[int]) -> dict:
+    """Router [d, E], experts' gate/up [E, d, f] and down [E, f, d], the
+    norm, and the shared experts' SwiGLU [d, f n_shared] where there are
+    any."""
+    m = cfg.moe
+    pre = (stacked,) if stacked else ()
+    d = cfg.d_model
+    fe = m.d_expert or cfg.d_ff
+    out = {
+        "router": ParamSpec(pre + (d, m.n_experts)),
+        "gate": ParamSpec(pre + (m.n_experts, d, fe)),
+        "up": ParamSpec(pre + (m.n_experts, d, fe)),
+        "down": ParamSpec(pre + (m.n_experts, fe, d)),
+        "norm": norm_spec(d, pre),
+    }
+    if m.n_shared:
+        out["sh_gate"] = ParamSpec(pre + (d, fe * m.n_shared))
+        out["sh_up"] = ParamSpec(pre + (d, fe * m.n_shared))
+        out["sh_down"] = ParamSpec(pre + (fe * m.n_shared, d))
+    return out
+
+
+def _capacity(n_tokens: int, m) -> int:
+    cap = int(n_tokens * m.top_k * m.capacity_factor / m.n_experts)
+    return max(cap, m.top_k)
+
+
+def route(probs: torch.Tensor, top_k: int, cap: int):
+    """probs [..., blk, E] -> (gate values [..., blk, k] renormalised,
+    expert index [..., blk, k] int64, buffer position [..., blk, k] int64,
+    keep [..., blk, k] bool, one-hot [..., blk, k, E] int64).
+
+    Top-k by a stable descending sort, so ties keep the lower expert index
+    first (``jax.lax.top_k``'s order).  A (token, k) pair's position in its
+    expert's buffer counts the pairs before it in the block's flattened
+    (token, k) order that chose the same expert; it is kept below
+    ``cap``."""
+    n_e = probs.shape[-1]
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :top_k], idx[..., :top_k]
+    gates = vals / vals.sum(-1, keepdim=True)
+    oh = F.one_hot(idx, n_e)                                  # [..., blk, k, E]
+    flat = oh.flatten(-3, -2)                                 # [..., blk k, E]
+    pos = (torch.cumsum(flat, dim=-2) - flat).view(oh.shape)
+    pos = (pos * oh).sum(-1)                                  # [..., blk, k]
+    return gates, idx, pos, pos < cap, oh
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] -> (x + y, aux loss, float32 0-dim).
+
+    Router logits and softmax in float32; the dispatch and combine
+    tensors ``[B, ns, blk, E, C]`` (0/1 and gate-weighted, float32) cast
+    to the activations' dtype before their products, as the reference
+    casts them."""
+    m = cfg.moe
+    b, s, d = x.shape
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    blk = MOE_BLOCK if s % MOE_BLOCK == 0 else s
+    ns = s // blk
+    cap = _capacity(blk, m)
+    hb = h.reshape(b, ns, blk, d)
+
+    logits = hb.to(f32) @ p["router"].to(f32)                 # [b,ns,blk,E]
+    probs = torch.softmax(logits, dim=-1)
+    gates, _, pos, keep, oh = route(probs, m.top_k, cap)
+
+    pos_oh = F.one_hot(torch.clamp(pos, max=cap - 1), cap).to(f32)
+    send = oh.to(f32) * keep.to(f32)[..., None]               # [b,ns,blk,k,E]
+    disp = torch.einsum("bntke,bntkc->bntec", send, pos_oh)
+    comb = torch.einsum("bntke,bntkc->bntec", send * gates[..., None],
+                        pos_oh)
+
+    xin = torch.einsum("bntec,bntd->bnecd", disp.to(h.dtype), hb)
+    g = torch.einsum("bnecd,edf->bnecf", xin, p["gate"])
+    u = torch.einsum("bnecd,edf->bnecf", xin, p["up"])
+    eout = torch.einsum("bnecf,efd->bnecd", F.silu(g) * u, p["down"])
+    y = torch.einsum("bntec,bnecd->bntd", comb.to(h.dtype), eout)
+    y = y.reshape(b, s, d)
+
+    if m.n_shared:
+        y = y + (F.silu(h @ p["sh_gate"]) * (h @ p["sh_up"])) @ p["sh_down"]
+
+    # Switch-style load-balance aux loss: E * sum_e f_e * P_e, f_e from the
+    # routing before the capacity drop
+    frac_tokens = oh.sum(-2).to(f32).mean((0, 1, 2))
+    frac_prob = probs.mean((0, 1, 2))
+    aux = m.n_experts * (frac_tokens * frac_prob).sum() * m.router_aux_weight
+    return x + y, aux

@@ -6,15 +6,22 @@ optional encoder stack (``encoder.unit.0``, stacked ``[encoder.n_layers,
 Port of ``repro.models.transformer`` for the layer kinds
 
   attn      GQA self-attention + SwiGLU MLP
+  mla       multi-head latent attention + SwiGLU MLP
+  attn_moe  GQA self-attention + MoE MLP
+  mla_moe   multi-head latent attention + MoE MLP
   xattn     gated cross-attention to the memory + SwiGLU MLP
   enc_attn  the encoder's non-causal self-attention + SwiGLU MLP
 
-The other kinds raise ``NotImplementedError`` until they are ported
-(``ROADMAP.md``); tail layers are not ported: ``repro_torch.configs``
-refuses the configs that have them.  Each stack is a Python loop that
-indexes the stacked leaves, where the reference scans; ``remat`` (the
-training loss only) checkpoints each unit, and each encoder layer, as the
-reference's ``jax.checkpoint`` of its scan body.
+The other kinds (``rec``, ``ssd``) raise ``NotImplementedError`` until
+they are ported (``ROADMAP.md``); tail layers are not ported:
+``repro_torch.configs`` refuses the configs that have them.  Each stack is
+a Python loop that indexes the stacked leaves, where the reference scans;
+``remat`` (the training loss only) checkpoints each unit, and each encoder
+layer, as the reference's ``jax.checkpoint`` of its scan body.  The MoE
+layers' load-balance loss (``aux``) is summed over the layers as the
+reference carries it through its scan: a checkpointed unit returns it
+beside its output, so the backward recomputes it and its gradient reaches
+the routers; ``forward_train`` returns it and ``loss_fn`` adds it.
 
 The memory that ``xattn`` attends to is the encoder's output over the
 frame embeddings (enc-dec), or the patch embeddings themselves (the VLM,
@@ -39,12 +46,19 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as att
+from . import mla as mla_mod
+from . import moe as moe_mod
 from .config import ArchConfig
 from .layers import embed_apply, embed_specs, mlp_apply, mlp_specs, \
     unembed_apply
 
-#: the ported layer kinds, each its mixer and a SwiGLU MLP
-KINDS = ("attn", "xattn", "enc_attn")
+#: each ported layer kind's mixer and feed-forward block
+MIXER = {"attn": "attn", "attn_moe": "attn", "mla": "mla", "mla_moe": "mla",
+         "xattn": "xattn", "enc_attn": "enc_attn"}
+FFN = {"attn": "mlp", "attn_moe": "moe", "mla": "mlp", "mla_moe": "moe",
+       "xattn": "mlp", "enc_attn": "mlp"}
+#: the ported layer kinds
+KINDS = tuple(MIXER)
 
 
 def _kind(kind: str) -> str:
@@ -55,10 +69,13 @@ def _kind(kind: str) -> str:
 
 # ------------------------------------------------------------------- specs
 def _layer_specs(kind: str, cfg: ArchConfig, stacked: Optional[int]) -> dict:
-    """A layer's mixer (self- or cross-attention) and its SwiGLU MLP."""
-    return {"mixer": att.attn_specs(cfg, stacked,
-                                    cross=_kind(kind) == "xattn"),
-            "ffn": mlp_specs(cfg, stacked)}
+    """A layer's mixer (self- or cross-attention, or MLA) and its
+    feed-forward block (SwiGLU MLP or MoE)."""
+    mixer = MIXER[_kind(kind)]
+    return {"mixer": mla_mod.mla_specs(cfg, stacked) if mixer == "mla"
+            else att.attn_specs(cfg, stacked, cross=mixer == "xattn"),
+            "ffn": moe_mod.moe_specs(cfg, stacked) if FFN[kind] == "moe"
+            else mlp_specs(cfg, stacked)}
 
 
 def param_specs(cfg: ArchConfig) -> dict:
@@ -71,15 +88,27 @@ def param_specs(cfg: ArchConfig) -> dict:
     return specs
 
 
+def _layer_cache_spec(kind: str, cfg: ArchConfig, batch: int, max_len: int,
+                      dtype) -> Optional[dict]:
+    mixer = MIXER[_kind(kind)]
+    if mixer == "attn":
+        return att.init_cache_spec(cfg, batch, max_len, cfg.n_units, dtype)
+    if mixer == "mla":
+        return mla_mod.mla_cache_spec(cfg, batch, max_len, cfg.n_units,
+                                      dtype)
+    return None  # cross-attention: a static memory, no cache
+
+
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16) -> dict:
-    """KV cache specs of the self-attention positions (cross-attention
-    attends to a static memory and keeps no cache); ``dtype`` bf16 in
-    production, f32 in tests."""
-    return {"unit": {str(i): att.init_cache_spec(cfg, batch, max_len,
-                                                 cfg.n_units, dtype)
-                     for i, k in enumerate(cfg.block_pattern)
-                     if _kind(k) == "attn"}}
+    """The cache specs of the self-attention positions: KV caches, and
+    MLA's compressed ``c_kv``/``k_rope`` (cross-attention attends to a
+    static memory and keeps no cache); ``dtype`` bf16 in production, f32
+    in tests."""
+    return {"unit": {
+        str(i): cs for i, k in enumerate(cfg.block_pattern)
+        if (cs := _layer_cache_spec(k, cfg, batch, max_len, dtype))
+        is not None}}
 
 
 def params_from_numpy(tree: dict, device="cpu") -> dict:
@@ -111,11 +140,20 @@ def _index(tree: dict, i: int) -> dict:
 def _apply_layer(kind: str, p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                  mode: str, cache: Optional[dict], pos, memory,
                  kernel_mode: str):
-    """One layer in the given mode; the cache is written in place.  The
-    encoder's layers and cross-attention run as in training in every mode
-    (they keep no cache)."""
-    mixer = _kind(kind)
-    if mixer == "enc_attn":
+    """One layer in the given mode -> (x, its MoE aux loss or None); the
+    cache is written in place.  The encoder's layers and cross-attention
+    run as in training in every mode (they keep no cache)."""
+    mixer = MIXER[_kind(kind)]
+    if mixer == "mla":
+        if mode == "train":
+            x = mla_mod.mla_train(p["mixer"], x, cfg,
+                                  kernel_mode=kernel_mode)
+        elif mode == "prefill":
+            x, _ = mla_mod.mla_prefill(p["mixer"], x, cfg, cache,
+                                       kernel_mode=kernel_mode)
+        else:
+            x, _ = mla_mod.mla_decode(p["mixer"], x, cfg, cache, pos)
+    elif mixer == "enc_attn":
         x = att.attn_train(p["mixer"], x, cfg, causal=False,
                            kernel_mode=kernel_mode)
     elif mixer == "xattn":
@@ -131,35 +169,43 @@ def _apply_layer(kind: str, p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                                 kernel_mode=kernel_mode)
     else:
         x, _ = att.attn_decode(p["mixer"], x, cfg, cache, pos)
-    return mlp_apply(p["ffn"], x, cfg.norm_eps)
+    if FFN[kind] == "moe":
+        return moe_mod.moe_apply(p["ffn"], x, cfg)
+    return mlp_apply(p["ffn"], x, cfg.norm_eps), None
 
 
 def _run_stack(params: dict, x: torch.Tensor, cfg: ArchConfig, pattern,
                n_units: int, *, mode: str, caches: Optional[dict], pos,
                memory, kernel_mode: str, remat: bool = False
-               ) -> torch.Tensor:
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The ``n_units`` stacked units of ``params["unit"]`` in order, each
-    the layers of ``pattern``.  Caches are written in place.  With
-    ``remat`` each unit runs under ``torch.utils.checkpoint``: only its
-    input and the memory are kept for the backward, which runs the unit
-    again (the flash forward included) before its gradient."""
+    the layers of ``pattern`` -> (x, the MoE layers' aux loss summed,
+    float32 0-dim).  Caches are written in place.  With ``remat`` each
+    unit runs under ``torch.utils.checkpoint``: only its input and the
+    memory are kept for the backward, which runs the unit again (the flash
+    forward and the routers included) before its gradient."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(n_units):
         def unit(x, memory, u=u):
             up = _index(params["unit"], u)
             uc = _index(caches["unit"], u) if caches else {}
+            unit_aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i, kind in enumerate(pattern):
-                x = _apply_layer(kind, up[str(i)], x, cfg, mode=mode,
-                                 cache=uc.get(str(i)), pos=pos,
-                                 memory=memory, kernel_mode=kernel_mode)
-            return x
+                x, a = _apply_layer(kind, up[str(i)], x, cfg, mode=mode,
+                                    cache=uc.get(str(i)), pos=pos,
+                                    memory=memory, kernel_mode=kernel_mode)
+                if a is not None:
+                    unit_aux = unit_aux + a
+            return x, unit_aux
 
-        x = checkpoint(unit, x, memory, use_reentrant=False) if remat \
-            else unit(x, memory)
-    return x
+        x, unit_aux = checkpoint(unit, x, memory, use_reentrant=False) \
+            if remat else unit(x, memory)
+        aux = aux + unit_aux
+    return x, aux
 
 
 def _decoder(params: dict, x: torch.Tensor, cfg: ArchConfig, **kw
-             ) -> torch.Tensor:
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     return _run_stack(params, x, cfg, cfg.block_pattern, cfg.n_units, **kw)
 
 
@@ -170,7 +216,7 @@ def _encode(params: dict, memory_embeds: torch.Tensor, cfg: ArchConfig, *,
     return _run_stack(params["encoder"], memory_embeds, cfg, ("enc_attn",),
                       cfg.encoder.n_layers, mode="train", caches=None,
                       pos=None, memory=None, kernel_mode=kernel_mode,
-                      remat=remat)
+                      remat=remat)[0]
 
 
 def _memory(params: dict, cfg: ArchConfig, memory_embeds, *, remat: bool,
@@ -191,15 +237,14 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
                   kernel_mode: str = "auto"
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] (and the raw memory embeddings [B, S_mem, D] of a
-    model with cross-attention) -> (logits [B, S, V], aux loss (0 for the
-    ported kinds))."""
+    model with cross-attention) -> (logits [B, S, V], the MoE layers' aux
+    loss, float32 0-dim: 0 without MoE layers)."""
     x = embed_apply(params["embed"], tokens, cfg.torch_param_dtype)
     mem = _memory(params, cfg, memory_embeds, remat=False,
                   kernel_mode=kernel_mode)
-    x = _decoder(params, x, cfg, mode="train", caches=None, pos=None,
-                 memory=mem, kernel_mode=kernel_mode)
-    return (unembed_apply(params["embed"], x, cfg),
-            torch.zeros((), device=x.device))
+    x, aux = _decoder(params, x, cfg, mode="train", caches=None, pos=None,
+                      memory=mem, kernel_mode=kernel_mode)
+    return unembed_apply(params["embed"], x, cfg), aux
 
 
 #: sequence-chunked cross-entropy: threshold and chunk length
@@ -221,8 +266,8 @@ def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
             cfg: ArchConfig, *, memory_embeds=None, remat: bool = False,
             kernel_mode: str = "auto") -> torch.Tensor:
     """Mean next-token cross-entropy over the positions with ``labels >=
-    0`` (tokens, labels [B, S]), as ``repro.models.loss_fn``; the ported
-    kinds add no auxiliary loss.  ``memory_embeds``: the raw memory
+    0`` (tokens, labels [B, S]) plus the MoE layers' load-balance loss, as
+    ``repro.models.loss_fn``.  ``memory_embeds``: the raw memory
     [B, S_mem, D], encoded inside (under ``remat`` too).  Past
     ``LOSS_CHUNK`` positions, when the length is a multiple of it, the
     cross-entropy runs one chunk of positions at a time under
@@ -231,8 +276,8 @@ def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
     x = embed_apply(params["embed"], tokens, cfg.torch_param_dtype)
     mem = _memory(params, cfg, memory_embeds, remat=remat,
                   kernel_mode=kernel_mode)
-    x = _decoder(params, x, cfg, mode="train", caches=None, pos=None,
-                 memory=mem, kernel_mode=kernel_mode, remat=remat)
+    x, aux = _decoder(params, x, cfg, mode="train", caches=None, pos=None,
+                      memory=mem, kernel_mode=kernel_mode, remat=remat)
     valid = (labels >= 0).to(torch.float32)
     s = labels.shape[-1]
     if s <= LOSS_CHUNK or s % LOSS_CHUNK:
@@ -242,7 +287,7 @@ def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
             checkpoint(_nll, params, x[:, c:c + LOSS_CHUNK],
                        labels[:, c:c + LOSS_CHUNK], cfg, use_reentrant=False)
             for c in range(0, s, LOSS_CHUNK)], dim=1)
-    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0) + aux
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
@@ -259,8 +304,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     if memory is None:
         memory = _memory(params, cfg, memory_embeds, remat=False,
                          kernel_mode=kernel_mode)
-    x = _decoder(params, x, cfg, mode="prefill", caches=caches, pos=None,
-                 memory=memory, kernel_mode=kernel_mode)
+    x, _ = _decoder(params, x, cfg, mode="prefill", caches=caches,
+                    pos=None, memory=memory, kernel_mode=kernel_mode)
     logits = unembed_apply(params["embed"], x[..., -1:, :], cfg)
     return logits[..., 0, :], caches
 
@@ -281,7 +326,7 @@ def decode_step(params: dict, token: torch.Tensor, pos: int,
     cross-attention memory (``encode``'s output): the encoder runs once at
     prefill, not per decode step."""
     x = embed_apply(params["embed"], token, cfg.torch_param_dtype)
-    x = _decoder(params, x, cfg, mode="decode", caches=caches, pos=pos,
-                 memory=memory, kernel_mode="auto")
+    x, _ = _decoder(params, x, cfg, mode="decode", caches=caches, pos=pos,
+                    memory=memory, kernel_mode="auto")
     logits = unembed_apply(params["embed"], x, cfg)
     return logits[..., 0, :], caches

@@ -719,3 +719,97 @@ def test_gpu_cross_attention_prefill_launches_the_flash_kernel(cuda, arch,
     want_l = out["torch"]
     assert (out["cuda"] - want_l).abs().max().item() \
         <= 3e-4 * want_l.abs().max().item()
+
+
+#: multi-head latent attention's head dims (minicpm3 64 + 32, deepseek-v2
+#: 128 + 64; the bf16 forward takes 64-row kv tiles above Dh 128, the bf16
+#: backward's dk/dv a dV and a dK pass) and grok's group of 6: query and kv
+#: lengths no multiple of a tile, causal and not, a window, a chunked
+#: prefill's offset and rows that see no key (chip_smoke.py's
+#: FLASH_MLA_CASES)
+FLASH_MLA_CASES = [((300, 300), 96, (8, 8), True, None, 0),
+                   ((129, 257), 96, (4, 4), False, None, 0),
+                   ((257, 129), 96, (8, 2), True, 70, 5),
+                   ((257, 127), 128, (12, 2), True, None, 130),
+                   ((65, 130), 192, (4, 1), False, None, 0),
+                   ((300, 300), 192, (4, 4), True, None, 0),
+                   ((129, 257), 192, (8, 2), True, 100, 128),
+                   ((64, 64), 192, (4, 1), True, None, -10),
+                   ((1, 300), 192, (4, 1), True, None, 299)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gpu_flash_attention_mla_head_dims_match_plain(cuda, dtype):
+    """The forward (output, lse) and the backward at head dims 96 and 192
+    and at G = 6, at the bounds of the cases above, in float32 (the FMA
+    kernels' shared memory fits at both: 164608 bytes forward, 231424 the
+    dk/dv kernel, under the 232448 a block may have, so no float32 case is
+    refused) and in bfloat16; the padded value columns of an MLA call
+    exactly 0; the backward bitwise on repeat, three launches a call."""
+    rng = np.random.default_rng(13)
+    for (sq, skv), dh, (h, hkv), causal, window, off in FLASH_MLA_CASES:
+        q = t(np32(rng, 2, sq, 2 * h, dh)).to(cuda, dtype)[:, :, :h]
+        k = t(np32(rng, 2, skv, hkv, dh)).to(cuda, dtype)
+        v = t(np32(rng, 2, skv, hkv, dh))
+        v[..., dh * 2 // 3:] = 0.0          # MLA's zero-padded v
+        v = v.to(cuda, dtype)
+        do = t(np32(rng, 2, sq, h, dh)).to(cuda, dtype)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        case = ((sq, skv), dh, (h, hkv), causal, window, off)
+        o, lse = flash_attention_fwd(q, k, v, lse=True, mode="cuda", **kw)
+        o_ref, lse_ref = flash_attention_fwd(q, k, v, lse=True,
+                                             mode="torch", **kw)
+        if dtype == torch.float32:
+            torch.testing.assert_close(o, o_ref, rtol=0, atol=2e-5)
+        else:
+            assert _ulps(o, o_ref, dtype, atol=2e-5) <= 1.0, case
+        assert not o[..., dh * 2 // 3:].any(), case
+        assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+        fin = torch.isfinite(lse_ref)
+        torch.testing.assert_close(lse[fin], lse_ref[fin], rtol=1e-5,
+                                   atol=1e-5)
+        before = build.LAUNCHES["flash_attention_bwd"]
+        got = flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+        assert build.LAUNCHES["flash_attention_bwd"] == before + 3
+        want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+        rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        for g, w in zip(got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            assert err <= rel * w.float().abs().max().item(), (case, err)
+        again = flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_gpu_flash_attention_refuses_smoke_mla_head_dim(cuda):
+    """Smoke-width MLA attends at head dim 16 + 8 = 24, which no kernel is
+    built for: the forward and the backward raise on CUDA tensors before
+    any launch, and a smoke minicpm3 prefill on the card raises under
+    "auto" and "cuda" (nothing switches to the plain version), and runs
+    under "torch"."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import cache_specs, init_from_specs, param_specs
+    from repro_torch.models.transformer import prefill
+    q = torch.zeros((1, 64, 4, 24), device=cuda)
+    build.reset_launch_counts()
+    with pytest.raises(ValueError, match="head dim 24"):
+        flash_attention(q, q, q, mode="cuda")
+    lse = torch.zeros((1, 4, 64), device=cuda)
+    with pytest.raises(ValueError, match="head dim 24"):
+        flash_attention_bwd(q, q, q, q, lse, q, mode="cuda")
+    cfg = get_smoke("minicpm3-4b")
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    params = init_from_specs(param_specs(cfg), g, cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=g, device=cuda)
+
+    def run(mode):
+        caches = init_from_specs(cache_specs(cfg, 2, 40, torch.float32),
+                                 None, cuda)
+        return prefill(params, tokens, cfg, caches, kernel_mode=mode)[0]
+
+    for mode in ("auto", "cuda"):
+        with pytest.raises(ValueError, match="head dim 24"):
+            run(mode)
+    assert not build.LAUNCHES
+    assert bool(torch.isfinite(run("torch")).all())
