@@ -101,6 +101,22 @@ client), kernels and plain, ``train_parity`` and ``train_grads_bf16`` at
 Dh 96 and 192.  The flash phases hold the kernels at those head dims and
 at grok's group of 6 (``FLASH_MLA``, ``FLASH_BWD_CASES``), and
 ``flash_model_timing`` times them at the three models' causal shapes.
+Last, the recurrent layer kinds (``RECURRENT_SERVE``,
+``RECURRENT_TRAIN``): ``serve.run`` on recurrentgemma-9b (38 layers:
+RG-LRU and local attention at head dim 256, 16 query heads over one kv
+head, window 2048, and a (rec, rec) tail) and on mamba2-130m (24 SSD
+layers, no attention: no kernel launches, and its line says so) at full
+width and depth, batch 2, a prompt of 8192, 32 greedy tokens, kernels and
+plain, and recurrentgemma's ``serve_parity`` (every attention layer at
+the flash bounds, every recurrent layer and its caches bitwise in both
+modes, the tail after the units); ``train.run`` on mamba2 at full depth
+and on recurrentgemma cut to one unit and its tail (5 layers), kernels
+and plain, ``train_parity``, and ``train_grads_bf16`` on recurrentgemma's
+attention layer.  The flash phases hold the kernels at head dim 256
+(``FLASH_RG``, two sharp cases in ``FLASH_SHARP``; the float32 backward,
+not built there, must refuse), and ``flash_model_timing`` times them at
+recurrentgemma's shape (``[rg]``, with the instances' registers, spills
+and HGMMA counts).
 
 Output, one line each: the card as ``nvidia-smi`` names it, then JSON
 objects: the build, one per kernel check (with ``flash_design`` before
@@ -120,10 +136,11 @@ launches and churn resets of each mode, and their parity), the
 line per mode, ``train_parity``, ``train_grads``, ``train_grads_bf16``,
 ``xattn_step_parity``, the MLA and MoE models' ``serve``,
 ``serve_parity``, ``train``, ``train_parity`` and ``train_grads_bf16``
-lines, the ``kernels`` summary, and last ``{"ok": true,
+lines, the same for the recurrent models, the ``kernels`` summary, and last ``{"ok": true,
 "device": {...}}``.  ``--profile`` adds one more HieAvg run, the switched sweep,
 one train round and the serve path's prefill and decode (danube, the
-two cross-attention models, minicpm3, deepseek-v2-lite) under
+two cross-attention models, minicpm3, deepseek-v2-lite, recurrentgemma,
+mamba2) under
 ``torch.profiler``, a line of device time per kernel each;
 ``--full`` adds the paper's whole DEFAULT run (T = 50) per mode of
 HieAvg, FedAvg and delayed-gradient aggregation, its Fig. 2 set
@@ -206,6 +223,10 @@ REPLACES = {
     "flash_attention_bwd[mla96]": "src/repro/kernels/flash_attention.py:77",
     "flash_attention_bwd[mla192]":
         "src/repro/kernels/flash_attention.py:77",
+    # the same two kernels at recurrentgemma's local attention (Dh 256, G
+    # 16, window 2048; FLASH_TIMED)
+    "flash_attention[rg]": "src/repro/kernels/flash_attention.py:77",
+    "flash_attention_bwd[rg]": "src/repro/kernels/flash_attention.py:77",
 }
 SOURCE = {
     "conv3x3_fwd": "src/repro_torch/kernels/csrc/conv3x3.cu",
@@ -238,6 +259,10 @@ SOURCE = {
     "flash_attention_bwd[mla96]":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd[mla192]":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention[rg]":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd[rg]":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 
@@ -343,6 +368,18 @@ MOE_SERVE = {"minicpm3-4b": None, "deepseek-v2-lite-16b": None,
 #: (minicpm3 0.44 B parameters, deepseek 2.76 B); and ``train_grads_bf16``
 #: on each at that cut, 2 x 8192 tokens
 MOE_TRAIN = ("minicpm3-4b", "deepseek-v2-lite-16b")
+#: the recurrent cells, full width: recurrentgemma-9b (38 layers: 12 units
+#: of two RG-LRU layers and a local-attention one at Dh 256, 16 query heads
+#: over one kv head, window 2048, and a (rec, rec) tail; 9.40 B
+#: parameters, bf16 18.8 GB) and mamba2-130m (24 SSD layers, no attention,
+#: 0.129 B) served at full depth, SERVE_BATCH x SERVE_PROMPT, SERVE_GEN
+#: tokens; trained (TRAIN_KW) at the depths given: mamba2 at its own,
+#: recurrentgemma cut to one unit and the tail (5 layers, 2.17 B)
+RG_ARCH, MAMBA_ARCH = "recurrentgemma-9b", "mamba2-130m"
+RECURRENT_SERVE = (RG_ARCH, MAMBA_ARCH)
+RECURRENT_TRAIN = {MAMBA_ARCH: 24, RG_ARCH: 5}
+#: the layer kinds that attend to nothing (no flash call)
+RECURRENT_KINDS = ("rec", "ssd")
 #: auto-vs-torch bound on each layer's output and on the logits, relative
 #: to their largest magnitude: 4 bfloat16 ulps at the top binade.  The two
 #: flash versions differ by one ulp in a few elements; the layer's bf16
@@ -364,6 +401,8 @@ FLASH_SHARP = ((300, 8192, 80, True, 4096, 24.0), (129, 129, 128, False, None,
                (512, 1000, 32, True, 256, 24.0), (300, 300, 64, True, 100,
                                                   60.0),
                (300, 1000, 96, True, None, 24.0), (257, 300, 192, True,
+                                                   None, 24.0),
+               (300, 1000, 256, True, 100, 24.0), (129, 257, 256, False,
                                                    None, 24.0))
 #: the flash kernels at multi-head latent attention's head dims (96 = 64 +
 #: 32, 192 = 128 + 64; 64-row kv tiles in the bf16 forward above Dh 128, a
@@ -379,6 +418,18 @@ FLASH_MLA = ((300, 300, 96, True, None, (8, 8)),
              (300, 300, 192, True, None, (4, 4)),
              (129, 257, 192, True, 100, (8, 2)),
              (1, 300, 192, True, None, (4, 1)))
+#: the flash kernels at recurrentgemma's head dim 256 (32-row kv tiles in the
+#: bf16 forward, 32-row streamed tiles in its backward): (Sq, Skv, Dh,
+#: causal, window, (H, Hkv)), its group of 16 over one kv head among them,
+#: windows, lengths across the 32-row tiles' edges, in the forward's grid
+#: and, with a q offset, FLASH_BWD_CASES (tests/test_torch_gpu.py's
+#: FLASH_RG_CASES); the float32 backward is not built at 256 and must raise
+FLASH_RG = ((300, 300, 256, True, 100, (16, 1)),
+            (33, 65, 256, False, None, (4, 1)),
+            (129, 257, 256, True, 40, (16, 1)),
+            (31, 31, 256, True, None, (2, 2)),
+            (257, 127, 256, True, 70, (8, 2)),
+            (130, 97, 256, False, None, (16, 1)))
 #: the reference's float32 flash bound (tests/test_kernels.py)
 FLASH_F32_ATOL = 2e-5
 #: the flash kernels at the cross-attention and encoder cells' shapes,
@@ -388,17 +439,20 @@ FLASH_F32_ATOL = 2e-5
 FLASH_MODEL = (((8192, 1601), 128, (32, 8)), ((1500, 1500), 64, (16, 16)),
                ((2048, 1500), 64, (16, 16)))
 #: the shapes ``flash_model_timing`` checks and times, label -> ((Sq, Skv),
-#: Dh, (H, Hkv), causal, backward timed too): FLASH_MODEL's, and the
-#: causal self-attention of the MLA and MoE cells at SERVE_PROMPT:
+#: Dh, (H, Hkv), causal, backward timed too, window): FLASH_MODEL's, and
+#: the causal self-attention of the MLA and MoE cells at SERVE_PROMPT:
 #: minicpm3 (Dh 96, G 1), deepseek-v2-lite (Dh 192, G 1), grok (Dh 128,
-#: G 6; no grok train line, so its backward is not timed)
+#: G 6; no grok train line, so its backward is not timed); and
+#: recurrentgemma's local attention (Dh 256, G 16, window 2048)
 FLASH_TIMED = {
-    "xattn": (*FLASH_MODEL[0], False, True),
-    "enc": (*FLASH_MODEL[1], False, True),
-    "xattn_m4t": (*FLASH_MODEL[2], False, True),
-    "mla96": ((SERVE_PROMPT, SERVE_PROMPT), 96, (40, 40), True, True),
-    "mla192": ((SERVE_PROMPT, SERVE_PROMPT), 192, (16, 16), True, True),
-    "grok": ((SERVE_PROMPT, SERVE_PROMPT), 128, (48, 8), True, False)}
+    "xattn": (*FLASH_MODEL[0], False, True, None),
+    "enc": (*FLASH_MODEL[1], False, True, None),
+    "xattn_m4t": (*FLASH_MODEL[2], False, True, None),
+    "mla96": ((SERVE_PROMPT, SERVE_PROMPT), 96, (40, 40), True, True, None),
+    "mla192": ((SERVE_PROMPT, SERVE_PROMPT), 192, (16, 16), True, True,
+               None),
+    "grok": ((SERVE_PROMPT, SERVE_PROMPT), 128, (48, 8), True, False, None),
+    "rg": ((SERVE_PROMPT, SERVE_PROMPT), 256, (16, 1), True, True, 2048)}
 #: the ``kernels`` line's entries at FLASH_TIMED's shapes: (kernel, label)
 #: -> the main-path run whose launches at that shape the entry reports (the
 #: serve runs' prefill at batch SERVE_BATCH, the enc-dec train run's
@@ -415,7 +469,9 @@ FLASH_TIMED_RUNS = {
     ("flash_attention", "mla192"): ("serve", "deepseek-v2-lite-16b"),
     ("flash_attention", "grok"): ("serve", "grok-1-314b"),
     ("flash_attention_bwd", "mla96"): ("train", "minicpm3-4b"),
-    ("flash_attention_bwd", "mla192"): ("train", "deepseek-v2-lite-16b")}
+    ("flash_attention_bwd", "mla192"): ("train", "deepseek-v2-lite-16b"),
+    ("flash_attention", "rg"): ("serve", RG_ARCH),
+    ("flash_attention_bwd", "rg"): ("train", RG_ARCH)}
 
 #: the flash backward's check cases besides the serving shape: ((Sq, Skv),
 #: Dh, (H, Hkv), causal, window, q_offset): every head dim, tails of the
@@ -440,7 +496,7 @@ FLASH_BWD_CASES = (((100, 100), 32, (4, 4), True, None, 0),
                    ((257, 127), 80, (8, 2), True, 70, 5)) + tuple(
     (sqkv, dh, hh, False, None, 0) for sqkv, dh, hh in FLASH_MODEL) + tuple(
     ((sq, skv), dh, hh, causal, window, 5 if causal else 0)
-    for sq, skv, dh, causal, window, hh in FLASH_MLA)
+    for sq, skv, dh, causal, window, hh in FLASH_MLA + FLASH_RG)
 #: the backward's bounds against its plain version (each side fed its own
 #: forward's output and lse), relative to each gradient's largest
 #: magnitude: float32 1e-4 (the same float32 sums in another order),
@@ -515,6 +571,12 @@ TRAIN_GRAD_ANCHOR_FACTOR = 2.0
 #: their largest (the random weights amplify rounding), as much as the
 #: kernels (0.43-2.17) or a dropped dq (1.0)
 XATTN_LOSS_REL = 5e-4
+
+#: the Dh-256 flash instances' build facts, read once the library is
+#: built: registers and spill bytes per kernel (``tools/flash_ptxas.py``,
+#: ``ptxas -v``) and HGMMA counts (``hgmma_counts``); the ``[rg]`` lines
+#: carry them
+FLASH_BUILD_FACTS: dict = {}
 
 #: mantissa bits and least normal exponent of the narrow history dtypes
 NARROW = {"bfloat16": (7, -126), "float8_e4m3fn": (3, -6)}
@@ -740,12 +802,13 @@ def flash_designs(torch, flash_attention, designs, randn, library) -> dict:
     kernel names, beside its design and its HGMMA count: bfloat16 must run
     the wgmma kernel at Dh 80 (the serving head dim) and at MLA's 96 and
     192 (``bfloat16_dh96``, ``bfloat16_dh192``), float32 the FMA one with
-    no HGMMA."""
+    no HGMMA; and at recurrentgemma's 256 (``bfloat16_dh256``)."""
     from torch.profiler import ProfilerActivity, profile
     hgmma = hgmma_counts(library)
     out = {}
     for dtype, dh in ((torch.float32, 80), (torch.bfloat16, 80),
-                      (torch.bfloat16, 96), (torch.bfloat16, 192)):
+                      (torch.bfloat16, 96), (torch.bfloat16, 192),
+                      (torch.bfloat16, 256)):
         q, k, v = (randn(1, 256, 2, dh).to(dtype) for _ in range(3))
         flash_attention(q, k, v, causal=True, mode="cuda")   # warm-up
         names = []
@@ -767,7 +830,8 @@ def flash_designs(torch, flash_attention, designs, randn, library) -> dict:
         out[f"bfloat16{sfx}"]["kernels"]
         == [f"flash_attention_wgmma_kernel<{dh}>"]
         and out[f"bfloat16{sfx}"]["hgmma"] > 0
-        for dh, sfx in ((80, ""), (96, "_dh96"), (192, "_dh192")))
+        for dh, sfx in ((80, ""), (96, "_dh96"), (192, "_dh192"),
+                        (256, "_dh256")))
           and out["float32"]["kernels"] == ["flash_attention_kernel<80>"]
           and out["float32"]["hgmma"] == 0, f"designs launched: {out}")
     out["hgmma_per_kernel"] = {f: n for f, n in hgmma.items() if n}
@@ -781,12 +845,14 @@ def flash_bwd_design(torch, kern, randn, library) -> dict:
     count: bfloat16 must run the two wgmma kernels at Dh 80 (the served
     head dim) and at MLA's 96 and 192 (``bfloat16_dh96``,
     ``bfloat16_dh192``; the dk/dv kernel's two passes there share a
-    name), each with HGMMA > 0, float32 the two FMA kernels with none."""
+    name), each with HGMMA > 0, float32 the two FMA kernels with none; and
+    bfloat16 at recurrentgemma's 256 (``bfloat16_dh256``)."""
     from torch.profiler import ProfilerActivity, profile
     hgmma = hgmma_counts(library)
     out = {}
     for dtype, dh in ((torch.float32, 80), (torch.bfloat16, 80),
-                      (torch.bfloat16, 96), (torch.bfloat16, 192)):
+                      (torch.bfloat16, 96), (torch.bfloat16, 192),
+                      (torch.bfloat16, 256)):
         q, do = (randn(1, 256, 8, dh).to(dtype) for _ in range(2))
         k, v = (randn(1, 256, 2, dh).to(dtype) for _ in range(2))
         o, lse = kern.flash_attention_fwd(q, k, v, causal=True, lse=True,
@@ -817,7 +883,8 @@ def flash_bwd_design(torch, kern, randn, library) -> dict:
         == [f"flash_bwd_dkdv_wgmma_kernel<{dh}>",
             f"flash_bwd_dq_wgmma_kernel<{dh}>"]
         and all(n > 0 for n in out[f"bfloat16{sfx}"]["hgmma"].values())
-        for dh, sfx in ((80, ""), (96, "_dh96"), (192, "_dh192")))
+        for dh, sfx in ((80, ""), (96, "_dh96"), (192, "_dh192"),
+                        (256, "_dh256")))
           and f32["kernels"] == ["flash_bwd_dkdv_kernel<80>",
                                  "flash_bwd_dq_kernel<80>"]
           and not any(f32["hgmma"].values()), f"designs launched: {out}")
@@ -833,8 +900,9 @@ def flash_phase(torch, cfg, flash_attention, randn, record) -> dict:
     q read through strides and a chunked prefill's ``q_offset``, and the
     same bounds at sharp attention (``FLASH_SHARP``), at the
     cross-attention and encoder cells' shapes (``FLASH_MODEL``, batch 2,
-    non-causal, kv lengths no multiple of a tile) and at MLA's head dims
-    and grok's group (``FLASH_MLA``); rows that see no key
+    non-causal, kv lengths no multiple of a tile), at MLA's head dims
+    and grok's group (``FLASH_MLA``) and at recurrentgemma's head dim 256
+    (``FLASH_RG``); rows that see no key
     exactly 0; then the serving shape of h2o-danube-1.8b, checked and
     timed."""
     worst = {"float32_abs": 0.0, "bfloat16_ulp": 0.0, "cases": 0}
@@ -849,7 +917,7 @@ def flash_phase(torch, cfg, flash_attention, randn, record) -> dict:
              for (sq, skv), dh, hh in FLASH_MODEL
              for dtype in (torch.float32, torch.bfloat16)]
     grid += [(sq, skv, dh, causal, window, hh, 1.0, dtype)
-             for sq, skv, dh, causal, window, hh in FLASH_MLA
+             for sq, skv, dh, causal, window, hh in FLASH_MLA + FLASH_RG
              for dtype in (torch.float32, torch.bfloat16)]
     for sq, skv, dh, causal, window, (h, hkv), qs, dtype in grid:
         q = randn(2, sq, 2 * h, dh, scale=qs).to(dtype)[:, :, :h]  # strided
@@ -954,7 +1022,7 @@ def flash_key(name: str, b: int, sq: int, skv: int, h: int, hkv: int,
 
 def timed_key(name: str, label: str) -> tuple:
     """``flash_key`` of FLASH_TIMED[label] at batch SERVE_BATCH."""
-    (sq, skv), dh, (h, hkv), causal, _ = FLASH_TIMED[label]
+    (sq, skv), dh, (h, hkv), causal, _, _ = FLASH_TIMED[label]
     return flash_key(name, SERVE_BATCH, sq, skv, h, hkv, dh, causal)
 
 
@@ -973,14 +1041,19 @@ def flash_shapes(cfg, batch: int, seq: int,
     """The flash calls of one full-sequence pass of ``cfg`` over ``batch``
     rows of ``seq`` tokens, by ``flash_key``: one a self-attention or MLA
     layer (causal), a cross-attention layer (over the memory's frames) and
-    an encoder layer (frames over frames)."""
+    an encoder layer (frames over frames), of the units and of the tail;
+    none a recurrent layer (RECURRENT_KINDS)."""
     from repro_torch.launch.inputs import memory_shape
     frames = (memory_shape(cfg) or (0,))[0]
     out = collections.Counter()
-    for kind in cfg.block_pattern:
-        skv, causal = (frames, False) if kind == "xattn" else (seq, True)
-        out[flash_key(name, batch, seq, skv, *attn_heads(cfg, kind),
-                      causal)] += cfg.n_units
+    for kinds, times in ((cfg.block_pattern, cfg.n_units),
+                         (cfg.tail_pattern, 1)):
+        for kind in kinds:
+            if kind in RECURRENT_KINDS:
+                continue
+            skv, causal = (frames, False) if kind == "xattn" else (seq, True)
+            out[flash_key(name, batch, seq, skv, *attn_heads(cfg, kind),
+                          causal)] += times
     if cfg.encoder:
         out[flash_key(name, batch, frames, frames,
                       *attn_heads(cfg, "enc_attn"), False)] += \
@@ -1088,6 +1161,7 @@ def serve_runs(torch, serve, build, kern, arch: str = SERVE_ARCH,
             else serve_cfg(arch).n_layers,
             "params": count_params(param_specs(cfg)),
             "encoder_layers": cfg.encoder.n_layers if cfg.encoder else 0,
+            "flash_layers": flash_layers(cfg),
             "batch": SERVE_BATCH, "prompt": prompt, "gen": SERVE_GEN,
             "prefill_s": res["t_prefill"], "decode_s": res["t_decode"],
             "decode_tokens_per_s": SERVE_GEN * SERVE_BATCH / res["t_decode"],
@@ -1156,7 +1230,10 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
     way, and the padded columns of the kernel's output must be exactly 0
     (``mla_pad_zero``).  A MoE layer's feed-forward block, which runs no
     kernel, is fed the auto pass's attention output in both modes and
-    must give bitwise the same output (``moe_bitwise``).
+    must give bitwise the same output (``moe_bitwise``).  A recurrent
+    layer (RG-LRU, SSD), which runs the same plain code in both modes,
+    must give bitwise the same output and caches (``recurrent_bitwise``);
+    the tail's layers follow the units'.
 
     Then the serving path's own output against the auto pass: the timed
     kernel ``serve.run`` of ``serve_runs`` (``runs["auto"]``) for a model
@@ -1201,11 +1278,22 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
     caches = {m: serve.make_caches(cfg, SERVE_BATCH, prompt + SERVE_GEN,
                                    dev, smoke=False) for m in modes}
     kinds, layers, attn_ulp, attn_rel = [], [], [], []
-    mla_pad_zero, moe_bitwise = [], []
+    mla_pad_zero, moe_bitwise, recurrent_bitwise = [], [], []
 
     def layer(kind, p, x, memory, pos, cache):
         """One layer fed ``x`` in both modes: its attention output and its
         output read; the outputs returned."""
+        if kind in RECURRENT_KINDS:
+            y = {m: T._apply_layer(kind, p, x, cfg, mode="prefill",
+                                   cache=cache(m), pos=None, memory=memory,
+                                   kernel_mode=m)[0] for m in modes}
+            recurrent_bitwise.append(
+                torch.equal(y["auto"], y["torch"])
+                and all(torch.equal(cache("auto")[k], cache("torch")[k])
+                        for k in cache("auto")))
+            kinds.append(kind)
+            layers.append(rel(y["torch"], y["auto"]))
+            return y
         mp = p["mixer"]
         h = rms_norm(x, mp["norm"], cfg.norm_eps)
         causal = kind != "xattn" and kind != "enc_attn"
@@ -1264,6 +1352,10 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
             y = layer(kind, up[str(i)], x, memory, pos, lambda m: T._index(
                 caches[m]["unit"], u).get(str(i)))
             x = y["auto"]
+    for i, kind in enumerate(cfg.tail_pattern):
+        y = layer(kind, params["tail"][str(i)], x, memory, pos,
+                  lambda m: caches[m]["tail"].get(str(i)))
+        x = y["auto"]
     logits = {m: unembed_apply(params["embed"], y[m][:, -1:], cfg)[:, 0]
               for m in y}
     del x, y
@@ -1285,7 +1377,7 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
         else "serve.run with the kernels, this memory and these gates",
         "layer_kinds": kinds, "attn_ulp": attn_ulp, "attn_rel": attn_rel,
         "layer_rel": layers, "mla_pad_zero": mla_pad_zero,
-        "moe_bitwise": moe_bitwise,
+        "moe_bitwise": moe_bitwise, "recurrent_bitwise": recurrent_bitwise,
         "prefill_logits_rel": rel(logits["torch"], logits["auto"]),
         "forced_auto_vs_run_rel": rel(logits["auto"], auto["logits"][:, 0]),
         "decode_logits_rel": rel(torch.stack(steps, 1),
@@ -1307,8 +1399,11 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
     worst_layer = max(layers)
     check("serve_parity", not bad and worst_layer <= SERVE_REL_TOL,
           f"{arch}: over {SERVE_REL_TOL}: {bad}, worst layer {worst_layer}")
-    check("serve_parity", max(attn_ulp) <= 1.0,
+    check("serve_parity", max(attn_ulp, default=0.0) <= 1.0,
           f"{arch}: attention output over 1 bf16 ulp: {attn_ulp}")
+    check("serve_parity", all(recurrent_bitwise),
+          f"{arch}: a recurrent layer differs between the modes "
+          f"({recurrent_bitwise})")
     check("serve_parity", all(mla_pad_zero) and all(moe_bitwise),
           f"{arch}: MLA's padded columns not 0 ({mla_pad_zero}) or a MoE "
           f"block not bitwise ({moe_bitwise})")
@@ -1360,6 +1455,17 @@ def flash_bwd_phase(torch, cfg, kern, randn, record, design) -> dict:
             do = randn(2, sq, h, dh).to(dtype)
             kw = dict(causal=causal, window=window, q_offset=off)
             o, lse = fwd(q, k, v, lse=True, mode="cuda", **kw)
+            if dtype == torch.float32 and dh not in kern.F32_BWD_HEAD_DIMS:
+                # not built: the wrapper refuses before any launch
+                try:
+                    bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+                    refused = False
+                except ValueError:
+                    refused = True
+                check("flash_attention_bwd", refused,
+                      f"float32 at Dh {dh} did not raise")
+                worst["float32_refused_dh"] = dh
+                continue
             got = bwd(q, k, v, o, lse, do, mode="cuda", **kw)
             o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
             case = f"{((sq, skv), dh, (h, hkv), causal, window, off, name)}"
@@ -1449,22 +1555,25 @@ def flash_model_timing(torch, kern, randn, record) -> None:
     the plain version, the bound and the library's
     ``scaled_dot_product_attention`` (``enable_gqa``, ``is_causal`` where
     causal; its backward through autograd), the backward only where
-    FLASH_TIMED asks.  The bounds count 4 Dh FLOPs a visible (query, key)
-    pair forward and 10 Dh backward at the bf16 tensor-core peak.  At
-    Dh 192 the forward is timed once more with q scaled by 24
-    (``ms_sharp_q24``): logits in the hundreds take the float32 FMA chain
-    over d of the sharp-logit refinement (``softmax_tile``)."""
+    FLASH_TIMED asks; a window's library call takes it as a bool mask.
+    The bounds count 4 Dh FLOPs a visible (query, key) pair forward and
+    10 Dh backward at the bf16 tensor-core peak.  At Dh 192 and 256 the
+    forward is timed once more with q scaled by 24 (``ms_sharp_q24``):
+    logits in the hundreds take the float32 FMA chain over d of the
+    sharp-logit refinement (``softmax_tile``).  The Dh-256 lines carry the
+    instances' registers and spills (``ptxas -v``) and HGMMA counts
+    (``FLASH_BUILD_FACTS``)."""
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_fwd_ref)
     fwd, bwd = kern.flash_attention_fwd, kern.flash_attention_bwd
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for label, ((sq, skv), dh, (h, hkv), causal, with_bwd) in \
+    for label, ((sq, skv), dh, (h, hkv), causal, with_bwd, window) in \
             FLASH_TIMED.items():
         b = SERVE_BATCH
         q = randn(b, sq, h, dh).to(torch.bfloat16)
         k, v = (randn(b, skv, hkv, dh).to(torch.bfloat16) for _ in range(2))
         do = randn(b, sq, h, dh).to(torch.bfloat16)
-        kw = dict(causal=causal)
+        kw = dict(causal=causal, window=window)
         o, lse = fwd(q, k, v, lse=True, mode="cuda", **kw)
         o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
         u = bf16_ulps(o, o_ref, FLASH_F32_ATOL)
@@ -1472,11 +1581,19 @@ def flash_model_timing(torch, kern, randn, record) -> None:
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         shape = {"q": [b, sq, h, dh], "kv": [b, skv, hkv, dh],
-                 "dtype": "bfloat16", "causal": causal, "window": None}
-        pairs = flash_pairs(sq, skv, True, None) if causal else sq * skv
+                 "dtype": "bfloat16", "causal": causal, "window": window}
+        pairs = flash_pairs(sq, skv, True, window) if causal else sq * skv
         flops = 4.0 * dh * b * h * pairs
-        extra = {}
-        if dh == 192:
+        lib_kw, lib_call = dict(is_causal=causal), f"is_causal={causal}"
+        if window is not None:
+            qpos = torch.arange(sq, device=q.device)
+            lib_kw = dict(attn_mask=(qpos[None, :] <= qpos[:, None])
+                          & (qpos[None, :] > qpos[:, None] - window))
+            lib_call = "attn_mask=causal & window"
+        extra = {"visible_pairs": b * h * pairs}
+        if dh == 256:
+            extra.update(FLASH_BUILD_FACTS)
+        if dh in (192, 256):
             qs = (q.float() * 24.0).to(torch.bfloat16)
             extra["ms_sharp_q24"] = float(np.median([timed_ms(
                 torch, lambda: fwd(qs, k, v, mode="cuda", **kw)[0])
@@ -1489,14 +1606,14 @@ def flash_model_timing(torch, kern, randn, record) -> None:
                lambda: fwd(q, k, v, mode="cuda", **kw)[0],
                timed_ms(torch, lambda: fwd(q, k, v, mode="torch", **kw),
                         iters=5),
-               timed_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
-                                            enable_gqa=True), iters=5),
+               timed_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True,
+                                            **lib_kw), iters=5),
                2.0 * (2 * b * sq * h * dh + 2 * b * skv * hkv * dh), flops,
                {"shape": shape, "max_ulp_beyond_atol": u,
                 "tolerance": f"1 bf16 ulp beyond atol {FLASH_F32_ATOL}",
                 "flops": flops, "bound_flop_rate": BF16_TC_FLOP_PER_S,
                 "library_call": "scaled_dot_product_attention(enable_gqa="
-                                f"True, is_causal={causal})", **extra},
+                                f"True, {lib_call})", **extra},
                kernel="flash_attention", flop_rate=BF16_TC_FLOP_PER_S)
         if not with_bwd:
             del q, k, v, do, o, lse, o_ref, lse_ref, qt, kt, vt
@@ -1511,7 +1628,7 @@ def flash_model_timing(torch, kern, randn, record) -> None:
         err = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(got, want))
         del got, want, o_ref, lse_ref
-        lib_out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        lib_out = sdpa(qt, kt, vt, enable_gqa=True, **lib_kw)
         dot = do.transpose(1, 2)
         flops = 10.0 * dh * b * h * pairs
         record(f"flash_attention_bwd[{label}]", err,
@@ -1528,7 +1645,9 @@ def flash_model_timing(torch, kern, randn, record) -> None:
                 "tolerance": f"{FLASH_BWD_REL['bfloat16']} x max|grad|",
                 "flops": flops, "bound_flop_rate": BF16_TC_FLOP_PER_S,
                 "library_call": "autograd of scaled_dot_product_attention("
-                                f"enable_gqa=True, is_causal={causal})",
+                                f"enable_gqa=True, {lib_call})",
+                **({"hgmma": FLASH_BUILD_FACTS.get("hgmma")}
+                   if dh == 256 else {}),
                 "device_ms_kernels": {part: device_ms(
                     torch, lambda: bwd(q, k, v, o, lse, do, mode="cuda",
                                        **kw), (sym,)) for sym, part in (
@@ -1536,7 +1655,7 @@ def flash_model_timing(torch, kern, randn, record) -> None:
                     ("flash_bwd_dkdv_wgmma_kernel", "dk_dv"),
                     ("flash_bwd_dq_wgmma_kernel", "dq"))}},
                kernel="flash_attention_bwd", flop_rate=BF16_TC_FLOP_PER_S)
-        del q, k, v, do, o, lse, qt, kt, vt, lib_out
+        del q, k, v, do, o, lse, qt, kt, vt, lib_out, lib_kw
 
 
 def train_runs(torch, train, build, kern, n_layers: int,
@@ -2537,10 +2656,25 @@ def main() -> int:
     print(smi, flush=True)
 
     t0 = time.time()
-    build.library()
+    # the Dh-256 instances' registers and spills, compiled beside the build
+    ptxas = subprocess.Popen(
+        [sys.executable, str(ROOT / "tools" / "flash_ptxas.py"), "--dh",
+         "256", "--out", str(ROOT / "build" / "ptxas")],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        build.library()
+    finally:
+        ptxas_out, _ = ptxas.communicate()
+    check("build", ptxas.returncode == 0, "tools/flash_ptxas.py failed")
+    FLASH_BUILD_FACTS["ptxas"] = [json.loads(x) for x in
+                                  ptxas_out.splitlines()]
+    FLASH_BUILD_FACTS["hgmma"] = {
+        k: n for k, n in hgmma_counts(build.compile_library()).items()
+        if k.endswith("<256>")}
     emit({"build": {"seconds": time.time() - t0,
                     "library": build.compile_library().name,
-                    "flags": " ".join(build.NVCC_FLAGS)}})
+                    "flags": " ".join(build.NVCC_FLAGS),
+                    "flash_dh256": FLASH_BUILD_FACTS}})
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -3215,6 +3349,22 @@ def main() -> int:
         train_grads_bf16(torch, build, flash_kernels, TRAIN_LAYERS,
                          arch=arch)
 
+    # ------------------------------------------ the recurrent layer kinds
+    rserved, rtrained = {}, {}
+    for arch in RECURRENT_SERVE:
+        rserved[arch] = serve_runs(torch, serve, build, flash_kernels, arch,
+                                   SERVE_PROMPT)
+    serve_parity(torch, serve, rserved[RG_ARCH], RG_ARCH, SERVE_PROMPT)
+    for arch, n in RECURRENT_TRAIN.items():
+        # a short run first takes the first-call costs at its shapes
+        train.run(arch, **dict(TRAIN_KW, n_layers=n, steps=1, k_edge=1,
+                               seq=1024), device="cuda")
+        rtrained[arch] = train_runs(torch, train, build, flash_kernels, n,
+                                    arch=arch)
+        train_parity(torch, train, rtrained[arch], arch)
+    train_grads_bf16(torch, build, flash_kernels, RECURRENT_TRAIN[RG_ARCH],
+                     arch=RG_ARCH)
+
     if "--profile" in sys.argv[1:]:
         emit({"profile": profile_run(torch, lambda: BHFLSimulator(
             setting, "hieavg", "temporary", "temporary", device="cuda",
@@ -3231,7 +3381,8 @@ def main() -> int:
         for arch, prompt in ((SERVE_ARCH, SERVE_PROMPT),
                              *XATTN_SERVE.items(),
                              ("minicpm3-4b", SERVE_PROMPT),
-                             ("deepseek-v2-lite-16b", SERVE_PROMPT)):
+                             ("deepseek-v2-lite-16b", SERVE_PROMPT),
+                             *((a, SERVE_PROMPT) for a in RECURRENT_SERVE)):
             for label, gen in (("prefill", 1), ("decode", SERVE_GEN)):
                 # gen 1 is the prefill alone; the decode's share is the
                 # rest
@@ -3273,8 +3424,9 @@ def main() -> int:
     launches["flash_attention"] = served["auto"][1].get("flash_attention", 0)
     launches["flash_attention_bwd"] = trained["auto"][1].get(
         "flash_attention_bwd", 0)
-    main_runs = {"serve": {**xserved, **mserved},
-                 "train": {XATTN_TRAIN_ARCH: xtrained, **mtrained}}
+    main_runs = {"serve": {**xserved, **mserved, **rserved},
+                 "train": {XATTN_TRAIN_ARCH: xtrained, **mtrained,
+                           **rtrained}}
     for (name, label), (path, arch) in FLASH_TIMED_RUNS.items():
         shapes = main_runs[path][arch]["auto"][-1]
         launches[f"{name}[{label}]"] = shapes[timed_key(name, label)]

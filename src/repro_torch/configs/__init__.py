@@ -2,13 +2,10 @@
 architecture registry (``get_config(arch_id)`` / ``get_smoke(arch_id)``,
 as ``repro.configs``).
 
-The registry knows all ten architecture ids of the reference.  The port
-runs the dense ones (the ``"attn"`` layer kind), the VLM and the
-encoder-decoder (``"xattn"`` and ``"enc_attn"``), and those with
-multi-head latent attention or mixture-of-experts layers (``"mla"``,
-``"mla_moe"``, ``"attn_moe"``); the recurrent ones raise
-``NotImplementedError`` until their layer kinds are ported (``ROADMAP.md``,
-Queue 1).
+The registry knows all ten architecture ids of the reference, and the
+port runs every one: dense, sliding-window, the VLM and the
+encoder-decoder, multi-head latent attention and mixture-of-experts, and
+the recurrent ones (``"rec"``, RG-LRU, with a tail; ``"ssd"``, Mamba-2).
 """
 from __future__ import annotations
 
@@ -17,7 +14,7 @@ import importlib
 
 from .bhfl_cnn import DEFAULT, REDUCED, BHFLSetting
 
-#: id -> module in this package, for the architectures the port runs
+#: id -> module in this package
 _MODULES = {
     "deepseek-7b": "deepseek_7b",
     "qwen3-14b": "qwen3_14b",
@@ -27,11 +24,8 @@ _MODULES = {
     "minicpm3-4b": "minicpm3_4b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "grok-1-314b": "grok_1_314b",
-}
-#: the reference's other architectures, and the layer kinds they wait for
-_NOT_PORTED = {
-    "recurrentgemma-9b": "rglru",
-    "mamba2-130m": "ssd",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "mamba2-130m": "mamba2_130m",
 }
 
 ARCH_IDS = ("deepseek-7b", "seamless-m4t-large-v2", "minicpm3-4b",
@@ -41,10 +35,6 @@ ARCH_IDS = ("deepseek-7b", "seamless-m4t-large-v2", "minicpm3-4b",
 
 
 def _mod(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r} needs {_NOT_PORTED[arch_id]}, which the port does "
-            "not have yet (ROADMAP.md, Queue 1)")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {list(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
@@ -62,7 +52,17 @@ def get_smoke(arch_id: str):
 
 def cut_depth(cfg, n_layers: int):
     """``cfg`` cut to ``n_layers`` decoder layers and, for a config with an
-    encoder, as many encoder layers: one knob for both stacks."""
+    encoder, as many encoder layers: one knob for both stacks.  The decoder
+    keeps whole units and its tail: a count that is not ``u`` units of
+    ``block_pattern`` (u >= 1) plus ``tail_pattern`` raises ``ValueError``
+    naming the counts that are (recurrentgemma: 3u + 2)."""
+    unit, tail = len(cfg.block_pattern), len(cfg.tail_pattern)
+    if n_layers < unit + tail or (n_layers - tail) % unit:
+        valid = ", ".join(str(u * unit + tail) for u in range(1, 4))
+        raise ValueError(
+            f"{cfg.name}: {n_layers} layers; whole units of "
+            f"{cfg.block_pattern} and the tail {cfg.tail_pattern} give "
+            f"{unit}u + {tail} layers, u >= 1 ({valid}, ...)")
     enc = cfg.encoder and dataclasses.replace(cfg.encoder, n_layers=n_layers)
     return dataclasses.replace(cfg, n_layers=n_layers, encoder=enc)
 

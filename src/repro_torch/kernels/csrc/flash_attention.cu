@@ -32,12 +32,17 @@
 // moves the producer's registers to the consumers).  Tiles are stored in
 // 16-column chunks of 32-byte rows with TMA's 32-byte swizzle: one chunk
 // is one wgmma k-step, and 16 divides every head dim built (32, 64, 80,
-// 96, 128, 192; 80 is 160 bytes a row, no whole number of 128-byte
+// 96, 128, 192, 256; 80 is 160 bytes a row, no whole number of 128-byte
 // atoms).  Above Dh 128 the kv tile is 64 rows (kv_rows): at 128 the q
 // tile and the two-stage ring would need 240 KB of shared memory at Dh
 // 192, over the 227 KB a block may have; at 64 they take 144 KB, and a
 // consumer thread holds 96 o and 32 s accumulators (multi-head latent
-// attention runs at Dh 96, 64 + 32, and 192, 128 + 64).
+// attention runs at Dh 96, 64 + 32, and 192, 128 + 64).  At Dh 256
+// (recurrentgemma's local attention) the kv tile is 32 rows: a consumer
+// thread holds 128 o accumulators, and a 64-row tile's 32 s and 48 p
+// registers beside them would spill under setmaxnreg's 240; at 32 rows
+// it holds 16 s and 24 p, and the q tile and ring take 128 KB.  p v is
+// then one m64n256k16 per term and k-step.
 //   s = q k^T runs on bf16 wgmma (m64nBKk16, both operands from shared
 // memory, K-major) into float32: products of bf16 values are exact in
 // float32, so only the order of the float32 sums differs from the plain
@@ -66,7 +71,7 @@
 // stage, measured slower).
 //
 // float32: the first design, FP32 FMA on operands widened in shared
-// memory (no tensor cores; the port runs without TF32), bound by shared-
+// memory (209 KB of it at Dh 256) (no tensor cores; the port runs without TF32), bound by shared-
 // memory loads (8 per 16 FMAs in q k^T).  One block of 256 threads per
 // (tile of 64 query rows, query head, batch entry); each thread owns 4
 // query rows, the 16 threads of a half-warp reduce a row's max and sum
@@ -265,9 +270,11 @@ constexpr int STAGES = 2;     // the kv ring
 constexpr int THREADS = 384;  // warpgroups 0, 1 consume, 2 produces
 constexpr int CONSUMER_WARPS = 8;
 
-// kv rows per tile: 128, and 64 above Dh 128, where a 128-row ring does
-// not fit in shared memory beside the q tile
-constexpr int kv_rows(int dh) { return dh > 128 ? 64 : 128; }
+// kv rows per tile: 128; 64 above Dh 128, where a 128-row ring does not
+// fit in shared memory beside the q tile; 32 above Dh 192, where a
+// consumer thread's 128 o accumulators leave no room for a 64-row tile's
+// s and p registers under setmaxnreg's 240
+constexpr int kv_rows(int dh) { return dh > 192 ? 32 : dh > 128 ? 64 : 128; }
 
 template <int DH>
 struct Layout {               // byte offsets in shared memory
@@ -305,14 +312,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// s (+)= A B^T over a kv tile of N rows, both operands K-major
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (N == 128) wgmma_ss_n128(d, da, db, scale_d);
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
 }
 
 // One consumer thread's rows: r0 and r0 + 8 of its warpgroup's 64.
@@ -670,6 +669,7 @@ extern "C" int flash_attention_launch(
       case 96: return f32::launch<96, float>(p, B, st);
       case 128: return f32::launch<128, float>(p, B, st);
       case 192: return f32::launch<192, float>(p, B, st);
+      case 256: return f32::launch<256, float>(p, B, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -686,6 +686,7 @@ extern "C" int flash_attention_launch(
     case 96: return WG_LAUNCH(96);
     case 128: return WG_LAUNCH(128);
     case 192: return WG_LAUNCH(192);
+    case 256: return WG_LAUNCH(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef WG_LAUNCH

@@ -59,6 +59,13 @@
 // take 192 registers a consumer thread before S, dP and their split A
 // operands; one a pass leaves 160 (dV) and 192 (dK) under setmaxnreg's
 // 240.  The second pass recomputes S^T: 2 Dh FLOPs more a visible pair.
+//   At Dh 256 (recurrentgemma's local attention) the streamed tiles are
+// 32 rows (stream_rows): two 64-row stages beside the owned tiles would
+// take 256 KB of shared memory, and the 128 accumulators of dK (or dQ)
+// beside a 64-row tile's S, dP and split dS (32 + 32 + 32 registers)
+// would spill under setmaxnreg's 240; at 32 rows they are 16 + 16 + 16,
+// and the tiles take 192 KB.  The ss products are then m64n32k16, the
+// rs products m64n256k16.
 //   Kernel c (block: 128 q rows, q and do loaded once; stream: k and v).
 // S = Q K^T and dP = do V^T are ss products; P and dS in the fragment;
 // dQ += dS K an rs product with K N-major.  The separate dq kernel
@@ -82,6 +89,9 @@
 // forward's float32 layout: q rows by ty, kv rows by tx, odd row strides
 // so column reads hit distinct banks).  It runs q k^T and do v^T in both
 // kernels (14 Dh FLOPs a pair), bound by shared-memory loads and FMA issue.
+// It is built up to Dh 192: at 256 its four float32 tiles alone take 257
+// KB of shared memory (the wrapper refuses float32 at Dh 256; no main
+// path trains in float32 at that width).
 #include <math.h>
 
 #include "flash_hopper.cuh"
@@ -453,16 +463,23 @@ namespace wg {
 using namespace hopper;
 
 constexpr int BM = 128;       // rows a block owns: kv rows (b), q rows (c)
-constexpr int BN = 64;        // rows of a streamed tile: q rows (b), kv (c)
 constexpr int STAGES = 2;     // the ring of streamed tiles
 constexpr int THREADS = 384;  // warpgroups 0, 1 consume, 2 produces
 constexpr int CONSUMER_WARPS = 8;
 constexpr int TERMS = 2;      // bf16 terms of P and dS (header note)
-constexpr int NS = BN / 2;    // accumulators of an ss product per thread
-constexpr int NA = BN / KSTEP * 4 * TERMS;  // A registers of a split operand
+
+// rows of a streamed tile, q rows (b) or kv rows (c): 64, and 32 above Dh
+// 192, where two 64-row stages beside the owned tiles would need 256 KB of
+// shared memory and the 128 accumulators of dK or dQ leave a consumer
+// thread no room for a 64-row tile's S, dP and split dS under 240
+constexpr int stream_rows(int dh) { return dh > 192 ? 32 : 64; }
 
 template <int DH>
 struct Layout {               // byte offsets in shared memory
+  static constexpr int BN = stream_rows(DH);  // rows of a streamed tile
+  static constexpr int NS = BN / 2;  // accumulators of an ss product
+  static constexpr int NA = BN / KSTEP * 4 * TERMS;  // A registers of a
+                                                     // split operand
   static constexpr int NCH = DH / KSTEP;      // chunks per tile row
   static constexpr int OWN = BM * ROW;        // a chunk of an owned tile
   static constexpr int STR = BN * ROW;        // a chunk of a streamed tile
@@ -504,10 +521,10 @@ __device__ __forceinline__ bool visible(long long kpos, long long qpos,
 // `tile` (the next 16 columns one chunk on, the next 8 rows 256 bytes on)
 template <int DH>
 __device__ __forceinline__ void rs_tile(float (&d)[DH / 2],
-                                        const uint32_t (&a)[NA],
+                                        const uint32_t (&a)[Layout<DH>::NA],
                                         uint32_t tile) {
 #pragma unroll
-  for (int kk = 0; kk < BN / KSTEP; ++kk) {
+  for (int kk = 0; kk < Layout<DH>::BN / KSTEP; ++kk) {
     const uint64_t db = desc32(tile + kk * KSTEP * ROW, Layout<DH>::STR,
                                8 * ROW);
 #pragma unroll
@@ -521,20 +538,21 @@ __device__ __forceinline__ void rs_tile(float (&d)[DH / 2],
 // streamed tiles, both K-major), in two commit groups; returns once s is
 // done, dp still in flight (wait_all before reading it)
 template <int DH>
-__device__ __forceinline__ void issue_ss(float (&s)[NS], float (&dp)[NS],
+__device__ __forceinline__ void issue_ss(float (&s)[Layout<DH>::NS],
+                                         float (&dp)[Layout<DH>::NS],
                                          uint32_t a0, uint32_t a1,
                                          uint32_t b0, uint32_t b1) {
   using L = Layout<DH>;
   wgmma_fence();
 #pragma unroll
   for (int c = 0; c < L::NCH; ++c)
-    wgmma_ss_n64(s, desc32(a0 + c * L::OWN, 16, 8 * ROW),
-                 desc32(b0 + c * L::STR, 16, 8 * ROW), c > 0);
+    wgmma_ss<L::BN>(s, desc32(a0 + c * L::OWN, 16, 8 * ROW),
+                    desc32(b0 + c * L::STR, 16, 8 * ROW), c > 0);
   wgmma_commit();
 #pragma unroll
   for (int c = 0; c < L::NCH; ++c)
-    wgmma_ss_n64(dp, desc32(a1 + c * L::OWN, 16, 8 * ROW),
-                 desc32(b1 + c * L::STR, 16, 8 * ROW), c > 0);
+    wgmma_ss<L::BN>(dp, desc32(a1 + c * L::OWN, 16, 8 * ROW),
+                    desc32(b1 + c * L::STR, 16, 8 * ROW), c > 0);
   wgmma_commit();
   wgmma_wait_one_pending();
   fence_regs(s);
@@ -542,14 +560,14 @@ __device__ __forceinline__ void issue_ss(float (&s)[NS], float (&dp)[NS],
 
 // s = A0w S0^T alone (kernel b's dV pass), waited for
 template <int DH>
-__device__ __forceinline__ void issue_s(float (&s)[NS], uint32_t a0,
-                                        uint32_t b0) {
+__device__ __forceinline__ void issue_s(float (&s)[Layout<DH>::NS],
+                                        uint32_t a0, uint32_t b0) {
   using L = Layout<DH>;
   wgmma_fence();
 #pragma unroll
   for (int c = 0; c < L::NCH; ++c)
-    wgmma_ss_n64(s, desc32(a0 + c * L::OWN, 16, 8 * ROW),
-                 desc32(b0 + c * L::STR, 16, 8 * ROW), c > 0);
+    wgmma_ss<L::BN>(s, desc32(a0 + c * L::OWN, 16, 8 * ROW),
+                    desc32(b0 + c * L::STR, 16, 8 * ROW), c > 0);
   wgmma_commit();
   wgmma_wait_all();
   fence_regs(s);
@@ -557,10 +575,11 @@ __device__ __forceinline__ void issue_s(float (&s)[NS], uint32_t a0,
 
 // x (NS accumulators, k-step kk in registers 8 kk..) into its TERMS bf16
 // terms in the A operand's order
-__device__ __forceinline__ void split_fragment(const float (&x)[NS],
-                                               uint32_t (&a)[NA]) {
+template <int DH>
+__device__ __forceinline__ void split_fragment(
+    const float (&x)[Layout<DH>::NS], uint32_t (&a)[Layout<DH>::NA]) {
 #pragma unroll
-  for (int kk = 0; kk < BN / KSTEP; ++kk)
+  for (int kk = 0; kk < Layout<DH>::BN / KSTEP; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       split_terms<TERMS>(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1],
@@ -581,7 +600,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                                 const __grid_constant__ CUtensorMap tdo,
                                 const Params p) {
   using L = Layout<DH>;
-  constexpr int NCH = L::NCH, NO = DH / 2;
+  constexpr int NCH = L::NCH, NO = DH / 2, BN = L::BN, NS = L::NS,
+                NA = L::NA;
   constexpr bool WANT_DK = PART != DV_ONLY, WANT_DV = PART != DK_ONLY;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // the swizzle pattern repeats every 256 bytes: align every chunk to 1024
@@ -705,7 +725,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             st[i] = 0.f;
         }
       }
-      if constexpr (WANT_DV) split_fragment(st, pa);
+      if constexpr (WANT_DV) split_fragment<DH>(st, pa);
       if constexpr (WANT_DK) {
         wgmma_wait_all();
         fence_regs(dp);
@@ -725,7 +745,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             dp[i] = st[i] * (dp[i] - (e & 1 ? d2.y : d2.x));
           }
         }
-        split_fragment(dp, da);
+        split_fragment<DH>(dp, da);
         wgmma_fence();
         rs_tile<DH>(dk, da, qs);  // dK += dS^T q
       }
@@ -775,7 +795,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                               const __grid_constant__ CUtensorMap tdo,
                               const Params p) {
   using L = Layout<DH>;
-  constexpr int NCH = L::NCH, NO = DH / 2;
+  constexpr int NCH = L::NCH, NO = DH / 2, BN = L::BN, NS = L::NS,
+                NA = L::NA;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base =
       ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
@@ -894,7 +915,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int i = 0; i < NS; ++i)  // dS = P (dP - delta)
         dp[i] = st[i] * (dp[i] - dl[(i >> 1) & 1]);
-      split_fragment(dp, da);
+      split_fragment<DH>(dp, da);
       wgmma_fence();
       rs_tile<DH>(dq, da, ks);  // dQ += dS K
       wgmma_commit();
@@ -947,6 +968,7 @@ int launch(bool dq, const void* q, const void* k, const void* v,
            long long ksh, long long vsb, long long vss, long long vsh,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
+  constexpr int BN = Layout<DH>::BN;
   const int qrows = dq ? BM : BN, krows = dq ? BN : BM;
   // an empty side loads no tile, but its map must encode
   const int sq = p.Sq > 0 ? p.Sq : 1, skv = p.Skv > 0 ? p.Skv : 1;
@@ -1007,6 +1029,7 @@ int run(bool dq, const void* q, const void* k, const void* v,
     case 96: return WG_LAUNCH(96);
     case 128: return WG_LAUNCH(128);
     case 192: return WG_LAUNCH(192);
+    case 256: return WG_LAUNCH(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef WG_LAUNCH

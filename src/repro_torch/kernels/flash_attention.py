@@ -25,21 +25,26 @@ from . import build, ref
 
 #: the head dims the kernels are built for (csrc/flash_attention.cu,
 #: csrc/flash_attention_bwd.cu); 96 and 192 are multi-head latent
-#: attention's (``models.mla``: nope + rope)
-HEAD_DIMS = (32, 64, 80, 96, 128, 192)
+#: attention's (``models.mla``: nope + rope), 256 recurrentgemma's
+HEAD_DIMS = (32, 64, 80, 96, 128, 192, 256)
+#: the float32 backward's: at Dh 256 its FP32 tiles do not fit in a
+#: block's shared memory, and no main path trains in float32 at that width
+F32_BWD_HEAD_DIMS = (32, 64, 80, 96, 128, 192)
 #: input types and the launcher's code for each
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the design each input type launches, by its kernel's name
 DESIGNS = {torch.float32: "flash_attention_kernel (FP32 FMA)",
            torch.bfloat16: "flash_attention_wgmma_kernel (bf16 wgmma, TMA "
-                           "kv ring; 64-row kv tiles above Dh 128)"}
+                           "kv ring; 64-row kv tiles above Dh 128, "
+                           "32-row above Dh 192)"}
 #: the backward's design per input type, by its dk/dv and dq kernels' names
 BWD_DESIGNS = {torch.float32: "flash_bwd_dkdv_kernel, flash_bwd_dq_kernel "
                               "(FP32 FMA)",
                torch.bfloat16: "flash_bwd_dkdv_wgmma_kernel, "
                                "flash_bwd_dq_wgmma_kernel (bf16 wgmma, TMA "
                                "ring, P and dS in BWD_TERMS bf16 terms; "
-                               "dk/dv in a dV and a dK pass above Dh 128)"}
+                               "dk/dv in a dV and a dK pass above Dh 128; "
+                               "32-row streamed tiles above Dh 192)"}
 #: bf16 terms each of P and dS is split into in the bfloat16 backward
 #: (``TERMS`` in csrc/flash_attention_bwd.cu)
 BWD_TERMS = 2
@@ -171,6 +176,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                            causal=causal, window=window,
                                            q_offset=q_offset)
+    if q.dtype == torch.float32 and Dh in HEAD_DIMS \
+            and Dh not in F32_BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: the float32 kernels are "
+                         f"built for head dims {F32_BWD_HEAD_DIMS}, not "
+                         f"{Dh}; bfloat16 runs at {HEAD_DIMS}")
     o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
     _check_kernel_args("flash_attention_bwd", window, q, k, v, o, do)
     if lse.device != q.device:

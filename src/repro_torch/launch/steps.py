@@ -18,7 +18,7 @@ Layout A (train): every parameter leaf is ``[E, C, *shape]``: E edges
 
 The port updates the parameters and both histories in place, and walks
 the aggregation one piece at a time (each unit of a stacked leaf apart,
-and each layer of the encoder's):
+each layer of the encoder's, and a large unstacked leaf in blocks of rows):
 the math is elementwise, so the result is the reference's, and the float32
 temporaries stay one piece large.  Histories are ``core.hieavg.History``
 with flat leaves keyed by the parameter's path (``"unit/0/ffn/gate"``).
@@ -26,6 +26,8 @@ with flat leaves keyed by the parameter's path (``"unit/0/ffn/gate"``).
 Layout B (serve, and ``make_train_step``): plain parameter dicts.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -63,19 +65,30 @@ def unflatten(flat: dict) -> dict:
 
 #: the stacked leaves' prefixes: the decoder's units, the encoder's layers
 STACKED = ("unit/", "encoder/unit/")
+#: the most elements of one slot an unstacked leaf's piece spans: a larger
+#: leaf goes in blocks of rows (recurrentgemma's tied 256000 x 4096
+#: embedding, whose float32 temporaries over two clients would be 8.4 GB
+#: each); the tail's layers and every unit stay whole
+PIECE_ELEMS = 1 << 26
 
 
 def _pieces(flat: dict, lead: int) -> list:
     """(key, index) pieces of ``[*lead axes, ...]`` leaves: a stacked leaf
     (``STACKED``, its unit axis after the lead axes) one unit at a time,
-    any other leaf whole."""
-    out = []
+    an unstacked leaf of more than ``PIECE_ELEMS`` elements a slot in
+    blocks of rows, any other leaf whole."""
+    out, every = [], (slice(None),) * lead
     for k, v in flat.items():
         if k.startswith(STACKED):
-            out += [(k, (slice(None),) * lead + (u,))
-                    for u in range(v.shape[lead])]
-        else:
-            out.append((k, (slice(None),) * lead))
+            out += [(k, every + (u,)) for u in range(v.shape[lead])]
+            continue
+        size = math.prod(v.shape[lead:])
+        if size <= PIECE_ELEMS:
+            out.append((k, every))
+            continue
+        rows = max(1, PIECE_ELEMS * v.shape[lead] // size)
+        out += [(k, every + (slice(r, r + rows),))
+                for r in range(0, v.shape[lead], rows)]
     return out
 
 

@@ -1,23 +1,26 @@
 """Model assembly for the LLM zoo: a stack of ``n_units`` repeating units of
-``block_pattern`` layers, each leaf stacked ``[n_units, ...]``, and an
-optional encoder stack (``encoder.unit.0``, stacked ``[encoder.n_layers,
-...]``) over the stubbed frontend's embeddings.
+``block_pattern`` layers, each leaf stacked ``[n_units, ...]``, the
+non-repeating ``tail_pattern`` layers after them (unstacked leaves,
+``tail.<i>``), and an optional encoder stack (``encoder.unit.0``, stacked
+``[encoder.n_layers, ...]``) over the stubbed frontend's embeddings.
 
-Port of ``repro.models.transformer`` for the layer kinds
+Port of ``repro.models.transformer``, every layer kind of it:
 
   attn      GQA self-attention + SwiGLU MLP
   mla       multi-head latent attention + SwiGLU MLP
   attn_moe  GQA self-attention + MoE MLP
   mla_moe   multi-head latent attention + MoE MLP
+  rec       RG-LRU recurrent block + SwiGLU MLP
+  ssd       Mamba-2 SSD block (no separate MLP)
   xattn     gated cross-attention to the memory + SwiGLU MLP
   enc_attn  the encoder's non-causal self-attention + SwiGLU MLP
 
-The other kinds (``rec``, ``ssd``) raise ``NotImplementedError`` until
-they are ported (``ROADMAP.md``); tail layers are not ported:
-``repro_torch.configs`` refuses the configs that have them.  Each stack is
-a Python loop that indexes the stacked leaves, where the reference scans;
-``remat`` (the training loss only) checkpoints each unit, and each encoder
-layer, as the reference's ``jax.checkpoint`` of its scan body.  The MoE
+Each stack is a Python loop that indexes the stacked leaves, where the
+reference scans; ``remat`` (the training loss only) checkpoints each unit,
+and each encoder layer, as the reference's ``jax.checkpoint`` of its scan
+body; the tail runs after the units, outside any checkpoint, as the
+reference runs it after its scan.  The recurrent layers' caches (``h``
+and the conv window) are float32 whatever the KV caches' dtype.  The MoE
 layers' load-balance loss (``aux``) is summed over the layers as the
 reference carries it through its scan: a checkpointed unit returns it
 beside its output, so the backward recomputes it and its gradient reaches
@@ -48,40 +51,52 @@ from torch.utils.checkpoint import checkpoint
 from . import attention as att
 from . import mla as mla_mod
 from . import moe as moe_mod
+from . import rglru as rg_mod
+from . import ssd as ssd_mod
 from .config import ArchConfig
 from .layers import embed_apply, embed_specs, mlp_apply, mlp_specs, \
     unembed_apply
 
-#: each ported layer kind's mixer and feed-forward block
+#: each layer kind's mixer and feed-forward block (None: none)
 MIXER = {"attn": "attn", "attn_moe": "attn", "mla": "mla", "mla_moe": "mla",
-         "xattn": "xattn", "enc_attn": "enc_attn"}
+         "rec": "rec", "ssd": "ssd", "xattn": "xattn",
+         "enc_attn": "enc_attn"}
 FFN = {"attn": "mlp", "attn_moe": "moe", "mla": "mlp", "mla_moe": "moe",
-       "xattn": "mlp", "enc_attn": "mlp"}
-#: the ported layer kinds
-KINDS = tuple(MIXER)
-
-
-def _kind(kind: str) -> str:
-    if kind not in KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    return kind
+       "rec": "mlp", "ssd": None, "xattn": "mlp", "enc_attn": "mlp"}
+#: the recurrent mixers' train, prefill and decode functions
+RECURRENT = {"rec": (rg_mod.rglru_train, rg_mod.rglru_prefill,
+                     rg_mod.rglru_decode),
+             "ssd": (ssd_mod.ssd_train, ssd_mod.ssd_prefill,
+                     ssd_mod.ssd_decode)}
 
 
 # ------------------------------------------------------------------- specs
 def _layer_specs(kind: str, cfg: ArchConfig, stacked: Optional[int]) -> dict:
-    """A layer's mixer (self- or cross-attention, or MLA) and its
-    feed-forward block (SwiGLU MLP or MoE)."""
-    mixer = MIXER[_kind(kind)]
-    return {"mixer": mla_mod.mla_specs(cfg, stacked) if mixer == "mla"
-            else att.attn_specs(cfg, stacked, cross=mixer == "xattn"),
-            "ffn": moe_mod.moe_specs(cfg, stacked) if FFN[kind] == "moe"
-            else mlp_specs(cfg, stacked)}
+    """A layer's mixer (self- or cross-attention, MLA, RG-LRU or SSD) and
+    its feed-forward block (SwiGLU MLP or MoE; none after SSD)."""
+    mixer, ffn = MIXER[kind], FFN[kind]
+    if mixer == "mla":
+        out = {"mixer": mla_mod.mla_specs(cfg, stacked)}
+    elif mixer == "rec":
+        out = {"mixer": rg_mod.rglru_specs(cfg, stacked)}
+    elif mixer == "ssd":
+        out = {"mixer": ssd_mod.ssd_specs(cfg, stacked)}
+    else:
+        out = {"mixer": att.attn_specs(cfg, stacked, cross=mixer == "xattn")}
+    if ffn == "mlp":
+        out["ffn"] = mlp_specs(cfg, stacked)
+    elif ffn == "moe":
+        out["ffn"] = moe_mod.moe_specs(cfg, stacked)
+    return out
 
 
 def param_specs(cfg: ArchConfig) -> dict:
     specs = {"embed": embed_specs(cfg),
              "unit": {str(i): _layer_specs(k, cfg, cfg.n_units)
                       for i, k in enumerate(cfg.block_pattern)}}
+    if cfg.tail_pattern:
+        specs["tail"] = {str(i): _layer_specs(k, cfg, None)
+                         for i, k in enumerate(cfg.tail_pattern)}
     if cfg.encoder:
         specs["encoder"] = {"unit": {"0": _layer_specs(
             "enc_attn", cfg, cfg.encoder.n_layers)}}
@@ -89,26 +104,37 @@ def param_specs(cfg: ArchConfig) -> dict:
 
 
 def _layer_cache_spec(kind: str, cfg: ArchConfig, batch: int, max_len: int,
-                      dtype) -> Optional[dict]:
-    mixer = MIXER[_kind(kind)]
+                      stacked: Optional[int], dtype) -> Optional[dict]:
+    mixer = MIXER[kind]
     if mixer == "attn":
-        return att.init_cache_spec(cfg, batch, max_len, cfg.n_units, dtype)
+        return att.init_cache_spec(cfg, batch, max_len, stacked, dtype)
     if mixer == "mla":
-        return mla_mod.mla_cache_spec(cfg, batch, max_len, cfg.n_units,
-                                      dtype)
+        return mla_mod.mla_cache_spec(cfg, batch, max_len, stacked, dtype)
+    if mixer == "rec":
+        return rg_mod.rglru_cache_spec(cfg, batch, stacked)
+    if mixer == "ssd":
+        return ssd_mod.ssd_cache_spec(cfg, batch, stacked)
     return None  # cross-attention: a static memory, no cache
 
 
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16) -> dict:
-    """The cache specs of the self-attention positions: KV caches, and
-    MLA's compressed ``c_kv``/``k_rope`` (cross-attention attends to a
-    static memory and keeps no cache); ``dtype`` bf16 in production, f32
-    in tests."""
-    return {"unit": {
+    """The cache specs of the layers that keep one: KV caches, MLA's
+    compressed ``c_kv``/``k_rope`` and the recurrent layers' state and conv
+    window, for the units (stacked) and the tail (cross-attention attends
+    to a static memory and keeps no cache).  ``dtype`` is the KV caches'
+    (bf16 in production, f32 in tests); the recurrent states are float32
+    whatever it is, as the reference keeps them."""
+    out = {"unit": {
         str(i): cs for i, k in enumerate(cfg.block_pattern)
-        if (cs := _layer_cache_spec(k, cfg, batch, max_len, dtype))
-        is not None}}
+        if (cs := _layer_cache_spec(k, cfg, batch, max_len, cfg.n_units,
+                                    dtype)) is not None}}
+    if cfg.tail_pattern:
+        out["tail"] = {
+            str(i): cs for i, k in enumerate(cfg.tail_pattern)
+            if (cs := _layer_cache_spec(k, cfg, batch, max_len, None, dtype))
+            is not None}
+    return out
 
 
 def params_from_numpy(tree: dict, device="cpu") -> dict:
@@ -143,8 +169,16 @@ def _apply_layer(kind: str, p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     """One layer in the given mode -> (x, its MoE aux loss or None); the
     cache is written in place.  The encoder's layers and cross-attention
     run as in training in every mode (they keep no cache)."""
-    mixer = MIXER[_kind(kind)]
-    if mixer == "mla":
+    mixer = MIXER[kind]
+    if mixer in RECURRENT:
+        train, prefill_, decode = RECURRENT[mixer]
+        if mode == "train":
+            x = train(p["mixer"], x, cfg)
+        elif mode == "prefill":
+            x, _ = prefill_(p["mixer"], x, cfg, cache)
+        else:
+            x, _ = decode(p["mixer"], x, cfg, cache)
+    elif mixer == "mla":
         if mode == "train":
             x = mla_mod.mla_train(p["mixer"], x, cfg,
                                   kernel_mode=kernel_mode)
@@ -171,7 +205,9 @@ def _apply_layer(kind: str, p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         x, _ = att.attn_decode(p["mixer"], x, cfg, cache, pos)
     if FFN[kind] == "moe":
         return moe_mod.moe_apply(p["ffn"], x, cfg)
-    return mlp_apply(p["ffn"], x, cfg.norm_eps), None
+    if FFN[kind] == "mlp":
+        x = mlp_apply(p["ffn"], x, cfg.norm_eps)
+    return x, None
 
 
 def _run_stack(params: dict, x: torch.Tensor, cfg: ArchConfig, pattern,
@@ -204,9 +240,22 @@ def _run_stack(params: dict, x: torch.Tensor, cfg: ArchConfig, pattern,
     return x, aux
 
 
-def _decoder(params: dict, x: torch.Tensor, cfg: ArchConfig, **kw
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    return _run_stack(params, x, cfg, cfg.block_pattern, cfg.n_units, **kw)
+def _decoder(params: dict, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
+             caches: Optional[dict], pos, memory, kernel_mode: str,
+             remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decoder's units (``_run_stack``), then its tail layers, outside
+    any checkpoint (the reference checkpoints only its scan's body)."""
+    x, aux = _run_stack(params, x, cfg, cfg.block_pattern, cfg.n_units,
+                        mode=mode, caches=caches, pos=pos, memory=memory,
+                        kernel_mode=kernel_mode, remat=remat)
+    tc = caches.get("tail", {}) if caches else {}
+    for i, kind in enumerate(cfg.tail_pattern):
+        x, a = _apply_layer(kind, params["tail"][str(i)], x, cfg, mode=mode,
+                            cache=tc.get(str(i)), pos=pos, memory=memory,
+                            kernel_mode=kernel_mode)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _encode(params: dict, memory_embeds: torch.Tensor, cfg: ArchConfig, *,

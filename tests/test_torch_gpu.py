@@ -813,3 +813,98 @@ def test_gpu_flash_attention_refuses_smoke_mla_head_dim(cuda):
             run(mode)
     assert not build.LAUNCHES
     assert bool(torch.isfinite(run("torch")).all())
+
+
+#: recurrentgemma's local attention at head dim 256 (32-row kv tiles in the
+#: bf16 forward, 32-row streamed tiles in its backward): its group of 16
+#: query heads over one kv head and others, windows, lengths across the
+#: 32-row tiles' edges, a chunked prefill's offset and rows that see no
+#: key (chip_smoke.py's FLASH_RG_CASES)
+FLASH_RG_CASES = [((300, 300), (16, 1), True, 100, 0),
+                  ((33, 65), (4, 1), False, None, 0),
+                  ((129, 257), (16, 1), True, 40, 128),
+                  ((31, 31), (2, 2), True, None, 0),
+                  ((64, 64), (16, 1), True, 20, -10),
+                  ((257, 127), (8, 2), True, 70, 5),
+                  ((130, 97), (16, 1), False, None, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gpu_flash_attention_head_dim_256_matches_plain(cuda, dtype):
+    """The forward (output, lse) at head dim 256 in float32 (the FMA
+    kernel's 213760 bytes of shared memory fit) and bfloat16, and the
+    bfloat16 backward, at the flash bounds over the cases above; the
+    backward bitwise on repeat, three launches a call.  The float32
+    backward is not built at 256 (its tiles do not fit): it raises before
+    any launch."""
+    rng = np.random.default_rng(256)
+    for (sq, skv), (h, hkv), causal, window, off in FLASH_RG_CASES:
+        q = t(np32(rng, 2, sq, 2 * h, 256)).to(cuda, dtype)[:, :, :h]
+        k, v = (t(np32(rng, 2, skv, hkv, 256)).to(cuda, dtype)
+                for _ in range(2))
+        do = t(np32(rng, 2, sq, h, 256)).to(cuda, dtype)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        case = ((sq, skv), (h, hkv), causal, window, off)
+        o, lse = flash_attention_fwd(q, k, v, lse=True, mode="cuda", **kw)
+        o_ref, lse_ref = flash_attention_fwd(q, k, v, lse=True,
+                                             mode="torch", **kw)
+        if dtype == torch.float32:
+            torch.testing.assert_close(o, o_ref, rtol=0, atol=2e-5)
+        else:
+            assert _ulps(o, o_ref, dtype, atol=2e-5) <= 1.0, case
+        assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+        fin = torch.isfinite(lse_ref)
+        torch.testing.assert_close(lse[fin], lse_ref[fin], rtol=1e-5,
+                                   atol=1e-5)
+        before = build.LAUNCHES["flash_attention_bwd"]
+        if dtype == torch.float32:
+            with pytest.raises(ValueError, match="float32 kernels"):
+                flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+            assert build.LAUNCHES["flash_attention_bwd"] == before
+            continue
+        got = flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+        assert build.LAUNCHES["flash_attention_bwd"] == before + 3
+        want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+        for g, w in zip(got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            assert err <= 2.0 ** -7 * w.float().abs().max().item(), \
+                (case, err)
+        again = flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("kind", ["rec", "ssd"])
+def test_gpu_recurrent_layer_on_the_card_matches_the_cpu(cuda, kind):
+    """An RG-LRU and an SSD layer of the smoke configs (float32, TF32 off)
+    in train, prefill and decode mode on the card against the same layer
+    on the CPU: outputs and caches within ``atol 1e-4`` (the same float32
+    ops, summed in another order); no kernel launched."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import rglru, ssd, transformer
+    from repro_torch.models.spec import init_from_specs
+    cfg = get_smoke("recurrentgemma-9b" if kind == "rec" else "mamba2-130m")
+    specs, cache_spec = (rglru.rglru_specs, rglru.rglru_cache_spec) \
+        if kind == "rec" else (ssd.ssd_specs, ssd.ssd_cache_spec)
+    fns = dict(zip(("train", "prefill", "decode"),
+                   transformer.RECURRENT[kind]))
+    g = torch.Generator()
+    g.manual_seed(0)
+    p_cpu = init_from_specs(specs(cfg, None), g)
+    p_gpu = {k: v.to(cuda) for k, v in p_cpu.items()}
+    rng = np.random.default_rng(7)
+    x = t(np32(rng, 2, 300, cfg.d_model))
+    build.reset_launch_counts()
+    torch.testing.assert_close(fns["train"](p_gpu, x.to(cuda), cfg).cpu(),
+                               fns["train"](p_cpu, x, cfg), rtol=0,
+                               atol=1e-4)
+    caches = {d: init_from_specs(cache_spec(cfg, 2, None), None, d)
+              for d in ("cpu", cuda)}
+    for mode, xs in (("prefill", x), ("decode", x[:, :1])):
+        want = fns[mode](p_cpu, xs, cfg, caches["cpu"])[0]
+        got = fns[mode](p_gpu, xs.to(cuda), cfg, caches[cuda])[0]
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+        for k in caches["cpu"]:
+            torch.testing.assert_close(caches[cuda][k].cpu(),
+                                       caches["cpu"][k], rtol=0, atol=1e-4)
+    assert not build.LAUNCHES

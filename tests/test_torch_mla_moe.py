@@ -157,11 +157,20 @@ def test_full_param_counts_match_jax(arch, billions):
 
 
 def test_recurrent_archs_still_raise():
+    """The recurrent archs resolve now; what still raises is a depth their
+    pattern cannot reach: ``cut_depth`` keeps whole units and the tail
+    (recurrentgemma: 3u + 2 layers) and refuses any other count by name,
+    where ``ArchConfig.n_units`` would die in a bare assert."""
     for arch in ("recurrentgemma-9b", "mamba2-130m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tconfigs.get_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tconfigs.get_smoke(arch)
+        assert tconfigs.get_config(arch).name == j_get_config(arch).name
+        assert tconfigs.get_smoke(arch).name == j_get_smoke(arch).name
+    rg = tconfigs.get_config("recurrentgemma-9b")
+    assert tconfigs.cut_depth(rg, 5).n_units == 1
+    for n in (1, 2, 4, 6, 37):
+        with pytest.raises(ValueError, match=r"3u \+ 2 layers.*5, 8, 11"):
+            tconfigs.cut_depth(rg, n)
+    assert tconfigs.cut_depth(tconfigs.get_config("mamba2-130m"),
+                              3).n_units == 3
 
 
 # ------------------------------------------------------------- the MLA
