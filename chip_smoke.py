@@ -39,7 +39,20 @@ the plain versions on the same buckets, and every point once more alone:
 each point within the engine-parity bounds of its standalone run and of
 the plain sweep, clock and energy equal.  Then K* over a batched grid
 (``optimize_k_masked`` on the card, 16 ``LatencyParams`` x 3 omega_bar,
-against the host's ``optimize_k``: every K* equal).  Then population
+against the host's ``optimize_k``: every K* equal).  Then the sweep over
+a mesh's ranks (``mesh_sweep``): Fig. 3's eleven rows through
+``run_sweep(mesh=make_sweep_mesh())`` in a world of one, bitwise the
+meshless kernel sweep; then two ``gloo`` ranks on the one card, each a
+process of this script (``--mesh-rank``), run ten of the rows as one
+bucket split five points a rank (``placement="shard"``) and all eleven
+under ``"auto"``, rank 0's rows within the engine-parity bounds of this
+process's sweep of the same plan, and ``"shard"`` on eleven rows as one
+bucket must raise.  Then the census (``mesh_census``): the bytes the
+stand-ins of ``launch.inputs.input_specs`` reckon for danube's serve cell
+and its 4-layer train line on a one-card mesh against what the drivers'
+own code asks the card's allocator for, the prefill on that mesh bitwise
+the meshless one, and the largest pair of the dry-run's census that fits
+the card.  Then population
 mode at full width (DEFAULT cut to T = 4, a cohort of 5 devices an edge
 resampled every round out of stores of 10^3 and 10^6 devices, each built
 once): HieAvg and delayed-gradient with the kernels and plain, the pair
@@ -128,7 +141,9 @@ HieAvg's cold rounds and in FedAvg, ``hieavg_agg`` in HieAvg's warm ones,
 per configuration, the resume checks, one ``sweep`` line per plan (its
 buckets, wall seconds of the plan, of its plain run and of its points one
 by one, peak memory, launches, the largest differences and whether they
-are bitwise), the ``kstar`` line, one ``population`` line per store size
+are bitwise), the ``kstar`` line, four ``mesh_sweep`` lines (the world of
+one; each ranked plan with each rank's wall seconds, device, launches and
+per-row SGD rows; the refused ``"shard"``), the ``mesh_census`` line, one ``population`` line per store size
 and aggregator (the store's host build seconds, rounds/s, peak memory,
 launches and churn resets of each mode, and their parity), the
 ``population_resume``, ``population_parity``, ``population_sweep`` and
@@ -167,6 +182,7 @@ import json
 import math
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -285,6 +301,30 @@ SWEEP_KERNELS = {"fig3": ("conv3x3_fwd", "conv3x3_bwd", "sgd_update[rows]",
                  "switched": ("conv3x3_fwd", "conv3x3_bwd", "sgd_update",
                               "hieavg_agg", "coef_agg", "coef_agg_pair",
                               "eval_head")}
+#: the sweep over a mesh's ranks (``mesh_sweep``): MESH_WORLD ``gloo``
+#: ranks on the one card, each a process of this script
+#: (``--mesh-rank``), run Fig. 3's first ten rows as one bucket split
+#: five points a rank (``placement="shard"``, ``max_buckets=1``), then all
+#: eleven under ``"auto"`` over the reference's proxy plan (its buckets
+#: split where their point count is even, whole on both ranks otherwise);
+#: ``"shard"`` on the eleven as one bucket must raise.  A rank that has
+#: not ended after MESH_RANK_TIMEOUT seconds fails the phase
+MESH_WORLD = 2
+MESH_PLANS = {"fig3_10_shard": (10, dict(max_buckets=1, placement="shard",
+                                         bucket_cost="measured")),
+              "fig3_11_auto": (11, dict(placement="auto",
+                                        bucket_cost="proxy"))}
+MESH_RANK_TIMEOUT = 600
+#: the script each rank runs (this one, with ``--mesh-rank``)
+RANK_SCRIPT = Path(__file__).resolve()
+#: the census's tolerance against the bytes the drivers ask the caching
+#: allocator for (its ``requested_bytes``): 512 bytes a tensor.  The
+#: allocator's own blocks (``memory_allocated``) are larger: a block is a
+#: multiple of 512 bytes, and a block of the large pool keeps the tail of
+#: its segment when that tail is 1 MiB or less (it is not split off)
+CENSUS_ROUNDING = 512
+BLOCK_TAIL = 1 << 20
+
 #: the K* grid: 16 LatencyParams (lm_device x lp_device) x 3 omega_bar,
 #: consensus latency 3.3 s, K up to 64
 KSTAR_LM, KSTAR_LP = (0.1, 0.51, 1.0, 2.0), (0.5, 1.67, 3.0, 6.0)
@@ -2485,10 +2525,12 @@ def sweep_phase(torch, build, fl, setting, rows_check) -> dict:
     plan runs, ``rows_check`` holds the per-row SGD kernel against its
     plain version at each row count the plan gives it
     (``per_row_launches``); after, its counted launches must be those.
-    Returns the launches of the kernel sweeps."""
+    Returns the launches of the kernel sweeps and their results by
+    plan."""
     plans = {"fig3": (fig3_overrides(), (0,)),
              "switched": (list(SWITCHED), SWITCHED_SEEDS)}
     total: dict = {}
+    results: dict = {}
     for name, (overrides, seeds) in plans.items():
         t0 = time.time()
         plan = fl.plan_sweep(setting, seeds, overrides=overrides,
@@ -2557,7 +2599,406 @@ def sweep_phase(torch, build, fl, setting, rows_check) -> dict:
               f"{name}: kernel sweep against plain sweep {vs_plain}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
+        results[name] = got
+    return total, results
+
+
+def share_plan(fl_sweep, plan, world: int):
+    """Per rank, the buckets it runs of ``plan`` on a ``data`` mesh of
+    ``world`` ranks, as ``execute_plan`` cuts them: a bucket whose point
+    count divides ``world`` a contiguous share of its branch-ordered
+    points, any other whole.  Each entry has the ``buckets[i].inputs`` of
+    a plan, for ``per_row_launches``."""
+    import types
+
+    from repro_torch.launch.sharding import sweep_spec
+    ns = types.SimpleNamespace(shape={"data": world})
+    out = [[] for _ in range(world)]
+    for b in plan.buckets:
+        order = fl_sweep._branch_order(b.inputs)
+        split = bool(sweep_spec(len(b.point_ids), ns))
+        size = order.size // world if split else order.size
+        for r in range(world):
+            share = order[r * size:(r + 1) * size] if split else order
+            out[r].append(types.SimpleNamespace(
+                inputs=fl_sweep._reorder(b.inputs, share)))
+    return [types.SimpleNamespace(buckets=bs) for bs in out]
+
+
+def mesh_sweep(torch, build, fl, setting, fig3, rows_check) -> dict:
+    """The sweep split over a mesh's ranks.  (a) A world of one:
+    ``run_sweep(..., mesh=make_sweep_mesh(), placement="auto")`` on Fig.
+    3's eleven rows, planned as ``sweep_phase`` planned them (the measured
+    step times are cached in this process), must be bitwise
+    ``sweep_phase``'s kernel sweep ``fig3``.  (b) MESH_WORLD ``gloo``
+    ranks on the one card (``MESH_PLANS``), each a process of this script:
+    rank 0's rows held to this process's kernel sweep of the same plan
+    within the engine-parity bounds, clock and energy equal, every rank's
+    rows the same, every rank launching every kernel of the sweep path,
+    its per-row SGD launches those of its share by the engine's rule
+    (checked against the plain version first, ``rows_check``), and
+    ``"shard"`` on the eleven rows as one bucket raising the reference's
+    message.  Returns the ranks' launches by plan."""
+    import torch.distributed as dist
+
+    from repro_torch.fl import sweep as fl_sweep
+    from repro_torch.launch.mesh import make_sweep_mesh
+
+    started = not dist.is_initialized()
+    try:
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.time()
+        one = fl.run_sweep(setting, overrides=fig3_overrides(),
+                           bucket_cost="measured", device="cuda",
+                           kernel_mode="auto", mesh=make_sweep_mesh(),
+                           placement="auto", **SWEEP_KW)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(build.LAUNCHES)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    same = _rows_diff(one, fig3, one.t_valid)
+    missing = [k for k in SWEEP_KERNELS["fig3"] if not launches.get(k)]
+    emit({"mesh_sweep": {"world": 1, "points": len(one.points),
+                         "wall_s": wall, "launches": launches,
+                         "vs_meshless": same}})
+    check("mesh_sweep", same["bitwise"],
+          f"a world of one is not bitwise the meshless sweep: {same}")
+    check("launches", not missing,
+          f"mesh_sweep world 1: never launched {missing} ({launches})")
+
+    # (b) the plans the ranks run, here in one process, and each rank's
+    # share of them
+    refs, expect = {}, {}
+    for name, (n, kw) in MESH_PLANS.items():
+        plan = fl.plan_sweep(setting, overrides=fig3_overrides()[:n],
+                             device="cuda", kernel_mode="auto",
+                             **{k: v for k, v in kw.items()
+                                if k != "placement"}, **SWEEP_KW)
+        shares = share_plan(fl_sweep, plan, MESH_WORLD)
+        expect[name] = [per_row_launches(sh) for sh in shares]
+        for rows in expect[name]:
+            rows_check(rows)
+        t0 = time.time()
+        refs[name] = (fl.run_plan(plan), time.time() - t0,
+                      plan.describe().splitlines())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    out = ROOT / "build" / "mesh_sweep"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    logs = [out / f"rank{r}.log" for r in range(MESH_WORLD)]
+    procs = []
+    try:
+        for r in range(MESH_WORLD):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(RANK_SCRIPT), "--mesh-rank",
+                     str(r), "--mesh-world", str(MESH_WORLD), "--mesh-port",
+                     str(port), "--mesh-out", str(out)], stdout=log,
+                    stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_RANK_TIMEOUT
+                               - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        check("mesh_sweep", False, f"a rank had not ended after "
+              f"{MESH_RANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_wall = time.time() - t0
+    for r, p in enumerate(procs):
+        check("mesh_sweep", p.returncode == 0, f"rank {r} exited "
+              f"{p.returncode}:\n{logs[r].read_text()[-4000:]}")
+    recs = [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(MESH_WORLD)]
+    total: dict = {}
+    for name in MESH_PLANS:
+        ref, ref_wall, buckets = refs[name]
+        rows = [np.load(out / f"{name}_rank{r}.npz")
+                for r in range(MESH_WORLD)]
+        got = [types_ns(**{k: x[k] for k in ROWS}) for x in rows]
+        vs_one = _rows_diff(got[0], ref, ref.t_valid)
+        agree = all(np.array_equal(x[k], rows[0][k]) for x in rows[1:]
+                    for k in ROWS)
+        per_rank = [{"wall_s": rec[name]["wall_s"],
+                     "plan_s": rec[name]["plan_s"],
+                     "device": rec[name]["device"],
+                     "launches": rec[name]["launches"],
+                     "per_row_sgd_rows": {str(k): v for k, v in
+                                          sorted(expect[name][r].items())}}
+                    for r, rec in enumerate(recs)]
+        emit({"mesh_sweep": {
+            "world": MESH_WORLD, "plan": name,
+            "points": len(ref.points), "buckets": buckets,
+            "placement": MESH_PLANS[name][1]["placement"],
+            "ranks": per_rank, "one_process_wall_s": ref_wall,
+            "ranks_same_rows": agree, "rank0_vs_one_process": vs_one,
+            "tolerances": {"accuracy_atol": ACC_TOL,
+                           "loss_rtol_atol": LOSS_TOL,
+                           "delta_rtol": DELTA_RTOL,
+                           "delta_atol": DELTA_ATOL}}})
+        check("mesh_sweep", vs_one["within_bounds"],
+              f"{name}: rank 0 against one process {vs_one}")
+        check("mesh_sweep", agree, f"{name}: the ranks' rows differ")
+        for r, rank in enumerate(per_rank):
+            missing = [k for k in SWEEP_KERNELS["fig3"]
+                       if not rank["launches"].get(k)
+                       and (k != "sgd_update[rows]" or expect[name][r])]
+            check("launches", not missing,
+                  f"mesh_sweep {name} rank {r}: never launched {missing}")
+            check("launches", rank["launches"].get("sgd_update[rows]", 0)
+                  == sum(expect[name][r].values()),
+                  f"mesh_sweep {name} rank {r}: per-row SGD launches "
+                  f"{rank['launches']} against {expect[name][r]}")
+            for k, v in rank["launches"].items():
+                total[k] = total.get(k, 0) + v
+    msgs = [rec["shard11"] for rec in recs]
+    emit({"mesh_sweep": {"world": MESH_WORLD, "plan": "fig3_11_shard",
+                         "raised": msgs[0], "ranks_wall_s": ranks_wall}})
+    check("mesh_sweep", all(
+        m is not None and m.startswith(
+            "placement='shard' but a bucket of 11 grid points (of 11 "
+            "total) does not divide a >1 mesh axis (mesh={'data': 2}); "
+            "force max_buckets=1 or use placement='auto'") for m in msgs),
+        f"placement='shard' on eleven rows: {msgs}")
     return total
+
+
+def types_ns(**kw):
+    import types
+    return types.SimpleNamespace(**kw)
+
+
+def mesh_rank(argv: list) -> int:
+    """One rank of ``mesh_sweep`` (``--mesh-rank R --mesh-world W
+    --mesh-port P --mesh-out DIR``): joins the ``gloo`` group, runs
+    ``MESH_PLANS`` through ``run_sweep``'s halves, ``plan_sweep`` and
+    ``run_plan`` with ``mesh=make_sweep_mesh()``, with the kernels (the
+    plan and the run timed apart; the launch counts set to 0 just before
+    the run and read just after), and ``"shard"`` on the eleven rows as
+    one bucket through ``run_sweep``; writes its
+    rows and a JSON record to DIR.  The kernels are built by the parent
+    before the ranks start."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    arg = dict(zip(argv[::2], argv[1::2]))
+    rank, world = int(arg["--mesh-rank"]), int(arg["--mesh-world"])
+    out = Path(arg["--mesh-out"])
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import fl
+    from repro_torch.configs import DEFAULT
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_sweep_mesh
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{arg['--mesh-port']}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT))
+    try:
+        mesh = make_sweep_mesh()
+        build.library()
+        setting = dataclasses.replace(DEFAULT, t_global_rounds=SWEEP_T)
+        rec = {}
+        for name, (n, kw) in MESH_PLANS.items():
+            # run_sweep's two halves, timed apart: every rank plans
+            kw = dict(kw)
+            placement = kw.pop("placement")
+            t0 = time.time()
+            plan = fl.plan_sweep(setting, overrides=fig3_overrides()[:n],
+                                 device="cuda", kernel_mode="auto",
+                                 mesh=mesh, **kw, **SWEEP_KW)
+            plan_s = time.time() - t0
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.time()
+            res = fl.run_plan(plan, mesh=mesh, placement=placement)
+            torch.cuda.synchronize()
+            rec[name] = {"wall_s": time.time() - t0, "plan_s": plan_s,
+                         "launches": dict(build.LAUNCHES),
+                         "device": f"cuda:{torch.cuda.current_device()}"}
+            np.savez(out / f"{name}_rank{rank}.npz",
+                     **{k: getattr(res, k) for k in ROWS})
+        try:
+            fl.run_sweep(setting, overrides=fig3_overrides(), max_buckets=1,
+                         placement="shard", device="cuda",
+                         kernel_mode="auto", mesh=mesh, **SWEEP_KW)
+            rec["shard11"] = None
+        except ValueError as e:
+            rec["shard11"] = str(e)
+        (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_census(torch, build) -> dict:
+    """What the census says an arch x shape takes on a card, against what
+    the card allocates.  On a one-card mesh (``make_debug_mesh()``), the
+    census of ``input_specs`` for danube at the serve cell's shape (batch
+    SERVE_BATCH x SERVE_PROMPT, prefill) and for the TRAIN_LAYERS-layer
+    train line (one edge, TRAIN_KW's clients, batch and sequence) against
+    what the card's allocator gains while the drivers' own code places the
+    parameters, caches and histories (``serve.make_params`` /
+    ``make_caches``; ``train.run``'s slots and ``init_fl_histories``):
+    the bytes asked for (the allocator's ``requested_bytes``) within
+    CENSUS_ROUNDING bytes a tensor, the allocated blocks within BLOCK_TAIL
+    bytes a tensor above them (its rounding).  The leader's history is held
+    at its float32 size: ``init_fl_histories`` keeps it in float32, where
+    the stand-ins (as the reference's) keep the parameters' dtype.  Then
+    the prefill with the mesh must give logits and caches bitwise those
+    of the prefill without, its flash launches counted (set to 0 just
+    before, read just after).  Last, the dry-run's census of every pair
+    on the two production meshes, and the largest that fits this card."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCH_IDS, cut_depth, get_config
+    from repro_torch.data import lm_tokens
+    from repro_torch.launch import dryrun, inputs, make_debug_mesh
+    from repro_torch.launch.serve import make_caches, make_params
+    from repro_torch.launch.steps import init_fl_histories, make_prefill_step
+    from repro_torch.models.config import INPUT_SHAPES, InputShape
+    from repro_torch.optim.sgd import tree_map
+
+    dev = torch.device("cuda")
+
+    def allocated():
+        """(allocated, requested) bytes on the card now."""
+        torch.cuda.synchronize()
+        return np.array([torch.cuda.memory_allocated(),
+                         torch.cuda.memory_stats()[
+                             "requested_bytes.all.current"]])
+
+    def held(label, grown, specs_tree, extra=0):
+        n = len(inputs.leaves(specs_tree))
+        want = inputs.census(specs_tree, mesh) + extra
+        line = {"reckoned": want, "requested": int(grown[1]),
+                "allocated": int(grown[0]), "tensors": n,
+                "bound": CENSUS_ROUNDING * n}
+        check("mesh_census", abs(int(grown[1]) - want)
+              <= CENSUS_ROUNDING * n, f"{label}: {line}")
+        check("mesh_census", 0 <= grown[0] - grown[1] <= BLOCK_TAIL * n,
+              f"{label}: the allocator's blocks {line}")
+        return line
+
+    started = not dist.is_initialized()
+    mesh = make_debug_mesh()
+    try:
+        out = {"mesh": "1x1"}
+        cfg = get_config(SERVE_ARCH)
+        shape = InputShape("serve_8k", SERVE_PROMPT, SERVE_BATCH, "prefill")
+        specs = inputs.input_specs(cfg, shape, mesh)
+        torch.cuda.empty_cache()
+        a0 = allocated()
+        params = make_params(cfg, 0, dev)
+        a1 = allocated()
+        caches = make_caches(cfg, SERVE_BATCH, SERVE_PROMPT, dev,
+                             smoke=False)
+        a2 = allocated()
+        serve_line = {"arch": SERVE_ARCH, "batch": SERVE_BATCH,
+                      "seq": SERVE_PROMPT,
+                      "params": held("serve params", a1 - a0,
+                                     specs["params"]),
+                      "caches": held("serve caches", a2 - a1,
+                                     specs["caches"])}
+        tokens = torch.as_tensor(lm_tokens(SERVE_BATCH, SERVE_PROMPT,
+                                           cfg.vocab, seed=0),
+                                 device=dev).long()
+        bare = make_caches(cfg, SERVE_BATCH, SERVE_PROMPT, dev, smoke=False)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.time()
+        lm, cm = make_prefill_step(cfg, mesh=mesh)(params, tokens, caches)
+        torch.cuda.synchronize()
+        mesh_s = time.time() - t0
+        launches = dict(build.LAUNCHES)
+        t0 = time.time()
+        ln, cn = make_prefill_step(cfg)(params, tokens, bare)
+        torch.cuda.synchronize()
+        bare_s = time.time() - t0
+        same = bool(torch.equal(lm, ln)) and all(
+            torch.equal(a, b) for a, b in zip(inputs.leaves(cm),
+                                              inputs.leaves(cn)))
+        serve_line.update(prefill_bitwise=same, flash_launches=launches.get(
+            "flash_attention", 0), expected_launches=flash_layers(cfg),
+            prefill_mesh_s=mesh_s, prefill_s=bare_s)
+        check("mesh_census", same, "the mesh prefill is not bitwise the "
+              "prefill without a mesh")
+        check("launches", serve_line["flash_launches"] == flash_layers(cfg),
+              f"mesh prefill: flash launches {launches}")
+        out["serve"] = serve_line
+        del params, caches, bare, lm, cm, ln, cn, tokens
+
+        tcfg = dataclasses.replace(
+            cut_depth(get_config(TRAIN_ARCH), TRAIN_LAYERS),
+            clients_per_pod=TRAIN_KW["n_clients"])
+        e, c = TRAIN_KW["n_edges"], TRAIN_KW["n_clients"]
+        tshape = InputShape("train_line", TRAIN_KW["seq"],
+                            e * c * TRAIN_KW["batch"], "train")
+        tspecs = inputs.input_specs(tcfg, tshape, mesh)
+        check("mesh_census", inputs.fl_dims(tcfg, tshape, mesh)
+              == (e, c, TRAIN_KW["batch"]), "the train line's FL dims")
+        torch.cuda.empty_cache()
+        a0 = allocated()
+        base = make_params(tcfg, 0, dev)
+        params = tree_map(lambda x: x[None, None].expand(
+            (e, c) + tuple(x.shape)).contiguous(), base)
+        del base
+        a1 = allocated()
+        dev_hist, glob_hist = init_fl_histories(params)
+        a2 = allocated()
+        counts = [tspecs["glob_hist"].n_obs, tspecs["glob_hist"].miss_count]
+        glob = [tspecs["glob_hist"].prev_w, tspecs["glob_hist"].delta_mean]
+        f32 = 4 / tcfg.torch_param_dtype.itemsize
+        out["train"] = {
+            "arch": TRAIN_ARCH, "layers": TRAIN_LAYERS, "edges": e,
+            "clients": c, "batch": TRAIN_KW["batch"],
+            "seq": TRAIN_KW["seq"],
+            "params": held("train params", a1 - a0, tspecs["params"]),
+            "histories": held(
+                "train histories", a2 - a1,
+                [tspecs["dev_hist"], glob, counts],
+                extra=int(inputs.census(glob, mesh) * (f32 - 1))),
+            "glob_hist_float32": True}
+        del params, dev_hist, glob_hist
+        torch.cuda.empty_cache()
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+    import types
+    card = torch.cuda.get_device_properties(0).total_memory
+    prod = {"16x16": {"data": 16, "model": 16},
+            "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+    pairs = []
+    for arch in ARCH_IDS:
+        for sname, s in INPUT_SHAPES.items():
+            if not dryrun.applicable(arch, sname)[0]:
+                continue
+            for mname, ext in prod.items():
+                ns = types.SimpleNamespace(shape=ext)
+                split = dryrun.split_census(
+                    inputs.input_specs(get_config(arch), s, ns), ns)
+                pairs.append({"arch": arch, "shape": sname, "mesh": mname,
+                              "bytes_per_device": sum(split.values())})
+    fits = [p for p in pairs if p["bytes_per_device"] <= card]
+    out["dry_run"] = {
+        "pairs": len(pairs), "fit_card": len(fits), "card_bytes": card,
+        "largest_fitting": max(fits, key=lambda p: p["bytes_per_device"]),
+        "largest": max(pairs, key=lambda p: p["bytes_per_device"])}
+    emit({"mesh_census": out})
+    return out
 
 
 def kstar_phase(torch, core) -> dict:
@@ -2629,6 +3070,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if "--mesh-rank" in sys.argv[1:]:
+        return mesh_rank(sys.argv[1:])
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import core, fl
     from repro_torch.configs import DEFAULT, get_config
@@ -3288,13 +3731,17 @@ def main() -> int:
               f"{label}: {line}")
 
     # ------------------------------------------------------ the sweeps
-    sweep_launches = sweep_phase(
-        torch, build, fl, dataclasses.replace(DEFAULT,
-                                              t_global_rounds=SWEEP_T),
-        sgd_rows_check)
+    sweep_setting = dataclasses.replace(DEFAULT, t_global_rounds=SWEEP_T)
+    sweep_launches, swept = sweep_phase(torch, build, fl, sweep_setting,
+                                        sgd_rows_check)
     check("sgd_update[rows]", "sgd_update[rows]" in results,
           "no sweep bucket took the per-row SGD path")
     kstar_phase(torch, core)
+
+    # ------------------------- the sweep over a mesh's ranks, the census
+    mesh_sweep(torch, build, fl, sweep_setting, swept["fig3"],
+               sgd_rows_check)
+    mesh_census(torch, build)
 
     # ------------------------------------ population mode, the legacy loop
     population_phase(torch, build, fl, core, setting, {

@@ -1,4 +1,5 @@
-"""Sweep fabric — grids of deployments as a few batched runs on one card.
+"""Sweep fabric — grids of deployments as a few batched runs, split over
+the ranks of a mesh.
 
 Port of ``repro.fl.sweep``: the paper's figures are grids (convergence
 against straggler fraction, topology N x J x K, non-IID skew, consensus
@@ -22,14 +23,21 @@ bucket*, its points stacked along a leading axis where the reference
   Placement ``execute_plan`` runs each bucket as one ``engine.run_engine``
             over its stack of P points (the conv and SGD kernels over
             D = P·N·J devices, the edge aggregates over B = P·N rows, the
-            global ones over B = P), on the one card the plan names; its
-            points are ordered so that those taking the same aggregator
-            branch are neighbours, and the rows are put back in point
-            order.  Rows from a bucket of fewer rounds extend by the
-            engine's tail convention (accuracy, clock and energy repeat
-            the final value; loss and delta are 0).  There is no
-            multi-card placement: ``placement="shard"`` raises as the
-            reference does on a one-device mesh.
+            global ones over B = P); its points are ordered so that those
+            taking the same aggregator branch are neighbours, and the
+            rows are put back in point order.  On a mesh
+            (``launch.mesh.make_sweep_mesh``: one rank a process, each
+            computing on ``cuda:{rank % device_count}``) a bucket whose
+            point count divides the ``data`` extent
+            (``launch.sharding.sweep_spec``) is split: each rank runs a
+            contiguous share of the ordered points, and the ``[P, T]``
+            rows are all-gathered over a ``gloo`` group (host rows; two
+            ranks may share one card, which NCCL refuses); the shared
+            data plane stays whole on every rank (``sweep_data_spec``).
+            Any other bucket runs whole on every rank.  Rows from a
+            bucket of fewer rounds extend by the engine's tail convention
+            (accuracy, clock and energy repeat the final value; loss and
+            delta are 0).
 
   Callers   ``run_sweep`` (= ``plan_sweep`` + ``run_plan``) returns a
             ``SweepResult``; ``SweepPlan.describe()`` renders the buckets.
@@ -47,16 +55,21 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import types
+import zlib
 from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.bhfl_cnn import BHFLSetting
 from repro_torch.fl.engine import (AGG_SEL, SHARED_DATA_FIELDS, EngineInputs,
                                    build_inputs, run_engine,
                                    train_epoch_body)
 from repro_torch.fl.simulator import BHFLSimulator
+from repro_torch.launch.mesh import make_sweep_mesh, mesh_shape
+from repro_torch.launch.sharding import spec_axes, sweep_spec
 from repro_torch.models import cnn_specs
 
 # ------------------------------------------------------- field classification
@@ -178,14 +191,16 @@ def _measured_step_time(d: int, geom: tuple) -> float:
     return mono * (1.0 + 1e-6 * d)
 
 
-def _measured_bucket_cost_fn(geom: tuple, extents: list[dict]):
+def _measured_bucket_cost_fn(geom: tuple, extents: list[dict],
+                             step_time=None):
     """Bucketing cost of a bucket as the engine runs it: the measured
     seconds of its train steps.  At global round t and edge round k the
     engine computes only the points still running (``t < t_p``,
     ``k < k_p``), as one stack of ``Pa·n·j`` devices over the bucket's
     ``steps``: padded rounds cost nothing, padded devices and steps their
     share of a step, and a stack pays a step's host time once for all its
-    points."""
+    points.  ``step_time(d, geom)`` gives a step's seconds (None:
+    ``_measured_step_time``)."""
 
     def cost(ids: list, ext: dict) -> float:
         ts = np.array([extents[i]["t"] for i in ids])
@@ -194,7 +209,8 @@ def _measured_bucket_cost_fn(geom: tuple, extents: list[dict]):
               & (np.arange(ext["k"])[None, :, None] < ks)).sum(-1)  # [t, k]
         counts, rounds = np.unique(pa[pa > 0], return_counts=True)
         return ext["steps"] * sum(
-            int(r) * _measured_step_time(int(c) * ext["n"] * ext["j"], geom)
+            int(r) * (step_time or _measured_step_time)(
+                int(c) * ext["n"] * ext["j"], geom)
             for c, r in zip(counts, rounds))
 
     return cost
@@ -443,7 +459,7 @@ def plan_sweep(setting: BHFLSetting, seeds=(0,), *,
                max_buckets: Optional[int] = None, bucket_waste: float = 1.25,
                bucket_cost: str = "measured",
                device=None, init_params: Optional[dict] = None,
-               **sim_kw) -> SweepPlan:
+               mesh=None, **sim_kw) -> SweepPlan:
     """Precompute a grid (overrides x seeds) into bucketed ``EngineInputs``.
 
     As ``repro.fl.sweep.plan_sweep``: ``overrides`` entries may change
@@ -471,7 +487,10 @@ def plan_sweep(setting: BHFLSetting, seeds=(0,), *,
     "torch"``) are where and how the plan runs.  ``init_params``: the
     initial model in the JAX layouts (one dict for every seed, or a
     ``{seed: dict}`` mapping), instead of the port's seeded draw; ``sim_kw``
-    goes to every ``BHFLSimulator``.
+    goes to every ``BHFLSimulator``.  ``mesh``: the mesh the plan will run
+    on, when it has more than one rank: every rank plans, and under the
+    measured cost the first rank times each step and every rank prices
+    the buckets by its times, so all ranks make the same buckets.
     """
     overrides = [dict(ov) for ov in (overrides or [{}])]
     _validate_overrides(overrides)
@@ -529,11 +548,21 @@ def plan_sweep(setting: BHFLSetting, seeds=(0,), *,
     dev = sims[0].device
     if bucket_cost == "measured":
         s0 = sims[0].s
-        groups = _bucket_points(
-            extents, max_buckets, bucket_waste,
-            bucket_cost_fn=_measured_bucket_cost_fn(
-                (s0.image_hw, s0.batch_size, s0.cnn_c1, s0.cnn_c2,
-                 s0.n_classes, kernel_mode, str(dev)), extents))
+        step_time = None
+        ranks = _Ranks(mesh) if mesh is not None else None
+        if ranks is not None and ranks.n > 1:
+            def step_time(d, geom):
+                return ranks.from_first(lambda: _measured_step_time(d, geom))
+        try:
+            groups = _bucket_points(
+                extents, max_buckets, bucket_waste,
+                bucket_cost_fn=_measured_bucket_cost_fn(
+                    (s0.image_hw, s0.batch_size, s0.cnn_c1, s0.cnn_c2,
+                     s0.n_classes, kernel_mode, str(dev)), extents,
+                    step_time))
+        finally:
+            if ranks is not None:
+                ranks.close()
     else:
         groups = _bucket_points(extents, max_buckets, bucket_waste, _vol)
 
@@ -616,7 +645,83 @@ def _reorder(inp: EngineInputs, order: np.ndarray) -> EngineInputs:
         and np.ndim(getattr(inp, f.name)) > 0})
 
 
-def execute_plan(plan: SweepPlan, *, placement: str = "auto",
+class _Ranks:
+    """A sweep mesh's ranks as this process sees them: how many there are,
+    this rank's coordinate on each mesh axis, and a ``gloo`` group over
+    them for the host-side collectives (the rows' gather, the first rank's
+    step times, the plans' agreement).  ``close`` releases the group."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.shape = mesh_shape(mesh)
+        self.n = int(np.prod(list(self.shape.values())))
+        self.group = None
+        if self.n == 1:
+            self.coord = dict.fromkeys(self.shape, 0)
+            return
+        if not (dist.is_initialized() and hasattr(mesh, "get_coordinate")):
+            raise ValueError(f"a sweep mesh of {self.n} ranks must be a "
+                             "DeviceMesh over a running process group")
+        world = dist.get_world_size()
+        ranks = mesh.mesh.flatten().tolist()
+        if sorted(ranks) != list(range(world)):
+            raise ValueError(f"the sweep mesh holds ranks {ranks}; it must "
+                             f"hold every rank of the process group "
+                             f"({world})")
+        self.ranks = ranks
+        self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        # each rank's coordinate, in rank order (the order of a gather)
+        self.coords = [dict(zip(mesh.mesh_dim_names, np.unravel_index(
+            ranks.index(r), tuple(mesh.shape)))) for r in range(world)]
+        if dist.get_backend() != "gloo":
+            self.group = dist.new_group(ranks, backend="gloo")
+
+    def close(self) -> None:
+        if self.group is not None:
+            dist.destroy_process_group(self.group)
+            self.group = None
+
+    def share(self, spec: tuple, coord: dict) -> tuple[int, int]:
+        """(index, count) of the share of a point axis placed by ``spec``
+        that the rank at ``coord`` runs: row-major over the spec's axes."""
+        idx, count = 0, 1
+        for a in spec_axes(spec[0]):
+            idx = idx * self.shape[a] + int(coord[a])
+            count *= self.shape[a]
+        return idx, count
+
+    def gather(self, rows: np.ndarray) -> list:
+        """Every rank's ``rows`` (equal shapes), in rank order."""
+        t = torch.from_numpy(np.ascontiguousarray(rows))
+        out = [torch.empty_like(t) for _ in range(self.n)]
+        dist.all_gather(out, t, group=self.group)
+        return [o.numpy() for o in out]
+
+    def from_first(self, fn) -> float:
+        """``fn()`` computed on the mesh's first rank, on every rank."""
+        first = self.ranks[0]
+        t = torch.tensor([fn() if dist.get_rank() == first else 0.0],
+                         dtype=torch.float64)
+        dist.broadcast(t, first, group=self.group)
+        return float(t)
+
+    def agree(self, key: str, what: str) -> None:
+        """Raise unless every rank holds the same ``key``."""
+        mine = torch.tensor([zlib.crc32(key.encode())], dtype=torch.int64)
+        every = [torch.empty_like(mine) for _ in range(self.n)]
+        dist.all_gather(every, mine, group=self.group)
+        if any(int(e) != int(mine) for e in every):
+            raise RuntimeError(f"the ranks of the sweep mesh hold different "
+                               f"{what}: {[int(e) for e in every]}")
+
+
+#: a one-rank mesh's shape: where the plan runs with no mesh and no
+#: process group, every bucket runs whole, as on the reference's
+#: one-device mesh
+_ONE_RANK = types.SimpleNamespace(shape={"data": 1})
+
+
+def execute_plan(plan: SweepPlan, *, mesh=None, placement: str = "auto",
                  donate: bool = True
                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
                             np.ndarray]:
@@ -627,11 +732,17 @@ def execute_plan(plan: SweepPlan, *, placement: str = "auto",
     sim_energy)``, each ``[P, T_max]``, in original point order; rows of a
     bucket of fewer rounds extend by the engine's tail convention.
 
-    ``placement``: ``"auto"`` and ``"vmap"`` run every bucket on the plan's
-    one card; ``"shard"`` raises, as the reference does where the mesh
-    cannot take a bucket (the port places a sweep on one card).  The option
-    exists for parity with the reference's signature until multi-card
-    placement lands; nothing else reads it.
+    ``placement``: ``"auto"`` splits each bucket's point axis over the
+    mesh ``data`` axis when ``sweep_spec`` says it divides, and runs it
+    whole on every rank otherwise; ``"vmap"`` runs every bucket whole;
+    ``"shard"`` requires the split for every bucket and raises, before any
+    bucket runs, if the mesh cannot take one.  ``mesh`` None means
+    ``make_sweep_mesh()`` over the running process group (one rank where
+    none runs).  A split bucket's ranks each run a contiguous share of
+    its points, in the engine's branch order, on
+    ``cuda:{rank % device_count}`` (a CUDA plan) and all-gather the rows,
+    so every rank returns every row.  Every rank must run the same plan:
+    the ranks check that their buckets agree before the first runs.
 
     ``donate`` (default True): each bucket's stacked planes are released
     after its run, so a big grid does not hold every bucket's planes to
@@ -640,13 +751,37 @@ def execute_plan(plan: SweepPlan, *, placement: str = "auto",
     """
     if placement not in ("auto", "vmap", "shard"):
         raise ValueError(f"unknown placement {placement!r}")
+    if mesh is None and dist.is_initialized():
+        mesh = make_sweep_mesh()
+    ranks = _Ranks(_ONE_RANK if mesh is None else mesh)
+    try:
+        return _execute(plan, ranks, placement, donate)
+    finally:
+        ranks.close()
+
+
+def _execute(plan: SweepPlan, ranks: _Ranks, placement: str, donate: bool):
+    # every bucket's spec up front, so that placement='shard' fails before
+    # any bucket runs
+    specs = [sweep_spec(len(b.point_ids), ranks.mesh)
+             if placement != "vmap" else () for b in plan.buckets]
     if placement == "shard":
-        b = plan.buckets[0]
-        raise ValueError(
-            f"placement='shard' but a bucket of {len(b.point_ids)} grid "
-            f"points (of {len(plan.points)} total) does not divide a >1 "
-            "mesh axis (mesh={'data': 1}: the port places a sweep on one "
-            "card); force max_buckets=1 or use placement='auto'")
+        for b, spec in zip(plan.buckets, specs):
+            if spec == ():
+                raise ValueError(
+                    f"placement='shard' but a bucket of {len(b.point_ids)} "
+                    f"grid points (of {len(plan.points)} total) does not "
+                    f"divide a >1 mesh axis (mesh={ranks.shape}); "
+                    "force max_buckets=1 or use placement='auto'")
+    device = plan.device
+    if ranks.n > 1:
+        ranks.agree(repr([(b.point_ids, sorted(b.grid_max.items()), spec)
+                          for b, spec in zip(plan.buckets, specs)]
+                         + [plan.aggregator, len(plan.points)]),
+                    "sweep plans")
+        if device.type == "cuda":
+            device = torch.device(
+                "cuda", dist.get_rank() % torch.cuda.device_count())
 
     P_, Tg = len(plan.points), plan.grid_max["t"]
     acc = np.zeros((P_, Tg), np.float32)
@@ -654,15 +789,20 @@ def execute_plan(plan: SweepPlan, *, placement: str = "auto",
     gn = np.zeros((P_, Tg), np.float32)
     clock = np.zeros((P_, Tg), np.float32)
     energy = np.zeros((P_, Tg), np.float32)
-    for b in plan.buckets:
+    for b, spec in zip(plan.buckets, specs):
         if b.inputs is None:
             raise ValueError(_CONSUMED)
         inp = b.inputs
-        order = _branch_order(inp)
-        if (order != np.arange(order.size)).any():
+        order = whole = _branch_order(inp)
+        if spec:
+            # this rank's contiguous share of the ordered points
+            idx, count = ranks.share(spec, ranks.coord)
+            size = whole.size // count
+            order = whole[idx * size:(idx + 1) * size]
+        if order.size < whole.size or (order != np.arange(order.size)).any():
             inp = _reorder(inp, order)
         outs = run_engine(inp, aggregator=plan.aggregator,
-                          device=plan.device, normalize=plan.normalize,
+                          device=device, normalize=plan.normalize,
                           history_dtype=plan.history_dtype,
                           kernel_mode=plan.kernel_mode)
         if donate:
@@ -672,6 +812,17 @@ def execute_plan(plan: SweepPlan, *, placement: str = "auto",
         del inp
         a, l, g, c, en = outs
         ids = np.asarray(b.point_ids)[order]
+        if spec:
+            # every rank's share, put back in the bucket's branch order
+            # (float64 carries each row's float32 and float64 values)
+            shares = ranks.gather(np.stack([a, l, g, c, en]).astype(
+                np.float64))
+            full = np.empty((5, whole.size) + a.shape[1:])
+            for r, rows in enumerate(shares):
+                i, _ = ranks.share(spec, ranks.coords[r])
+                full[:, i * size:(i + 1) * size] = rows
+            a, l, g, c, en = full
+            ids = np.asarray(b.point_ids)[whole]
         Tb = a.shape[1]
         acc[ids, :Tb] = a
         acc[ids, Tb:] = a[:, -1:]
@@ -684,12 +835,13 @@ def execute_plan(plan: SweepPlan, *, placement: str = "auto",
     return acc, loss, gn, clock, energy
 
 
-def run_plan(plan: SweepPlan, *, placement: str = "auto",
+def run_plan(plan: SweepPlan, *, mesh=None, placement: str = "auto",
              donate: bool = True) -> SweepResult:
     """Execute a prepared plan (``plan.describe()`` may be logged first)
-    and package a ``SweepResult``; ``donate`` as in ``execute_plan``."""
+    and package a ``SweepResult``; ``mesh``, ``placement`` and ``donate``
+    as in ``execute_plan``."""
     accs, losses, deltas, clocks, energies = execute_plan(
-        plan, placement=placement, donate=donate)
+        plan, mesh=mesh, placement=placement, donate=donate)
     return SweepResult(
         points=plan.points,
         accuracy=accs, loss=losses, grad_norm=deltas, sim_clock=clocks,
@@ -705,16 +857,21 @@ def run_sweep(setting: BHFLSetting, seeds=(0,), *,
               device_stragglers: str = "temporary",
               edge_stragglers: str = "temporary",
               normalize: bool = False, history_dtype=None,
-              kernel_mode: str = "auto", placement: str = "auto",
+              kernel_mode: str = "auto", mesh=None,
+              placement: str = "auto",
               max_buckets: Optional[int] = None, bucket_waste: float = 1.25,
               bucket_cost: str = "measured",
               device=None, init_params: Optional[dict] = None,
               **sim_kw) -> SweepResult:
     """A grid (overrides x seeds, topology and round grids included) as one
-    batched run per shape bucket on one card: ``plan_sweep`` then
-    ``run_plan`` (see both).  An override may carry the ``"aggregation"``
+    batched run per shape bucket, each split over the ranks of ``mesh``
+    where it divides: ``plan_sweep`` then ``run_plan`` (see both; ``mesh``
+    None is ``make_sweep_mesh()`` over a running process group, one rank
+    where none runs).  An override may carry the ``"aggregation"``
     pseudo-field; a grid mixing ``SWITCHABLE_AGGREGATORS`` runs each point
     under its own aggregator in one stack."""
+    if mesh is None and dist.is_initialized():
+        mesh = make_sweep_mesh()
     plan = plan_sweep(setting, seeds, overrides=overrides,
                       aggregator=aggregator,
                       device_stragglers=device_stragglers,
@@ -722,5 +879,6 @@ def run_sweep(setting: BHFLSetting, seeds=(0,), *,
                       history_dtype=history_dtype, kernel_mode=kernel_mode,
                       max_buckets=max_buckets,
                       bucket_waste=bucket_waste, bucket_cost=bucket_cost,
-                      device=device, init_params=init_params, **sim_kw)
-    return run_plan(plan, placement=placement)
+                      device=device, init_params=init_params, mesh=mesh,
+                      **sim_kw)
+    return run_plan(plan, mesh=mesh, placement=placement)

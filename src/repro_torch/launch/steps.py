@@ -2,8 +2,12 @@
 (``repro.launch.steps`` for the port).
 
 Plain closures over the config and the kernel mode; the JAX package jits
-them and places them on a mesh (its sharding hints, ``_set_moe_hint``,
-are dropped), the port runs them eagerly on one device.
+them and places them on a mesh, the port runs them eagerly on one card.
+Each builder takes the reference's ``mesh=``: a mesh whose every axis has
+extent 1 computes exactly what no mesh does, and a mesh with an axis
+above 1 raises ``NotImplementedError`` (tensor- and FSDP-parallel steps
+are not ported; the reference's sharding hints, ``_set_moe_hint``, have
+nothing to pin on one card).
 
 Layout A (train): every parameter leaf is ``[E, C, *shape]``: E edges
 (pods), C clients an edge.  One ``make_hfl_train_step`` step is
@@ -33,6 +37,7 @@ import torch
 
 from repro_torch.core import hieavg
 from repro_torch.core.hieavg import History
+from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import decode_step, loss_fn, prefill
 from repro_torch.optim.sgd import OptState, sgd_leaf, sgd_step
@@ -149,10 +154,23 @@ def _advance_counts_(h: History, mask: torch.Tensor) -> None:
     h.miss_count.copy_((h.miss_count + 1.0) * (1.0 - m))
 
 
+def _one_card(mesh) -> None:
+    """Refuse a mesh the one-card steps cannot honour: any axis above 1."""
+    if mesh is None:
+        return
+    wide = {a: n for a, n in mesh_shape(mesh).items() if n > 1}
+    if wide:
+        raise NotImplementedError(
+            f"mesh axes {wide}: the port's LLM steps run on one card; "
+            "steps split over a 'model' or 'data' axis are not ported "
+            "(ROADMAP.md, Queue 1: tensor- and FSDP-parallel LLM steps)")
+
+
 def make_hfl_train_step(cfg: ArchConfig, *, gamma0: float = 0.9,
                         lam: float = 0.9, do_global: bool = True,
                         remat: bool = True, normalize: bool = False,
-                        n_micro: int = 1, kernel_mode: str = "auto"):
+                        mesh=None, n_micro: int = 1,
+                        kernel_mode: str = "auto"):
     """Returns step(params, dev_hist, glob_hist, batch, dev_mask,
     edge_mask, lr) -> (params, dev_hist, glob_hist, loss).
 
@@ -167,7 +185,9 @@ def make_hfl_train_step(cfg: ArchConfig, *, gamma0: float = 0.9,
     splits each client's batch into microbatches with gradient
     accumulation (a mean): the same SGD math, 1/n_micro the activations.
     The parameters and histories are updated in place and returned;
-    ``loss`` is the mean of the clients' losses (float32, 0-dim)."""
+    ``loss`` is the mean of the clients' losses (float32, 0-dim).
+    ``mesh``: None or a mesh of extent 1 on every axis (``_one_card``)."""
+    _one_card(mesh)
     if n_micro < 1:
         raise ValueError(f"n_micro {n_micro} < 1")
 
@@ -259,11 +279,14 @@ def make_train_step(cfg: ArchConfig, remat: bool = True,
     return step
 
 
-def make_prefill_step(cfg: ArchConfig, kernel_mode: str = "auto"):
+def make_prefill_step(cfg: ArchConfig, kernel_mode: str = "auto", *,
+                      mesh=None):
     """(params, tokens [B, S], caches, memory_embeds=None, *, memory=None)
     -> (logits [B, V], caches): the raw memory (encoded inside, as the
     reference's step takes it) or the encoded one (``encode``'s output),
-    for a model with cross-attention."""
+    for a model with cross-attention.  ``mesh`` as in
+    ``make_hfl_train_step``."""
+    _one_card(mesh)
 
     def step(params, tokens, caches, memory_embeds=None, *, memory=None):
         return prefill(params, tokens, cfg, caches,
@@ -273,12 +296,14 @@ def make_prefill_step(cfg: ArchConfig, kernel_mode: str = "auto"):
     return step
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, mesh=None):
     """One-token decode: (params, token [B, 1], pos, caches, memory=None)
     -> (logits [B, V], caches).  ``pos`` is the current absolute position,
     a host int (the cache holds positions < pos); ``memory`` the *encoded*
     cross-attention memory.  Decode attends through its mask, not the
-    flash kernel, so it takes no kernel mode."""
+    flash kernel, so it takes no kernel mode.  ``mesh`` as in
+    ``make_hfl_train_step``."""
+    _one_card(mesh)
 
     def step(params, token, pos, caches, memory=None):
         return decode_step(params, token, pos, cfg, caches, memory=memory)

@@ -62,21 +62,25 @@ def attn_specs(cfg: ArchConfig, stacked: Optional[int],
     """The projections and norms; ``cross`` adds the cross-attention's
     tanh gate ``xattn_gate`` [stacked, 1], zeros (the layer starts as an
     identity)."""
-    pre = (stacked,) if stacked else ()
+    pre_s = (stacked,) if stacked else ()
+    pre_a = ("layers",) if stacked else ()
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
         cfg.resolved_head_dim
     out = {
-        "wq": ParamSpec(pre + (d, h, dh)),
-        "wk": ParamSpec(pre + (d, hkv, dh)),
-        "wv": ParamSpec(pre + (d, hkv, dh)),
-        "wo": ParamSpec(pre + (h, dh, d)),
-        "norm": norm_spec(d, pre),
+        "wq": ParamSpec(pre_s + (d, h, dh), pre_a + ("embed", "heads", None)),
+        "wk": ParamSpec(pre_s + (d, hkv, dh),
+                        pre_a + ("embed", "kv_heads", None)),
+        "wv": ParamSpec(pre_s + (d, hkv, dh),
+                        pre_a + ("embed", "kv_heads", None)),
+        "wo": ParamSpec(pre_s + (h, dh, d), pre_a + ("heads", None, "embed")),
+        "norm": norm_spec(d, pre_a, pre_s),
     }
     if cfg.qk_norm:
-        out["q_norm"] = norm_spec(dh, pre)
-        out["k_norm"] = norm_spec(dh, pre)
+        out["q_norm"] = norm_spec(dh, pre_a, pre_s)
+        out["k_norm"] = norm_spec(dh, pre_a, pre_s)
     if cross:
-        out["xattn_gate"] = ParamSpec(pre + (1,), "zeros")
+        out["xattn_gate"] = ParamSpec(pre_s + (1,), pre_a + (None,),
+                                      init="zeros")
     return out
 
 
@@ -193,10 +197,12 @@ def init_cache_spec(cfg: ArchConfig, batch: int, max_len: int,
     hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     length = min(max_len, cfg.sliding_window) if cfg.sliding_window \
         else max_len
-    pre = (stacked,) if stacked else ()
-    shape = pre + (batch, length, hkv, dh)
-    return {"k": ParamSpec(shape, "zeros", dtype),
-            "v": ParamSpec(shape, "zeros", dtype)}
+    pre_s = (stacked,) if stacked else ()
+    pre_a = ("layers",) if stacked else ()
+    shape = pre_s + (batch, length, hkv, dh)
+    axes = pre_a + ("act_batch", "kv_seq", "kv_heads", None)
+    return {"k": ParamSpec(shape, axes, dtype, "zeros"),
+            "v": ParamSpec(shape, axes, dtype, "zeros")}
 
 
 def attn_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, *,

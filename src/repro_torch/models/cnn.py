@@ -26,12 +26,12 @@ def cnn_specs(image_hw: int = 28, channels: int = 1, n_classes: int = 10,
     pooled = image_hw // 2  # one 2x2 max-pool after the convs (SAME padding)
     flat = pooled * pooled * c2
     return {
-        "conv1": ParamSpec((3, 3, channels, c1)),
-        "b1": ParamSpec((c1,), init="zeros"),
-        "conv2": ParamSpec((3, 3, c1, c2)),
-        "b2": ParamSpec((c2,), init="zeros"),
-        "dense": ParamSpec((flat, n_classes)),
-        "b3": ParamSpec((n_classes,), init="zeros"),
+        "conv1": ParamSpec((3, 3, channels, c1), (None, None, None, None)),
+        "b1": ParamSpec((c1,), (None,), init="zeros"),
+        "conv2": ParamSpec((3, 3, c1, c2), (None, None, None, None)),
+        "b2": ParamSpec((c2,), (None,), init="zeros"),
+        "dense": ParamSpec((flat, n_classes), (None, None)),
+        "b3": ParamSpec((n_classes,), (None,), init="zeros"),
     }
 
 

@@ -23,20 +23,22 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
 
 
-def norm_spec(d: int, prefix_shape: tuple = ()) -> ParamSpec:
-    return ParamSpec(prefix_shape + (d,), init="ones")
+def norm_spec(d: int, prefix_axes: tuple = (), prefix_shape: tuple = ()
+              ) -> ParamSpec:
+    return ParamSpec(prefix_shape + (d,), prefix_axes + (None,), init="ones")
 
 
 # ----------------------------------------------------------------- dense mlp
 def mlp_specs(cfg: ArchConfig, stacked: Optional[int]) -> dict:
     """SwiGLU MLP: gate/up [d_model, d_ff], down [d_ff, d_model]."""
-    pre = (stacked,) if stacked else ()
+    pre_s = (stacked,) if stacked else ()
+    pre_a = ("layers",) if stacked else ()
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "gate": ParamSpec(pre + (d, f)),
-        "up": ParamSpec(pre + (d, f)),
-        "down": ParamSpec(pre + (f, d)),
-        "norm": norm_spec(d, pre),
+        "gate": ParamSpec(pre_s + (d, f), pre_a + ("embed", "mlp")),
+        "up": ParamSpec(pre_s + (d, f), pre_a + ("embed", "mlp")),
+        "down": ParamSpec(pre_s + (f, d), pre_a + ("mlp", "embed")),
+        "norm": norm_spec(d, pre_a, pre_s),
     }
 
 
@@ -48,9 +50,10 @@ def mlp_apply(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 # ---------------------------------------------------------------- embeddings
 def embed_specs(cfg: ArchConfig) -> dict:
-    out = {"tok": ParamSpec((cfg.vocab, cfg.d_model))}
+    out = {"tok": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        out["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab))
+        out["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab),
+                                   ("embed", "vocab"))
     out["final_norm"] = norm_spec(cfg.d_model)
     return out
 

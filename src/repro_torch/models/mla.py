@@ -35,24 +35,33 @@ def mla_specs(cfg: ArchConfig, stacked: Optional[int]) -> dict:
     """The latent KV projections and norms, and q: a direct ``wq`` or,
     with ``q_lora_rank``, a low-rank ``w_dq`` / ``q_norm`` / ``w_uq``."""
     m = cfg.mla
-    pre = (stacked,) if stacked else ()
+    pre_s = (stacked,) if stacked else ()
+    pre_a = ("layers",) if stacked else ()
     d, h = cfg.d_model, cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     out = {
-        "w_dkv": ParamSpec(pre + (d, m.kv_lora_rank)),
-        "kv_norm": norm_spec(m.kv_lora_rank, pre),
-        "w_kr": ParamSpec(pre + (d, m.qk_rope_head_dim)),
-        "w_uk": ParamSpec(pre + (m.kv_lora_rank, h, m.qk_nope_head_dim)),
-        "w_uv": ParamSpec(pre + (m.kv_lora_rank, h, m.v_head_dim)),
-        "wo": ParamSpec(pre + (h, m.v_head_dim, d)),
-        "norm": norm_spec(d, pre),
+        "w_dkv": ParamSpec(pre_s + (d, m.kv_lora_rank),
+                           pre_a + ("embed", None)),
+        "kv_norm": norm_spec(m.kv_lora_rank, pre_a, pre_s),
+        "w_kr": ParamSpec(pre_s + (d, m.qk_rope_head_dim),
+                          pre_a + ("embed", None)),
+        "w_uk": ParamSpec(pre_s + (m.kv_lora_rank, h, m.qk_nope_head_dim),
+                          pre_a + (None, "heads", None)),
+        "w_uv": ParamSpec(pre_s + (m.kv_lora_rank, h, m.v_head_dim),
+                          pre_a + (None, "heads", None)),
+        "wo": ParamSpec(pre_s + (h, m.v_head_dim, d),
+                        pre_a + ("heads", None, "embed")),
+        "norm": norm_spec(d, pre_a, pre_s),
     }
     if m.q_lora_rank:
-        out["w_dq"] = ParamSpec(pre + (d, m.q_lora_rank))
-        out["q_norm"] = norm_spec(m.q_lora_rank, pre)
-        out["w_uq"] = ParamSpec(pre + (m.q_lora_rank, h, qk))
+        out["w_dq"] = ParamSpec(pre_s + (d, m.q_lora_rank),
+                                pre_a + ("embed", None))
+        out["q_norm"] = norm_spec(m.q_lora_rank, pre_a, pre_s)
+        out["w_uq"] = ParamSpec(pre_s + (m.q_lora_rank, h, qk),
+                                pre_a + (None, "heads", None))
     else:
-        out["wq"] = ParamSpec(pre + (d, h, qk))
+        out["wq"] = ParamSpec(pre_s + (d, h, qk),
+                              pre_a + ("embed", "heads", None))
     return out
 
 
@@ -121,11 +130,13 @@ def mla_cache_spec(cfg: ArchConfig, batch: int, max_len: int,
     """The compressed cache: ``c_kv [B, S, kv_lora]`` and ``k_rope [B, S,
     rope]`` (keys after RoPE)."""
     m = cfg.mla
-    pre = (stacked,) if stacked else ()
-    return {"c_kv": ParamSpec(pre + (batch, max_len, m.kv_lora_rank),
-                              "zeros", dtype),
-            "k_rope": ParamSpec(pre + (batch, max_len, m.qk_rope_head_dim),
-                                "zeros", dtype)}
+    pre_s = (stacked,) if stacked else ()
+    pre_a = ("layers",) if stacked else ()
+    axes = pre_a + ("act_batch", "kv_seq", None)
+    return {"c_kv": ParamSpec(pre_s + (batch, max_len, m.kv_lora_rank),
+                              axes, dtype, "zeros"),
+            "k_rope": ParamSpec(pre_s + (batch, max_len, m.qk_rope_head_dim),
+                                axes, dtype, "zeros")}
 
 
 def mla_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, *,

@@ -43,20 +43,27 @@ def moe_specs(cfg: ArchConfig, stacked: Optional[int]) -> dict:
     norm, and the shared experts' SwiGLU [d, f n_shared] where there are
     any."""
     m = cfg.moe
-    pre = (stacked,) if stacked else ()
+    pre_s = (stacked,) if stacked else ()
+    pre_a = ("layers",) if stacked else ()
     d = cfg.d_model
     fe = m.d_expert or cfg.d_ff
     out = {
-        "router": ParamSpec(pre + (d, m.n_experts)),
-        "gate": ParamSpec(pre + (m.n_experts, d, fe)),
-        "up": ParamSpec(pre + (m.n_experts, d, fe)),
-        "down": ParamSpec(pre + (m.n_experts, fe, d)),
-        "norm": norm_spec(d, pre),
+        "router": ParamSpec(pre_s + (d, m.n_experts), pre_a + ("embed", None)),
+        "gate": ParamSpec(pre_s + (m.n_experts, d, fe),
+                          pre_a + ("experts", "embed", "mlp")),
+        "up": ParamSpec(pre_s + (m.n_experts, d, fe),
+                        pre_a + ("experts", "embed", "mlp")),
+        "down": ParamSpec(pre_s + (m.n_experts, fe, d),
+                          pre_a + ("experts", "mlp", "embed")),
+        "norm": norm_spec(d, pre_a, pre_s),
     }
     if m.n_shared:
-        out["sh_gate"] = ParamSpec(pre + (d, fe * m.n_shared))
-        out["sh_up"] = ParamSpec(pre + (d, fe * m.n_shared))
-        out["sh_down"] = ParamSpec(pre + (fe * m.n_shared, d))
+        out["sh_gate"] = ParamSpec(pre_s + (d, fe * m.n_shared),
+                                   pre_a + ("embed", "mlp"))
+        out["sh_up"] = ParamSpec(pre_s + (d, fe * m.n_shared),
+                                 pre_a + ("embed", "mlp"))
+        out["sh_down"] = ParamSpec(pre_s + (fe * m.n_shared, d),
+                                   pre_a + ("mlp", "embed"))
     return out
 
 

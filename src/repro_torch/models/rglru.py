@@ -37,16 +37,18 @@ def _width(cfg: ArchConfig) -> int:
 
 def rglru_specs(cfg: ArchConfig, stacked: Optional[int]) -> dict:
     w, d = _width(cfg), cfg.d_model
-    pre = (stacked,) if stacked else ()
+    pre_s = (stacked,) if stacked else ()
+    pre_a = ("layers",) if stacked else ()
     return {
-        "w_in": ParamSpec(pre + (d, w)),
-        "w_gate": ParamSpec(pre + (d, w)),
-        "conv_w": ParamSpec(pre + (cfg.rglru.d_conv, w)),
-        "w_a": ParamSpec(pre + (w, w)),
-        "w_i": ParamSpec(pre + (w, w)),
-        "lam": ParamSpec(pre + (w,), "ones"),
-        "w_out": ParamSpec(pre + (w, d)),
-        "norm": norm_spec(d, pre),
+        "w_in": ParamSpec(pre_s + (d, w), pre_a + ("embed", "mlp")),
+        "w_gate": ParamSpec(pre_s + (d, w), pre_a + ("embed", "mlp")),
+        "conv_w": ParamSpec(pre_s + (cfg.rglru.d_conv, w),
+                            pre_a + (None, "mlp")),
+        "w_a": ParamSpec(pre_s + (w, w), pre_a + ("mlp", None)),
+        "w_i": ParamSpec(pre_s + (w, w), pre_a + ("mlp", None)),
+        "lam": ParamSpec(pre_s + (w,), pre_a + (None,), init="ones"),
+        "w_out": ParamSpec(pre_s + (w, d), pre_a + ("mlp", "embed")),
+        "norm": norm_spec(d, pre_a, pre_s),
     }
 
 
@@ -139,10 +141,13 @@ def rglru_cache_spec(cfg: ArchConfig, batch: int, stacked: Optional[int],
     """The recurrent state ``h`` [B, W] and the conv window [B, d_conv - 1,
     W], float32 unless asked."""
     w = _width(cfg)
-    pre = (stacked,) if stacked else ()
-    return {"h": ParamSpec(pre + (batch, w), "zeros", dtype),
-            "conv": ParamSpec(pre + (batch, cfg.rglru.d_conv - 1, w),
-                              "zeros", dtype)}
+    pre_s = (stacked,) if stacked else ()
+    pre_a = ("layers",) if stacked else ()
+    return {"h": ParamSpec(pre_s + (batch, w), pre_a + ("act_batch", "mlp"),
+                           dtype, "zeros"),
+            "conv": ParamSpec(pre_s + (batch, cfg.rglru.d_conv - 1, w),
+                              pre_a + ("act_batch", None, "mlp"), dtype,
+                              "zeros")}
 
 
 def rglru_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict

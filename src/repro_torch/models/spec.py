@@ -1,5 +1,10 @@
 """Parameter specs and their initialisers (``repro.models.spec`` for the port).
 
+Every parameter is a ``ParamSpec`` carrying a *logical* axis name per dim
+(``("layers", "embed", "mlp")``; None = replicated), the reference's
+names.  The launch layer maps them to mesh axes
+(``repro_torch.launch.sharding``); models never name a mesh axis.
+
 ``init_params`` (the CNN's flat ``{name: ParamSpec}``) and
 ``init_from_specs`` (the LLM zoo's nested dicts) match
 ``repro.models.spec.init_from_specs`` in distribution: ``N(0, 1) /
@@ -22,8 +27,14 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
-    init: str = "normal"              # normal | zeros | ones
+    axes: tuple[Optional[str], ...]   # logical name per dim, None: replicated
     dtype: torch.dtype = torch.float32
+    init: str = "normal"              # normal | zeros | ones
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in length")
 
 
 def _draw(spec: ParamSpec, generator, device, dtype) -> torch.Tensor:

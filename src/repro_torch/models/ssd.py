@@ -40,17 +40,20 @@ def _dims(cfg: ArchConfig):
 def ssd_specs(cfg: ArchConfig, stacked: Optional[int]) -> dict:
     s = cfg.ssm
     d_inner, nh, n, _ = _dims(cfg)
-    pre = (stacked,) if stacked else ()
+    pre_s = (stacked,) if stacked else ()
+    pre_a = ("layers",) if stacked else ()
     d = cfg.d_model
     return {
-        "w_in": ParamSpec(pre + (d, 2 * d_inner + 2 * n + nh)),
-        "conv_w": ParamSpec(pre + (s.d_conv, d_inner + 2 * n)),
-        "a_log": ParamSpec(pre + (nh,), "ones"),
-        "dt_bias": ParamSpec(pre + (nh,), "zeros"),
-        "d_skip": ParamSpec(pre + (nh,), "ones"),
-        "out_norm": norm_spec(d_inner, pre),
-        "w_out": ParamSpec(pre + (d_inner, d)),
-        "norm": norm_spec(d, pre),
+        "w_in": ParamSpec(pre_s + (d, 2 * d_inner + 2 * n + nh),
+                          pre_a + ("embed", "mlp")),
+        "conv_w": ParamSpec(pre_s + (s.d_conv, d_inner + 2 * n),
+                            pre_a + (None, "mlp")),
+        "a_log": ParamSpec(pre_s + (nh,), pre_a + (None,), init="ones"),
+        "dt_bias": ParamSpec(pre_s + (nh,), pre_a + (None,), init="zeros"),
+        "d_skip": ParamSpec(pre_s + (nh,), pre_a + (None,), init="ones"),
+        "out_norm": norm_spec(d_inner, pre_a, pre_s),
+        "w_out": ParamSpec(pre_s + (d_inner, d), pre_a + ("mlp", "embed")),
+        "norm": norm_spec(d, pre_a, pre_s),
     }
 
 
@@ -136,11 +139,15 @@ def ssd_cache_spec(cfg: ArchConfig, batch: int, stacked: Optional[int],
     """The recurrent state ``h`` [B, H, P, N] and the conv window
     [B, d_conv - 1, conv_dim], float32 unless asked."""
     d_inner, nh, n, pd = _dims(cfg)
-    pre = (stacked,) if stacked else ()
+    pre_s = (stacked,) if stacked else ()
+    pre_a = ("layers",) if stacked else ()
     return {
-        "h": ParamSpec(pre + (batch, nh, pd, n), "zeros", dtype),
-        "conv": ParamSpec(pre + (batch, cfg.ssm.d_conv - 1, d_inner + 2 * n),
-                          "zeros", dtype),
+        "h": ParamSpec(pre_s + (batch, nh, pd, n),
+                       pre_a + ("act_batch", None, None, None), dtype,
+                       "zeros"),
+        "conv": ParamSpec(pre_s + (batch, cfg.ssm.d_conv - 1,
+                                   d_inner + 2 * n),
+                          pre_a + ("act_batch", None, None), dtype, "zeros"),
     }
 
 

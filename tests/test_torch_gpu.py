@@ -908,3 +908,123 @@ def test_gpu_recurrent_layer_on_the_card_matches_the_cpu(cuda, kind):
             torch.testing.assert_close(caches[cuda][k].cpu(),
                                        caches["cpu"][k], rtol=0, atol=1e-4)
     assert not build.LAUNCHES
+
+
+def test_gpu_one_rank_mesh_sweep_is_bitwise_the_meshless_sweep(cuda):
+    """A world of one (``make_sweep_mesh()``, ``placement="auto"``): every
+    bucket runs whole, and the rows are bitwise those of the same plan run
+    with no mesh, on the card with the kernels."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import REDUCED
+    from repro_torch.fl import plan_sweep, run_plan
+    from repro_torch.launch.mesh import make_sweep_mesh
+    tiny = dataclasses.replace(REDUCED, t_global_rounds=3, n_edges=3,
+                               j_per_edge=3, image_hw=8)
+    ovs = [{"straggler_frac": f} for f in (0.0, 0.2, 0.4)] + [
+        {"j_per_edge": 2}]
+    plan = plan_sweep(tiny, overrides=ovs, n_train=300, n_test=100,
+                      steps_per_epoch=2, bucket_cost="proxy", device="cuda")
+    started = not dist.is_initialized()
+    try:
+        got = run_plan(plan, mesh=make_sweep_mesh(), placement="auto",
+                       donate=False)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    ref = run_plan(plan, donate=False)
+    for k in ("accuracy", "loss", "grad_norm", "sim_clock", "sim_energy"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(ref, k))
+
+
+def test_gpu_census_is_the_bytes_the_card_allocates(cuda):
+    """danube-smoke at a serve shape and a train line (E = 1, C = 2): the
+    census of ``input_specs`` on a one-card mesh (every placement
+    ``Replicate``) against the bytes the drivers' own code asks the
+    caching allocator for (``requested_bytes``) when it places the
+    parameters, caches and histories, within 512 bytes a tensor; the
+    allocator's blocks (``memory_allocated``) at most 1 MiB a tensor above
+    them (a large block keeps its segment's tail of 1 MiB or less).  The
+    leader's history, which ``init_fl_histories`` keeps in float32 where
+    the stand-ins keep the parameters' dtype (as the reference's do), at
+    its float32 size."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import inputs, make_debug_mesh
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.serve import make_caches, make_params
+    from repro_torch.launch.steps import init_fl_histories
+    from repro_torch.models.config import InputShape
+
+    started = not dist.is_initialized()
+    mesh = make_debug_mesh()
+    try:
+        cfg = get_smoke("h2o-danube-1.8b")
+        specs = inputs.input_specs(cfg, InputShape("s", 256, 2, "prefill"),
+                                   mesh)
+        for t in inputs.leaves(specs):
+            assert all(isinstance(p, Replicate) for p in t.placements)
+            assert shd.placements(t.spec, mesh) == t.placements
+        base = _bytes()
+        params = make_params(cfg, 0, cuda)
+        # the caches in the parameters' dtype, as the stand-ins hold them
+        caches = make_caches(cfg, 2, 256, cuda,
+                             smoke=cfg.param_dtype == "float32")
+        _held(_bytes() - base, inputs.census(specs["params"], mesh)
+              + inputs.census(specs["caches"], mesh),
+              len(inputs.leaves([specs["params"], specs["caches"]])))
+        del params, caches
+
+        tcfg = dataclasses.replace(cfg, clients_per_pod=2)
+        specs = inputs.input_specs(tcfg, InputShape("t", 256, 4, "train"),
+                                   mesh)
+        base = _bytes()
+        one = make_params(tcfg, 0, cuda)
+        params = _stack_slots(one, 1, 2)
+        del one
+        mid = _bytes()
+        dev_hist, glob_hist = init_fl_histories(params)
+        hist = _bytes() - mid
+        _held(mid - base, inputs.census(specs["params"], mesh),
+              len(inputs.leaves(specs["params"])))
+        item = tcfg.torch_param_dtype.itemsize
+        want = inputs.census(specs["dev_hist"], mesh) + (
+            inputs.census(specs["glob_hist"], mesh)
+            - inputs.census([specs["glob_hist"].n_obs,
+                             specs["glob_hist"].miss_count], mesh)) \
+            * 4 // item + inputs.census([specs["glob_hist"].n_obs,
+                                         specs["glob_hist"].miss_count],
+                                        mesh)
+        _held(hist, want, len(inputs.leaves([specs["dev_hist"],
+                                             specs["glob_hist"]])))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _bytes():
+    """(allocated, requested) bytes of the caching allocator now."""
+    torch.cuda.synchronize()
+    return np.array([torch.cuda.memory_allocated(),
+                     torch.cuda.memory_stats()["requested_bytes.all.current"]])
+
+
+def _held(grown, want: int, n: int) -> None:
+    """Requested within 512 bytes a tensor of ``want``; the blocks
+    allocated at most 1 MiB a tensor above the bytes requested."""
+    assert abs(int(grown[1]) - want) <= 512 * n, (grown, want)
+    assert 0 <= grown[0] - grown[1] <= (1 << 20) * n, (grown, want)
+
+
+def _stack_slots(tree, e, c):
+    """Every leaf broadcast into [E, C] client slots, as ``train.run``
+    places them."""
+    if isinstance(tree, dict):
+        return {k: _stack_slots(v, e, c) for k, v in tree.items()}
+    return tree[None, None].expand((e, c) + tuple(tree.shape)).contiguous()
