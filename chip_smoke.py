@@ -129,7 +129,22 @@ attention layer.  The flash phases hold the kernels at head dim 256
 (``FLASH_RG``, two sharp cases in ``FLASH_SHARP``; the float32 backward,
 not built there, must refuse), and ``flash_model_timing`` times them at
 recurrentgemma's shape (``[rg]``, with the instances' registers, spills
-and HGMMA counts).
+and HGMMA counts).  The flash phases also hold the kernels at head dims
+no kernel is built for (``FLASH_PADDED``: 24, smoke MLA's, 40 and 100),
+which the wrappers run zero-padded to the next built one.  Every kernel
+is also held at the shapes the example drivers give it: the CNN kernels
+at REDUCED's widths, leaves, row counts (``EXAMPLE_ROWS``) and n_test
+(``CONV_SHAPES``, ``EXAMPLE_NTEST``), the flash kernels at smoke width
+(``FLASH_SMOKE``).  Last, the
+example drivers (``examples_torch/``, the ``examples`` phase): each
+driver's ``main`` under "auto" at the reference driver's own sizes
+(``quickstart``, ``leader_failover``, ``latency_optimization``,
+``sweep_grid``, ``sweep_topology``, ``latency_pareto``, ``serve_batched``
+for all ten architecture ids, ``train_bhfl_llm``), each checked to
+launch the kernels of its path (``EXAMPLES``) and to give what the
+reference driver states, and ``quickstart`` under "torch" too, its
+host-plane rows equal to the kernel run's and its accuracies within the
+engine-parity bound.
 
 Output, one line each: the card as ``nvidia-smi`` names it, then JSON
 objects: the build, one per kernel check (with ``flash_design`` before
@@ -151,7 +166,10 @@ launches and churn resets of each mode, and their parity), the
 line per mode, ``train_parity``, ``train_grads``, ``train_grads_bf16``,
 ``xattn_step_parity``, the MLA and MoE models' ``serve``,
 ``serve_parity``, ``train``, ``train_parity`` and ``train_grads_bf16``
-lines, the same for the recurrent models, the ``kernels`` summary, and last ``{"ok": true,
+lines, the same for the recurrent models, one ``example`` line per
+driver run (wall seconds, launches, peak memory, the driver's last
+printed lines) and the ``example_parity`` line, the ``kernels`` summary,
+and last ``{"ok": true,
 "device": {...}}``.  ``--profile`` adds one more HieAvg run, the switched sweep,
 one train round and the serve path's prefill and decode (danube, the
 two cross-attention models, minicpm3, deepseek-v2-lite, recurrentgemma,
@@ -177,6 +195,8 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import importlib.util
+import io
 import itertools
 import json
 import math
@@ -202,12 +222,30 @@ BF16_TC_FLOP_PER_S = 989e12
 # c2 = 64, 10 classes, n_test = 1000
 D, B, HW, C1, C2, NCLS, NTEST = 25, 32, 28, 32, 64, 10, 1000
 FEAT = (HW // 2) ** 2 * C2
+# the example drivers' REDUCED widths (``configs/bhfl_cnn.py``; checked
+# against it at run time): B = 16, 14x14, c1 = 8, c2 = 16; their n_test:
+# 400 (quickstart, leader_failover) and 300 (the four sweep drivers); the
+# most points a sweep driver runs (latency_pareto's 18), each of 5 x 5
+# devices
+RB, RHW, RC1, RC2 = 16, 14, 8, 16
+RFEAT = (RHW // 2) ** 2 * RC2
+EXAMPLE_NTEST, EXAMPLE_POINTS = (400, 300), 18
 #: the conv kernels' check shapes (D, B, H, W, Cin, Cout): the main path's
-#: (train and eval, layers 2 and 1; the first is timed) and tails of the
-#: tiling: one tile, tails, odd channels, a non-square image, channels
-#: across the 4-channel chunk and 8-channel group edges
+#: (train and eval, layers 2 and 1; the first is timed), the example
+#: drivers' at REDUCED (train at 25 devices and at the largest sweep's
+#: points x 25, eval of one model at n_test 400 and of the largest sweep's
+#: points at 300) and tails of the tiling: one tile, tails, odd channels,
+#: a non-square image, channels across the 4-channel chunk and 8-channel
+#: group edges
 CONV_SHAPES = ((D, B, HW, HW, C1, C2), (D, B, HW, HW, 1, C1),
                (1, NTEST, HW, HW, 1, C1), (1, NTEST, HW, HW, C1, C2),
+               (D, RB, RHW, RHW, 1, RC1), (D, RB, RHW, RHW, RC1, RC2),
+               (EXAMPLE_POINTS * D, RB, RHW, RHW, 1, RC1),
+               (EXAMPLE_POINTS * D, RB, RHW, RHW, RC1, RC2),
+               (1, EXAMPLE_NTEST[0], RHW, RHW, 1, RC1),
+               (1, EXAMPLE_NTEST[0], RHW, RHW, RC1, RC2),
+               (EXAMPLE_POINTS, EXAMPLE_NTEST[1], RHW, RHW, 1, RC1),
+               (EXAMPLE_POINTS, EXAMPLE_NTEST[1], RHW, RHW, RC1, RC2),
                (1, 1, 5, 5, 1, 3), (2, 2, 12, 12, 4, 8), (1, 2, 16, 16, 3, 7),
                (1, 3, 7, 9, 5, 6), (1, 2, 10, 10, 33, 65))
 
@@ -470,6 +508,38 @@ FLASH_RG = ((300, 300, 256, True, 100, (16, 1)),
             (31, 31, 256, True, None, (2, 2)),
             (257, 127, 256, True, 70, (8, 2)),
             (130, 97, 256, False, None, (16, 1)))
+#: the flash kernels at head dims no kernel is built for, run zero-padded
+#: to the next built one at the true head dim's scale: smoke MLA's 16 + 8 =
+#: 24 (-> 32; the serve_batched driver's MLA pair) and 40 (-> 64), 100
+#: (-> 128); (Sq, Skv, Dh, causal, window, (H, Hkv)) in the forward's grid
+#: and, with a q offset, FLASH_BWD_CASES (tests/test_torch_gpu.py's
+#: FLASH_PADDED_CASES)
+FLASH_PADDED = ((129, 129, 24, True, None, (4, 4)),
+                (65, 130, 24, False, None, (8, 2)),
+                (64, 64, 24, True, 20, (4, 1)),
+                (200, 257, 40, True, 100, (8, 2)),
+                (257, 127, 100, True, 70, (8, 2)),
+                (129, 129, 100, False, 64, (2, 2)))
+#: the flash kernels at the shapes the LLM example drivers give them
+#: (smoke width: Dh 32, 4 query heads; batch EXAMPLE_LLM_BATCH): the
+#: prompt's self-attention in ``serve_batched`` at 48 tokens (deepseek-7b
+#: and seamless's decoder G 1; qwen3, grok and llama-vision G 2;
+#: h2o-danube G 2 and recurrentgemma G 4 in a window of 16; the MLA pair
+#: at Dh 24, padded), its cross-attention over 16 memory rows
+#: (llama-vision G 2, seamless G 1) and seamless's encoder over 16 frames;
+#: and ``train_bhfl_llm``'s 64 tokens (h2o-danube), in the forward's grid
+#: and, with no q offset, FLASH_BWD_CASES' loop (FLASH_SMOKE_BWD):
+#: (Sq, Skv, Dh, causal, window, (H, Hkv))
+EXAMPLE_LLM_BATCH = 4
+FLASH_SMOKE_BWD = ((64, 64, 32, True, 16, (4, 2)),)
+FLASH_SMOKE = ((48, 48, 32, True, None, (4, 4)),
+               (48, 48, 32, True, None, (4, 2)),
+               (48, 48, 32, True, 16, (4, 2)),
+               (48, 48, 32, True, 16, (4, 1)),
+               (48, 48, 24, True, None, (4, 4)),
+               (48, 16, 32, False, None, (4, 2)),
+               (48, 16, 32, False, None, (4, 4)),
+               (16, 16, 32, False, None, (4, 4))) + FLASH_SMOKE_BWD
 #: the reference's float32 flash bound (tests/test_kernels.py)
 FLASH_F32_ATOL = 2e-5
 #: the flash kernels at the cross-attention and encoder cells' shapes,
@@ -536,7 +606,8 @@ FLASH_BWD_CASES = (((100, 100), 32, (4, 4), True, None, 0),
                    ((257, 127), 80, (8, 2), True, 70, 5)) + tuple(
     (sqkv, dh, hh, False, None, 0) for sqkv, dh, hh in FLASH_MODEL) + tuple(
     ((sq, skv), dh, hh, causal, window, 5 if causal else 0)
-    for sq, skv, dh, causal, window, hh in FLASH_MLA + FLASH_RG)
+    for sq, skv, dh, causal, window, hh in FLASH_MLA + FLASH_RG
+    + FLASH_PADDED)
 #: the backward's bounds against its plain version (each side fed its own
 #: forward's output and lse), relative to each gradient's largest
 #: magnitude: float32 1e-4 (the same float32 sums in another order),
@@ -617,6 +688,37 @@ XATTN_LOSS_REL = 5e-4
 #: ``ptxas -v``) and HGMMA counts (``hgmma_counts``); the ``[rg]`` lines
 #: carry them
 FLASH_BUILD_FACTS: dict = {}
+
+#: the example drivers (``examples_torch/``), each run once through its
+#: ``main`` under "auto" at the reference driver's own sizes (the
+#: ``examples`` phase): driver -> the kernels its path must launch.  The
+#: CNN drivers' sweeps may also take the per-row SGD path
+#: (``sgd_update[rows]``), as their buckets decide; it is counted, not
+#: required.
+EXAMPLE_CNN = ("conv3x3_fwd", "conv3x3_bwd", "sgd_update", "hieavg_agg",
+               "coef_agg", "eval_head")
+EXAMPLES = {"quickstart": EXAMPLE_CNN, "leader_failover": EXAMPLE_CNN,
+            "latency_optimization": EXAMPLE_CNN, "sweep_grid": EXAMPLE_CNN,
+            "sweep_topology": EXAMPLE_CNN, "latency_pareto": EXAMPLE_CNN,
+            "serve_batched": ("flash_attention",),
+            # the LLM step aggregates in plain PyTorch, as the reference's
+            # in jnp (``launch/steps.py``): no aggregate kernel on its path
+            "train_bhfl_llm": ("flash_attention", "flash_attention_bwd")}
+#: the architectures ``serve_batched`` runs at smoke width in the examples
+#: phase (all ten; the driver's default, mamba2-130m, has no attention
+#: layer and launches no kernel)
+EXAMPLE_SERVE_NO_KERNEL = (MAMBA_ARCH,)
+#: the row counts (points x N x J) a bucket of the sweep drivers can give
+#: the per-row SGD path: any number of points up to a driver's grid times
+#: its N x J (5 x 5; sweep_topology's 8 points at N, J in {2, 4}), each
+#: checked at REDUCED's leaves before the drivers run
+EXAMPLE_ROWS = tuple(sorted(
+    {p * nj for top, njs in ((EXAMPLE_POINTS, (25,)), (8, (4, 8, 16)))
+     for p in range(1, top + 1) for nj in njs}))
+#: the quickstart driver's rows that come from the host plane and must
+#: equal between its kernel and plain runs
+EXAMPLE_HOST_ROWS = ("sim_clock", "sim_energy", "blocks", "chain_valid",
+                     "chain_latency", "k_star", "k_latency")
 
 #: mantissa bits and least normal exponent of the narrow history dtypes
 NARROW = {"bfloat16": (7, -126), "float8_e4m3fn": (3, -6)}
@@ -837,31 +939,42 @@ def hgmma_counts(library: Path) -> dict:
     return counts
 
 
+def launched_kernels(torch, run, keep, windows=(3, 20, 50, 100)) -> list:
+    """The kernels that ``run()`` launches and whose profiler names pass
+    ``keep``, as sorted ``kernel_key``s: the union over one profiling
+    session for each of ``windows`` (that many calls each), after a warm-up
+    call.  CUPTI now and then hands a session none of its device events, in
+    a short window or a long one; ``run`` launches the same kernels on
+    every call, so the union is the set it launches."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    names: set = set()
+    for calls in windows:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        names |= {kernel_key(ev.key) for ev in prof.key_averages()
+                  if keep(ev.key)}
+    return sorted(names)
+
+
 def flash_designs(torch, flash_attention, designs, randn, library) -> dict:
     """Which kernel each input type launched, read from the profiler's
     kernel names, beside its design and its HGMMA count: bfloat16 must run
     the wgmma kernel at Dh 80 (the serving head dim) and at MLA's 96 and
     192 (``bfloat16_dh96``, ``bfloat16_dh192``), float32 the FMA one with
     no HGMMA; and at recurrentgemma's 256 (``bfloat16_dh256``)."""
-    from torch.profiler import ProfilerActivity, profile
     hgmma = hgmma_counts(library)
     out = {}
     for dtype, dh in ((torch.float32, 80), (torch.bfloat16, 80),
                       (torch.bfloat16, 96), (torch.bfloat16, 192),
                       (torch.bfloat16, 256)):
         q, k, v = (randn(1, 256, 2, dh).to(dtype) for _ in range(3))
-        flash_attention(q, k, v, causal=True, mode="cuda")   # warm-up
-        names = []
-        for calls in (3, 20):   # a short window may record no kernel
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    flash_attention(q, k, v, causal=True, mode="cuda")
-                torch.cuda.synchronize()
-            names = sorted({kernel_key(ev.key) for ev in prof.key_averages()
-                            if "flash_attention" in ev.key})
-            if names:
-                break
+        names = launched_kernels(
+            torch, lambda: flash_attention(q, k, v, causal=True, mode="cuda"),
+            lambda key: "flash_attention" in key)
         count = sum(hgmma.get(name, 0) for name in names)
         key = str(dtype).split(".")[-1] + ("" if dh == 80 else f"_dh{dh}")
         out[key] = {"design": designs[dtype], "kernels": names,
@@ -887,7 +1000,6 @@ def flash_bwd_design(torch, kern, randn, library) -> dict:
     ``bfloat16_dh192``; the dk/dv kernel's two passes there share a
     name), each with HGMMA > 0, float32 the two FMA kernels with none; and
     bfloat16 at recurrentgemma's 256 (``bfloat16_dh256``)."""
-    from torch.profiler import ProfilerActivity, profile
     hgmma = hgmma_counts(library)
     out = {}
     for dtype, dh in ((torch.float32, 80), (torch.bfloat16, 80),
@@ -901,19 +1013,8 @@ def flash_bwd_design(torch, kern, randn, library) -> dict:
         def run():
             kern.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
                                      mode="cuda")
-        run()   # warm-up
-        names = []
-        for calls in (3, 20):   # a short window may record no kernel
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    run()
-                torch.cuda.synchronize()
-            names = sorted({kernel_key(ev.key) for ev in prof.key_averages()
-                            if "flash_bwd_" in ev.key
-                            and "delta" not in ev.key})
-            if names:
-                break
+        names = launched_kernels(
+            torch, run, lambda key: "flash_bwd_" in key and "delta" not in key)
         key = str(dtype).split(".")[-1] + ("" if dh == 80 else f"_dh{dh}")
         out[key] = {"design": kern.BWD_DESIGNS[dtype], "kernels": names,
                     "hgmma": {n: hgmma.get(n, 0) for n in names}}
@@ -941,11 +1042,14 @@ def flash_phase(torch, cfg, flash_attention, randn, record) -> dict:
     same bounds at sharp attention (``FLASH_SHARP``), at the
     cross-attention and encoder cells' shapes (``FLASH_MODEL``, batch 2,
     non-causal, kv lengths no multiple of a tile), at MLA's head dims
-    and grok's group (``FLASH_MLA``) and at recurrentgemma's head dim 256
-    (``FLASH_RG``); rows that see no key
-    exactly 0; then the serving shape of h2o-danube-1.8b, checked and
-    timed."""
-    worst = {"float32_abs": 0.0, "bfloat16_ulp": 0.0, "cases": 0}
+    and grok's group (``FLASH_MLA``), at recurrentgemma's head dim 256
+    (``FLASH_RG``) and at head dims no kernel is built for, run padded
+    (``FLASH_PADDED``, smoke MLA's 24 among them), and at the LLM example
+    drivers' shapes (``FLASH_SMOKE``, batch ``EXAMPLE_LLM_BATCH``); rows
+    that see no key exactly 0; then the serving shape of h2o-danube-1.8b,
+    checked and timed."""
+    worst = {"float32_abs": 0.0, "bfloat16_ulp": 0.0, "cases": 0,
+             "padded_head_dims": sorted({c[2] for c in FLASH_PADDED})}
     grid = [(sq, skv, dh, causal, window, hh, 1.0, dtype)
             for sq, skv, dh, causal, window, hh, dtype in itertools.product(
                 FLASH_SQ, FLASH_SKV, FLASH_DH, (True, False), FLASH_WINDOWS,
@@ -957,16 +1061,21 @@ def flash_phase(torch, cfg, flash_attention, randn, record) -> dict:
              for (sq, skv), dh, hh in FLASH_MODEL
              for dtype in (torch.float32, torch.bfloat16)]
     grid += [(sq, skv, dh, causal, window, hh, 1.0, dtype)
-             for sq, skv, dh, causal, window, hh in FLASH_MLA + FLASH_RG
+             for sq, skv, dh, causal, window, hh
+             in FLASH_MLA + FLASH_RG + FLASH_PADDED
              for dtype in (torch.float32, torch.bfloat16)]
-    for sq, skv, dh, causal, window, (h, hkv), qs, dtype in grid:
-        q = randn(2, sq, 2 * h, dh, scale=qs).to(dtype)[:, :, :h]  # strided
-        k, v = (randn(2, skv, hkv, dh).to(dtype) for _ in range(2))
+    grid = [(2, *g) for g in grid] + [
+        (EXAMPLE_LLM_BATCH, sq, skv, dh, causal, window, hh, 1.0, dtype)
+        for sq, skv, dh, causal, window, hh in FLASH_SMOKE
+        for dtype in (torch.float32, torch.bfloat16)]
+    for b, sq, skv, dh, causal, window, (h, hkv), qs, dtype in grid:
+        q = randn(b, sq, 2 * h, dh, scale=qs).to(dtype)[:, :, :h]  # strided
+        k, v = (randn(b, skv, hkv, dh).to(dtype) for _ in range(2))
         kw = dict(causal=causal, window=window,
                   q_offset=skv - sq if causal and skv > sq else 0)
         got = flash_attention(q, k, v, mode="cuda", **kw)
         want = flash_attention(q, k, v, mode="torch", **kw)
-        case = f"{(sq, skv, dh, causal, window, h, hkv, qs, dtype)}"
+        case = f"{(b, sq, skv, dh, causal, window, h, hkv, qs, dtype)}"
         if dtype == torch.float32:
             err = (got - want).abs().max().item()
             check("flash_attention", err <= FLASH_F32_ATOL, f"{case}: {err}")
@@ -1452,7 +1561,8 @@ def serve_parity(torch, serve, runs, arch: str = SERVE_ARCH,
 
 def flash_bwd_phase(torch, cfg, kern, randn, record, design) -> dict:
     """The flash backward kernels against their plain version: the tail
-    cases (``FLASH_BWD_CASES``) in float32 and bfloat16, rows that see no
+    cases (``FLASH_BWD_CASES``) and the LLM example driver's training
+    shape (``FLASH_SMOKE_BWD``) in float32 and bfloat16, rows that see no
     key giving dq exactly 0, and the serving shape of h2o-danube-1.8b in
     bfloat16, checked (``FLASH_BWD_REL``), bitwise on repeat and timed
     beside the plain version and the library's backward
@@ -1489,13 +1599,17 @@ def flash_bwd_phase(torch, cfg, kern, randn, record, design) -> dict:
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for (sq, skv), dh, (h, hkv), causal, window, off in FLASH_BWD_CASES:
-            q = randn(2, sq, 2 * h, dh).to(dtype)[:, :, :h]     # strided
-            k, v = (randn(2, skv, hkv, dh).to(dtype) for _ in range(2))
-            do = randn(2, sq, h, dh).to(dtype)
+        for b, ((sq, skv), dh, (h, hkv), causal, window, off) in [
+                (2, c) for c in FLASH_BWD_CASES] + [
+                (EXAMPLE_LLM_BATCH, ((sq, skv), dh, hh, causal, window, 0))
+                for sq, skv, dh, causal, window, hh in FLASH_SMOKE_BWD]:
+            q = randn(b, sq, 2 * h, dh).to(dtype)[:, :, :h]     # strided
+            k, v = (randn(b, skv, hkv, dh).to(dtype) for _ in range(2))
+            do = randn(b, sq, h, dh).to(dtype)
             kw = dict(causal=causal, window=window, q_offset=off)
             o, lse = fwd(q, k, v, lse=True, mode="cuda", **kw)
-            if dtype == torch.float32 and dh not in kern.F32_BWD_HEAD_DIMS:
+            if dtype == torch.float32 and kern._kernel_head_dim(
+                    "flash_attention_bwd", dh) not in kern.F32_BWD_HEAD_DIMS:
                 # not built: the wrapper refuses before any launch
                 try:
                     bwd(q, k, v, o, lse, do, mode="cuda", **kw)
@@ -1508,7 +1622,7 @@ def flash_bwd_phase(torch, cfg, kern, randn, record, design) -> dict:
                 continue
             got = bwd(q, k, v, o, lse, do, mode="cuda", **kw)
             o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
-            case = f"{((sq, skv), dh, (h, hkv), causal, window, off, name)}"
+            case = f"{(b, (sq, skv), dh, (h, hkv), causal, window, off, name)}"
             lse_err(case, lse, lse_ref)
             rel = grads_err(got, flash_attention_bwd_ref(
                 q, k, v, o_ref, lse_ref, do, **kw))
@@ -3001,6 +3115,140 @@ def mesh_census(torch, build) -> dict:
     return out
 
 
+def load_driver(name: str):
+    """``examples_torch/<name>.py`` as a module (its ``main`` not run)."""
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_driver(torch, build, name: str, mode: str = "auto", *args) -> tuple:
+    """One driver's ``main`` on the card under ``mode``, its printed lines
+    kept (the last four go on its line): (its result, a line of wall
+    seconds, launches, peak memory).  The launch counts are set to 0 just
+    before and read just after."""
+    main = load_driver(name).main
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = main(*args, device="cuda", kernel_mode=mode)
+    torch.cuda.synchronize()
+    line = {"driver": name, "args": list(args), "kernel_mode": mode,
+            "wall_s": time.perf_counter() - t0,
+            "launches": dict(build.LAUNCHES),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "printed_tail": out.getvalue().rstrip().splitlines()[-4:]}
+    return res, line
+
+
+def examples_phase(torch, build) -> None:
+    """The eight example drivers (``EXAMPLES``) on the card under "auto" at
+    the reference drivers' sizes, ``serve_batched`` for every architecture
+    id; each must launch the kernels of its path, and its results are
+    checked as the reference driver states them (finite rows, every block
+    committed and the chain valid, the failover's survivors, a full plan,
+    tokens in the vocabulary, the LLM's loss falling).  ``quickstart`` runs
+    under "torch" too: its host-plane rows must equal the kernel run's and
+    its accuracies lie within ``ACC_TOL`` of them.  One ``example`` line a
+    run: its wall seconds, launches and peak memory."""
+    from repro_torch.configs import ARCH_IDS, get_smoke
+
+    def finish(line, need, extra):
+        missing = [k for k in need if line["launches"].get(k, 0) == 0]
+        check("examples", not missing,
+              f"{line['driver']} {line['args']}: never launched {missing} "
+              f"({line['launches']})")
+        emit({"example": {**line, **extra}})
+
+    # quickstart, with the kernels and plain
+    runs = {}
+    for mode in ("auto", "torch"):
+        res, line = run_driver(torch, build, "quickstart", mode)
+        runs[mode] = res
+        check("examples", len(res["accuracy"]) == 15
+              and res["blocks"] == 15 and res["chain_valid"]
+              and bool(np.isfinite(res["accuracy"]).all()),
+              f"quickstart {mode}: {res}")
+        check("examples", mode == "auto" or not line["launches"],
+              f"quickstart torch launched {line['launches']}")
+        finish(line, EXAMPLES["quickstart"] if mode == "auto" else (),
+               {"final_accuracy": float(res["accuracy"][-1]),
+                "sim_seconds": float(res["sim_clock"][-1]),
+                "blocks": res["blocks"], "k_star": res["k_star"]})
+    a, p = runs["auto"], runs["torch"]
+    host_equal = {k: bool(np.array_equal(a[k], p[k]))
+                  for k in EXAMPLE_HOST_ROWS}
+    acc_diff = float(np.abs(a["accuracy"] - p["accuracy"]).max())
+    emit({"example_parity": {"driver": "quickstart",
+                             "host_rows_equal": host_equal,
+                             "accuracy_max_abs_diff": acc_diff,
+                             "accuracy_atol": ACC_TOL}})
+    check("examples", all(host_equal.values()) and acc_diff <= ACC_TOL,
+          f"quickstart auto vs torch: {host_equal}, accuracy {acc_diff}")
+
+    res, line = run_driver(torch, build, "leader_failover")
+    check("examples", res["blocks"] == 16 and res["chain_valid"]
+          and len(res["accuracy"]) == 16
+          and res["alive"] == res["edges"] - 1
+          and bool(np.isfinite(res["accuracy"]).all()),
+          f"leader_failover: {res}")
+    finish(line, EXAMPLES["leader_failover"],
+           {"final_accuracy": float(res["accuracy"][-1]),
+            "alive": res["alive"], "leader": res["leader"]})
+
+    for name in ("latency_optimization", "sweep_grid", "sweep_topology",
+                 "latency_pareto"):
+        res, line = run_driver(torch, build, name)
+        sw = res["sweep"]
+        t = sw.accuracy.shape[1]
+        ok = (bool(np.isfinite(sw.accuracy).all())
+              and bool(np.isfinite(sw.sim_clock).all())
+              and bool((sw.blocks == sw.t_valid).all()))
+        check("examples", ok, f"{name}: accuracy {sw.accuracy}, blocks "
+              f"{sw.blocks} of {sw.t_valid}")
+        extra = {"points": len(sw.points), "rounds": t,
+                 "best_accuracy": float(sw.accuracy.max())}
+        if name == "latency_optimization":
+            extra.update(k_star_empirical=res["k_star_empirical"],
+                         k_star_theory=res["k_star_theory"],
+                         k_star_table=res["k_star_table"])
+        if name == "sweep_topology":
+            extra.update(buckets=res["buckets"],
+                         padding_stats={k: v for k, v in
+                                        res["padding_stats"].items()
+                                        if k != "buckets"})
+        if name == "latency_pareto":
+            extra.update(front=len(res["front"]))
+        finish(line, EXAMPLES[name], extra)
+
+    for arch in ARCH_IDS:
+        res, line = run_driver(torch, build, "serve_batched", "auto", arch)
+        vocab = get_smoke(arch).vocab
+        toks = res["tokens"]
+        check("examples", toks.shape == (4, 24)
+              and bool(((toks >= 0) & (toks < vocab)).all())
+              and bool(np.isfinite(res["logits"]).all()),
+              f"serve_batched {arch}: tokens {toks.shape}")
+        finish(line, () if arch in EXAMPLE_SERVE_NO_KERNEL
+               else EXAMPLES["serve_batched"],
+               {"prefill_s": res["t_prefill"], "decode_s": res["t_decode"]})
+
+    res, line = run_driver(torch, build, "train_bhfl_llm")
+    losses = np.asarray(res["losses"])
+    check("examples", len(losses) == 40 and bool(np.isfinite(losses).all())
+          and losses[-1] < losses[0] and res["blocks"] == 40
+          and res["chain_valid"],
+          f"train_bhfl_llm: losses {losses}, blocks {res['blocks']}")
+    finish(line, EXAMPLES["train_bhfl_llm"],
+           {"loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "sim_seconds": float(res["sim_clock"][-1])})
+
+
 def kstar_phase(torch, core) -> dict:
     """K* over a batched grid: ``optimize_k_masked`` on the card over 16
     LatencyParams x 3 omega_bar in one call, against ``optimize_k`` on the
@@ -3074,7 +3322,7 @@ def main() -> int:
         return mesh_rank(sys.argv[1:])
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import core, fl
-    from repro_torch.configs import DEFAULT, get_config
+    from repro_torch.configs import DEFAULT, REDUCED, get_config
     from repro_torch.core.hieavg import to_history_dtype
     from repro_torch.fl import BHFLSimulator, run_comparison
     from repro_torch.kernels import build
@@ -3087,7 +3335,9 @@ def main() -> int:
     from repro_torch.kernels.hieavg_agg import hieavg_agg, hieavg_agg_many
     from repro_torch.kernels.ref import im2col3x3
     from repro_torch.kernels.sgd_update import sgd_update, sgd_update_many
-    from repro_torch.kernels import flash_attention as flash_kernels
+    # the module: ``repro_torch.kernels.flash_attention`` is the function
+    flash_kernels = importlib.import_module(
+        "repro_torch.kernels.flash_attention")
     from repro_torch.launch import serve, train
     from repro_torch.models import cnn_specs
     from repro_torch.models.spec import count_params
@@ -3244,6 +3494,13 @@ def main() -> int:
     specs = cnn_specs(HW, 1, NCLS, c1=C1, c2=C2)
     P = count_params(specs)
     leaf_sizes = [math.prod(s.shape) for s in specs.values()]
+    # the example drivers' CNN at REDUCED, whose leaves each kernel is
+    # also held at
+    check("examples", (REDUCED.batch_size, REDUCED.image_hw, REDUCED.cnn_c1,
+                       REDUCED.cnn_c2) == (RB, RHW, RC1, RC2),
+          f"REDUCED is not the widths the checks assume: {REDUCED}")
+    rspecs = cnn_specs(RHW, 1, NCLS, c1=RC1, c2=RC2)
+    rleaf_sizes = [math.prod(s.shape) for s in rspecs.values()]
 
     # ----------------------------------------------------------- sgd_update
     # one launch per local step over every leaf: bitwise the plain version
@@ -3266,6 +3523,12 @@ def main() -> int:
           "launches")
     for g_, w_ in zip(got, sgd_update_many(ws, gs, s, "torch")):
         err = max(err, (g_ - w_).abs().max().item())
+    rws = [randn(D, L) for L in rleaf_sizes]
+    rgs = [randn(D, L) for L in rleaf_sizes]
+    for g_, w_ in zip(sgd_update_many(rws, rgs, s, "cuda"),
+                      sgd_update_many(rws, rgs, s, "torch")):
+        err = max(err, (g_ - w_).abs().max().item())
+    del rws, rgs
     check("sgd_update", err == 0.0, f"not bitwise the plain version: {err}")
     check("sgd_update", all(torch.equal(a, w_) for a, w_ in zip(
         sgd_update_many(ws, [g * 1e3 for g in gs], 0.0, "cuda"), ws)),
@@ -3278,18 +3541,20 @@ def main() -> int:
            {"shape": [D, P], "leaves": len(ws), "launches_per_call": 1})
     del ws, gs, got
 
-    def sgd_rows_check(rows_launches: dict) -> None:
+    def sgd_rows_check(rows_launches: dict, leaf_specs=specs) -> None:
         """One scale a row at each row count (points x devices) a sweep
         bucket gives the per-row path (``per_row_launches``), over the
-        CNN's leaves: bitwise the plain version, a padded step's zero rows
-        exactly their w, one launch counted per call.  Timed at the count
-        the plan launches most; called before the sweep's counts are
-        reset, so these launches are not the main path's."""
-        for rows in sorted(set(rows_launches) - checked_rows):
-            checked_rows.add(rows)
-            ws = [randn(rows, *s_.shape) for s_ in specs.values()]
+        CNN's leaves (``leaf_specs``): bitwise the plain version, a padded
+        step's zero rows exactly their w, one launch counted per call.
+        Timed at the count the plan launches most, at DEFAULT's leaves;
+        called before the sweep's counts are reset, so these launches are
+        not the main path's."""
+        key = count_params(leaf_specs)
+        for rows in sorted(set(rows_launches) - checked_rows[key]):
+            checked_rows[key].add(rows)
+            ws = [randn(rows, *s_.shape) for s_ in leaf_specs.values()]
             gs = [randn(rows, *s_.shape, scale=1e3)
-                  for s_ in specs.values()]
+                  for s_ in leaf_specs.values()]
             scale = rand(rows) * 0.01
             scale[::3] = 0.0
             before = build.LAUNCHES["sgd_update[rows]"]
@@ -3303,8 +3568,9 @@ def main() -> int:
             check("sgd_update[rows]", all(torch.equal(a[::3], w_[::3])
                                           for a, w_ in zip(got, ws)),
                   f"{rows} rows: a zero row is not an identity")
-            if "sgd_update[rows]" in results or rows != max(
-                    rows_launches, key=lambda r: (rows_launches[r], r)):
+            if "sgd_update[rows]" in results or leaf_specs is not specs \
+                    or rows != max(rows_launches,
+                                   key=lambda r: (rows_launches[r], r)):
                 del ws, gs, got
                 continue
             col = [scale.view((rows,) + (1,) * (w_.dim() - 1)).expand_as(w_)
@@ -3328,7 +3594,7 @@ def main() -> int:
                     "library_max_abs_diff": lib_err}, kernel="sgd_update")
             del ws, gs, got, col
 
-    checked_rows: set = set()
+    checked_rows: dict = collections.defaultdict(set)
 
     # ----------------------------------------------------------- hieavg_agg
     def hieavg_inputs(nb, n, L):
@@ -3343,11 +3609,11 @@ def main() -> int:
         tol = 1e-5 * max(w_.abs().max().item() for w_ in want)
         return err, tol
 
-    def many_inputs(nb, n, hdt):
-        """the six leaves [nb, n, L] of one aggregate and its float32
-        coefficients (as the main path passes them), history stored in
-        ``hdt``"""
-        a = [hieavg_inputs(nb, n, L) for L in leaf_sizes]
+    def many_inputs(nb, n, hdt, sizes=leaf_sizes):
+        """the six leaves [nb, n, L] (L in ``sizes``) of one aggregate and
+        its float32 coefficients (as the main path passes them), history
+        stored in ``hdt``"""
+        a = [hieavg_inputs(nb, n, L) for L in sizes]
         return ([x[0] for x in a], [to_history_dtype(x[1], hdt) for x in a],
                 [to_history_dtype(x[2], hdt) for x in a],
                 *(v.float() for v in a[0][3:]))
@@ -3374,6 +3640,12 @@ def main() -> int:
         e, t = agg_err(got, want)
         check("hieavg_agg", e <= t, f"DEFAULT leaf: {e} > {t}")
         err, tol = max(err, e), max(tol, t)
+    rargs = many_inputs(nb, n, torch.float32, rleaf_sizes)
+    for got, want in zip(zip(*one_launch("hieavg_agg", rargs)),
+                         zip(*hieavg_agg_many(*rargs, mode="torch"))):
+        e, t = agg_err(got, want)
+        check("hieavg_agg", e <= t, f"REDUCED leaf: {e} > {t}")
+    del rargs
     # a zero-coefficient slot adds exactly nothing, whatever it holds
     a = hieavg_inputs(1, 4, 999)
     junk = [x.clone() for x in a[:3]]
@@ -3496,6 +3768,7 @@ def main() -> int:
     # tails one leaf a call; a zero-coefficient slot adds exactly nothing;
     # the six-leaf call at the edge layer's lead is timed
     leaf_shapes = [tuple(s.shape) for s in specs.values()]
+    rleaf_shapes = [tuple(s.shape) for s in rspecs.values()]
 
     def coef_inputs(kind, lead, shapes):
         """leaves [*lead, *leaf] (the pair: w and aux) and coefficients
@@ -3516,12 +3789,13 @@ def main() -> int:
             e, t = agg_err(many(*ops_, *cs, mode="cuda"),
                            many(*ops_, *cs, mode="torch"))
             check(kind, e <= t, f"{(nb2, n2, L)}: {e} > {t}")
-        for lead in ((nb, n), (n,)):
-            ops_, cs = coef_inputs(kind, lead, leaf_shapes)
+        for lead, shapes in itertools.product(((nb, n), (n,)),
+                                              (leaf_shapes, rleaf_shapes)):
+            ops_, cs = coef_inputs(kind, lead, shapes)
             before = build.LAUNCHES[kind]
             got = many(*ops_, *cs, mode="cuda")
             check(kind, build.LAUNCHES[kind] == before + 1,
-                  f"lead {lead}: {len(leaf_shapes)} leaves took "
+                  f"lead {lead}: {len(shapes)} leaves took "
                   f"{build.LAUNCHES[kind] - before} launches")
             e, t = agg_err(got, many(*ops_, *cs, mode="torch"))
             check(kind, e <= t, f"lead {lead}: {e} > {t}")
@@ -3583,11 +3857,12 @@ def main() -> int:
         return int(((top[:, 0] - top[:, 1])
                     <= 1e-4 * z.abs().amax(-1)).sum().item())
 
-    def eval_case(m_, c_):
-        """inputs at M = m_, C = c_ (a third of the labels right), the
-        kernel's count against the plain one, bitwise on repeat"""
-        f_ = rand(m_, FEAT)
-        wm, bb = randn(FEAT, c_, scale=FEAT ** -0.5), randn(c_, scale=0.1)
+    def eval_case(m_, c_, feat=FEAT):
+        """inputs at M = m_, F = feat, C = c_ (a third of the labels
+        right), the kernel's count against the plain one, bitwise on
+        repeat"""
+        f_ = rand(m_, feat)
+        wm, bb = randn(feat, c_, scale=feat ** -0.5), randn(c_, scale=0.1)
         lab = torch.randint(-1, c_, (m_,), generator=gen, device=dev,
                             dtype=torch.int32)
         lab[::3] = torch.argmax(f_ @ wm + bb, -1)[::3]
@@ -3595,11 +3870,11 @@ def main() -> int:
         want = int(eval_head(f_, wm, bb, lab, "torch").item())
         amb = margin_rows(f_, wm, bb)
         check("eval_head", abs(int(got.item()) - want) <= amb,
-              f"M={m_} C={c_}: count {int(got.item())} vs {want}, {amb} "
+              f"M={m_} F={feat} C={c_}: count {int(got.item())} vs {want}, {amb} "
               "ambiguous rows")
         check("eval_head", all(torch.equal(eval_head(f_, wm, bb, lab, "cuda"),
                                            got) for _ in range(2)),
-              f"M={m_} C={c_}: count not bitwise on repeat")
+              f"M={m_} F={feat} C={c_}: count not bitwise on repeat")
         return (f_, wm, bb, lab), abs(int(got.item()) - want), amb
 
     for c_ in (NCLS, 100):
@@ -3622,6 +3897,9 @@ def main() -> int:
                                 "eval_head_argmax_kernel")]},
                kernel="eval_head")
         del args
+    # the example drivers' evaluations: REDUCED's features at their n_test
+    for m_ in EXAMPLE_NTEST:
+        eval_case(m_, NCLS, RFEAT)
 
     # ------------------------------------------------------ flash_attention
     serve_cfg = get_config(SERVE_ARCH)
@@ -3811,6 +4089,12 @@ def main() -> int:
         train_parity(torch, train, rtrained[arch], arch)
     train_grads_bf16(torch, build, flash_kernels, RECURRENT_TRAIN[RG_ARCH],
                      arch=RG_ARCH)
+
+    # ------------------------------------------------ the example drivers
+    # the per-row SGD kernel at every row count the sweep drivers' buckets
+    # can give it, at REDUCED's leaves, before the drivers' counts are reset
+    sgd_rows_check({r: 1 for r in EXAMPLE_ROWS}, rspecs)
+    examples_phase(torch, build)
 
     if "--profile" in sys.argv[1:]:
         emit({"profile": profile_run(torch, lambda: BHFLSimulator(

@@ -50,6 +50,11 @@ def get_smoke(arch_id: str):
     return _mod(arch_id).make_smoke()
 
 
+def all_configs() -> dict:
+    """Every architecture's full config, by id (``ARCH_IDS`` order)."""
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
 def cut_depth(cfg, n_layers: int):
     """``cfg`` cut to ``n_layers`` decoder layers and, for a config with an
     encoder, as many encoder layers: one knob for both stacks.  The decoder
@@ -67,5 +72,5 @@ def cut_depth(cfg, n_layers: int):
     return dataclasses.replace(cfg, n_layers=n_layers, encoder=enc)
 
 
-__all__ = ["ARCH_IDS", "BHFLSetting", "DEFAULT", "REDUCED", "cut_depth",
-           "get_config", "get_smoke"]
+__all__ = ["ARCH_IDS", "BHFLSetting", "DEFAULT", "REDUCED", "all_configs",
+           "cut_depth", "get_config", "get_smoke"]

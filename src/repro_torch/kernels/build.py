@@ -80,27 +80,28 @@ SIGNATURES = {
     "coef_agg_pair_launch": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _P),
     # feats, wmat, bias, labels, partial logits, count, M, F, C, stream
     "eval_head_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # q, k, v, out, lse (may be null), B, H, Hkv, Sq, Skv, Dh, the batch,
-    # sequence and head strides of q, k and v, causal, window (-1: none),
-    # q_offset, dtype code, stream
+    # q, k, v, out, lse (may be null), B, H, Hkv, Sq, Skv, Dh (a built
+    # one), the batch, sequence and head strides of q, k and v, causal,
+    # window (-1: none), q_offset, scale, dtype code, stream
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                               _I, _I, _I, _I, _P),
+                               _I, _I, _I, _F, _I, _P),
     # the backward's three kernels.  delta: o, do, delta, B, H, Sq, Dh,
     # dtype code, stream
     "flash_attention_bwd_delta_launch": (_P, _P, _P, _I, _I, _I, _I, _I,
                                          _P),
     # dkdv: q, k, v, do, lse, delta, dk, dv, B, H, Hkv, Sq, Skv, Dh, the
-    # strides of q, k and v, causal, window, q_offset, dtype code, stream
+    # strides of q, k and v, causal, window, q_offset, scale, dtype code,
+    # stream
     "flash_attention_bwd_dkdv_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _I, _I,
                                         _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                        _I, _I, _I, _I, _P),
+                                        _I, _I, _I, _F, _I, _P),
     # dq: as dkdv with one output, dq
     "flash_attention_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I,
                                       _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                      _I, _I, _I, _I, _P),
+                                      _I, _I, _I, _F, _I, _P),
 }
 
 

@@ -643,6 +643,8 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
 // dtype: 0 float32 (the FMA design), 1 bfloat16 (wgmma + TMA; every
 // pointer 16-byte aligned and every stride of a dim longer than 1 a
 // multiple of 8 elements, which the wrapper checks); window < 0: none.
+// scale multiplies the logits: 1/sqrt(Dh) of the caller's head dim, which
+// is below D where the wrapper zero-padded the operands to a built D.
 // lse: each row's log-sum-exp of its scaled logits, [B, H, Sq] float32
 // (+inf for a row that sees no key), for the backward; null writes none.
 // Returns a cudaError_t, or 1000 + the CUresult of a failed tensor-map
@@ -653,10 +655,9 @@ extern "C" int flash_attention_launch(
     int Hkv, int Sq, int Skv, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, int causal, int window,
-    int q_offset, int dtype, void* stream) {
+    int q_offset, float scale, int dtype, void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
   if (Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
-  const float scale = (float)(1.0 / sqrt((double)D));
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     f32::Params p{q,   k,   v,   o,   lse, H,   H / Hkv, Sq,     Skv,

@@ -1003,8 +1003,8 @@ int run(bool dq, const void* q, const void* k, const void* v,
         void* dkp, void* dvp, int B, int H, int Hkv, int Sq, int Skv, int D,
         long long qsb, long long qss, long long qsh, long long ksb,
         long long kss, long long ksh, long long vsb, long long vss,
-        long long vsh, int causal, int window, int q_offset, int dtype,
-        void* stream) {
+        long long vsh, int causal, int window, int q_offset, float scale,
+        int dtype, void* stream) {
   if (Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   // an empty grid; every block of a non-empty one writes its tile, zeros
   // where it sees nothing (dq of Skv = 0, dk and dv of Sq = 0)
@@ -1012,7 +1012,7 @@ int run(bool dq, const void* q, const void* k, const void* v,
   const Params p{q,   k,    v,     dout,   lse,    delta,  dqp, dkp,
                  dvp, H,    Hkv,   H / Hkv, Sq,    Skv,    qsb, qss,
                  qsh, ksb,  kss,   ksh,    vsb,    vss,    vsh, causal,
-                 window, q_offset, (float)(1.0 / sqrt((double)D))};
+                 window, q_offset, scale};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return dispatch(dq, p, B, D, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
@@ -1066,17 +1066,18 @@ extern "C" int flash_attention_bwd_delta_launch(const void* o,
 // Kernel b: dk, dv (contiguous [B, Skv, Hkv, D]) from q, k, v (strides
 // (sb, ss, sh), D contiguous), do (contiguous [B, Sq, H, D]), the
 // forward's lse and kernel a's delta ([B, H, Sq] float32).  window < 0:
-// none.  Returns a cudaError_t.
+// none.  scale: the forward's, 1/sqrt(Dh) of the caller's head dim (below
+// D where the wrapper zero-padded the operands).  Returns a cudaError_t.
 extern "C" int flash_attention_bwd_dkdv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv, int B, int H,
     int Hkv, int Sq, int Skv, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, int causal, int window,
-    int q_offset, int dtype, void* stream) {
+    int q_offset, float scale, int dtype, void* stream) {
   return run(false, q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, Hkv,
              Sq, Skv, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal,
-             window, q_offset, dtype, stream);
+             window, q_offset, scale, dtype, stream);
 }
 
 // Kernel c: dq (contiguous [B, Sq, H, D]) from the same inputs.
@@ -1086,8 +1087,8 @@ extern "C" int flash_attention_bwd_dq_launch(
     int Sq, int Skv, int D, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, int causal, int window, int q_offset,
-    int dtype, void* stream) {
+    float scale, int dtype, void* stream) {
   return run(true, q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H,
              Hkv, Sq, Skv, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-             causal, window, q_offset, dtype, stream);
+             causal, window, q_offset, scale, dtype, stream);
 }

@@ -18,6 +18,7 @@ import torch
 from repro_torch.core.hieavg import History, per_row
 
 from . import ops
+from .build import KERNEL_MODES
 from .conv3x3 import conv3x3_bias_relu as _conv3x3_bias_relu
 from .eval_head import eval_head as _eval_head
 
@@ -25,6 +26,29 @@ from .eval_head import eval_head as _eval_head
 ROUND_PHASES = ("train_conv_fwd_bwd", "sgd_update", "warm_edge_aggregate",
                 "warm_global_aggregate", "cold_boot_aggregate",
                 "fedavg_aggregate", "delayed_grad_aggregate", "eval_head")
+
+
+def resolve_kernel_mode(mode: str = "auto", device=None) -> str:
+    """The path ``mode`` takes on ``device``, as ``build.use_kernel`` picks
+    it for a tensor there: ``"auto"`` is ``"cuda"`` on a CUDA device and
+    ``"torch"`` elsewhere; ``"cuda"`` and ``"torch"`` pass through; any
+    other string raises, naming ``KERNEL_MODES``.  ``device`` None is the
+    entry points' default: CUDA where a GPU is present."""
+    if mode not in KERNEL_MODES:
+        raise ValueError(
+            f"unknown kernel_mode {mode!r}; expected one of {KERNEL_MODES}")
+    if mode != "auto":
+        return mode
+    if device is None:
+        return "cuda" if torch.cuda.is_available() else "torch"
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
+def fused_phase_coverage(mode: str = "auto", device=None) -> dict:
+    """Which round phases run in a kernel under ``mode`` on ``device``:
+    ``{phase: bool}`` over ``ROUND_PHASES``."""
+    fused = resolve_kernel_mode(mode, device) == "cuda"
+    return {phase: fused for phase in ROUND_PHASES}
 
 
 def edge_aggregate_batched(stacked_w: dict, mask: torch.Tensor,

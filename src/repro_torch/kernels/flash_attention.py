@@ -14,12 +14,20 @@ when an input requires one) runs the three kernels of
 forward's output and its rows' log-sum-exp; their plain version is
 ``ref.flash_attention_bwd_ref``.  The Pallas kernel has no backward: the
 JAX package differentiates its XLA attention (``_sdpa``) instead.
+
+The kernels are built at the head dims of ``HEAD_DIMS``; any other head dim
+up to the largest runs on the smallest built one above it, its operands
+zero-padded and the scale that of the true head dim (``_kernel_head_dim``):
+zero columns add nothing to ``q kᵀ``, the log-sum-exp or ``do oᵀ``, and
+the padded columns of every output are cut off again.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import build, ref
 
@@ -76,14 +84,29 @@ def _check_shapes(q, k, v) -> None:
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
 
 
+def _kernel_head_dim(name: str, dh: int) -> int:
+    """The built head dim a call at head dim ``dh`` runs on: the smallest of
+    ``HEAD_DIMS`` at or above it; above the largest, ``ValueError``."""
+    if dh < 1 or dh > HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head dim {dh}; the kernels run head dims "
+                         f"1 to {HEAD_DIMS[-1]} (built for {HEAD_DIMS}, "
+                         "others zero-padded to the next)")
+    return next(d for d in HEAD_DIMS if d >= dh)
+
+
+def _pad_head_dim(dp: int, *ts) -> list:
+    """Each tensor's last dim zero-padded to ``dp`` (a new contiguous
+    tensor), or the tensor itself where it is ``dp`` wide already."""
+    return [t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1]))
+            for t in ts]
+
+
 def _check_kernel_args(name: str, window, *ts) -> None:
-    """What every flash kernel takes: a built head dim, one input type of
-    ``DTYPES``, the head dim contiguous, one CUDA device, grid extents."""
+    """What every flash kernel takes besides a built head dim (the caller
+    pads to one): one input type of ``DTYPES``, the head dim contiguous,
+    one CUDA device, grid extents."""
     q = ts[0]
-    B, H, Dh = q.shape[0], q.shape[2], q.shape[3]
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {Dh}; the kernel is built for "
-                         f"{HEAD_DIMS}")
+    B, H = q.shape[0], q.shape[2]
     if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in ts):
         raise TypeError(f"{name}: operands in one of {list(DTYPES)}, got "
                         f"{[t.dtype for t in ts]}")
@@ -106,7 +129,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     """GQA flash attention: q [B, Sq, H, Dh]; k, v [B, Skv, Hkv, Dh], H a
     multiple of Hkv -> (out [B, Sq, H, Dh] in ``v.dtype``, and with ``lse``
     each row's log-sum-exp of its scaled logits, [B, H, Sq] float32, +inf
-    for a row that sees no key; else None).  Scale 1/sqrt(Dh).
+    for a row that sees no key; else None).  Scale 1/sqrt(Dh).  A head dim
+    that no kernel is built for runs zero-padded (``_kernel_head_dim``).
 
     The query heads are (Hkv, G) in that order, as the reference's reshape
     to [B, Sq, Hkv, G, Dh]: head h reads kv head ``h // G``.  Query row i
@@ -120,25 +144,28 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         o, l = ref.flash_attention_fwd_ref(q, k, v, causal=causal,
                                            window=window, q_offset=q_offset)
         return o, (l if lse else None)
-    _check_kernel_args("flash_attention", window, q, k, v)
     B, Sq, H, Dh = q.shape
+    dp = _kernel_head_dim("flash_attention", Dh)
+    q, k, v = _pad_head_dim(dp, q, k, v)
+    _check_kernel_args("flash_attention", window, q, k, v)
     Skv, Hkv = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
         strides = [_tma_strides(n, t) for n, t in (("q", q), ("k", k),
                                                     ("v", v))]
     else:
         strides = [t.stride()[:3] for t in (q, k, v)]
-    out = torch.empty((B, Sq, H, Dh), dtype=v.dtype, device=q.device)
+    out = torch.empty((B, Sq, H, dp), dtype=v.dtype, device=q.device)
     rows = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if lse else None
     build.LAUNCHES["flash_attention"] += 1
     build.check(build.library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if rows is None else rows.data_ptr(), B, H, Hkv,
-        Sq, Skv, Dh, *strides[0], *strides[1], *strides[2],
+        Sq, Skv, dp, *strides[0], *strides[1], *strides[2],
         int(causal), -1 if window is None else int(window), int(q_offset),
-        DTYPES[q.dtype], build.stream()), "flash_attention")
-    return out, rows
+        1.0 / math.sqrt(Dh), DTYPES[q.dtype], build.stream()),
+        "flash_attention")
+    return out[..., :Dh] if dp != Dh else out, rows
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -163,7 +190,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     are (a bfloat16 q, k or v that breaks a TMA precondition raises before
     any launch, and so does ``do``); q, k and v are read through their
     strides, ``o`` and ``do`` (autograd may hand over a strided one) are
-    made contiguous."""
+    made contiguous.  A head dim that no kernel is built for runs
+    zero-padded, as in the forward."""
     _check_shapes(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
@@ -176,12 +204,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                            causal=causal, window=window,
                                            q_offset=q_offset)
-    if q.dtype == torch.float32 and Dh in HEAD_DIMS \
-            and Dh not in F32_BWD_HEAD_DIMS:
+    dp = _kernel_head_dim("flash_attention_bwd", Dh)
+    if q.dtype == torch.float32 and dp not in F32_BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: the float32 kernels are "
                          f"built for head dims {F32_BWD_HEAD_DIMS}, not "
-                         f"{Dh}; bfloat16 runs at {HEAD_DIMS}")
+                         f"{dp} (head dim {Dh}); bfloat16 runs at "
+                         f"{HEAD_DIMS}")
     o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    q, k, v, o, do = _pad_head_dim(dp, q, k, v, o, do)
     _check_kernel_args("flash_attention_bwd", window, q, k, v, o, do)
     if lse.device != q.device:
         raise ValueError(f"flash_attention_bwd: lse on {lse.device}, "
@@ -198,12 +228,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     lib = build.library()
-    tail = (B, H, Hkv, Sq, Skv, Dh, *strides[0], *strides[1], *strides[2],
+    tail = (B, H, Hkv, Sq, Skv, dp, *strides[0], *strides[1], *strides[2],
             int(causal), -1 if window is None
-            else int(window), int(q_offset), code, st)
+            else int(window), int(q_offset), 1.0 / math.sqrt(Dh), code, st)
     build.LAUNCHES["flash_attention_bwd"] += 1
     build.check(lib.flash_attention_bwd_delta_launch(
-        o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, H, Sq, Dh, code,
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, H, Sq, dp, code,
         st), "flash_attention_bwd (delta)")
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
@@ -214,6 +244,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     build.LAUNCHES["flash_attention_bwd"] += 1
     build.check(lib.flash_attention_bwd_dq_launch(
         *inputs, dq.data_ptr(), *tail), "flash_attention_bwd (dq)")
+    if dp != Dh:
+        return dq[..., :Dh], dk[..., :Dh], dv[..., :Dh]
     return dq, dk, dv
 
 

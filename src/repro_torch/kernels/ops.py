@@ -17,9 +17,10 @@ import torch
 
 from repro_torch.core.hieavg import History, per_row
 
-from . import flash_attention as _flash
 from .coef_agg import coef_agg_many, coef_agg_pair_many
 from .hieavg_agg import hieavg_agg_many
+from .flash_attention import FlashAttentionFn
+from .flash_attention import flash_attention as _flash_attention
 from .sgd_update import sgd_update_many
 
 
@@ -31,10 +32,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     forward alone, which writes no ``lse``."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _flash.FlashAttentionFn.apply(q, k, v, causal, window,
-                                             q_offset, mode)
-    return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                  q_offset=q_offset, mode=mode)
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
+                                      mode)
+    return _flash_attention(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, mode=mode)
 
 
 def fused_mix_and_update(stacked_w: dict, mask: torch.Tensor,
@@ -72,6 +73,20 @@ def fused_edge_aggregate_batched(stacked_w: dict, mask: torch.Tensor,
     nothing."""
     v = valid.to(torch.float32)
     pw = v / torch.clamp(v.sum(-1, keepdim=True), min=1.0)
+    return fused_mix_and_update(stacked_w, mask, history, pw, gamma0, lam,
+                                normalize, mode=mode)
+
+
+def fused_edge_aggregate(stacked_w: dict, mask: torch.Tensor,
+                         history: History, *, gamma0: float = 0.9,
+                         lam: float = 0.9, normalize: bool = False,
+                         mode: str = "auto") -> tuple[dict, History]:
+    """Eq. (4) for one edge (``[n, ...]`` leaves, ``[n]`` mask) with
+    uniform ``1/n`` part weights: the reference's single-edge API, for
+    direct callers and kernel benchmarks.  Returns (edge model, updated
+    History)."""
+    n = mask.shape[0]
+    pw = torch.full((n,), 1.0 / n, dtype=torch.float32, device=mask.device)
     return fused_mix_and_update(stacked_w, mask, history, pw, gamma0, lam,
                                 normalize, mode=mode)
 

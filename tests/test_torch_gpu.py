@@ -19,7 +19,10 @@ widen, sum in float32, which may differ by 2e-5 where a sum cancels to
 near 0, and round once), rows that see no key exactly 0, at unit-scale and
 at sharp (q scaled by 24) logits; each row's log-sum-exp of both designs
 ``rtol = atol = 1e-5`` of the plain version's (+inf where a row sees no
-key), the output bitwise the same with or without it.  The flash
+key), the output bitwise the same with or without it; at head dims no
+kernel is built for (24, 40, 100: zero-padded to the next built one) the
+same bounds, forward and backward, and a smoke MLA prefill (head dim 24)
+through the kernel within ``3e-4`` of the plain logits.  The flash
 backward: float32 ``rel 1e-4`` of each gradient's largest magnitude,
 bfloat16 ``2^-7`` of it (one bfloat16 ulp at the top: both sum in float32
 and round once), a row that sees no key dq exactly 0, bitwise on
@@ -781,38 +784,98 @@ def test_gpu_flash_attention_mla_head_dims_match_plain(cuda, dtype):
         assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-def test_gpu_flash_attention_refuses_smoke_mla_head_dim(cuda):
-    """Smoke-width MLA attends at head dim 16 + 8 = 24, which no kernel is
-    built for: the forward and the backward raise on CUDA tensors before
-    any launch, and a smoke minicpm3 prefill on the card raises under
-    "auto" and "cuda" (nothing switches to the plain version), and runs
-    under "torch"."""
+#: head dims no kernel is built for (smoke MLA's 16 + 8 = 24, and two
+#: more), each run zero-padded to the next built one (32, 64, 128): query
+#: and kv lengths across a tile's edge, causal and not, a window, GQA, a
+#: chunked prefill's offset and rows that see no key
+FLASH_PADDED_CASES = [((129, 129), 24, (4, 4), True, None, 0),
+                      ((65, 130), 24, (8, 2), False, None, 0),
+                      ((64, 64), 24, (4, 1), True, 20, -10),
+                      ((200, 257), 40, (8, 2), True, 100, 57),
+                      ((130, 97), 40, (4, 4), False, None, 0),
+                      ((257, 127), 100, (8, 2), True, 70, 5),
+                      ((129, 129), 100, (2, 2), False, 64, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gpu_flash_attention_pads_unbuilt_head_dims(cuda, dtype):
+    """At a head dim no kernel is built for, the forward (output, lse) and
+    the backward run the kernels on operands zero-padded to the next built
+    head dim, at the scale of the true one: within the flash bounds of the
+    cases above, one forward and three backward launches a call, the
+    backward bitwise on repeat.  Above 256 both raise before any
+    launch."""
+    rng = np.random.default_rng(24)
+    for (sq, skv), dh, (h, hkv), causal, window, off in FLASH_PADDED_CASES:
+        q = t(np32(rng, 2, sq, 2 * h, dh)).to(cuda, dtype)[:, :, :h]
+        k, v = (t(np32(rng, 2, skv, hkv, dh)).to(cuda, dtype)
+                for _ in range(2))
+        do = t(np32(rng, 2, sq, h, dh)).to(cuda, dtype)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        case = ((sq, skv), dh, (h, hkv), causal, window, off)
+        before = build.LAUNCHES["flash_attention"]
+        o, lse = flash_attention_fwd(q, k, v, lse=True, mode="cuda", **kw)
+        assert build.LAUNCHES["flash_attention"] == before + 1
+        o_ref, lse_ref = flash_attention_fwd(q, k, v, lse=True,
+                                             mode="torch", **kw)
+        assert o.shape == (2, sq, h, dh) and o.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(o, o_ref, rtol=0, atol=2e-5)
+        else:
+            assert _ulps(o, o_ref, dtype, atol=2e-5) <= 1.0, case
+        assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+        fin = torch.isfinite(lse_ref)
+        torch.testing.assert_close(lse[fin], lse_ref[fin], rtol=1e-5,
+                                   atol=1e-5)
+        before = build.LAUNCHES["flash_attention_bwd"]
+        got = flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+        assert build.LAUNCHES["flash_attention_bwd"] == before + 3
+        want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+        rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            err = (g.float() - w.float()).abs().max().item()
+            assert err <= rel * w.float().abs().max().item(), (case, err)
+        again = flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    q = torch.zeros((1, 64, 4, 264), device=cuda, dtype=dtype)
+    lse = torch.zeros((1, 4, 64), device=cuda)
+    build.reset_launch_counts()
+    with pytest.raises(ValueError, match="head dim 264"):
+        flash_attention(q, q, q, mode="cuda")
+    with pytest.raises(ValueError, match="head dim 264"):
+        flash_attention_bwd(q, q, q, q, lse, q, mode="cuda")
+    assert not build.LAUNCHES
+
+
+def test_gpu_smoke_mla_prefill_runs_the_flash_kernel(cuda):
+    """A smoke minicpm3 prefill (MLA at head dim 24, padded to 32) on the
+    card under "auto" and "cuda": one flash launch a layer, logits within
+    3e-4 of their largest magnitude of the plain version's
+    (``tests/test_torch_serve.py``'s bound); none under "torch"."""
     from repro_torch.configs import get_smoke
     from repro_torch.models import cache_specs, init_from_specs, param_specs
     from repro_torch.models.transformer import prefill
-    q = torch.zeros((1, 64, 4, 24), device=cuda)
-    build.reset_launch_counts()
-    with pytest.raises(ValueError, match="head dim 24"):
-        flash_attention(q, q, q, mode="cuda")
-    lse = torch.zeros((1, 4, 64), device=cuda)
-    with pytest.raises(ValueError, match="head dim 24"):
-        flash_attention_bwd(q, q, q, q, lse, q, mode="cuda")
     cfg = get_smoke("minicpm3-4b")
     g = torch.Generator(device=cuda)
     g.manual_seed(0)
     params = init_from_specs(param_specs(cfg), g, cuda)
     tokens = torch.randint(0, cfg.vocab, (2, 40), generator=g, device=cuda)
-
-    def run(mode):
+    out = {}
+    for mode in ("auto", "cuda", "torch"):
         caches = init_from_specs(cache_specs(cfg, 2, 40, torch.float32),
                                  None, cuda)
-        return prefill(params, tokens, cfg, caches, kernel_mode=mode)[0]
-
+        build.reset_launch_counts()
+        out[mode] = prefill(params, tokens, cfg, caches, kernel_mode=mode)[0]
+        launches = dict(build.LAUNCHES)
+        assert launches == ({} if mode == "torch" else
+                            {"flash_attention": cfg.n_layers}), launches
+    want = out["torch"]
+    assert bool(torch.isfinite(want).all())
     for mode in ("auto", "cuda"):
-        with pytest.raises(ValueError, match="head dim 24"):
-            run(mode)
-    assert not build.LAUNCHES
-    assert bool(torch.isfinite(run("torch")).all())
+        assert (out[mode] - want).abs().max().item() \
+            <= 3e-4 * want.abs().max().item(), mode
 
 
 #: recurrentgemma's local attention at head dim 256 (32-row kv tiles in the

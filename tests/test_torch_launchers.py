@@ -9,8 +9,12 @@ every argument by it without looking at the C function, so a pointer
 declared ``c_int`` there is cut to 32 bits in silence.  The first test
 parses every ``extern "C" int *_launch(`` in ``kernels/csrc/*.cu`` and
 holds its arity, and pointer or integer per argument, against the table.
-No compiler or card is needed.
+The flash launchers' one float, ``scale``, is what the wrappers pass as
+``1/sqrt(Dh)`` of the caller's head dim beside the built head dim they
+run on (zero-padded where no kernel is built for it).  No compiler or
+card is needed.
 """
+import importlib
 import math
 import re
 
@@ -250,3 +254,51 @@ def test_sgd_update_launch_passes_one_scale_or_the_row_vector(monkeypatch,
         assert (s, sp, nrows) == (0.25, None, 0)
     assert [o.shape for o in outs] == [w.shape for w in ws]
     assert outs[0].untyped_storage().data_ptr() == flat
+
+
+def _c_arg_names(symbol: str) -> list:
+    """The argument names of an ``extern "C"`` launcher, in order."""
+    for src in sorted(build.CSRC.glob("*.cu")):
+        m = re.search(rf'extern "C" int {symbol}\((.*?)\)\s*\{{',
+                      src.read_text(), re.S)
+        if m:
+            return [a.split()[-1].lstrip("*")
+                    for a in " ".join(m.group(1).split()).split(",")]
+    raise AssertionError(symbol)
+
+
+FLASH_SCALED = ("flash_attention_launch", "flash_attention_bwd_dkdv_launch",
+                "flash_attention_bwd_dq_launch")
+
+
+@pytest.mark.parametrize("dh,built", [(80, 80), (40, 64), (200, 256)])
+def test_flash_launchers_take_the_scale_of_the_true_head_dim(monkeypatch, dh,
+                                                            built):
+    """The forward's and the backward's launchers take the logits' scale
+    as their one float argument (``scale`` in the C declaration, ``c_float``
+    in ``build.SIGNATURES``), and the wrappers (``build.use_kernel`` forced
+    on, a stub library, the device check passed over) pass ``1/sqrt(Dh)``
+    of the caller's head dim beside the built head dim they run on."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    where = {}
+    for name in FLASH_SCALED:
+        names = _c_arg_names(name)
+        where[name] = names.index("scale")
+        assert [i for i, t in enumerate(build.SIGNATURES[name])
+                if t is build._F] == [where[name]]
+        assert names[where[name] - 1] == "q_offset"
+    lib = _StubLibrary()
+    monkeypatch.setattr(build, "use_kernel", lambda mode, t: True)
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "stream", lambda: 0)
+    monkeypatch.setattr(fa, "_check_kernel_args", lambda *a: None)
+    q = torch.zeros((1, 4, 2, dh), dtype=torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, q, q, lse=True)
+    fa.flash_attention_bwd(q, q, q, o, lse, q)
+    calls = {name: args for name, args in lib.calls}
+    assert sorted(calls) == sorted(FLASH_SCALED
+                                   + ("flash_attention_bwd_delta_launch",))
+    for name in FLASH_SCALED:
+        args = calls[name]
+        assert args[where[name]] == 1.0 / math.sqrt(dh)
+        assert args[_c_arg_names(name).index("D")] == built

@@ -23,8 +23,10 @@ bitwise.  The plain flash version at head dims 96 and 192 (MLA's at full
 width) against the reference's ``_sdpa`` ``atol 2e-5``, the reference's
 flash bound (``tests/test_kernels.py``).
 """
+import ctypes
 import dataclasses
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -47,7 +49,6 @@ from repro.models import param_specs as j_param_specs
 from repro.models.spec import ParamSpec as JParamSpec
 from repro_torch import configs as tconfigs
 from repro_torch.configs import get_smoke
-from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops
 from repro_torch.launch import (init_fl_histories, make_hfl_train_step,
                                 make_prefill_step, make_serve_step)
@@ -57,6 +58,9 @@ from repro_torch.models import ParamSpec, count_params, mla, moe, \
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.spec import init_from_specs
 
+#: the flash kernels' module (``repro_torch.kernels.flash_attention`` is
+#: the re-exported function)
+tflash = importlib.import_module("repro_torch.kernels.flash_attention")
 ATOL = 3e-4
 ARCHS = ("minicpm3-4b", "deepseek-v2-lite-16b", "grok-1-314b")
 MLA_ARCHS = ARCHS[:2]
@@ -485,11 +489,108 @@ def test_plain_flash_at_mla_head_dims_matches_jax(dh):
     assert not got[..., dh * 2 // 3:].any()
 
 
-def test_kernel_refuses_the_smoke_mla_head_dim():
+class _ReadingLibrary:
+    """Stands in for the built library: records each launcher call, and
+    copies what its first operands point at while the call lasts (the
+    operands are temporaries; on the CPU a pointer is host memory)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.endswith("_launch"):
+            raise AttributeError(name)
+
+        def launcher(*args):
+            self.calls.append((name, args, self.read(name, args)))
+            return 0
+        return launcher
+
+    @staticmethod
+    def read(name, args):
+        """q, k, v (and do) of a flash launcher, as float32 arrays of the
+        launcher's shapes ([B, S, H, Dh] contiguous)."""
+        if name == "flash_attention_launch":
+            (B, H, Hkv, Sq, Skv, D), ptrs = args[5:11], args[:3]
+        elif name == "flash_attention_bwd_delta_launch":
+            return None
+        else:
+            at = 8 if "dkdv" in name else 7
+            (B, H, Hkv, Sq, Skv, D), ptrs = args[at:at + 6], args[:4]
+        bf16 = args[-2] == 1
+        out = []
+        for ptr, (s, h) in zip(ptrs, ((Sq, H), (Skv, Hkv), (Skv, Hkv),
+                                      (Sq, H))):
+            n = B * s * h * D
+            buf = ((ctypes.c_uint16 if bf16 else ctypes.c_float) * n
+                   ).from_address(ptr)
+            raw = np.frombuffer(buf, np.uint16 if bf16 else np.float32)
+            if bf16:                      # bfloat16 bits -> float32
+                raw = (raw.astype(np.uint32) << 16).view(np.float32)
+            out.append(raw.copy().reshape(B, s, h, D))
+        return out
+
+
+def test_kernel_refuses_the_smoke_mla_head_dim(monkeypatch):
     """Smoke-width MLA attends at head dim 16 + 8 = 24, which no kernel is
-    built for: the kernel's checks refuse it (before any device check);
-    96 and 192 are built."""
+    built for: no longer refused, it is padded.  The host path (``build.use_kernel`` forced on, a stub in
+    place of the library, the device check passed over: no card here)
+    takes it: the forward and the backward hand their launchers the built
+    head dim 32, operands zero-padded to it and the scale ``1/sqrt(24)``
+    of the true head dim, and give back outputs of head dim 24.  A built
+    head dim (96) goes as it is, unpadded; a head dim above 256 is refused
+    before any launch.  In float32 and in bfloat16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        _padded_launches(monkeypatch, dtype)
+
+
+def _padded_launches(monkeypatch, dtype):
+    lib = _ReadingLibrary()
+    monkeypatch.setattr(tflash.build, "use_kernel", lambda mode, t: True)
+    monkeypatch.setattr(tflash.build, "library", lambda: lib)
+    monkeypatch.setattr(tflash.build, "stream", lambda: 0)
+    checked = []
+    monkeypatch.setattr(tflash, "_check_kernel_args",
+                        lambda name, window, *ts: checked.append(
+                            [t.shape[-1] for t in ts]))
+    rng = np.random.default_rng(24)
+
+    def operands(dh, n=4):
+        return [torch.from_numpy(rng.standard_normal(
+            (1, 8, 4, dh)).astype(np.float32)).to(dtype) for _ in range(n)]
+
+    q, k, v, do = operands(24)
+    o, lse = tflash.flash_attention_fwd(q, k, v, lse=True)
+    assert o.shape == q.shape and lse.shape == (1, 4, 8)
+    grads = tflash.flash_attention_bwd(q, k, v, o, lse, do)
+    assert [g.shape for g in grads] == [q.shape] * 3
+    assert [c[0] for c in lib.calls] == [
+        "flash_attention_launch", "flash_attention_bwd_delta_launch",
+        "flash_attention_bwd_dkdv_launch", "flash_attention_bwd_dq_launch"]
+    assert checked == [[32] * 3, [32] * 5]
+    scale = 1.0 / np.sqrt(24.0)
+    fwd, delta, dkdv, dq = lib.calls
+    assert fwd[1][10] == 32 and fwd[1][-3] == scale
+    assert delta[1][6] == 32                      # o and do, padded alike
+    assert dkdv[1][13] == dq[1][12] == 32
+    assert dkdv[1][-3] == dq[1][-3] == scale
+    for call, given in ((fwd, (q, k, v)), (dkdv, (q, k, v, do)),
+                        (dq, (q, k, v, do))):
+        for seen, x in zip(call[2], given):
+            np.testing.assert_array_equal(seen[..., :24], x.float().numpy())
+            assert not seen[..., 24:].any()
+    # a built head dim goes unpadded: the launcher reads the tensors' own
+    lib.calls.clear()
+    q, k, v = operands(96, 3)
+    tflash.flash_attention_fwd(q, k, v)
+    args = lib.calls[0][1]
+    assert args[:3] == tuple(x.data_ptr() for x in (q, k, v))
+    assert args[10] == 96 and args[-3] == 1.0 / np.sqrt(96.0)
+    lib.calls.clear()
+    q = operands(264, 1)[0]
+    with pytest.raises(ValueError, match="head dim 264"):
+        tflash.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="head dim 264"):
+        tflash.flash_attention_bwd(q, q, q, q, torch.zeros((1, 4, 8)), q)
+    assert not lib.calls
     assert {96, 192} <= set(tflash.HEAD_DIMS) and 24 not in tflash.HEAD_DIMS
-    q = torch.zeros((1, 8, 4, 24))
-    with pytest.raises(ValueError, match="head dim 24"):
-        tflash._check_kernel_args("flash_attention", None, q, q, q)

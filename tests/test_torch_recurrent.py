@@ -35,6 +35,7 @@ reference's flash bound (``tests/test_kernels.py``).
 """
 import dataclasses
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -59,7 +60,6 @@ from repro.models.spec import ParamSpec as JParamSpec
 from repro_torch import configs as tconfigs
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import build, ops
-from repro_torch.kernels import flash_attention as tflash
 from repro_torch.launch import (init_fl_histories, make_hfl_train_step,
                                 make_prefill_step, make_serve_step, serve,
                                 train)
@@ -69,6 +69,9 @@ from repro_torch.models import ParamSpec, count_params, rglru, ssd, \
     transformer
 from repro_torch.models.spec import init_from_specs
 
+#: the flash kernels' module (``repro_torch.kernels.flash_attention`` is
+#: the re-exported function)
+tflash = importlib.import_module("repro_torch.kernels.flash_attention")
 ATOL = 3e-4
 ARCHS = ("mamba2-130m", "recurrentgemma-9b")
 B = 2
