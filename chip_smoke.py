@@ -281,6 +281,12 @@ REPLACES = {
     # 16, window 2048; FLASH_TIMED)
     "flash_attention[rg]": "src/repro/kernels/flash_attention.py:77",
     "flash_attention_bwd[rg]": "src/repro/kernels/flash_attention.py:77",
+    # the same two kernels at a rank's shard of the mesh steps (danube's
+    # heads over model=2; FLASH_SHARD)
+    "flash_attention[shard]": "src/repro/kernels/flash_attention.py:77",
+    "flash_attention[shard_f32]": "src/repro/kernels/flash_attention.py:77",
+    "flash_attention_bwd[shard_f32]":
+        "src/repro/kernels/flash_attention.py:77",
 }
 SOURCE = {
     "conv3x3_fwd": "src/repro_torch/kernels/csrc/conv3x3.cu",
@@ -318,6 +324,12 @@ SOURCE = {
         "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_bwd[rg]":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention[shard]":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention[shard_f32]":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd[shard_f32]":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 
 #: the sweep phase: DEFAULT geometry cut to T = 4, one epoch over each
@@ -353,6 +365,42 @@ MESH_PLANS = {"fig3_10_shard": (10, dict(max_buckets=1, placement="shard",
               "fig3_11_auto": (11, dict(placement="auto",
                                         bucket_cost="proxy"))}
 MESH_RANK_TIMEOUT = 600
+#: the mesh steps phase (``mesh_steps``): MESH_STEPS_WORLD ranks of the
+#: mesh MESH_STEPS_MESH on the one card, their collectives carried by
+#: ``gloo`` through host memory (``launch.mesh.StagedGroup``).  Each runs
+#: ``make_hfl_train_step`` on h2o-danube-1.8b at full width cut to
+#: MESH_STEPS_LAYERS layers, float32 weights (so the float32 flash
+#: kernels run), one edge of MESH_STEPS_CLIENTS clients of MESH_STEPS_ROWS
+#: x MESH_STEPS_SEQ tokens; then a bf16 prefill of the same rows and
+#: MESH_STEPS_GEN teacher-forced decode steps, again in float32 with
+#: MESH_STEPS_GEN_F32 decode steps; and a bf16 and a float32 prefill of
+#: deepseek-v2-lite-16b cut alike (experts split, the all-to-all; MLA
+#: heads split).  Bounds against the one-card steps on the same card, each
+#: measured from the same computation one precision up (float64 for
+#: float32, float32 for bf16; the same weights upcast): the loss within
+#: MESH_STEPS_LOSS_REL of the one-card loss; each client's gradient leaf,
+#: and every step's logits, no farther from the one-precision-up values
+#: (of the largest) than MESH_STEPS_SPREAD times the one-card values are,
+#: nor than MESH_STEPS_GRAD_REL (gradients; the reference's jit-vs-eager
+#: spread at smoke width, ROADMAP.md), MESH_STEPS_F32_REL (float32 logits)
+#: or SERVE_REL_TOL (bf16 logits), whichever is larger; the float32 logits
+#: also that near the one-card float32 logits.  The bf16 bounds come to
+#: half the largest logit and more (bf16 rounding through random
+#: full-width layers), so they catch only a gross fault: the float32 steps
+#: are what hold the mesh's splits, the all-to-all and the cache writes to
+#: the one card.  These random full-width weights amplify rounding: the
+#: one-card float32 gradient lies ~1e-3 of a leaf's largest from float64
+#: at 2 x 256 tokens on the CPU (PERF.md, section 6), and the mesh sums its
+#: split products in another order
+MESH_STEPS_WORLD = 4
+MESH_STEPS_MESH = {"data": 2, "model": 2}
+MESH_STEPS_LAYERS, MESH_STEPS_CLIENTS, MESH_STEPS_ROWS, MESH_STEPS_SEQ = \
+    2, 2, 2, 2048
+MESH_STEPS_GEN, MESH_STEPS_GEN_F32 = 8, 2
+MESH_STEPS_MOE = "deepseek-v2-lite-16b"
+MESH_STEPS_GRAD_REL, MESH_STEPS_LOSS_REL, MESH_STEPS_SPREAD = 2e-4, 1e-5, 2.0
+MESH_STEPS_F32_REL = 1e-4
+MESH_STEPS_SEED = 7
 #: the script each rank runs (this one, with ``--mesh-rank``)
 RANK_SCRIPT = Path(__file__).resolve()
 #: the census's tolerance against the bytes the drivers ask the caching
@@ -1812,6 +1860,108 @@ def flash_model_timing(torch, kern, randn, record) -> None:
         del q, k, v, do, o, lse, qt, kt, vt, lib_out, lib_kw
 
 
+#: the ``kernels`` line's entries at FLASH_SHARD's shapes: (kernel, label)
+#: -> the ``mesh_steps`` part whose rank-0 launches at that shape the entry
+#: reports
+SHARD_RUNS = {("flash_attention", "shard"): "serve",
+              ("flash_attention", "shard_f32"): "train",
+              ("flash_attention_bwd", "shard_f32"): "train"}
+#: the flash kernels at a rank's shard in ``mesh_steps``: label -> (batch,
+#: (Sq, Skv), Dh, (H, Hkv), dtype, backward timed too): danube's heads
+#: over model=2 (32/8 -> 16/4), the bf16 prefill's rows over data=2, the
+#: float32 train step's two rows a client
+FLASH_SHARD = {"shard": (1, (MESH_STEPS_SEQ, MESH_STEPS_SEQ), 80, (16, 4),
+                         "bfloat16", False),
+               "shard_f32": (MESH_STEPS_ROWS, (MESH_STEPS_SEQ,
+                                               MESH_STEPS_SEQ), 80,
+                             (16, 4), "float32", True)}
+
+
+def flash_shard_timing(torch, kern, randn, record) -> None:
+    """The flash forward (and the float32 backward) at FLASH_SHARD's
+    shapes, causal with danube's window, checked against the plain version
+    (bf16: 1 ulp beyond FLASH_F32_ATOL; float32: FLASH_F32_ATOL, the
+    backward FLASH_BWD_REL) and timed beside it, the bound (4 Dh FLOPs a
+    visible pair forward, 10 Dh backward, at the input type's peak) and
+    ``scaled_dot_product_attention`` (``enable_gqa``, ``is_causal``; the
+    window is inert below its 4096)."""
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_fwd_ref)
+    fwd, bwd = kern.flash_attention_fwd, kern.flash_attention_bwd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    window = 4096
+    for label, (b, (sq, skv), dh, (h, hkv), dtype, with_bwd) in \
+            FLASH_SHARD.items():
+        dt = getattr(torch, dtype)
+        rate = BF16_TC_FLOP_PER_S if dtype == "bfloat16" \
+            else FP32_FLOP_PER_S
+        q = randn(b, sq, h, dh).to(dt)
+        k, v = (randn(b, skv, hkv, dh).to(dt) for _ in range(2))
+        do = randn(b, sq, h, dh).to(dt)
+        kw = dict(causal=True, window=window)
+        o, lse = fwd(q, k, v, lse=True, mode="cuda", **kw)
+        o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+        err = (o.float() - o_ref.float()).abs().max().item()
+        if dtype == "bfloat16":
+            u = bf16_ulps(o, o_ref, FLASH_F32_ATOL)
+            check("flash_attention", u <= 1.0, f"{label}: {u} ulp")
+            tol = f"1 bf16 ulp beyond atol {FLASH_F32_ATOL}"
+        else:
+            check("flash_attention", err <= FLASH_F32_ATOL,
+                  f"{label}: {err} > {FLASH_F32_ATOL}")
+            tol = FLASH_F32_ATOL
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        pairs = flash_pairs(sq, skv, True, window)
+        shape = {"q": [b, sq, h, dh], "kv": [b, skv, hkv, dh],
+                 "dtype": dtype, "causal": True, "window": window}
+        esz = q.element_size()
+        flops = 4.0 * dh * b * h * pairs
+        record(f"flash_attention[{label}]", err, tol,
+               lambda: fwd(q, k, v, mode="cuda", **kw)[0],
+               timed_ms(torch, lambda: fwd(q, k, v, mode="torch", **kw),
+                        iters=3),
+               timed_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True,
+                                            is_causal=True), iters=5),
+               esz * (2 * b * sq * h * dh + 2 * b * skv * hkv * dh), flops,
+               {"shape": shape, "flops": flops, "bound_flop_rate": rate,
+                "library_call": "scaled_dot_product_attention(enable_gqa="
+                                "True, is_causal=True)"},
+               kernel="flash_attention", flop_rate=rate)
+        if with_bwd:
+            got = bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+            want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+            rel = max((g.float() - w.float()).abs().max().item()
+                      / max(w.float().abs().max().item(), 1e-30)
+                      for g, w in zip(got, want))
+            check("flash_attention_bwd", rel <= FLASH_BWD_REL[dtype],
+                  f"{label}: {rel}")
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+            del got, want
+            lib_out = sdpa(qt, kt, vt, enable_gqa=True, is_causal=True)
+            dot = do.transpose(1, 2)
+            flops = 10.0 * dh * b * h * pairs
+            record(f"flash_attention_bwd[{label}]", err, FLASH_BWD_REL[dtype],
+                   lambda: bwd(q, k, v, o, lse, do, mode="cuda", **kw),
+                   timed_ms(torch, lambda: flash_attention_bwd_ref(
+                       q, k, v, o, lse, do, **kw), iters=2, warmup=1),
+                   timed_ms(torch, lambda: torch.autograd.grad(
+                       lib_out, (qt, kt, vt), dot, retain_graph=True),
+                       iters=5),
+                   esz * (3 * b * sq * h * dh + 4 * b * skv * hkv * dh)
+                   + 4.0 * b * h * sq, flops,
+                   {"shape": shape, "max_rel_err": rel,
+                    "tolerance": f"{FLASH_BWD_REL[dtype]} x max|grad|",
+                    "flops": flops, "bound_flop_rate": rate,
+                    "library_call": "autograd of scaled_dot_product_"
+                                    "attention(enable_gqa=True, "
+                                    "is_causal=True)"},
+                   kernel="flash_attention_bwd", flop_rate=rate)
+            del lib_out
+        del q, k, v, do, o, lse, o_ref, lse_ref, qt, kt, vt
+
+
 def train_runs(torch, train, build, kern, n_layers: int,
                modes=("auto", "torch"), finite: bool = True,
                arch: str = TRAIN_ARCH, seq: int = TRAIN_KW["seq"]) -> dict:
@@ -3115,6 +3265,426 @@ def mesh_census(torch, build) -> dict:
     return out
 
 
+def _mesh_state(torch, mesh, cfg, base: dict, specs: dict):
+    """Layout-A parameters and both histories as DTensors on ``mesh``,
+    placed by ``specs`` (``train_input_specs``), every client slot holding
+    ``base`` (whole tensors, in ``init_fl_histories``' cold boot: device
+    histories a copy of each slot, the leader's the float32 mean over the
+    clients, which is ``base``): only this rank's shards are made."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.hieavg import History
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import flatten, unflatten
+    e, c = specs["dev_mask"].shape
+
+    def slots(x):
+        return x[None, None].expand(e, c, *x.shape)
+
+    params = shd.place(unflatten({k: slots(v) for k, v in base.items()}),
+                       specs["params"], mesh)
+    flat = flatten(params)
+
+    def like(t, zero: bool):
+        loc = t.to_local()
+        return DTensor.from_local(torch.zeros_like(loc) if zero
+                                  else loc.clone(), mesh, t.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    def counts(spec):
+        return shd.place(torch.zeros(tuple(spec.shape), device="cuda"),
+                         spec, mesh)
+
+    dev = specs["dev_hist"]
+    dev_hist = History(prev_w={k: like(v, False) for k, v in flat.items()},
+                       delta_mean={k: like(v, True) for k, v in flat.items()},
+                       n_obs=counts(dev.n_obs),
+                       miss_count=counts(dev.miss_count))
+    glob = specs["glob_hist"]
+    prev = shd.place({k: v.float()[None] for k, v in base.items()},
+                     glob.prev_w, mesh)
+    glob_hist = History(prev_w=prev,
+                        delta_mean={k: like(v, True) for k, v in prev.items()},
+                        n_obs=counts(glob.n_obs),
+                        miss_count=counts(glob.miss_count))
+    return params, dev_hist, glob_hist
+
+
+def _flash_heads(shapes) -> dict:
+    """{kernel: sorted [(H, Hkv), ...]} of a ``shape_launches`` Counter."""
+    out: dict = {}
+    for key, n in shapes.items():
+        if n:
+            out.setdefault(key[0], set()).add((key[4], key[5]))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def mesh_train_rank(torch, build, kern, mesh) -> dict:
+    """One rank's ``make_hfl_train_step`` on the mesh (see MESH_STEPS_*).
+    Step 1 keeps each gradient leaf whole as the step takes it (its
+    ``_Shards.grad`` wrapped to gather it first), and a rank at model
+    coordinate 0 holds its client's against the one-card gradient of the
+    same weights and tokens (``steps._client_grads``, the kernels, whole
+    tensors), computed first; step 2, from the updated state, is timed,
+    its launches counted (set to 0 just before, read just after) in all
+    and by shape, its peak memory read."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.launch import inputs, steps
+    from repro_torch.launch.serve import make_params
+    from repro_torch.models.config import InputShape
+    cfg = dataclasses.replace(
+        cut_depth(get_config(TRAIN_ARCH), MESH_STEPS_LAYERS),
+        param_dtype="float32", clients_per_pod=MESH_STEPS_CLIENTS)
+    e, c, b, s = 1, MESH_STEPS_CLIENTS, MESH_STEPS_ROWS, MESH_STEPS_SEQ
+    base = steps.flatten(make_params(cfg, 0, "cuda"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MESH_STEPS_SEED)
+    toks = torch.randint(0, cfg.vocab, (e, c, b, s + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[..., :-1].contiguous(),
+             "labels": toks[..., 1:].contiguous()}
+    client = mesh.get_local_rank("data")
+    lead = mesh.get_local_rank("model") == 0
+    out = {"client": client, "arch": TRAIN_ARCH, "layers": MESH_STEPS_LAYERS,
+           "clients": c, "rows": b, "seq": s, "dtype": "float32"}
+    if lead:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, want = steps._client_grads(
+            steps.unflatten(base), batch["tokens"][0, client],
+            batch["labels"][0, client], cfg, remat=True, n_micro=1,
+            kernel_mode="auto")
+        torch.cuda.synchronize()
+        out["one_card_loss"], out["one_card_s"] = loss.item(), \
+            time.time() - t0
+        # one precision up: the same weights in float64 (plain attention)
+        _, exact = steps._client_grads(
+            steps.unflatten({k: v.double() for k, v in base.items()}),
+            batch["tokens"][0, client], batch["labels"][0, client],
+            dataclasses.replace(cfg, param_dtype="float64"), remat=True,
+            n_micro=1, kernel_mode="torch")
+        out["one_card_err"], out["one_card_err_leaf"] = worst_leaf(want,
+                                                                   exact)
+    specs = inputs.train_input_specs(
+        cfg, InputShape("mesh_steps", s, e * c * b, "train"), mesh)
+    state = _mesh_state(torch, mesh, cfg, base, specs)
+    del base
+    args = _mesh_batch(torch, mesh, specs, batch)
+    step = steps.make_hfl_train_step(cfg, mesh=mesh, kernel_mode="auto")
+    got, sound = {}, steps._Shards.grad
+
+    def grad(self, key, g):
+        whole = g.full_tensor()
+        if lead:
+            got[key] = whole
+        return sound(self, key, g)
+
+    steps._Shards.grad = grad
+    try:
+        *_, loss = step(*state, *args, 0.01)
+    finally:
+        steps._Shards.grad = sound
+    out["loss"] = loss.item()
+    if lead:
+        out["grad_rel_one_card"], _ = worst_leaf(got, want)
+        out["grad_worst_rel"], out["grad_worst_leaf"] = worst_leaf(got,
+                                                                   exact)
+        del exact
+    del got
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    with shape_launches(kern, build) as shapes:
+        t0 = time.time()
+        step(*state, *args, 0.01)
+        torch.cuda.synchronize()
+        out["wall_s"] = time.time() - t0
+    out["launches"] = dict(build.LAUNCHES)
+    out["flash_heads"] = _flash_heads(shapes)
+    out["launches_by_shape"] = [[*k, n] for k, n in shapes.items()]
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _mesh_batch(torch, mesh, specs, batch):
+    """The train step's batch, masks (every client present) and edge mask
+    placed on ``mesh`` by ``specs``."""
+    from repro_torch.launch import sharding as shd
+    e, c = specs["dev_mask"].shape
+    return shd.place(
+        (batch, torch.ones((e, c), dtype=torch.bool, device="cuda"),
+         torch.ones((e,), dtype=torch.bool, device="cuda")),
+        ({k: specs["batch"][k] for k in batch}, specs["dev_mask"],
+         specs["edge_mask"]), mesh)
+
+
+def mesh_serve_rank(torch, build, kern, mesh, arch: str, gen: int,
+                    dtype: str = "bfloat16") -> dict:
+    """One rank's prefill in ``dtype`` of ``arch`` (full width,
+    MESH_STEPS_LAYERS layers, MESH_STEPS_ROWS x MESH_STEPS_SEQ tokens) and
+    ``gen`` teacher-forced decode steps on the mesh, timed, launches
+    counted; rank 0 reads every step's logits (gathered whole) against the
+    one-card steps on the same weights (bf16 ones), caches and tokens, run
+    first in ``dtype`` and with the weights upcast one precision up."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.launch import inputs
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.serve import make_caches, make_params
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import cache_specs, init_from_specs
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim.sgd import tree_map
+    cfg = dataclasses.replace(cut_depth(get_config(arch), MESH_STEPS_LAYERS),
+                              param_dtype=dtype)
+    b, s = MESH_STEPS_ROWS, MESH_STEPS_SEQ
+    params = make_params(dataclasses.replace(cfg, param_dtype="bfloat16"), 0,
+                         "cuda")
+    params = tree_map(lambda t: t.to(cfg.torch_param_dtype), params)
+    gen_ = torch.Generator(device="cuda")
+    gen_.manual_seed(MESH_STEPS_SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (b, s + gen), generator=gen_,
+                         device="cuda")
+    out = {"arch": arch, "layers": MESH_STEPS_LAYERS, "rows": b,
+           "prompt": s, "gen": gen, "dtype": dtype}
+    ref = {}
+    if mesh.get_rank() == 0:
+        # the one-card steps, and again one precision up (bf16 -> float32,
+        # float32 -> float64), the same weights upcast
+        up = "float64" if dtype == "float32" else "float32"
+        for name, c in (("one_card", cfg), (
+                "up", dataclasses.replace(cfg, param_dtype=up))):
+            p = tree_map(lambda t: t.to(c.torch_param_dtype), params)
+            caches = init_from_specs(cache_specs(
+                c, b, s + gen, dtype=c.torch_param_dtype), None, "cuda")
+            mode = "torch" if up == "float64" and name == "up" else "auto"
+            lg, caches = make_prefill_step(c, mode)(p, toks[:, :s], caches)
+            ref[name] = [lg.double()]
+            for i in range(gen):
+                lg, caches = make_serve_step(c)(
+                    p, toks[:, s + i:s + i + 1], s + i, caches)
+                ref[name].append(lg.double())
+            del caches
+    specs = inputs.serve_input_specs(
+        cfg, InputShape("mesh_steps", s + gen, b, "prefill"), mesh)
+    dparams, dcaches = shd.place(
+        (params, make_caches(cfg, b, s + gen, "cuda",
+                             smoke=dtype == "float32")),
+        (specs["params"], specs["caches"]), mesh)
+    del params
+    prefill = make_prefill_step(cfg, "auto", mesh=mesh)
+    decode = make_serve_step(cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    logits, walls = [], []
+    with shape_launches(kern, build) as shapes:
+        for i in range(gen + 1):
+            tok = shd.place(toks[:, :s] if i == 0
+                            else toks[:, s + i - 1:s + i], specs["tokens"],
+                            mesh)
+            t0 = time.time()
+            if i == 0:
+                lg, dcaches = prefill(dparams, tok, dcaches)
+            else:
+                lg, dcaches = decode(dparams, tok, s + i - 1, dcaches)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            logits.append(lg.full_tensor())
+    out["launches"] = dict(build.LAUNCHES)
+    out["flash_heads"] = _flash_heads(shapes)
+    out["launches_by_shape"] = [[*k, n] for k, n in shapes.items()]
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["prefill_s"] = walls[0]
+    out["decode_s"] = walls[1:]
+    if ref:
+        def rel(got, want):
+            return [((g.double() - w).abs().max() / w.abs().max()).item()
+                    for g, w in zip(got, want)]
+        out["logits_rel_up"] = rel(logits, ref["up"])
+        out["one_card_rel_up"] = rel(ref["one_card"], ref["up"])
+        out["logits_rel_one_card"] = rel(logits, ref["one_card"])
+        out["finite"] = all(bool(torch.isfinite(g).all()) for g in logits)
+    return out
+
+
+def mesh_steps_rank(argv: list) -> int:
+    """One rank of ``mesh_steps`` (``--mesh-steps-rank R --mesh-world W
+    --mesh-port P --mesh-out DIR``): joins the group
+    (``launch.mesh.start_group``: collectives through host memory), runs
+    ``mesh_train_rank`` and ``mesh_serve_rank`` (danube with decode, then
+    MESH_STEPS_MOE's prefills) on ``make_debug_mesh(**MESH_STEPS_MESH)``
+    over the card, and writes its record (the collectives carried, by
+    kind) to DIR.  The kernels are built by the parent first."""
+    import torch
+    import torch.distributed as dist
+    arg = dict(zip(argv[::2], argv[1::2]))
+    rank, world = int(arg["--mesh-steps-rank"]), int(arg["--mesh-world"])
+    out = Path(arg["--mesh-out"])
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import (StagedGroup, make_debug_mesh,
+                                         start_group)
+    kern = importlib.import_module("repro_torch.kernels.flash_attention")
+    torch.cuda.set_device(0)
+    start_group(rank, world, int(arg["--mesh-port"]),
+                timeout_s=MESH_RANK_TIMEOUT)
+    try:
+        mesh = make_debug_mesh(**MESH_STEPS_MESH)
+        build.library()
+        rec = {"rank": rank, "coords": {a: mesh.get_local_rank(a)
+                                        for a in mesh.mesh_dim_names},
+               "device": f"cuda:{torch.cuda.current_device()}"}
+        t0 = time.time()
+        rec["train"] = mesh_train_rank(torch, build, kern, mesh)
+        rec["serve"] = mesh_serve_rank(torch, build, kern, mesh, SERVE_ARCH,
+                                       MESH_STEPS_GEN)
+        rec["serve_f32"] = mesh_serve_rank(torch, build, kern, mesh,
+                                           SERVE_ARCH, MESH_STEPS_GEN_F32,
+                                           "float32")
+        rec["moe"] = mesh_serve_rank(torch, build, kern, mesh,
+                                     MESH_STEPS_MOE, 0)
+        rec["moe_f32"] = mesh_serve_rank(torch, build, kern, mesh,
+                                         MESH_STEPS_MOE, 0, "float32")
+        rec["rank_s"] = time.time() - t0
+        carried: dict = {}
+        for (kind, what), n in StagedGroup.CARRIED.items():
+            carried.setdefault(kind, {})[what] = n
+        rec["carried"] = carried
+        (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_steps(torch, build) -> dict:
+    """The LLM steps on a mesh of MESH_STEPS_WORLD ranks sharing the card
+    (``mesh_steps_rank``), each a process of this script started after the
+    kernels are built.  Every rank must exit 0 (a rank's failure fails the
+    phase, nothing caught); every rank launches the flash forward (and in
+    training the backward) at its local head count (the heads over
+    ``model``: danube 32/8 -> 16/4, deepseek's MLA 16 -> 8); the ranks at
+    model coordinate 0 hold their client's gradients to the one-card ones,
+    the mean of their one-card losses is the mesh step's, rank 0's
+    logits stand as near the one-precision-up logits as the one-card ones
+    do, and its float32 logits as near the one-card float32 logits, each
+    by the bounds of MESH_STEPS_*.  Prints one line a rank (wall s,
+    launches, peak memory, the collectives each kind carried and by what)
+    and a summary; returns rank 0's train and serve records."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = ROOT / "build" / "mesh_steps"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    logs = [out / f"rank{r}.log" for r in range(MESH_STEPS_WORLD)]
+    procs = []
+    try:
+        for r in range(MESH_STEPS_WORLD):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(RANK_SCRIPT), "--mesh-steps-rank",
+                     str(r), "--mesh-world", str(MESH_STEPS_WORLD),
+                     "--mesh-port", str(port), "--mesh-out", str(out)],
+                    stdout=log, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_RANK_TIMEOUT
+                               - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        check("mesh_steps", False, f"a rank had not ended after "
+              f"{MESH_RANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t0
+    for r, p in enumerate(procs):
+        check("mesh_steps", p.returncode == 0, f"rank {r} exited "
+              f"{p.returncode}:\n{logs[r].read_text()[-4000:]}")
+    recs = [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(MESH_STEPS_WORLD)]
+    from repro_torch.configs import get_config
+    heads = {}
+    for arch, kind in ((TRAIN_ARCH, "attn"), (MESH_STEPS_MOE, "mla")):
+        h, hkv, _ = attn_heads(get_config(arch), kind)
+        m = MESH_STEPS_MESH["model"]
+        heads[arch] = [[h // m, hkv // m]]
+    for rec in recs:
+        emit({"mesh_steps_rank": rec})
+        tr, sv, moe = rec["train"], rec["serve"], rec["moe"]
+        check("launches", tr["flash_heads"].get("flash_attention")
+              == heads[TRAIN_ARCH]
+              and tr["flash_heads"].get("flash_attention_bwd")
+              == heads[TRAIN_ARCH],
+              f"mesh_steps rank {rec['rank']} train: flash launches by "
+              f"heads {tr['flash_heads']}, expected {heads[TRAIN_ARCH]}")
+        for part, arch in ((sv, TRAIN_ARCH), (rec["serve_f32"], TRAIN_ARCH),
+                           (moe, MESH_STEPS_MOE),
+                           (rec["moe_f32"], MESH_STEPS_MOE)):
+            check("launches", part["flash_heads"].get("flash_attention")
+                  == heads[arch] and not part["launches"].get(
+                      "flash_attention_bwd"),
+                  f"mesh_steps rank {rec['rank']} {arch}: flash launches "
+                  f"by heads {part['flash_heads']}, expected {heads[arch]}")
+        if "grad_worst_rel" in tr:
+            bound = max(MESH_STEPS_GRAD_REL,
+                        MESH_STEPS_SPREAD * tr["one_card_err"])
+            check("mesh_steps", tr["grad_worst_rel"] <= bound,
+                  f"rank {rec['rank']} client {tr['client']}: gradient "
+                  f"{tr['grad_worst_leaf']} {tr['grad_worst_rel']} of its "
+                  f"largest from float64 > {bound} (the one-card float32 "
+                  f"gradient's: {tr['one_card_err']})")
+    one_card = float(np.mean([r["train"]["one_card_loss"] for r in recs
+                              if "one_card_loss" in r["train"]]))
+    loss_rel = abs(recs[0]["train"]["loss"] - one_card) / abs(one_card)
+    check("mesh_steps", loss_rel <= MESH_STEPS_LOSS_REL,
+          f"loss {recs[0]['train']['loss']} against the one-card "
+          f"{one_card}: {loss_rel}")
+    for part, floor in (("serve_f32", MESH_STEPS_F32_REL),
+                        ("moe_f32", MESH_STEPS_F32_REL),
+                        ("serve", SERVE_REL_TOL), ("moe", SERVE_REL_TOL)):
+        r0 = recs[0][part]
+        bound = max(floor, MESH_STEPS_SPREAD * max(r0["one_card_rel_up"]))
+        check("mesh_steps", r0["finite"]
+              and max(r0["logits_rel_up"]) <= bound,
+              f"{r0['arch']} {r0['dtype']} logits from one precision up: "
+              f"{r0['logits_rel_up']} > {bound} (the one-card "
+              f"{r0['dtype']} logits': {r0['one_card_rel_up']})")
+        check("mesh_steps", r0["dtype"] != "float32"
+              or max(r0["logits_rel_one_card"]) <= bound,
+              f"{r0['arch']} float32 logits from the one-card float32 "
+              f"logits: {r0['logits_rel_one_card']} > {bound}")
+    summary = {
+        "world": MESH_STEPS_WORLD, "mesh": MESH_STEPS_MESH, "wall_s": wall,
+        "loss": recs[0]["train"]["loss"], "one_card_loss": one_card,
+        "loss_rel": loss_rel,
+        **{k: max(r["train"][k] for r in recs if k in r["train"])
+           for k in ("grad_worst_rel", "one_card_err",
+                     "grad_rel_one_card")},
+        **{f"{p}_{k}": max(recs[0][p][k])
+           for p in ("serve", "serve_f32", "moe", "moe_f32")
+           for k in ("logits_rel_up", "one_card_rel_up",
+                     "logits_rel_one_card")},
+        "tolerances": {"grad": [MESH_STEPS_GRAD_REL, MESH_STEPS_SPREAD],
+                       "loss": MESH_STEPS_LOSS_REL,
+                       "logits": [MESH_STEPS_F32_REL, SERVE_REL_TOL,
+                                  MESH_STEPS_SPREAD]},
+        "backend": {kind: "gloo on host copies (launch.mesh.StagedGroup)"
+                    for kind in recs[0]["carried"]},
+        "rank_wall_s": [r["rank_s"] for r in recs],
+        "train_step_s": [r["train"]["wall_s"] for r in recs],
+        "peak_memory_gb": [max(r[p]["peak_memory_gb"] for p in
+                               ("train", "serve", "serve_f32", "moe",
+                                "moe_f32"))
+                           for r in recs]}
+    emit({"mesh_steps": summary})
+    return {"train": recs[0]["train"], "serve": recs[0]["serve"]}
+
+
 def load_driver(name: str):
     """``examples_torch/<name>.py`` as a module (its ``main`` not run)."""
     spec = importlib.util.spec_from_file_location(
@@ -3320,6 +3890,8 @@ def main() -> int:
         return 2
     if "--mesh-rank" in sys.argv[1:]:
         return mesh_rank(sys.argv[1:])
+    if "--mesh-steps-rank" in sys.argv[1:]:
+        return mesh_steps_rank(sys.argv[1:])
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import core, fl
     from repro_torch.configs import DEFAULT, REDUCED, get_config
@@ -3910,6 +4482,7 @@ def main() -> int:
                     flash_bwd_design(torch, flash_kernels, randn,
                                      build.compile_library()))
     flash_model_timing(torch, flash_kernels, randn, record)
+    flash_shard_timing(torch, flash_kernels, randn, record)
 
     # ----------------------------------------------------------- the runs
     # every configuration with the kernels and with the plain versions; the
@@ -4020,6 +4593,7 @@ def main() -> int:
     mesh_sweep(torch, build, fl, sweep_setting, swept["fig3"],
                sgd_rows_check)
     mesh_census(torch, build)
+    meshed = mesh_steps(torch, build)
 
     # ------------------------------------ population mode, the legacy loop
     population_phase(torch, build, fl, core, setting, {
@@ -4162,6 +4736,12 @@ def main() -> int:
         shapes = main_runs[path][arch]["auto"][-1]
         launches[f"{name}[{label}]"] = shapes[timed_key(name, label)]
     launches["sgd_update[rows]"] = sweep_launches.get("sgd_update[rows]", 0)
+    for (name, label), part in SHARD_RUNS.items():
+        b, (sq, skv), dh, (h, hkv), _, _ = FLASH_SHARD[label]
+        key = list(flash_key(name, b, sq, skv, h, hkv, dh, True))
+        launches[f"{name}[{label}]"] = sum(
+            row[-1] for row in meshed[part]["launches_by_shape"]
+            if row[:-1] == key)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE[k],
          "replaces": REPLACES[k], "launches": launches[k],

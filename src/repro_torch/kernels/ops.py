@@ -29,13 +29,109 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     """The GQA flash attention (``kernels.flash_attention``).  When an
     input requires a gradient (and grad mode is on) it goes through
     ``FlashAttentionFn``, whose backward is the backward kernels; else the
-    forward alone, which writes no ``lse``."""
+    forward alone, which writes no ``lse``.  DTensor operands run on each
+    rank's shard (``flash_attention_sharded``)."""
+    if is_dtensor(q):
+        return flash_attention_sharded(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, mode=mode)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
                                       mode)
     return _flash_attention(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, mode=mode)
+
+
+def is_dtensor(t) -> bool:
+    # torch.distributed.tensor is imported only where a DTensor can exist
+    import sys
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def shard_plan(q, k) -> tuple:
+    """How the flash kernels take DTensors q ``[B, Sq, H, Dh]`` and k, v
+    ``[B, Skv, Hkv, Dh]`` on one mesh: (q's placements, k's and v's, the
+    placements of k's and v's gradients), one each a mesh dim.
+
+    Per mesh dim, by q's placement there: batch split (``Shard(0)``): k and
+    v split alike; heads split (``Shard(2)``): k and v split alike where
+    their heads divide with the group size kept, else whole, each rank
+    then reading the kv heads of its own query heads; query rows split
+    (``Shard(1)``, sequence parallelism or the K/V gather): k and v whole;
+    whole: k and v whole.  Where k and v are whole but q is split, each
+    rank's dk and dv are a part of the sum (``Partial``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    qp, kp, gp = [], [], []
+    for i, p in enumerate(q.placements):
+        n = mesh.shape[i]
+        if p.is_shard(0) or (p.is_shard(2) and k.shape[2] % n == 0
+                             and k.placements[i] == Shard(2)):
+            qp.append(p)
+            kp.append(p)
+            gp.append(p)
+        elif p.is_shard(1) or p.is_shard(2):
+            if q.shape[p.dim] % n:
+                raise ValueError(f"flash_attention: q {tuple(q.shape)} split "
+                                 f"{n} ways on dim {p.dim}")
+            qp.append(p)
+            kp.append(Replicate())
+            gp.append(Partial())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+            gp.append(Replicate())
+    return tuple(qp), tuple(kp), tuple(gp)
+
+
+def run_sharded(q, k, v, fn):
+    """``fn(q_local, k_local, v_local, row0)`` on each rank's local shards of
+    DTensors q, k, v placed by ``shard_plan`` (through ``local_map``: no
+    DTensor reaches ``fn``), its output placed as q is.  ``row0`` is the
+    first global query row of the rank (its rows' share of a sequence
+    split); a rank holding query heads ``[r H_l, (r + 1) H_l)`` beside
+    whole k and v gets the kv heads of its own query heads (head ``h``
+    reads kv head ``h // G``, as on one card)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    qp, kp, gp = shard_plan(q, k)
+    g = q.shape[2] // k.shape[2]
+
+    def local(ql, kl, vl):
+        row0 = 0
+        for i, p in enumerate(qp):
+            r = mesh.get_local_rank(i)
+            if p.is_shard(1):
+                row0 += r * ql.shape[1]
+            elif p.is_shard(2) and not kp[i].is_shard():
+                first, hl = r * ql.shape[2], ql.shape[2]
+                if hl % g == 0:           # whole groups: their kv heads
+                    kl = kl[:, :, first // g:(first + hl) // g]
+                    vl = vl[:, :, first // g:(first + hl) // g]
+                elif g % hl == 0:         # a part of one group: its kv head
+                    kl = kl[:, :, first // g:first // g + 1]
+                    vl = vl[:, :, first // g:first // g + 1]
+                else:                     # one kv head a query head
+                    idx = (first + torch.arange(hl, device=kl.device)) // g
+                    kl, vl = kl[:, :, idx], vl[:, :, idx]
+        return fn(ql, kl, vl, row0)
+
+    return local_map(local, out_placements=list(qp),
+                     in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, gp, gp), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def flash_attention_sharded(q, k, v, *, causal: bool = True, window=None,
+                            q_offset: int = 0, mode: str = "auto"):
+    """``flash_attention`` of DTensors: each rank's kernels (forward, and
+    its backward under autograd) on its local shards (``run_sharded``); a
+    rank holding query rows ``[r Sq_l, (r + 1) Sq_l)`` masks them from
+    ``q_offset + r Sq_l``."""
+    return run_sharded(q, k, v, lambda ql, kl, vl, row0: flash_attention(
+        ql, kl, vl, causal=causal, window=window, q_offset=q_offset + row0,
+        mode=mode))
 
 
 def fused_mix_and_update(stacked_w: dict, mask: torch.Tensor,

@@ -14,11 +14,19 @@ production mesh as a meta-device DTensor.  Per pair the record holds:
   and convolutions, which the mesh does not change);
 * ``n_micro`` (train shapes), by the reference's rule.
 
-The compiled-program fields of the reference's record (``temp`` bytes in
-``memory``, ``hlo_bytes``, ``collectives``) come from a compiler that
-partitions the step over the mesh; the port runs its steps eagerly on one
-card, so they are ``null`` here (``ROADMAP.md``, Queue 1), and the
-reference's HLO text parsers have no counterpart.
+* ``collectives``: ``{kind: {"count", "bytes"}}`` under the reference's
+  five kinds (``KINDS``) and ``total_bytes``, of one rank running the
+  plain step (``kernel_mode="torch"``) on the stand-ins over the fake
+  group (``collective_census``): the DTensor redistributions of the
+  ``model`` (and FSDP ``data``) axes and the FL axes' explicit
+  all-reduces, as ``CommDebugMode`` counts them, and each call's output
+  bytes on the rank (the reference counts each HLO collective's result
+  bytes).  The step runs eagerly, so a loop's collectives are counted as
+  often as they run: no trip-count parser is needed.  The counts are the
+  port's own partitioning, not XLA's.
+
+The reference's ``memory.temp_size_in_bytes`` and ``hlo_bytes`` read a
+compiled program; the port compiles none, so they are ``null``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k \\
@@ -48,6 +56,28 @@ from repro_torch.launch.steps import (make_hfl_train_step, make_prefill_step,
 from repro_torch.models.config import INPUT_SHAPES, ArchConfig, InputShape
 
 N_RANKS = 512
+
+#: the reference's collective kinds (``repro.launch.dryrun._COLLECTIVES``)
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
+#: the kind of each collective op that ``CommDebugMode`` counts, by name
+#: (functional collectives, and the c10d ops of explicit calls)
+KIND_OF = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "_allgather_base_": "all-gather", "allgather_": "all-gather",
+    "allgather_coalesced_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
+    "alltoall_base_": "all-to-all",
+}
 
 
 def start_fake_group(world: int = N_RANKS) -> None:
@@ -96,19 +126,86 @@ def step_flops(cfg: ArchConfig, shape: InputShape, mesh, device="meta",
     ``FlopCounterMode`` counts them, run on ``device``."""
     x = materialize(input_specs(cfg, shape, mesh), device)
     with FlopCounterMode(display=False) as fc:
-        if shape.kind == "train":
-            step = make_hfl_train_step(cfg, n_micro=micro,
-                                       kernel_mode="torch")
-            step(x["params"], x["dev_hist"], x["glob_hist"], x["batch"],
-                 x["dev_mask"], x["edge_mask"], x["lr"])
-        elif shape.kind == "prefill":
-            make_prefill_step(cfg, "torch")(x["params"], x["tokens"],
-                                            x["caches"],
-                                            memory=x.get("memory"))
-        else:
-            make_serve_step(cfg)(x["params"], x["token"], shape.seq_len - 1,
-                                 x["caches"], x.get("memory"))
+        run_step(cfg, shape, None, x, micro=micro)
     return float(fc.get_total_flops())
+
+
+def _out_bytes(name: str, args, out) -> int:
+    """One rank's output bytes of a collective: a functional op's result,
+    a c10d op's output buffers (its first argument)."""
+    def size(x):
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        if isinstance(x, (list, tuple)):
+            return sum(size(y) for y in x)
+        return 0
+    return size(out) if not name.endswith("_") else size(args[0])
+
+
+def census_mode():
+    """A ``CommDebugMode`` that also sums each collective's output bytes by
+    kind (``.bytes``)."""
+    from collections import Counter
+
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    class Census(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            name = getattr(getattr(func, "_overloadpacket", None),
+                           "__name__", "")
+            if out is not NotImplemented and name in KIND_OF:
+                self.bytes[KIND_OF[name]] += _out_bytes(name, args, out)
+            return out
+
+    return Census()
+
+
+def by_kind(mode) -> dict:
+    """``{kind: {"count", "bytes"}}`` over ``KINDS`` (a kind outside them,
+    such as a broadcast, under its op's name) and ``total_bytes``, of a
+    ``census_mode`` (or a plain ``CommDebugMode``: bytes 0)."""
+    out = {k: {"count": 0, "bytes": 0} for k in KINDS}
+    for op, n in mode.get_comm_counts().items():
+        name = getattr(op, "__name__", str(op))
+        kind = KIND_OF.get(name, name)
+        out.setdefault(kind, {"count": 0, "bytes": 0})["count"] += n
+    for kind, b in getattr(mode, "bytes", {}).items():
+        out[kind]["bytes"] += b
+    out["total_bytes"] = sum(v["bytes"] for v in out.values())
+    return out
+
+
+def run_step(cfg: ArchConfig, shape: InputShape, mesh, x: dict, *,
+             micro: int = 1, kernel_mode: str = "torch"):
+    """The step of ``shape``'s kind on inputs ``x`` (``input_specs``'s
+    tree: stand-ins, or tensors placed as they are) over ``mesh`` (None:
+    whole tensors, no mesh)."""
+    if shape.kind == "train":
+        step = make_hfl_train_step(cfg, n_micro=micro, mesh=mesh,
+                                   kernel_mode=kernel_mode)
+        return step(x["params"], x["dev_hist"], x["glob_hist"], x["batch"],
+                    x["dev_mask"], x["edge_mask"], x["lr"])
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, kernel_mode, mesh=mesh)(
+            x["params"], x["tokens"], x["caches"], memory=x.get("memory"))
+    return make_serve_step(cfg, mesh=mesh)(
+        x["params"], x["token"], shape.seq_len - 1, x["caches"],
+        x.get("memory"))
+
+
+def collective_census(cfg: ArchConfig, shape: InputShape, mesh,
+                      micro: int = 1) -> dict:
+    """``by_kind`` of one rank's plain step on the pair's stand-ins over
+    ``mesh`` (a ``DeviceMesh``, of a fake group in the dry-run)."""
+    specs = input_specs(cfg, shape, mesh)
+    with census_mode() as mode:
+        run_step(cfg, shape, mesh, specs, micro=micro)
+    return by_kind(mode)
 
 
 def split_census(specs: dict, mesh) -> dict:
@@ -146,7 +243,9 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool,
                      **{f"{k}_bytes": v for k, v in split.items()},
                      "temp_size_in_bytes": None}
     rec["hlo_bytes"] = None
-    rec["collectives"] = None
+    t0 = time.time()
+    rec["collectives"] = collective_census(cfg, shape, mesh, micro=micro)
+    rec["collectives_s"] = round(time.time() - t0, 2)
     return rec
 
 

@@ -7,8 +7,11 @@ amortizes.  Each mesh is a ``torch.distributed.device_mesh.DeviceMesh``
 over the ranks of the process group, so a mesh needs one: the dry-run
 (``launch.dryrun``) starts a fake group of 512 ranks; a sweep over ranks
 starts a real one (``gloo``, or ``nccl`` beside a ``gloo`` group for the
-sweep's gather).  Where no group is running, ``make_debug_mesh`` and
-``make_sweep_mesh`` start a group of one rank in this process.
+sweep's gather); the LLM steps on a mesh run on ``start_group``'s, whose
+collectives ``gloo`` carries through host memory (``StagedGroup``), so
+that several ranks can share a card.  Where no group is running,
+``make_debug_mesh`` and ``make_sweep_mesh`` start a group of one rank in
+this process.
 
 ``mesh_shape`` reads ``{axis: extent}`` from a ``DeviceMesh`` or from any
 object whose ``.shape`` is such a mapping, so the sharding rules and the
@@ -16,6 +19,8 @@ census can be worked out for a mesh no process group backs.
 """
 from __future__ import annotations
 
+import datetime
+from collections import Counter
 from collections.abc import Mapping
 
 import torch
@@ -28,6 +33,165 @@ PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense (NVIDIA H100 80GB HBM3, 700 W)
 HBM_BW = 3.35e12                # bytes/s (NVIDIA H100 80GB HBM3, 700 W)
 NVLINK_BW = 450e9               # bytes/s each direction, NVLink 4 (18 links;
 #                                 NVIDIA H100 80GB HBM3, 700 W)
+
+
+#: the backend ``start_group`` registers: every collective of a rank's
+#: tensors carried by ``gloo`` on host copies (``StagedGroup``)
+STAGED = "gloo_staged"
+
+
+class StagedGroup(dist.ProcessGroup):
+    """A process group whose collectives run on a ``gloo`` group of the same
+    ranks, each CUDA tensor copied to the host before and back after (a CPU
+    tensor goes as it is).
+
+    Several ranks share one card in the mesh checks, which NCCL refuses;
+    ``gloo`` takes CUDA tensors itself for most collectives, but the
+    functional all-gather that a DTensor's ``Shard -> Replicate`` issues
+    crashed on CUDA tensors (torch 2.11, NVIDIA H100 80GB HBM3).  Staging
+    every collective through the host the same way keeps one path for all
+    of them.  ``CARRIED`` counts each kind's calls and bytes (one rank's
+    input)."""
+
+    CARRIED: Counter = Counter()
+
+    def __init__(self, store, rank: int, size: int, timeout):
+        super().__init__(rank, size)
+        self._gloo = dist.ProcessGroupGloo(store, rank, size, timeout)
+
+    def getBackendName(self) -> str:
+        return STAGED
+
+    @property
+    def group_name(self) -> str:
+        return dist.distributed_c10d._world.pg_names[self]
+
+    @staticmethod
+    def _host(ts):
+        return [t.cpu() for t in ts]
+
+    @staticmethod
+    def _back(dst, src) -> None:
+        for d, s in zip(dst, src):
+            if d is not s:
+                d.copy_(s)
+
+    def _note(self, kind: str, ts) -> None:
+        self.CARRIED[kind, "count"] += 1
+        self.CARRIED[kind, "bytes"] += sum(t.numel() * t.element_size()
+                                           for t in ts)
+
+    def _done(self):
+        fut = torch.futures.Future()
+        fut.set_result(None)
+        return torch._C._distributed_c10d._create_work_from_future(fut)
+
+    def allreduce(self, tensors, opts=None):
+        self._note("all-reduce", tensors)
+        host = self._host(tensors)
+        self._gloo.allreduce(host, opts or dist.AllreduceOptions()).wait()
+        self._back(tensors, host)
+        return self._done()
+
+    def allreduce_coalesced(self, tensors, opts=None):
+        for t in tensors:
+            self.allreduce([t], opts)
+        return self._done()
+
+    def broadcast(self, tensors, opts=None):
+        self._note("broadcast", tensors)
+        host = self._host(tensors)
+        self._gloo.broadcast(host, opts or dist.BroadcastOptions()).wait()
+        self._back(tensors, host)
+        return self._done()
+
+    def allgather(self, outputs, inputs, opts=None):
+        self._note("all-gather", inputs)
+        hin = self._host(inputs)
+        hout = [self._host(o) for o in outputs]
+        self._gloo.allgather(hout, hin).wait()
+        for o, h in zip(outputs, hout):
+            self._back(o, h)
+        return self._done()
+
+    def _allgather_base(self, output, input, opts=None):
+        self._note("all-gather", [input])
+        hout = output.cpu()
+        self._gloo._allgather_base(hout, input.cpu()).wait()
+        self._back([output], [hout])
+        return self._done()
+
+    all_gather_single = _allgather_base
+
+    def allgather_into_tensor_coalesced(self, outputs, inputs, opts=None):
+        for o, i in zip(outputs, inputs):
+            self._allgather_base(o, i)
+        return self._done()
+
+    def reduce_scatter(self, outputs, inputs, opts=None):
+        self._note("reduce-scatter", [t for ts in inputs for t in ts])
+        hout = self._host(outputs)
+        hin = [self._host(ts) for ts in inputs]
+        self._gloo.reduce_scatter(hout, hin, opts or
+                                  dist.ReduceScatterOptions()).wait()
+        self._back(outputs, hout)
+        return self._done()
+
+    def _reduce_scatter_base(self, output, input, opts=None):
+        self._note("reduce-scatter", [input])
+        hout = output.cpu()
+        self._gloo._reduce_scatter_base(
+            hout, input.cpu(), opts or dist.ReduceScatterOptions()).wait()
+        self._back([output], [hout])
+        return self._done()
+
+    reduce_scatter_single = _reduce_scatter_base
+
+    def reduce_scatter_tensor_coalesced(self, outputs, inputs, opts=None):
+        for o, i in zip(outputs, inputs):
+            self._reduce_scatter_base(o, i, opts)
+        return self._done()
+
+    def alltoall_base(self, output, input, out_splits, in_splits,
+                      opts=None):
+        self._note("all-to-all", [input])
+        hout = output.cpu()
+        self._gloo.alltoall_base(hout, input.cpu(), out_splits or [],
+                                 in_splits or [],
+                                 opts or dist.AllToAllOptions()).wait()
+        self._back([output], [hout])
+        return self._done()
+
+    all_to_all_single = alltoall_base
+
+    def scatter(self, outputs, inputs, opts=None):
+        self._note("scatter", [t for ts in inputs for t in ts])
+        hout = self._host(outputs)
+        hin = [self._host(ts) for ts in inputs]
+        self._gloo.scatter(hout, hin, opts or dist.ScatterOptions()).wait()
+        self._back(outputs, hout)
+        return self._done()
+
+    def barrier(self, opts=None):
+        self._gloo.barrier(opts or dist.BarrierOptions()).wait()
+        return self._done()
+
+
+def _staged(store, rank: int, size: int, timeout) -> StagedGroup:
+    return StagedGroup(store, rank, size, timeout)
+
+
+def start_group(rank: int, world: int, port: int, *,
+                timeout_s: float = 300.0) -> None:
+    """This process's rank of a ``world``-rank group on
+    ``tcp://127.0.0.1:port`` whose collectives ``StagedGroup`` carries: the
+    ranks of a mesh sharing one card, or the CPU."""
+    if STAGED not in dist.Backend.backend_list:
+        dist.Backend.register_backend(STAGED, _staged,
+                                      devices=["cpu", "cuda"])
+    dist.init_process_group(STAGED, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s))
 
 
 def _device_type() -> str:

@@ -33,6 +33,7 @@ The port's kernel policy (the reference re-exports
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -245,3 +246,37 @@ def shard_abstract(specs: PyTree, rules: dict, mesh,
 def batch_axes(mesh) -> tuple:
     """The composite batch axis: ("pod", "data") when pods exist."""
     return ("pod", "data") if "pod" in mesh_shape(mesh) else ("data",)
+
+
+def place(tree: PyTree, specs: PyTree, mesh: DeviceMesh) -> PyTree:
+    """A tree of whole tensors (dicts, tuples and dataclasses such as
+    ``History``) as DTensors on ``mesh``, each placed by its spec in
+    ``specs`` (a tree of the same form, or of stand-ins carrying ``.spec``);
+    each rank keeps its own chunk of the tensor it holds, so every rank
+    must hold the same whole tensors.  No data moves."""
+    if isinstance(tree, torch.Tensor):
+        from torch.distributed.tensor import distribute_tensor
+        spec = specs.spec if isinstance(specs, torch.Tensor) else specs
+        return distribute_tensor(tree, mesh, placements(spec, mesh),
+                                 src_data_rank=None)
+    if isinstance(tree, dict):
+        return {k: place(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(place(v, s, mesh) for v, s in zip(tree, specs))
+    return dataclasses.replace(tree, **{
+        f.name: place(getattr(tree, f.name), getattr(specs, f.name), mesh)
+        for f in dataclasses.fields(tree)})
+
+
+def whole(tree: PyTree) -> PyTree:
+    """``place``'s inverse: every DTensor of a tree gathered whole on every
+    rank (``full_tensor``); plain tensors as they are."""
+    if isinstance(tree, torch.Tensor):
+        return tree.full_tensor() if hasattr(tree, "full_tensor") else tree
+    if isinstance(tree, dict):
+        return {k: whole(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(whole(v) for v in tree)
+    return dataclasses.replace(tree, **{
+        f.name: whole(getattr(tree, f.name))
+        for f in dataclasses.fields(tree)})

@@ -1,13 +1,30 @@
 """Step builders: hierarchical FL training and serving
 (``repro.launch.steps`` for the port).
 
-Plain closures over the config and the kernel mode; the JAX package jits
-them and places them on a mesh, the port runs them eagerly on one card.
-Each builder takes the reference's ``mesh=``: a mesh whose every axis has
-extent 1 computes exactly what no mesh does, and a mesh with an axis
-above 1 raises ``NotImplementedError`` (tensor- and FSDP-parallel steps
-are not ported; the reference's sharding hints, ``_set_moe_hint``, have
-nothing to pin on one card).
+Plain closures over the config and the kernel mode, run eagerly; the JAX
+package jits them and places them on a mesh.  Each builder takes the
+reference's ``mesh=``.  Without one, or on a mesh whose every axis has
+extent 1, the step runs on plain tensors as they come.  On a
+``DeviceMesh`` with an axis above 1 (``_sharded``) the step takes and
+returns DTensors placed as ``launch.inputs`` places them
+(``sharding.place`` makes them from whole tensors) and computes what the
+meshless step computes:
+
+* the FL axes by explicit collectives: each rank holds its own
+  ``[E/pod, C/data, ...]`` slots and runs local SGD on them only; HieAvg
+  at the edge (a sum over C) ends in an all-reduce over ``data``, at the
+  leader (a sum over E) in one over ``pod``, as the reference's docstring
+  says, and the global model goes into the local slots;
+* the ``model`` axis (and, for one client a pod or serving, FSDP of
+  ``embed`` over ``data``) as DTensors: each client slot is a DTensor on
+  the sub-mesh of those axes, the unchanged model code runs on it, and
+  the reference's hints (``_set_moe_hint``, ``act_spec``) are worked out
+  once a step (``step_hints``) and applied as explicit redistributions
+  (``models.hints``); the flash kernels run on each rank's shard
+  (``kernels.ops.flash_attention_sharded``).  The model code reads the
+  hints from one slot of the process (autograd's device thread must see
+  them), so a process runs one mesh step at a time: a second step
+  entered while one runs, from another thread, raises.
 
 Layout A (train): every parameter leaf is ``[E, C, *shape]``: E edges
 (pods), C clients an edge.  One ``make_hfl_train_step`` step is
@@ -32,12 +49,14 @@ Layout B (serve, and ``make_train_step``): plain parameter dicts.
 from __future__ import annotations
 
 import math
+import sys
 
 import torch
 
 from repro_torch.core import hieavg
 from repro_torch.core.hieavg import History
 from repro_torch.launch.mesh import mesh_shape
+from repro_torch.models import hints
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import decode_step, loss_fn, prefill
 from repro_torch.optim.sgd import OptState, sgd_leaf, sgd_step
@@ -97,34 +116,58 @@ def _pieces(flat: dict, lead: int) -> list:
     return out
 
 
+def _micro(t: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of a ``[b, ...]`` batch: its rows ``[i b/n,
+    (i + 1) b/n)``; for a DTensor split on its rows, those of each rank's
+    own rows (no row moves between ranks)."""
+    if n == 1:
+        return t
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is not None and isinstance(t, dt.DTensor):
+        loc = t.to_local()
+        mb = loc.shape[0] // n
+        return dt.DTensor.from_local(loc[i * mb:(i + 1) * mb],
+                                     t.device_mesh, t.placements,
+                                     run_check=False)
+    mb = t.shape[0] // n
+    return t[i * mb:(i + 1) * mb]
+
+
 def _client_grads(slot: dict, tokens, labels, cfg: ArchConfig, *,
-                  memory=None, remat: bool, n_micro: int, kernel_mode: str):
+                  memory=None, remat: bool, n_micro: int, kernel_mode: str,
+                  to_local=None):
     """(loss, flat gradients) of one client's ``[b, S]`` batch (and its raw
     memory ``[b, *memory shape]``, or None) against its parameter slot
     (detached leaves).  ``n_micro`` > 1: the mean over microbatches of
-    ``b // n_micro`` rows, accumulated in float32."""
+    ``b // n_micro`` rows, accumulated in float32.  ``to_local(key, g)``
+    (DTensor leaves): each gradient at its parameter's placements, local,
+    taken before it is accumulated, so that the accumulator is as split as
+    the weights and never gathers one."""
     leaves = {k: v.detach().requires_grad_() for k, v in
               flatten(slot).items()}
     tree = unflatten(leaves)
+    put = to_local or (lambda k, g: g)
 
-    def one(rows):
-        mem = None if memory is None else memory[rows]
-        loss = loss_fn(tree, tokens[rows], labels[rows], cfg,
-                       memory_embeds=mem, remat=remat,
+    def one(i):
+        tok, lab, mem = (None if t is None else _micro(t, i, n_micro)
+                         for t in (tokens, labels, memory))
+        loss = loss_fn(tree, tok, lab, cfg, memory_embeds=mem, remat=remat,
                        kernel_mode=kernel_mode)
-        return loss, torch.autograd.grad(loss, list(leaves.values()))
+        return loss, [put(k, g) for k, g in zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values())))]
 
     if n_micro == 1:
-        loss, grads = one(slice(None))
+        loss, grads = one(0)
         return loss.detach(), dict(zip(leaves, grads))
-    mb = tokens.shape[0] // n_micro
-    loss_acc = torch.zeros((), dtype=f32, device=tokens.device)
-    acc = {k: torch.zeros(v.shape, dtype=f32, device=v.device)
-           for k, v in leaves.items()}
+    loss_acc = None
+    acc = {}
     for i in range(n_micro):
-        loss, grads = one(slice(i * mb, (i + 1) * mb))
-        loss_acc = loss_acc + loss.detach()
+        loss, grads = one(i)
+        loss_acc = loss.detach() if loss_acc is None else \
+            loss_acc + loss.detach()
         for k, g in zip(leaves, grads):
+            if k not in acc:
+                acc[k] = torch.zeros(g.shape, dtype=f32, device=g.device)
             acc[k] += g
     inv = 1.0 / n_micro
     return loss_acc * inv, {k: g * inv for k, g in acc.items()}
@@ -154,16 +197,211 @@ def _advance_counts_(h: History, mask: torch.Tensor) -> None:
     h.miss_count.copy_((h.miss_count + 1.0) * (1.0 - m))
 
 
-def _one_card(mesh) -> None:
-    """Refuse a mesh the one-card steps cannot honour: any axis above 1."""
-    if mesh is None:
-        return
-    wide = {a: n for a, n in mesh_shape(mesh).items() if n > 1}
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {wide}: the port's LLM steps run on one card; "
-            "steps split over a 'model' or 'data' axis are not ported "
-            "(ROADMAP.md, Queue 1: tensor- and FSDP-parallel LLM steps)")
+def _wide(mesh) -> bool:
+    """Whether ``mesh`` has an axis above 1 (the sharded path)."""
+    return mesh is not None and any(n > 1 for n in
+                                    mesh_shape(mesh).values())
+
+
+def _local_tree(tree):
+    """A tree's DTensors as their local tensors (views), the rest as it
+    is."""
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is not None and isinstance(tree, dt.DTensor):
+        return tree.to_local()
+    if isinstance(tree, dict):
+        return {k: _local_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_local_tree(v) for v in tree)
+    if isinstance(tree, History):
+        return _local_history(tree, _local_tree)
+    return tree
+
+
+def _has_dtensor(tree) -> bool:
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is None:
+        return False
+    if isinstance(tree, dt.DTensor):
+        return True
+    if isinstance(tree, dict):
+        return any(_has_dtensor(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return any(_has_dtensor(v) for v in tree)
+    if isinstance(tree, History):
+        return _has_dtensor((tree.prev_w, tree.delta_mean, tree.n_obs))
+    return False
+
+
+def _one_rank(step, mesh, state):
+    """``step`` as it is, or on a mesh of extent 1 on every axis taking any
+    DTensor arguments' local tensors (each the whole tensor: the meshless
+    step, whose in-place updates reach the DTensors); ``state(args, out)``
+    gives the outputs back with the DTensor trees updated in place."""
+    if mesh is None or _wide(mesh):
+        return step
+
+    def local(*args, **kw):
+        if not _has_dtensor((args, kw)):
+            return step(*args, **kw)
+        return state(args, step(*_local_tree(args), **_local_tree(kw)))
+
+    return local
+
+
+def _dtensor():
+    import torch.distributed.tensor as dt
+    return dt
+
+
+def step_hints(cfg: ArchConfig, mesh, *, train: bool):
+    """(``models.hints.Hints``, the mesh they act on) of a step on
+    ``mesh``: the reference's ``_set_moe_hint`` choices and, for training,
+    its ``act_spec``, as state of the step.
+
+    * ``experts``: the expert all-to-all where the experts divide ``model``;
+    * ``heads``: q, k, v split on heads where the q heads divide ``model``
+      and the kv heads do too (or the layer is MLA, whose per-head K
+      is made on the rank);
+    * ``kv_gather``: K/V gathered once a layer where the q heads do not
+      divide ``model`` (not for MLA);
+    * ``seq`` (training): the residual stream's sequence over ``model``,
+      and its batch over ``data`` for one client a pod.
+
+    A train step's model DTensors live on ``model`` (and ``data`` for one
+    client a pod: FSDP of ``embed``), since ``pod`` and ``data`` carry the
+    FL dims; a serve step's on the whole mesh.  None where no such axis is
+    above 1."""
+    shape = mesh_shape(mesh)
+    m = shape.get("model", 1)
+    flags = hint_flags(cfg, m)
+    if train:
+        names = tuple(a for a in (("data",) if cfg.clients_per_pod == 1
+                                  else ()) + ("model",)
+                      if shape.get(a, 1) > 1)
+        if not names:
+            return None, None
+        sub = mesh[names if len(names) > 1 else names[0]]
+    else:
+        names, sub = tuple(mesh.mesh_dim_names), mesh
+    model = names.index("model") if "model" in names and m > 1 else None
+    data = names.index("data") if "data" in names and \
+        shape["data"] > 1 else None
+    seq = None
+    if train and model is not None:
+        dt = _dtensor()
+        seq = tuple(dt.Shard(1) if a == "model" else dt.Shard(0)
+                    for a in names)
+    return hints.Hints(mesh=sub, model=model, data=data, seq=seq,
+                       fsdp=data is not None, **flags), sub
+
+
+def hint_flags(cfg: ArchConfig, model: int) -> dict:
+    """The reference's ``_set_moe_hint`` choices on a ``model`` axis of
+    that extent: ``heads`` (``HEAD_SPEC``), ``kv_gather``
+    (``KV_GATHER_SPEC``), ``experts`` (``EXPERT_PARALLEL_SPEC``)."""
+    kv_ok = cfg.mla is not None or cfg.n_kv_heads % model == 0
+    heads = model > 1 and cfg.n_heads % model == 0 and kv_ok
+    return {"heads": heads,
+            "kv_gather": (model > 1 and not heads and cfg.mla is None
+                          and cfg.n_heads % model != 0),
+            "experts": (model > 1 and cfg.moe is not None
+                        and cfg.moe.n_experts % model == 0)}
+
+
+class _Shards:
+    """A train step's view of its DTensors on ``mesh``: each leaf's local
+    ``[E/pod, C/data, ...]`` slots (never indexed as a DTensor along a
+    split FL dim, which would gather the whole stack), each client slot as
+    a DTensor on the step's sub-mesh, and the FL axes' all-reduces."""
+
+    def __init__(self, mesh, sub):
+        self.mesh, self.sub = mesh, sub
+        names = list(mesh.mesh_dim_names)
+        self.sub_dims = [names.index(a) for a in
+                         (sub.mesh_dim_names if sub is not None else ())]
+        shape = mesh_shape(mesh)
+        self.groups = {a: mesh.get_group(a) for a in ("pod", "data")
+                       if shape.get(a, 1) > 1}
+        self.inner = {}
+
+    def note(self, key: str, t) -> None:
+        """Record leaf ``key``'s inner placements on the sub-mesh: its
+        placement on each sub-mesh dim, the two FL dims dropped."""
+        if self.sub is None:
+            return
+        dt = _dtensor()
+        pl = []
+        for d in self.sub_dims:
+            p = t.placements[d]
+            if p.is_shard():
+                if p.dim < 2:
+                    raise ValueError(f"{key}: an FL dim split on a model "
+                                     f"axis ({t.placements})")
+                p = dt.Shard(p.dim - 2)
+            pl.append(p if p.is_shard() else dt.Replicate())
+        self.inner[key] = tuple(pl)
+
+    def slot(self, key: str, local):
+        """Client slot ``local`` (a local tensor) as a DTensor on the
+        sub-mesh (plain where there is none)."""
+        if self.sub is None:
+            return local
+        dt = _dtensor()
+        return dt.DTensor.from_local(local, self.sub, self.inner[key],
+                                     run_check=False)
+
+    def batch(self, local, split: bool):
+        """A client's batch rows: split over ``data`` where one client a pod
+        spreads its batch there, else whole on the sub-mesh."""
+        if self.sub is None:
+            return local
+        dt = _dtensor()
+        pl = tuple(dt.Shard(0) if split and a == "data" else dt.Replicate()
+                   for a in self.sub.mesh_dim_names)
+        return dt.DTensor.from_local(local, self.sub, pl, run_check=False)
+
+    def grad(self, key: str, g):
+        """A gradient at its parameter's placements, local: a partial sum
+        reduced (scattered where the parameter is split)."""
+        if self.sub is None:
+            return g
+        return g.redistribute(self.sub, self.inner[key]).to_local()
+
+    def whole(self, t):
+        """A DTensor's value whole on this rank (a pending sum reduced)."""
+        return t.full_tensor() if self.sub is not None else t
+
+    def all_reduce(self, t, axis: str):
+        """``t`` summed over ``axis`` (in place) where it is split over it
+        (None: no axis), by the functional all-reduce (the op the dry-run's
+        census counts, on any backend)."""
+        if axis in self.groups:
+            from torch.distributed import _functional_collectives as funcol
+            t.copy_(funcol.all_reduce(t, "sum", self.groups[axis]))
+        return t
+
+
+def _local_history(h: History, local) -> History:
+    """``h`` with each leaf's local tensor (views: writes go through)."""
+    return History(prev_w={k: local(v) for k, v in h.prev_w.items()},
+                   delta_mean={k: local(v) for k, v in h.delta_mean.items()},
+                   n_obs=local(h.n_obs), miss_count=local(h.miss_count))
+
+
+def _weights(mask, miss, n_all: int, gamma0, lam, normalize: bool,
+             shards, axis: str) -> torch.Tensor:
+    """Part weights ``1/n`` of the local participants of an aggregate over
+    ``n_all`` split over ``axis``; with ``normalize`` divided by the sum of
+    all coefficients (an all-reduce), so that ``hieavg.aggregate`` without
+    normalising gives the normalised eq. (4)/(5)."""
+    pw = torch.full(mask.shape, 1.0 / n_all, dtype=f32, device=mask.device)
+    if not normalize:
+        return pw
+    m = mask.to(f32)
+    coef = pw * (m + (1.0 - m) * gamma0 * torch.pow(lam, miss + 1.0))
+    tot = shards.all_reduce(coef.sum(-1, keepdim=True), axis)
+    return pw / torch.clamp(tot, min=1e-12)
 
 
 def make_hfl_train_step(cfg: ArchConfig, *, gamma0: float = 0.9,
@@ -186,53 +424,106 @@ def make_hfl_train_step(cfg: ArchConfig, *, gamma0: float = 0.9,
     accumulation (a mean): the same SGD math, 1/n_micro the activations.
     The parameters and histories are updated in place and returned;
     ``loss`` is the mean of the clients' losses (float32, 0-dim).
-    ``mesh``: None or a mesh of extent 1 on every axis (``_one_card``)."""
-    _one_card(mesh)
+
+    ``mesh``: None, a mesh of extent 1 on every axis (the same), or a
+    ``DeviceMesh`` with an axis above 1: then every argument but ``lr`` is
+    a DTensor on it placed by ``launch.inputs.train_input_specs``'s specs,
+    and ``loss`` is the mean over every client of every rank."""
     if n_micro < 1:
         raise ValueError(f"n_micro {n_micro} < 1")
+    shards = h = None
+    if _wide(mesh):
+        h, sub = step_hints(cfg, mesh, train=True)
+        shards = _Shards(mesh, sub)
+    kw = dict(gamma0=gamma0, lam=lam, normalize=normalize)
+    # the axis the clients are split over (one client a pod: none; its
+    # ``data`` axis splits weights and batch rows instead)
+    clients = "data" if cfg.clients_per_pod > 1 else None
+
+    def edge_models(flat, dev_hist, dev_mask, key, idx, c_all):
+        """The edge models of one piece: [E_local, ...] float32."""
+        w = flat[key][idx]
+        out = []
+        for e in range(w.shape[0]):
+            at = (e, slice(None)) + idx[2:]
+            sub_h = _sub(dev_hist, at, key)
+            if shards is None:
+                agg, new = hieavg.edge_aggregate({key: w[e]}, dev_mask[e],
+                                                 sub_h, **kw)
+            else:
+                pw = _weights(dev_mask[e], sub_h.miss_count, c_all, gamma0,
+                              lam, normalize, shards, clients)
+                agg, new = hieavg.aggregate({key: w[e]}, dev_mask[e], sub_h,
+                                            pw, gamma0, lam)
+                shards.all_reduce(agg[key], clients)
+            _store_(dev_hist, at, key, new)
+            out.append(agg[key])
+        return torch.stack(out)
 
     def step(params, dev_hist, glob_hist, batch, dev_mask, edge_mask, lr):
-        tokens, labels = batch["tokens"], batch["labels"]
+        local = _local_tree
+        flat = flatten(params)
+        if shards is not None:
+            for k, v in flat.items():
+                shards.note(k, v)
+        e_all, c_all = dev_mask.shape
+        flat = {k: local(v) for k, v in flat.items()}
+        hists = (dev_hist, glob_hist)
+        dev_hist, glob_hist = (_local_history(x, local) for x in hists)
+        tokens, labels = local(batch["tokens"]), local(batch["labels"])
         memory = batch.get("memory")
+        memory = None if memory is None else local(memory)
+        dev_mask, edge_mask = local(dev_mask), local(edge_mask)
         e_n, c_n = dev_mask.shape
         if tokens.shape[2] % n_micro:
             raise ValueError(f"batch {tokens.shape[2]} not a multiple of "
                              f"n_micro {n_micro}")
-        lr = torch.as_tensor(lr, dtype=f32, device=dev_mask.device)
-        flat = flatten(params)
+        lr = torch.as_tensor(local(lr), dtype=f32, device=dev_mask.device)
+        split = cfg.clients_per_pod == 1
         losses = []
-        # 1. local SGD, client by client
-        for e in range(e_n):
-            for c in range(c_n):
-                slot = {k: v[e, c] for k, v in flat.items()}
-                loss, grads = _client_grads(
-                    unflatten(slot), tokens[e, c], labels[e, c], cfg,
-                    memory=None if memory is None else memory[e, c],
-                    remat=remat, n_micro=n_micro, kernel_mode=kernel_mode)
-                losses.append(loss)
-                for k, w in slot.items():
-                    _sgd_(w, grads[k], lr)
-                del grads
+        # 1. local SGD, client by client (this rank's slots)
+        with hints.use(h):
+            for e in range(e_n):
+                for c in range(c_n):
+                    slot = {k: v[e, c] for k, v in flat.items()}
+                    if shards is None:
+                        tree, tok, lab = unflatten(slot), tokens[e, c], \
+                            labels[e, c]
+                        mem = None if memory is None else memory[e, c]
+                    else:
+                        tree = unflatten({k: shards.slot(k, v)
+                                          for k, v in slot.items()})
+                        tok, lab = (shards.batch(t[e, c], split)
+                                    for t in (tokens, labels))
+                        mem = None if memory is None else \
+                            shards.batch(memory[e, c], split)
+                    loss, grads = _client_grads(
+                        tree, tok, lab, cfg, memory=mem, remat=remat,
+                        n_micro=n_micro, kernel_mode=kernel_mode,
+                        to_local=None if shards is None else shards.grad)
+                    losses.append(loss if shards is None
+                                  else shards.whole(loss))
+                    for k, w in slot.items():
+                        _sgd_(w, grads[k], lr)
+                    del grads
         # 2.-4. HieAvg at the edges, at the leader, and the broadcast
-        j_per_edge = torch.full((e_n,), float(c_n), dtype=f32,
-                                device=dev_mask.device)
-        kw = dict(gamma0=gamma0, lam=lam, normalize=normalize)
         for key, idx in _pieces(flat, 2):
             w = flat[key][idx]
-            models = []
-            for e in range(e_n):
-                at = (e, slice(None)) + idx[2:]
-                agg, new = hieavg.edge_aggregate(
-                    {key: w[e]}, dev_mask[e], _sub(dev_hist, at, key),
-                    **kw)
-                _store_(dev_hist, at, key, new)
-                models.append(agg[key])
-            models = torch.stack(models)
+            models = edge_models(flat, dev_hist, dev_mask, key, idx, c_all)
             if do_global:
                 gidx = (slice(None),) + idx[2:]
-                agg, new = hieavg.global_aggregate(
-                    {key: models}, edge_mask,
-                    _sub(glob_hist, gidx, key), j_per_edge, **kw)
+                sub_h = _sub(glob_hist, gidx, key)
+                if shards is None:
+                    j_per_edge = torch.full((e_n,), float(c_n), dtype=f32,
+                                            device=dev_mask.device)
+                    agg, new = hieavg.global_aggregate(
+                        {key: models}, edge_mask, sub_h, j_per_edge, **kw)
+                else:
+                    pw = _weights(edge_mask, sub_h.miss_count, e_all,
+                                  gamma0, lam, normalize, shards, "pod")
+                    agg, new = hieavg.aggregate({key: models}, edge_mask,
+                                                sub_h, pw, gamma0, lam)
+                    shards.all_reduce(agg[key], "pod")
                 _store_(glob_hist, gidx, key, new)
                 w.copy_(agg[key][None, None].to(w.dtype).expand_as(w))
             else:
@@ -240,9 +531,15 @@ def make_hfl_train_step(cfg: ArchConfig, *, gamma0: float = 0.9,
         _advance_counts_(dev_hist, dev_mask)
         if do_global:
             _advance_counts_(glob_hist, edge_mask)
-        return params, dev_hist, glob_hist, torch.stack(losses).mean()
+        loss = torch.stack(losses).mean()
+        if shards is not None:
+            loss = loss * (e_n * c_n)
+            for a in (clients, "pod"):
+                shards.all_reduce(loss, a)
+            loss = loss / (e_all * c_all)
+        return params, hists[0], hists[1], loss
 
-    return step
+    return _one_rank(step, mesh, lambda a, out: (*a[:3], out[3]))
 
 
 def init_fl_histories(params: dict) -> tuple[History, History]:
@@ -284,16 +581,20 @@ def make_prefill_step(cfg: ArchConfig, kernel_mode: str = "auto", *,
     """(params, tokens [B, S], caches, memory_embeds=None, *, memory=None)
     -> (logits [B, V], caches): the raw memory (encoded inside, as the
     reference's step takes it) or the encoded one (``encode``'s output),
-    for a model with cross-attention.  ``mesh`` as in
-    ``make_hfl_train_step``."""
-    _one_card(mesh)
+    for a model with cross-attention.  ``mesh``: None, a mesh of extent 1
+    on every axis, or a ``DeviceMesh`` with an axis above 1: then every
+    tensor argument is a DTensor on it placed by
+    ``launch.inputs.serve_input_specs``'s specs (caches filled in place on
+    each rank's shard), and the logits are a DTensor."""
+    h = step_hints(cfg, mesh, train=False)[0] if _wide(mesh) else None
 
     def step(params, tokens, caches, memory_embeds=None, *, memory=None):
-        return prefill(params, tokens, cfg, caches,
-                       memory_embeds=memory_embeds, memory=memory,
-                       kernel_mode=kernel_mode)
+        with hints.use(h):
+            return prefill(params, tokens, cfg, caches,
+                           memory_embeds=memory_embeds, memory=memory,
+                           kernel_mode=kernel_mode)
 
-    return step
+    return _one_rank(step, mesh, lambda a, out: (out[0], a[2]))
 
 
 def make_serve_step(cfg: ArchConfig, mesh=None):
@@ -302,10 +603,13 @@ def make_serve_step(cfg: ArchConfig, mesh=None):
     a host int (the cache holds positions < pos); ``memory`` the *encoded*
     cross-attention memory.  Decode attends through its mask, not the
     flash kernel, so it takes no kernel mode.  ``mesh`` as in
-    ``make_hfl_train_step``."""
-    _one_card(mesh)
+    ``make_prefill_step``: on a cache split on its sequence, only the rank
+    holding position ``pos`` writes it."""
+    h = step_hints(cfg, mesh, train=False)[0] if _wide(mesh) else None
 
     def step(params, token, pos, caches, memory=None):
-        return decode_step(params, token, pos, cfg, caches, memory=memory)
+        with hints.use(h):
+            return decode_step(params, token, pos, cfg, caches,
+                               memory=memory)
 
-    return step
+    return _one_rank(step, mesh, lambda a, out: (out[0], a[3]))

@@ -16,7 +16,10 @@ and updates the cache tensors in place (the returned caches are the same
 tensors); the reference returns new arrays.  Full-sequence attention goes
 to ``kernels.ops.flash_attention`` (the CUDA kernel, or its plain version
 per ``kernel_mode``); decode, with its precomputed mask, to
-``_sdpa_block``.  The reference's sharding hints are dropped.
+``_sdpa_block``.  The reference's sharding hints (``HEAD_SPEC``,
+``KV_GATHER_SPEC``) are ``models.hints``' ``heads`` and ``kv_gather``,
+applied to q, k and v as they are made; a cache write goes through
+``hints.write``, which on a DTensor cache writes each rank's own shard.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch.kernels import ops as _ops
 
+from . import hints
 from .config import ArchConfig
 from .layers import norm_spec, rms_norm
 from .spec import ParamSpec
@@ -118,14 +122,18 @@ def _sdpa(q, k, v, *, causal: bool, window=None, q_offset: int = 0,
     causal nor windowed: cross-attention's decode), as the reference
     does."""
     sq, skv = q.shape[1], k.shape[1]
-    if bias is not None:
-        return _sdpa_block(q, k, v, bias)
-    if sq > 1:
+    if bias is None and sq > 1:
         return _ops.flash_attention(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset, mode=kernel_mode)
-    m = (causal_mask(sq, skv, q_offset=q_offset, window=window,
-                     device=q.device)
-         if (causal or window) else torch.zeros((), device=q.device))
+    m = bias if bias is not None else (
+        causal_mask(sq, skv, q_offset=q_offset, window=window,
+                    device=q.device)
+        if (causal or window) else torch.zeros((), device=q.device))
+    if _ops.is_dtensor(q):
+        # one query row: each rank's heads (or rows of the batch) against
+        # its kv heads, the positions whole (``kernels.ops.run_sharded``)
+        return _ops.run_sharded(
+            q, k, v, lambda ql, kl, vl, row0: _sdpa_block(ql, kl, vl, m))
     return _sdpa_block(q, k, v, m)
 
 
@@ -134,14 +142,16 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
     """q from ``x``; k and v from ``kv_x`` where given (cross-attention's
     memory, taken as it is: not normalised), else from ``x``."""
     d = x.shape[-1]
-    src = x if kv_x is None else kv_x
+    x = hints.tp_in(x, p["wq"], p["wk"], p["wv"])
+    src = x if kv_x is None else hints.tp_in(kv_x, p["wk"], p["wv"])
     q = (x @ p["wq"].reshape(d, -1)).unflatten(-1, p["wq"].shape[-2:])
     k = (src @ p["wk"].reshape(d, -1)).unflatten(-1, p["wk"].shape[-2:])
     v = (src @ p["wv"].reshape(d, -1)).unflatten(-1, p["wv"].shape[-2:])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+    q, k, v = hints.heads(q, k, v)
+    return (q, *hints.kv_gather(k, v))
 
 
 def _proj_out(p: dict, attn: torch.Tensor, x: torch.Tensor,
@@ -151,7 +161,7 @@ def _proj_out(p: dict, attn: torch.Tensor, x: torch.Tensor,
     out = attn.flatten(-2) @ p["wo"].reshape(-1, p["wo"].shape[-1])
     if cross:
         out = out * torch.tanh(p["xattn_gate"]).to(out.dtype)
-    return x + out
+    return x + hints.seq(out)
 
 
 # ------------------------------------------------------------- full-seq ops
@@ -220,11 +230,12 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, *,
     clen = cache["k"].shape[-3]
     keep = min(s, clen)
     # ring placement: position p lives at slot p % clen (no-op when clen >= s)
-    slots = torch.arange(s - keep, s, device=x.device) % clen
-    cache["k"][..., slots, :, :] = k[..., s - keep:, :, :].to(
-        cache["k"].dtype)
-    cache["v"][..., slots, :, :] = v[..., s - keep:, :, :].to(
-        cache["v"].dtype)
+    slots = slice(0, s) if clen >= s else \
+        torch.arange(s - keep, s, device=x.device) % clen
+    hints.write(cache["k"], -3, slots,
+                k[..., s - keep:, :, :].to(cache["k"].dtype))
+    hints.write(cache["v"], -3, slots,
+                v[..., s - keep:, :, :].to(cache["v"].dtype))
     return out, cache
 
 
@@ -243,8 +254,10 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
     k = apply_rope(k, pos_t, cfg.rope_theta)
     clen = cache["k"].shape[-3]
     slot = pos % clen if cfg.sliding_window else pos
-    cache["k"][..., slot:slot + 1, :, :] = k.to(cache["k"].dtype)
-    cache["v"][..., slot:slot + 1, :, :] = v.to(cache["v"].dtype)
+    hints.write(cache["k"], -3, slice(slot, slot + 1),
+                k.to(cache["k"].dtype))
+    hints.write(cache["v"], -3, slice(slot, slot + 1),
+                v.to(cache["v"].dtype))
     kpos_abs = torch.arange(clen, device=x.device)
     if cfg.sliding_window:
         # ring: entry i holds the latest position congruent to i mod clen

@@ -106,8 +106,8 @@ class ArchConfig:
 
     @property
     def torch_param_dtype(self) -> torch.dtype:
-        return {"float32": torch.float32,
-                "bfloat16": torch.bfloat16}[self.param_dtype]
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float64": torch.float64}[self.param_dtype]
 
 
 @dataclasses.dataclass(frozen=True)

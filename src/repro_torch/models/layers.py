@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import hints
 from .config import ArchConfig
 from .spec import ParamSpec
 
@@ -43,9 +44,9 @@ def mlp_specs(cfg: ArchConfig, stacked: Optional[int]) -> dict:
 
 
 def mlp_apply(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
-    h = rms_norm(x, p["norm"], eps)
+    h = hints.tp_in(rms_norm(x, p["norm"], eps), p["gate"])
     out = (F.silu(h @ p["gate"]) * (h @ p["up"])) @ p["down"]
-    return x + out
+    return x + hints.seq(out)
 
 
 # ---------------------------------------------------------------- embeddings
@@ -61,10 +62,12 @@ def embed_specs(cfg: ArchConfig) -> dict:
 def embed_apply(p: dict, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
     """The rows of the table, cast to ``compute_dtype`` (a gather commutes
     with the cast, so only the rows taken are cast)."""
-    return F.embedding(tokens, p["tok"]).to(compute_dtype)
+    return hints.embed(hints.gather_weights(p["tok"]), tokens).to(
+        compute_dtype)
 
 
 def unembed_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    p = hints.gather_weights(p)
     h = rms_norm(x, p["final_norm"], cfg.norm_eps)
     head = p["tok"].T if cfg.tie_embeddings else p["lm_head"]
-    return h @ head.to(x.dtype)
+    return hints.tp_in(h, head) @ head.to(x.dtype)

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import hints
 from .attention import NEG_INF, _sdpa, apply_rope
 from .config import ArchConfig
 from .layers import norm_spec, rms_norm
@@ -101,22 +102,30 @@ def _qkv(p: dict, h: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor):
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
     k_nope = _heads(c_kv, p["w_uk"])                         # [B,S,H,nope]
     v = _heads(c_kv, p["w_uv"])
-    k = torch.cat([k_nope, k_rope[..., None, :].expand(
-        *k_nope.shape[:-1], m.qk_rope_head_dim)], dim=-1)
+    k = hints.per_head(_with_rope, k_nope, k_rope)
     q = torch.cat([q_nope, q_rope], dim=-1)
     pad = m.qk_nope_head_dim + m.qk_rope_head_dim - m.v_head_dim
-    return q, k, F.pad(v, (0, pad)) if pad else v, c_kv, k_rope
+    if pad:
+        v = hints.along_last(lambda t: F.pad(t, (0, pad)), v)
+    return q, k, v, c_kv, k_rope
+
+
+def _with_rope(k_nope: torch.Tensor, k_rope: torch.Tensor) -> torch.Tensor:
+    """``k_nope || k_rope``: the RoPE key [..., S, rope] shared by the
+    heads of k_nope [..., S, H, nope]."""
+    return torch.cat([k_nope, k_rope[..., None, :].expand(
+        *k_nope.shape[:-1], k_rope.shape[-1])], dim=-1)
 
 
 def _mla_full(p: dict, x: torch.Tensor, cfg: ArchConfig, kernel_mode: str):
     """Full-sequence causal MLA: (x + out, c_kv, k_rope)."""
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    h = hints.whole_seq(rms_norm(x, p["norm"], cfg.norm_eps))
     pos = torch.arange(x.shape[-2], device=x.device)
     q, k, v, c_kv, k_rope = _qkv(p, h, cfg, pos)
     attn = _sdpa(q, k, v, causal=True, kernel_mode=kernel_mode)
     attn = attn[..., :cfg.mla.v_head_dim]
     out = attn.to(x.dtype).flatten(-2) @ p["wo"].reshape(-1, x.shape[-1])
-    return x + out, c_kv, k_rope
+    return x + hints.seq(out), c_kv, k_rope
 
 
 def mla_train(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
@@ -145,10 +154,10 @@ def mla_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, *,
     slots written, in place, with the last ``keep`` positions' latents."""
     out, c_kv, k_rope = _mla_full(p, x, cfg, kernel_mode)
     keep = min(x.shape[-2], cache["c_kv"].shape[-2])
-    cache["c_kv"][..., :keep, :] = c_kv[..., -keep:, :].to(
-        cache["c_kv"].dtype)
-    cache["k_rope"][..., :keep, :] = k_rope[..., -keep:, :].to(
-        cache["k_rope"].dtype)
+    hints.write(cache["c_kv"], -2, slice(0, keep),
+                c_kv[..., -keep:, :].to(cache["c_kv"].dtype))
+    hints.write(cache["k_rope"], -2, slice(0, keep),
+                k_rope[..., -keep:, :].to(cache["k_rope"].dtype))
     return out, cache
 
 
@@ -166,8 +175,8 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
     q_rope = apply_rope(q_rope, pos_t, cfg.rope_theta)
     c_new, kr_new = _latent(p, h, cfg, pos_t)
     ck, ckr = cache["c_kv"], cache["k_rope"]
-    ck[..., pos:pos + 1, :] = c_new.to(ck.dtype)
-    ckr[..., pos:pos + 1, :] = kr_new.to(ckr.dtype)
+    hints.write(ck, -2, slice(pos, pos + 1), c_new.to(ck.dtype))
+    hints.write(ckr, -2, slice(pos, pos + 1), kr_new.to(ckr.dtype))
     # absorb W_uk into q: [B,1,H,nope] x [r,H,nope] -> [B,1,H,r]
     q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope.to(f32),
                          p["w_uk"].to(f32))
@@ -183,4 +192,4 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
     lat = torch.einsum("bhqs,bsr->bqhr", probs, ckf)
     attn = torch.einsum("bqhr,rhk->bqhk", lat, p["w_uv"].to(f32))
     out = attn.to(x.dtype).flatten(-2) @ p["wo"].reshape(-1, x.shape[-1])
-    return x + out, cache
+    return x + hints.seq(out), cache

@@ -17,9 +17,12 @@ random weights can saturate the router's softmax, several experts then
 read exactly 0, and the order among them decides who takes a capacity
 slot.
 
-The reference's mesh hints are left out: ``EXPERT_PARALLEL_SPEC`` and the
-launch layer's ``_set_moe_hint`` pin its all-to-all on a mesh, and the
-port runs on one card.
+The reference's mesh hint ``EXPERT_PARALLEL_SPEC`` is ``models.hints``'
+``experts_in``/``experts_out``: on a step's mesh (``launch.steps
+.step_hints``) the dispatched buffers move from their token split to the
+expert split and back by an all-to-all around the expert products; the
+blocks stay whole on a rank (``hints.blocks``) and the combine runs on
+each rank's (expert, slot) pairs (``hints.over_pairs``).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import hints
 from .config import ArchConfig
 from .layers import norm_spec, rms_norm
 from .spec import ParamSpec
@@ -88,9 +92,15 @@ def route(probs: torch.Tensor, top_k: int, cap: int):
     gates = vals / vals.sum(-1, keepdim=True)
     oh = F.one_hot(idx, n_e)                                  # [..., blk, k, E]
     flat = oh.flatten(-3, -2)                                 # [..., blk k, E]
-    pos = (torch.cumsum(flat, dim=-2) - flat).view(oh.shape)
+    pos = (torch.cumsum(flat, dim=-2) - flat).reshape(oh.shape)
     pos = (pos * oh).sum(-1)                                  # [..., blk, k]
     return gates, idx, pos, pos < cap, oh
+
+
+def _combine(comb: torch.Tensor, eout: torch.Tensor) -> torch.Tensor:
+    """``einsum("bntec,bnecd->bntd")`` as one product over the (expert,
+    slot) pairs, the einsum's own form."""
+    return comb.flatten(-2) @ eout.flatten(2, 3)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig
@@ -103,11 +113,11 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig
     casts them."""
     m = cfg.moe
     b, s, d = x.shape
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    h = hints.whole_seq(rms_norm(x, p["norm"], cfg.norm_eps))
     blk = MOE_BLOCK if s % MOE_BLOCK == 0 else s
     ns = s // blk
     cap = _capacity(blk, m)
-    hb = h.reshape(b, ns, blk, d)
+    hb = hints.blocks(h.reshape(b, ns, blk, d))
 
     logits = hb.to(f32) @ p["router"].to(f32)                 # [b,ns,blk,E]
     probs = torch.softmax(logits, dim=-1)
@@ -119,19 +129,22 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig
     comb = torch.einsum("bntke,bntkc->bntec", send * gates[..., None],
                         pos_oh)
 
-    xin = torch.einsum("bntec,bntd->bnecd", disp.to(h.dtype), hb)
+    tokens = torch.einsum("bntec,bntd->bnecd", disp.to(h.dtype), hb)
+    xin = hints.experts_in(tokens)
     g = torch.einsum("bnecd,edf->bnecf", xin, p["gate"])
     u = torch.einsum("bnecd,edf->bnecf", xin, p["up"])
     eout = torch.einsum("bnecf,efd->bnecd", F.silu(g) * u, p["down"])
-    y = torch.einsum("bntec,bnecd->bntd", comb.to(h.dtype), eout)
+    eout = hints.experts_out(eout, tokens)
+    y = hints.over_pairs(_combine, comb.to(h.dtype), eout)
     y = y.reshape(b, s, d)
 
     if m.n_shared:
-        y = y + (F.silu(h @ p["sh_gate"]) * (h @ p["sh_up"])) @ p["sh_down"]
+        hs = hints.tp_in(h, p["sh_gate"])
+        y = y + (F.silu(hs @ p["sh_gate"]) * (hs @ p["sh_up"])) @ p["sh_down"]
 
     # Switch-style load-balance aux loss: E * sum_e f_e * P_e, f_e from the
     # routing before the capacity drop
     frac_tokens = oh.sum(-2).to(f32).mean((0, 1, 2))
     frac_prob = probs.mean((0, 1, 2))
     aux = m.n_experts * (frac_tokens * frac_prob).sum() * m.router_aux_weight
-    return x + y, aux
+    return x + hints.seq(y), aux

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from . import hints
 from .config import ArchConfig
 from .layers import norm_spec, rms_norm
 from .spec import ParamSpec
@@ -110,7 +111,7 @@ def linear_scan(a: torch.Tensor, gx: torch.Tensor, h0=None,
 
 def _branches(p: dict, x: torch.Tensor, cfg: ArchConfig, conv_state=None):
     """(a, gx, the GELU gate, the new conv window) of the block's input."""
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    h = hints.whole_seq(rms_norm(x, p["norm"], cfg.norm_eps))
     gate = F.gelu(h @ p["w_gate"], approximate="tanh")
     u, conv = _conv(p, h @ p["w_in"], conv_state)
     a, gx = _gates(p, u, cfg)
@@ -119,7 +120,7 @@ def _branches(p: dict, x: torch.Tensor, cfg: ArchConfig, conv_state=None):
 
 def _out(p: dict, x: torch.Tensor, h: torch.Tensor, gate: torch.Tensor
          ) -> torch.Tensor:
-    return x + (h.to(x.dtype) * gate) @ p["w_out"]
+    return x + hints.seq((h.to(x.dtype) * gate) @ p["w_out"])
 
 
 def rglru_train(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -130,9 +131,10 @@ def rglru_train(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     inputs and runs again before its gradient."""
     a, gx, gate, _ = _branches(p, x, cfg)
     if torch.is_grad_enabled() and (a.requires_grad or gx.requires_grad):
-        h = checkpoint(linear_scan, a, gx, use_reentrant=False)[0]
+        h = checkpoint(hints.per_channel, linear_scan, a, gx, None,
+                       use_reentrant=False)[0]
     else:
-        h = linear_scan(a, gx)[0]
+        h = hints.per_channel(linear_scan, a, gx, None)[0]
     return _out(p, x, h, gate)
 
 
@@ -156,10 +158,10 @@ def rglru_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict
     conv from a zero window (as the reference); the final state and window
     written into the cache in place."""
     a, gx, gate, conv = _branches(p, x, cfg)
-    h_s, h_fin = linear_scan(a, gx, cache["h"].to(f32))
+    h_s, h_fin = hints.per_channel(linear_scan, a, gx, cache["h"].to(f32))
     out = _out(p, x, h_s, gate)
-    cache["h"].copy_(h_fin)
-    cache["conv"].copy_(conv)
+    hints.assign(cache["h"], h_fin)
+    hints.assign(cache["conv"], conv)
     return out, cache
 
 
@@ -170,6 +172,6 @@ def rglru_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict
     a, gx, gate, conv = _branches(p, x, cfg, cache["conv"].to(x.dtype))
     h_new = a[..., 0, :] * cache["h"].to(f32) + gx[..., 0, :]
     out = _out(p, x, h_new[..., None, :], gate)
-    cache["h"].copy_(h_new)
-    cache["conv"].copy_(conv)
+    hints.assign(cache["h"], h_new)
+    hints.assign(cache["conv"], conv)
     return out, cache

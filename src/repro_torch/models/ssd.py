@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import hints
 from .config import ArchConfig
 from .layers import norm_spec, rms_norm
 from .spec import ParamSpec
@@ -155,21 +156,26 @@ def _gated_out(p: dict, x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
                cfg: ArchConfig) -> torch.Tensor:
     """``x + rms_norm(y silu(z)) w_out``, y cast to x's dtype first."""
     y = rms_norm(y.to(x.dtype) * F.silu(z), p["out_norm"], cfg.norm_eps)
-    return x + y @ p["w_out"]
+    return x + hints.seq(y @ p["w_out"])
 
 
 def _ssd_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, conv_state, h0):
     """The block over a full sequence -> (out, final state, conv window)."""
     d_inner, nh, n, pd = _dims(cfg)
-    z, xs, B, C, dt = _split_proj(p, rms_norm(x, p["norm"], cfg.norm_eps),
-                                  cfg)
+    z, xs, B, C, dt = _split_proj(
+        p, hints.whole_seq(rms_norm(x, p["norm"], cfg.norm_eps)), cfg)
     conv_out, new_conv = _conv(p, torch.cat([xs, B, C], dim=-1), conv_state)
     xs, B, C = torch.split(conv_out, [d_inner, n, n], dim=-1)
     dt = F.softplus(dt.to(f32) + p["dt_bias"])                 # [b,s,h]
     a_log = dt * -torch.exp(p["a_log"].to(f32))                # [b,s,h]
     xh = xs.unflatten(-1, (nh, pd))
-    y, h_final = ssd_core(xh.to(f32) * dt[..., None], a_log, B, C,
-                          cfg.ssm.chunk, h0)
+    xin, chunk = xh.to(f32) * dt[..., None], cfg.ssm.chunk
+    # independent per head given B and C: on each rank's heads on a mesh
+    heads = ((xin, 2), (a_log, 2)) + (() if h0 is None else ((h0, 1),))
+    y, h_final = hints.split_heads(
+        lambda xs_, a_, *h_b_c: ssd_core(xs_, a_, *h_b_c[-2:], chunk,
+                                         *h_b_c[:-2]),
+        xin, heads, (B, C), (2, 1))
     y = y + p["d_skip"][:, None] * xh.to(f32)
     return _gated_out(p, x, y.flatten(-2), z, cfg), h_final, new_conv
 
@@ -180,8 +186,8 @@ def ssd_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict
     (whatever the cache holds, as the reference); the final state and
     window are written into the cache in place."""
     out, h, conv = _ssd_forward(p, x, cfg, conv_state=None, h0=None)
-    cache["h"].copy_(h)
-    cache["conv"].copy_(conv)
+    hints.assign(cache["h"], h)
+    hints.assign(cache["conv"], conv)
     return out, cache
 
 
@@ -203,6 +209,6 @@ def ssd_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict
         + (dt[..., None] * xh)[..., None] * Bf[:, None, None, :]
     y = (h_new @ Cf[:, None, :, None])[..., 0] + p["d_skip"][:, None] * xh
     out = _gated_out(p, x, y.reshape(x.shape[0], 1, d_inner), z, cfg)
-    cache["h"].copy_(h_new)
-    cache["conv"].copy_(new_conv)
+    hints.assign(cache["h"], h_new)
+    hints.assign(cache["conv"], new_conv)
     return out, cache

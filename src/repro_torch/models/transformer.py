@@ -49,6 +49,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as att
+from . import hints
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rglru as rg_mod
@@ -223,17 +224,19 @@ def _run_stack(params: dict, x: torch.Tensor, cfg: ArchConfig, pattern,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(n_units):
         def unit(x, memory, u=u):
-            up = _index(params["unit"], u)
+            up = hints.gather_weights(_index(params["unit"], u))
             uc = _index(caches["unit"], u) if caches else {}
             unit_aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i, kind in enumerate(pattern):
                 x, a = _apply_layer(kind, up[str(i)], x, cfg, mode=mode,
                                     cache=uc.get(str(i)), pos=pos,
                                     memory=memory, kernel_mode=kernel_mode)
+                x = hints.seq(x)
                 if a is not None:
                     unit_aux = unit_aux + a
             return x, unit_aux
 
+        x = hints.seq(x)
         x, unit_aux = checkpoint(unit, x, memory, use_reentrant=False) \
             if remat else unit(x, memory)
         aux = aux + unit_aux
@@ -250,9 +253,10 @@ def _decoder(params: dict, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
                         kernel_mode=kernel_mode, remat=remat)
     tc = caches.get("tail", {}) if caches else {}
     for i, kind in enumerate(cfg.tail_pattern):
-        x, a = _apply_layer(kind, params["tail"][str(i)], x, cfg, mode=mode,
-                            cache=tc.get(str(i)), pos=pos, memory=memory,
-                            kernel_mode=kernel_mode)
+        x, a = _apply_layer(kind, hints.gather_weights(params["tail"][str(i)]),
+                            x, cfg, mode=mode, cache=tc.get(str(i)), pos=pos,
+                            memory=memory, kernel_mode=kernel_mode)
+        x = hints.seq(x)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -327,6 +331,7 @@ def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
                   kernel_mode=kernel_mode)
     x, aux = _decoder(params, x, cfg, mode="train", caches=None, pos=None,
                       memory=mem, kernel_mode=kernel_mode, remat=remat)
+    x = hints.whole_seq(x)
     valid = (labels >= 0).to(torch.float32)
     s = labels.shape[-1]
     if s <= LOSS_CHUNK or s % LOSS_CHUNK:

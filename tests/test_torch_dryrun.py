@@ -205,7 +205,8 @@ def test_cli_runs_one_pair_and_writes_its_record(tmp_path):
     assert rec["bytes_per_device"] == inputs.census(got, tm)
     assert rec["flops"] > 0
     assert rec["memory"]["temp_size_in_bytes"] is None
-    assert rec["collectives"] is None and rec["hlo_bytes"] is None
+    assert rec["hlo_bytes"] is None
+    assert set(rec["collectives"]) == set(dryrun.KINDS) | {"total_bytes"}
     assert "OK   mamba2-130m x decode_32k x 16x16" in proc.stdout
 
 

@@ -1091,3 +1091,43 @@ def _stack_slots(tree, e, c):
     if isinstance(tree, dict):
         return {k: _stack_slots(v, e, c) for k, v in tree.items()}
     return tree[None, None].expand((e, c) + tuple(tree.shape)).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_sharded_flash_on_one_rank_is_the_kernel(cuda, dtype):
+    """The flash forward and backward through the DTensor entry
+    (``kernels.ops.flash_attention_sharded``, as a mesh step enters it) on
+    a one-rank mesh with q, k and v split on their heads equal the kernels
+    on the whole tensors, bitwise, and launch them."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_debug_mesh
+    started = not dist.is_initialized()
+    try:
+        mesh = make_debug_mesh(model=1)["model"]
+        g = torch.Generator(device=cuda).manual_seed(5)
+        q, k, v, do = (torch.randn(shape, generator=g, device=cuda)
+                       .to(dtype) for shape in ((2, 256, 8, 80),
+                                                (2, 256, 2, 80),
+                                                (2, 256, 2, 80),
+                                                (2, 256, 8, 80)))
+        kw = dict(causal=True, window=100, q_offset=0, mode="cuda")
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        want = ops.flash_attention(*leaves, **kw)
+        want_g = torch.autograd.grad(want, leaves, do)
+        dts = [DTensor.from_local(x.clone(), mesh, [Shard(2)])
+               .requires_grad_() for x in (q, k, v)]
+        build.reset_launch_counts()
+        got = ops.flash_attention(*dts, **kw)
+        got_g = torch.autograd.grad(got, dts, DTensor.from_local(
+            do, mesh, [Shard(2)]))
+        assert build.LAUNCHES["flash_attention"] == 1
+        assert build.LAUNCHES["flash_attention_bwd"] == 3
+        assert torch.equal(got.to_local(), want)
+        for a, b in zip(got_g, want_g):
+            assert torch.equal(a.to_local(), b)
+    finally:
+        if started:
+            dist.destroy_process_group()

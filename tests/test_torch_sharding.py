@@ -13,7 +13,8 @@
   (2 x 2 x 2 over a fake process group of 8 ranks, in a subprocess).
 * Ports of ``tests/test_sharding_launch.py``: on a mesh of one rank
   (1 x 1) the steps compute bitwise what they compute with
-  ``mesh=None``; a ``model`` or ``data`` axis above 1 raises.
+  ``mesh=None`` (the steps on a mesh above one rank are
+  ``tests/test_torch_mesh_*.py``'s).
 """
 import dataclasses
 import os
@@ -326,16 +327,3 @@ def test_serve_steps_on_a_one_rank_mesh_are_the_meshless_steps(one_rank):
     assert not torch.isnan(outs[1][1]).any()
     for a, b in zip(outs[0], outs[1]):
         assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("mesh", [_mesh(data=1, model=2),
-                                  _mesh(data=2, model=1),
-                                  _mesh(pod=2, data=1, model=1)],
-                         ids=["model2", "data2", "pod2"])
-def test_a_mesh_above_one_rank_raises(mesh):
-    cfg = get_smoke("h2o-danube-1.8b")
-    for build in (lambda: make_hfl_train_step(cfg, mesh=mesh),
-                  lambda: make_prefill_step(cfg, mesh=mesh),
-                  lambda: make_serve_step(cfg, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="tensor- and FSDP"):
-            build()
