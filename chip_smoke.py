@@ -51,8 +51,18 @@ bucket must raise.  Then the census (``mesh_census``): the bytes the
 stand-ins of ``launch.inputs.input_specs`` reckon for danube's serve cell
 and its 4-layer train line on a one-card mesh against what the drivers'
 own code asks the card's allocator for, the prefill on that mesh bitwise
-the meshless one, and the largest pair of the dry-run's census that fits
-the card.  Then population
+the meshless one, the largest pair whose arguments alone (the census)
+are within the card, and the dry-run's memory tracker held to the card
+(``peak_case``): its peak of the plain step (argument + output + temp,
+``launch.dryrun.track`` on meta tensors of the same shapes) for danube's
+serve prefill, the train line and deepseek-v2-lite's prefill cut to two
+layers, within MEMORY_BOUND of the allocator's requested peak of the same
+step on the card, the tracker with its frees ignored outside it, the
+kernel path's peak beside.  Then ``mesh_memory``: two ranks of (data=1,
+model=2) sharing the card run danube's float32 HFL step cut to two
+layers, each rank's requested peak held so to the tracker's on a fake
+group of two ranks (a process of its own, ``--mesh-memory-predict``).
+Then population
 mode at full width (DEFAULT cut to T = 4, a cohort of 5 devices an edge
 resampled every round out of stores of 10^3 and 10^6 devices, each built
 once): HieAvg and delayed-gradient with the kernels and plain, the pair
@@ -158,8 +168,9 @@ buckets, wall seconds of the plan, of its plain run and of its points one
 by one, peak memory, launches, the largest differences and whether they
 are bitwise), the ``kstar`` line, four ``mesh_sweep`` lines (the world of
 one; each ranked plan with each rank's wall seconds, device, launches and
-per-row SGD rows; the refused ``"shard"``), the ``mesh_census`` line, one ``population`` line per store size
-and aggregator (the store's host build seconds, rounds/s, peak memory,
+per-row SGD rows; the refused ``"shard"``), the ``mesh_census`` line
+(its ``peaks``), the ``mesh_memory`` line, one ``population`` line per
+store size and aggregator (the store's host build seconds, rounds/s, peak memory,
 launches and churn resets of each mode, and their parity), the
 ``population_resume``, ``population_parity``, ``population_sweep`` and
 ``legacy`` lines, one per serve run, the serve parity, one ``train``
@@ -410,6 +421,24 @@ RANK_SCRIPT = Path(__file__).resolve()
 #: its segment when that tail is 1 MiB or less (it is not split off)
 CENSUS_ROUNDING = 512
 BLOCK_TAIL = 1 << 20
+#: the dry-run's peak held to the card (``peak_case``: ``mesh_census``'s
+#: cases and the ``mesh_memory`` phase): the tracker's predicted peak
+#: (argument + output + temp; ``launch.dryrun.track`` on the meta device)
+#: within MEMORY_BOUND of the measured peak, the allocator's requested
+#: bytes at the most while the card runs the same plain step at the same
+#: shapes, above what was held before its arguments were placed.  The
+#: workspace term, what warm-up GEMMs and one warm-up run of the step
+#: leave behind (cuBLAS's workspaces, a library's scratch), is measured
+#: first and held before the measured run, so it is out of the peak.  The
+#: tracker with its frees ignored must read outside the bound.  Beside it
+#: the kernel path's measured peak (no bound).  ``mesh_memory``: each of
+#: MEMORY_WORLD ranks of MEMORY_MESH on the card (``start_group``) runs
+#: danube's float32 HFL step cut to MEMORY_LAYERS layers, MESH_STEPS_*'s
+#: clients, rows and sequence, placed as ``mesh_steps`` places it; its
+#: prediction comes from a fake group of MEMORY_WORLD ranks on the meta
+#: device in a process of its own
+MEMORY_BOUND = 0.05
+MEMORY_WORLD, MEMORY_MESH, MEMORY_LAYERS = 2, {"data": 1, "model": 2}, 2
 
 #: the K* grid: 16 LatencyParams (lm_device x lp_device) x 3 omega_bar,
 #: consensus latency 3.3 s, K up to 64
@@ -2889,6 +2918,45 @@ def share_plan(fl_sweep, plan, world: int):
     return [types.SimpleNamespace(buckets=bs) for bs in out]
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_procs(phase: str, out: Path, argvs: dict) -> float:
+    """``argvs`` ({label: arguments of this script}) as processes started
+    together, each's output to ``out/<label>.log``; every one must exit 0
+    within MESH_RANK_TIMEOUT seconds (``check`` under ``phase``, a log's
+    tail in the message), and none is left running.  Returns the wall
+    seconds."""
+    t0 = time.time()
+    logs = {k: out / f"{k}.log" for k in argvs}
+    procs = {}
+    try:
+        for k, argv in argvs.items():
+            with open(logs[k], "w") as log:
+                procs[k] = subprocess.Popen(
+                    [sys.executable, str(RANK_SCRIPT), *map(str, argv)],
+                    stdout=log, stderr=subprocess.STDOUT)
+        for p in procs.values():
+            p.wait(timeout=max(1.0, MESH_RANK_TIMEOUT
+                               - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        check(phase, False, f"a process had not ended after "
+              f"{MESH_RANK_TIMEOUT} s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t0
+    for k, p in procs.items():
+        check(phase, p.returncode == 0, f"{k} exited {p.returncode}:\n"
+              f"{logs[k].read_text()[-4000:]}")
+    return wall
+
+
 def mesh_sweep(torch, build, fl, setting, fig3, rows_check) -> dict:
     """The sweep split over a mesh's ranks.  (a) A world of one:
     ``run_sweep(..., mesh=make_sweep_mesh(), placement="auto")`` on Fig.
@@ -2954,35 +3022,11 @@ def mesh_sweep(torch, build, fl, setting, fig3, rows_check) -> dict:
     out = ROOT / "build" / "mesh_sweep"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    t0 = time.time()
-    logs = [out / f"rank{r}.log" for r in range(MESH_WORLD)]
-    procs = []
-    try:
-        for r in range(MESH_WORLD):
-            with open(logs[r], "w") as log:
-                procs.append(subprocess.Popen(
-                    [sys.executable, str(RANK_SCRIPT), "--mesh-rank",
-                     str(r), "--mesh-world", str(MESH_WORLD), "--mesh-port",
-                     str(port), "--mesh-out", str(out)], stdout=log,
-                    stderr=subprocess.STDOUT))
-        for p in procs:
-            p.wait(timeout=max(1.0, MESH_RANK_TIMEOUT
-                               - (time.time() - t0)))
-    except subprocess.TimeoutExpired:
-        check("mesh_sweep", False, f"a rank had not ended after "
-              f"{MESH_RANK_TIMEOUT} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    ranks_wall = time.time() - t0
-    for r, p in enumerate(procs):
-        check("mesh_sweep", p.returncode == 0, f"rank {r} exited "
-              f"{p.returncode}:\n{logs[r].read_text()[-4000:]}")
+    port = free_port()
+    ranks_wall = run_procs("mesh_sweep", out, {
+        f"rank{r}": ["--mesh-rank", r, "--mesh-world", MESH_WORLD,
+                     "--mesh-port", port, "--mesh-out", out]
+        for r in range(MESH_WORLD)})
     recs = [json.loads((out / f"rank{r}.json").read_text())
             for r in range(MESH_WORLD)]
     total: dict = {}
@@ -3123,8 +3167,10 @@ def mesh_census(torch, build) -> dict:
     the stand-ins (as the reference's) keep the parameters' dtype.  Then
     the prefill with the mesh must give logits and caches bitwise those
     of the prefill without, its flash launches counted (set to 0 just
-    before, read just after).  Last, the dry-run's census of every pair
-    on the two production meshes, and the largest that fits this card."""
+    before, read just after).  Then the dry-run's census of every pair
+    on the two production meshes and the largest whose arguments are
+    within this card (arguments only: whether a pair fits is the dry-run
+    record's ``bytes_per_device``).  Last, ``census_peaks``."""
     import torch.distributed as dist
 
     from repro_torch.configs import ARCH_IDS, cut_depth, get_config
@@ -3255,17 +3301,176 @@ def mesh_census(torch, build) -> dict:
                 split = dryrun.split_census(
                     inputs.input_specs(get_config(arch), s, ns), ns)
                 pairs.append({"arch": arch, "shape": sname, "mesh": mname,
-                              "bytes_per_device": sum(split.values())})
-    fits = [p for p in pairs if p["bytes_per_device"] <= card]
+                              "argument_bytes": sum(split.values())})
+    within = [p for p in pairs if p["argument_bytes"] <= card]
     out["dry_run"] = {
-        "pairs": len(pairs), "fit_card": len(fits), "card_bytes": card,
-        "largest_fitting": max(fits, key=lambda p: p["bytes_per_device"]),
-        "largest": max(pairs, key=lambda p: p["bytes_per_device"])}
+        "pairs": len(pairs), "arguments_within_card": len(within),
+        "card_bytes": card,
+        "largest_arguments_within_card": max(
+            within, key=lambda p: p["argument_bytes"]),
+        "largest_arguments": max(pairs, key=lambda p: p["argument_bytes"])}
+    out["peaks"] = census_peaks(torch, dryrun)
     emit({"mesh_census": out})
     return out
 
 
-def _mesh_state(torch, mesh, cfg, base: dict, specs: dict):
+def requested_now(torch) -> int:
+    """The bytes the card's caching allocator holds for the program now."""
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def warm_gemms(torch) -> None:
+    """A float32 and a bfloat16 GEMM on the card: cuBLAS's workspaces."""
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.ones((512, 512), dtype=dtype, device="cuda")
+        (a @ a).sum().item()
+
+
+def card_peaks(torch, step, x, argument: int) -> dict:
+    """The card's side of a peak case: the workspace term (what warm-up
+    GEMMs and one warm-up run of the plain step on ``x`` leave behind),
+    then ``step(x, mode)`` under "torch" and "auto", each's requested peak
+    above what was held before it, plus the ``argument`` bytes that
+    placing ``x`` asked for."""
+    h = requested_now(torch)
+    warm_gemms(torch)
+    out = step(x, "torch")
+    del out
+    out = {"workspace": requested_now(torch) - h}
+    for mode in ("torch", "auto"):
+        torch.cuda.reset_peak_memory_stats()
+        h0 = requested_now(torch)
+        res = step(x, mode)
+        torch.cuda.synchronize()
+        out[mode] = torch.cuda.memory_stats()[
+            "requested_bytes.all.peak"] - h0 + argument
+        del res
+    return out
+
+
+def held_peak(phase: str, label: str, pred: dict, ctrl: dict, card: dict,
+              argument: int, n_args: int) -> dict:
+    """The line of a peak case and its checks: the tracker's peak within
+    MEMORY_BOUND of the card's plain peak, its arguments within
+    CENSUS_ROUNDING bytes a tensor of the bytes placing them asked for,
+    the frees-ignored control outside the bound."""
+    got = card["torch"]
+    line = {"predicted": pred["peak"], "measured": got,
+            "rel": (pred["peak"] - got) / got,
+            "argument": pred["argument"], "argument_requested": argument,
+            "output": pred["output"], "temp": pred["temp"],
+            "control": ctrl["peak"], "control_rel": (ctrl["peak"] - got)
+            / got, "workspace": card["workspace"],
+            "kernel_path_measured": card["auto"], "bound": MEMORY_BOUND}
+    check(phase, abs(pred["peak"] - got) <= MEMORY_BOUND * got,
+          f"{label}: the predicted peak is off the card's: {line}")
+    check(phase, abs(pred["argument"] - argument)
+          <= CENSUS_ROUNDING * n_args, f"{label}: the tracker's arguments "
+          f"are not what placing them asked for: {line}")
+    check(phase, abs(ctrl["peak"] - got) > MEMORY_BOUND * got,
+          f"{label}: the tracker with its frees ignored reads within the "
+          f"bound: {line}")
+    return line
+
+
+def peak_case(torch, dryrun, label: str, cfg, shape, make) -> dict:
+    """One card's peak case: ``make()`` places the inputs of the plain
+    step of ``shape``'s kind (``dryrun.run_step``, no mesh) on the card;
+    the tracker runs it on meta tensors of the same shapes and dtypes
+    (``dryrun.materialize``), with and without its frees; the card runs
+    it (``card_peaks``)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    h = requested_now(torch)
+    x = make()
+    argument = requested_now(torch) - h
+
+    def step(x, mode):
+        return dryrun.run_step(cfg, shape, None, x, kernel_mode=mode)
+
+    meta = dryrun.materialize(x, "meta")
+    t0 = time.time()
+    pred = dryrun.track(lambda m: step(m, "torch"), meta)
+    tracker_s = time.time() - t0
+    ctrl = dryrun.track(lambda m: step(m, "torch"), meta, frees=False)
+    card = card_peaks(torch, step, x, argument)
+    n = sum(1 for _ in dryrun.tensors_of(x))
+    del x
+    torch.cuda.empty_cache()
+    return {**held_peak("mesh_census", label, pred, ctrl, card, argument,
+                        n),
+            "tracker_s": tracker_s}
+
+
+def census_peaks(torch, dryrun) -> dict:
+    """``mesh_census``'s peak cases: danube's serve prefill at the serve
+    cell's shape, the TRAIN_LAYERS-layer train line (TRAIN_KW), and
+    MESH_STEPS_MOE's prefill cut as ``mesh_steps`` cuts it (MLA and
+    MoE)."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.data import lm_tokens
+    from repro_torch.launch.serve import make_caches, make_params
+    from repro_torch.launch.steps import init_fl_histories
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim.sgd import tree_map
+
+    def prefill(cfg, b, s):
+        def make():
+            return {"params": make_params(cfg, 0, "cuda"),
+                    "tokens": torch.as_tensor(
+                        lm_tokens(b, s, cfg.vocab, seed=0),
+                        device="cuda").long(),
+                    "caches": make_caches(cfg, b, s, "cuda", smoke=False)}
+        return make
+
+    out = {}
+    cfg = get_config(SERVE_ARCH)
+    out["serve"] = peak_case(torch, dryrun, "serve prefill", cfg,
+                             InputShape("serve", SERVE_PROMPT, SERVE_BATCH,
+                                        "prefill"),
+                             prefill(cfg, SERVE_BATCH, SERVE_PROMPT))
+    tcfg = dataclasses.replace(
+        cut_depth(get_config(TRAIN_ARCH), TRAIN_LAYERS),
+        clients_per_pod=TRAIN_KW["n_clients"])
+    e, c, b, s = (TRAIN_KW["n_edges"], TRAIN_KW["n_clients"],
+                  TRAIN_KW["batch"], TRAIN_KW["seq"])
+
+    def train_inputs():
+        params = tree_map(lambda x: x[None, None].expand(
+            (e, c) + tuple(x.shape)).contiguous(),
+            make_params(tcfg, 0, "cuda"))
+        dev_hist, glob_hist = init_fl_histories(params)
+        toks = torch.as_tensor(lm_tokens(e * c * b, s + 1, tcfg.vocab,
+                                         seed=0), device="cuda").long()
+        toks = toks.reshape(e, c, b, s + 1)
+        return {"params": params, "dev_hist": dev_hist,
+                "glob_hist": glob_hist,
+                "batch": {"tokens": toks[..., :-1].contiguous(),
+                          "labels": toks[..., 1:].contiguous()},
+                "dev_mask": torch.ones((e, c), dtype=torch.bool,
+                                       device="cuda"),
+                "edge_mask": torch.ones((e,), dtype=torch.bool,
+                                        device="cuda"),
+                "lr": 0.01}
+
+    out["train"] = peak_case(torch, dryrun, "train line", tcfg,
+                             InputShape("train", s, e * c * b, "train"),
+                             train_inputs)
+    mcfg = cut_depth(get_config(MESH_STEPS_MOE), MESH_STEPS_LAYERS)
+    out["moe"] = peak_case(torch, dryrun, "moe prefill", mcfg,
+                           InputShape("moe", MESH_STEPS_SEQ, MESH_STEPS_ROWS,
+                                      "prefill"),
+                           prefill(mcfg, MESH_STEPS_ROWS, MESH_STEPS_SEQ))
+    for k, arch, layers in (("serve", SERVE_ARCH, None),
+                            ("train", TRAIN_ARCH, TRAIN_LAYERS),
+                            ("moe", MESH_STEPS_MOE, MESH_STEPS_LAYERS)):
+        out[k].update(arch=arch, layers=layers)
+    return out
+
+
+def _mesh_state(torch, mesh, cfg, base: dict, specs: dict,
+                device: str = "cuda"):
     """Layout-A parameters and both histories as DTensors on ``mesh``,
     placed by ``specs`` (``train_input_specs``), every client slot holding
     ``base`` (whole tensors, in ``init_fl_histories``' cold boot: device
@@ -3293,7 +3498,7 @@ def _mesh_state(torch, mesh, cfg, base: dict, specs: dict):
                                   stride=t.stride())
 
     def counts(spec):
-        return shd.place(torch.zeros(tuple(spec.shape), device="cuda"),
+        return shd.place(torch.zeros(tuple(spec.shape), device=device),
                          spec, mesh)
 
     dev = specs["dev_hist"]
@@ -3407,14 +3612,14 @@ def mesh_train_rank(torch, build, kern, mesh) -> dict:
     return out
 
 
-def _mesh_batch(torch, mesh, specs, batch):
+def _mesh_batch(torch, mesh, specs, batch, device: str = "cuda"):
     """The train step's batch, masks (every client present) and edge mask
     placed on ``mesh`` by ``specs``."""
     from repro_torch.launch import sharding as shd
     e, c = specs["dev_mask"].shape
     return shd.place(
-        (batch, torch.ones((e, c), dtype=torch.bool, device="cuda"),
-         torch.ones((e,), dtype=torch.bool, device="cuda")),
+        (batch, torch.ones((e, c), dtype=torch.bool, device=device),
+         torch.ones((e,), dtype=torch.bool, device=device)),
         ({k: specs["batch"][k] for k in batch}, specs["dev_mask"],
          specs["edge_mask"]), mesh)
 
@@ -3576,35 +3781,11 @@ def mesh_steps(torch, build) -> dict:
     out = ROOT / "build" / "mesh_steps"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    t0 = time.time()
-    logs = [out / f"rank{r}.log" for r in range(MESH_STEPS_WORLD)]
-    procs = []
-    try:
-        for r in range(MESH_STEPS_WORLD):
-            with open(logs[r], "w") as log:
-                procs.append(subprocess.Popen(
-                    [sys.executable, str(RANK_SCRIPT), "--mesh-steps-rank",
-                     str(r), "--mesh-world", str(MESH_STEPS_WORLD),
-                     "--mesh-port", str(port), "--mesh-out", str(out)],
-                    stdout=log, stderr=subprocess.STDOUT))
-        for p in procs:
-            p.wait(timeout=max(1.0, MESH_RANK_TIMEOUT
-                               - (time.time() - t0)))
-    except subprocess.TimeoutExpired:
-        check("mesh_steps", False, f"a rank had not ended after "
-              f"{MESH_RANK_TIMEOUT} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    wall = time.time() - t0
-    for r, p in enumerate(procs):
-        check("mesh_steps", p.returncode == 0, f"rank {r} exited "
-              f"{p.returncode}:\n{logs[r].read_text()[-4000:]}")
+    port = free_port()
+    wall = run_procs("mesh_steps", out, {
+        f"rank{r}": ["--mesh-steps-rank", r, "--mesh-world",
+                     MESH_STEPS_WORLD, "--mesh-port", port, "--mesh-out", out]
+        for r in range(MESH_STEPS_WORLD)})
     recs = [json.loads((out / f"rank{r}.json").read_text())
             for r in range(MESH_STEPS_WORLD)]
     from repro_torch.configs import get_config
@@ -3683,6 +3864,142 @@ def mesh_steps(torch, build) -> dict:
                            for r in recs]}
     emit({"mesh_steps": summary})
     return {"train": recs[0]["train"], "serve": recs[0]["serve"]}
+
+
+def _memory_state(torch, mesh, device: str):
+    """``mesh_memory``'s step and its inputs on ``mesh``, as
+    ``mesh_train_rank`` places them: the float32 HFL step of TRAIN_ARCH
+    cut to MEMORY_LAYERS layers, one edge of MESH_STEPS_CLIENTS clients
+    of MESH_STEPS_ROWS x MESH_STEPS_SEQ tokens; on ``device`` ("cuda", or
+    "meta" for the prediction: the weights' shapes and dtypes only)."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.launch import inputs, steps
+    from repro_torch.launch.serve import make_params
+    from repro_torch.models import param_specs
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.spec import ParamSpec
+    cfg = dataclasses.replace(
+        cut_depth(get_config(TRAIN_ARCH), MEMORY_LAYERS),
+        param_dtype="float32", clients_per_pod=MESH_STEPS_CLIENTS)
+    e, c, b, s = 1, MESH_STEPS_CLIENTS, MESH_STEPS_ROWS, MESH_STEPS_SEQ
+
+    def empty(tree):
+        if isinstance(tree, ParamSpec):
+            return torch.empty(tree.shape, dtype=cfg.torch_param_dtype,
+                               device="meta")
+        return {k: empty(v) for k, v in sorted(tree.items())}
+
+    base = steps.flatten(empty(param_specs(cfg)) if device == "meta"
+                         else make_params(cfg, 0, device))
+    specs = inputs.train_input_specs(
+        cfg, InputShape("mesh_memory", s, e * c * b, "train"), mesh)
+    state = _mesh_state(torch, mesh, cfg, base, specs, device)
+    del base
+    toks = torch.zeros((e, c, b, s), dtype=torch.long, device=device)
+    args = _mesh_batch(torch, mesh, specs,
+                       {"tokens": toks, "labels": toks.clone()}, device)
+
+    def step(x, mode):
+        return steps.make_hfl_train_step(cfg, mesh=mesh, kernel_mode=mode)(
+            *x[0], *x[1], 0.01)
+
+    return step, (state, args)
+
+
+def mesh_memory_rank(argv: list) -> int:
+    """One rank of ``mesh_memory`` (``--mesh-memory-rank R --mesh-world W
+    --mesh-port P --mesh-out DIR``): joins the group (``start_group``),
+    places the step's inputs on ``make_debug_mesh(**MEMORY_MESH)``, runs
+    ``card_peaks`` and writes its record to DIR.  The kernels are built by
+    the parent first."""
+    import torch
+    import torch.distributed as dist
+    arg = dict(zip(argv[::2], argv[1::2]))
+    rank, world = int(arg["--mesh-memory-rank"]), int(arg["--mesh-world"])
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_debug_mesh, start_group
+    torch.cuda.set_device(0)
+    start_group(rank, world, int(arg["--mesh-port"]),
+                timeout_s=MESH_RANK_TIMEOUT)
+    try:
+        mesh = make_debug_mesh(**MEMORY_MESH)
+        build.library()
+        torch.cuda.empty_cache()
+        h = requested_now(torch)
+        step, x = _memory_state(torch, mesh, "cuda")
+        argument = requested_now(torch) - h
+        rec = {"rank": rank, "argument": argument,
+               **card_peaks(torch, step, x, argument)}
+        Path(arg["--mesh-out"], f"rank{rank}.json").write_text(
+            json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_memory_predict(argv: list) -> int:
+    """``mesh_memory``'s prediction (``--mesh-memory-predict DIR``): the
+    dry-run's tracker (``launch.dryrun.track``, with and without its
+    frees) over rank 0's step on a fake group of MEMORY_WORLD ranks, its
+    inputs on the meta device; written to DIR.  Touches no card."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    torch.set_num_threads(1)
+    dryrun.start_fake_group(MEMORY_WORLD)
+    try:
+        mesh = make_debug_mesh(**MEMORY_MESH)
+        step, x = _memory_state(torch, mesh, "meta")
+        t0 = time.time()
+        rec = {"predicted": dryrun.track(lambda m: step(m, "torch"), x)}
+        rec["tracker_s"] = time.time() - t0
+        rec["control"] = dryrun.track(lambda m: step(m, "torch"), x,
+                                      frees=False)
+        rec["n_args"] = len(dryrun.tensors_of(x))
+        for k in ("predicted", "control"):
+            rec[k].pop("collectives")
+        Path(argv[argv.index("--mesh-memory-predict") + 1],
+             "predict.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_memory(torch, build) -> dict:
+    """Case (d) of the dry-run's peak held to the card: MEMORY_WORLD ranks
+    of MEMORY_MESH sharing the card (``mesh_memory_rank``, host-staged
+    collectives) against the tracker's prediction for a rank on a fake
+    group (``mesh_memory_predict``), each a process of this script started
+    after the kernels are built.  Every process must exit 0; each rank's
+    plain peak within MEMORY_BOUND of the prediction, the frees-ignored
+    control outside it (``held_peak``)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = ROOT / "build" / "mesh_memory"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    port = free_port()
+    wall = run_procs("mesh_memory", out, {
+        "predict": ["--mesh-memory-predict", out],
+        **{f"rank{r}": ["--mesh-memory-rank", r, "--mesh-world",
+                        MEMORY_WORLD, "--mesh-port", port, "--mesh-out", out]
+           for r in range(MEMORY_WORLD)}})
+    pred = json.loads((out / "predict.json").read_text())
+    line = {"world": MEMORY_WORLD, "mesh": MEMORY_MESH, "arch": TRAIN_ARCH,
+            "layers": MEMORY_LAYERS, "clients": MESH_STEPS_CLIENTS,
+            "rows": MESH_STEPS_ROWS, "seq": MESH_STEPS_SEQ,
+            "dtype": "float32", "wall_s": wall,
+            "tracker_s": pred["tracker_s"], "ranks": []}
+    for r in range(MEMORY_WORLD):
+        card = json.loads((out / f"rank{r}.json").read_text())
+        line["ranks"].append(held_peak(
+            "mesh_memory", f"rank {r}", pred["predicted"], pred["control"],
+            card, card["argument"], pred["n_args"]))
+    emit({"mesh_memory": line})
+    return line
 
 
 def load_driver(name: str):
@@ -3892,6 +4209,10 @@ def main() -> int:
         return mesh_rank(sys.argv[1:])
     if "--mesh-steps-rank" in sys.argv[1:]:
         return mesh_steps_rank(sys.argv[1:])
+    if "--mesh-memory-rank" in sys.argv[1:]:
+        return mesh_memory_rank(sys.argv[1:])
+    if "--mesh-memory-predict" in sys.argv[1:]:
+        return mesh_memory_predict(sys.argv[1:])
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import core, fl
     from repro_torch.configs import DEFAULT, REDUCED, get_config
@@ -4594,6 +4915,7 @@ def main() -> int:
                sgd_rows_check)
     mesh_census(torch, build)
     meshed = mesh_steps(torch, build)
+    mesh_memory(torch, build)
 
     # ------------------------------------ population mode, the legacy loop
     population_phase(torch, build, fl, core, setting, {

@@ -1,32 +1,47 @@
-"""Multi-pod dry-run: the inputs of every (arch x shape x mesh) pair, placed
-on 512 ranks without a card (``repro.launch.dryrun`` for the port).
+"""Multi-pod dry-run: every (arch x shape x mesh) pair's step, one rank's
+share of it, on 512 ranks without a card (``repro.launch.dryrun`` for the
+port).
 
 A fake process group of 512 ranks stands in for 2 pods x 256 cards, and
 ``launch.inputs.input_specs`` places every input of a pair on the
-production mesh as a meta-device DTensor.  Per pair the record holds:
+production mesh as a meta-device DTensor.  One run of the plain step
+(``kernel_mode="torch"``; the reference's dry-run likewise counts its XLA
+path, which has no Pallas kernel on the CPU) on those stand-ins over the
+fake group, under one dispatch mode (``census_mode``, ``step_census``),
+sees the rank's own local ops, and gives every figure of the record, each
+one rank's, as XLA's analyses of the partitioned program give the
+reference's:
 
-* ``bytes_per_device``: one rank's bytes of the step's arguments (the
-  census of ``input_specs``), in all and split into ``params``,
-  ``histories``, ``caches`` and ``batch`` (tokens, memory, masks, lr);
-* ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` of the plain
-  step (``kernel_mode="torch"``) at the pair's global shape on the meta
-  device, counted once per arch x shape (it counts matmuls, attention
-  and convolutions, which the mesh does not change);
-* ``n_micro`` (train shapes), by the reference's rule.
-
+* ``flops``: ``torch.utils.flop_counter``'s formulas over the rank's
+  local ops (matmuls, attention, convolutions on its shards);
+* ``memory``: ``argument_size_in_bytes`` (the census of ``input_specs``,
+  also split into ``params``, ``histories``, ``caches`` and ``batch``:
+  tokens, memory, masks, lr), ``output_size_in_bytes`` (the outputs'
+  storages that alias no argument), ``temp_size_in_bytes`` (the peak of
+  live bytes less argument and output, at least 0: the rank's live
+  storages tracked op by op, a view or an in-place op adding nothing, a
+  storage leaving when its last reference dies, so autograd's saved
+  tensors and the remat recompute count for as long as they live; what an
+  op allocates inside itself, such as a library's workspace, is not
+  seen); ``generated_code_size_in_bytes`` is ``null``: no program is
+  generated per pair;
+* ``bytes_per_device``: argument + temp, the reference's formula;
+* ``hlo_bytes``: bytes accessed, the local bytes of every non-view op's
+  tensor inputs and outputs, summed.  Eager PyTorch fuses nothing, so
+  this reads above XLA's figure by design;
 * ``collectives``: ``{kind: {"count", "bytes"}}`` under the reference's
-  five kinds (``KINDS``) and ``total_bytes``, of one rank running the
-  plain step (``kernel_mode="torch"``) on the stand-ins over the fake
-  group (``collective_census``): the DTensor redistributions of the
-  ``model`` (and FSDP ``data``) axes and the FL axes' explicit
-  all-reduces, as ``CommDebugMode`` counts them, and each call's output
-  bytes on the rank (the reference counts each HLO collective's result
-  bytes).  The step runs eagerly, so a loop's collectives are counted as
-  often as they run: no trip-count parser is needed.  The counts are the
-  port's own partitioning, not XLA's.
+  five kinds (``KINDS``) and ``total_bytes``: the DTensor
+  redistributions of the ``model`` (and FSDP ``data``) axes and the FL
+  axes' explicit all-reduces, as ``CommDebugMode`` counts them, and each
+  call's output bytes on the rank (the reference counts each HLO
+  collective's result bytes).  The step runs eagerly, so a loop's
+  collectives are counted as often as they run: no trip-count parser is
+  needed.  The counts are the port's own partitioning, not XLA's;
+* ``n_micro`` (train shapes), by the reference's rule; ``census_s`` and
+  ``lower_s`` (the seconds of the census and of the one run).
 
-The reference's ``memory.temp_size_in_bytes`` and ``hlo_bytes`` read a
-compiled program; the port compiles none, so they are ``null``.
+``step_flops`` counts the whole step at the pair's global shape (no
+mesh), by the same census: the figure a rank's count is held against.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k \\
@@ -42,13 +57,14 @@ import dataclasses
 import json
 import time
 import traceback
+import weakref
 
 import torch
 import torch.distributed as dist
-from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.hieavg import History
+from repro_torch.launch import inputs
 from repro_torch.launch.inputs import census, fl_dims, input_specs
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.steps import (make_hfl_train_step, make_prefill_step,
@@ -107,27 +123,31 @@ def n_micro(cfg: ArchConfig, shape: InputShape, mesh) -> int:
 
 
 def materialize(tree, device):
-    """Tensors of the stand-ins' global shapes on ``device``: zeros (meta
-    on the meta device), integer inputs as int64, as the drivers hand the
-    steps their tokens."""
+    """Tensors of the global shapes of a tree's tensors (stand-ins, or
+    real inputs) on ``device``: zeros (nothing allocated on the meta
+    device), int32 inputs as int64, as the drivers hand the steps their
+    tokens; anything else kept."""
     if isinstance(tree, torch.Tensor):
         dtype = torch.long if tree.dtype == torch.int32 else tree.dtype
         return torch.zeros(tuple(tree.shape), dtype=dtype, device=device)
     if isinstance(tree, dict):
         return {k: materialize(v, device) for k, v in tree.items()}
-    return dataclasses.replace(tree, **{
-        f.name: materialize(getattr(tree, f.name), device)
-        for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(materialize(v, device) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: materialize(getattr(tree, f.name), device)
+            for f in dataclasses.fields(tree)})
+    return tree
 
 
 def step_flops(cfg: ArchConfig, shape: InputShape, mesh, device="meta",
                micro: int = 1) -> float:
-    """FLOPs of one plain step at the pair's global shape, as
-    ``FlopCounterMode`` counts them, run on ``device``."""
+    """FLOPs of one plain step at the pair's global shape (``mesh``'s
+    stand-ins made whole), run on ``device``: ``step_census`` with no
+    mesh."""
     x = materialize(input_specs(cfg, shape, mesh), device)
-    with FlopCounterMode(display=False) as fc:
-        run_step(cfg, shape, None, x, micro=micro)
-    return float(fc.get_total_flops())
+    return step_census(cfg, shape, None, x, micro=micro)["flops"]
 
 
 def _out_bytes(name: str, args, out) -> int:
@@ -142,24 +162,135 @@ def _out_bytes(name: str, args, out) -> int:
     return size(out) if not name.endswith("_") else size(args[0])
 
 
-def census_mode():
-    """A ``CommDebugMode`` that also sums each collective's output bytes by
-    kind (``.bytes``)."""
+def tensors_of(x) -> list:
+    """The tensors of nested tuples, lists, dicts and dataclasses (an op's
+    arguments, a step's inputs and outputs), a DTensor as its local
+    shard."""
+    if isinstance(x, torch.Tensor):
+        return [getattr(x, "_local_tensor", x)]
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in tensors_of(y)]
+    if isinstance(x, dict):
+        return [t for y in x.values() for t in tensors_of(y)]
+    if dataclasses.is_dataclass(x):
+        return [t for f in dataclasses.fields(x)
+                for t in tensors_of(getattr(x, f.name))]
+    return []
+
+
+def census_mode(frees: bool = True):
+    """A dispatch mode that sees one rank's step as the rank's own local
+    ops.  A ``CommDebugMode`` (collectives by op) that also sums each
+    collective's output bytes by kind (``.bytes``) and, over every local
+    op (a DTensor op is left to DTensor, whose local ops come back here;
+    the ops that sharding propagation runs on fake tensors at the global
+    shape are not the rank's and are not counted), keeps:
+
+    * ``.flops``: ``torch.utils.flop_counter``'s formulas, as
+      ``FlopCounterMode`` applies them (an op without one decomposed
+      first where it can be);
+    * ``.current``, ``.peak``: the rank's live bytes, counted by storage.
+      A view or an in-place op adds nothing; a storage leaves when its
+      last reference dies, so autograd's saved tensors and a remat
+      recompute count for as long as they live.  ``hold`` registers the
+      arguments.  With ``frees=False`` nothing leaves: the control that
+      shows the frees matter;
+    * ``.hlo_bytes``: the bytes each op that is not a view reads and
+      writes (its tensor inputs and outputs), summed.
+    """
+    import threading
     from collections import Counter
 
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils._python_dispatch import (TorchDispatchMode,
+                                              _get_current_dispatch_mode_stack)
+    from torch.utils.flop_counter import flop_registry
+
+    def faked(types) -> bool:
+        return any(issubclass(t, FakeTensor) for t in types) or any(
+            isinstance(m, FakeTensorMode)
+            for m in _get_current_dispatch_mode_stack())
 
     class Census(CommDebugMode):
         def __init__(self):
             super().__init__()
             self.bytes = Counter()
+            self.flops = self.hlo_bytes = self.current = self.peak = 0
+            self._size: dict = {}     # storage -> bytes, while it lives
+            self._refs: dict = {}     # storage -> its weak reference
+            self._lock = threading.Lock()
+            self._args: set = set()
+
+        def hold(self, tree) -> int:
+            """Count the storages of ``tree``'s tensors (a DTensor's local
+            shard) as live, as the step's arguments; their bytes, each
+            storage once."""
+            self._args = {self._hold(t) for t in tensors_of(tree)}
+            return sum(self._size[k] for k in self._args)
+
+        def fresh(self, tree) -> int:
+            """The bytes of ``tree``'s storages that no argument holds (a
+            step's outputs that do not alias an argument)."""
+            sts = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+                   for t in tensors_of(tree)}
+            return sum(n for k, n in sts.items() if k not in self._args)
+
+        def _hold(self, t):
+            st = t.untyped_storage()
+            key = st._cdata
+            with self._lock:
+                if key not in self._size:
+                    self._size[key] = st.nbytes()
+                    self.current += st.nbytes()
+                    self.peak = max(self.peak, self.current)
+                    # called when the storage's last reference dies
+                    self._refs[key] = weakref.ref(
+                        st, lambda _, k=key: self._leave(k))
+            return key
+
+        def _leave(self, key) -> None:
+            with self._lock:
+                n = self._size.pop(key)
+                del self._refs[key]
+                if frees:
+                    self.current -= n
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if faked(types):
+                return func(*args, **kwargs)
+            if not isinstance(func, torch._ops.OpOverload):
+                return super().__torch_dispatch__(func, types, args, kwargs)
+            packet = func._overloadpacket
+            if packet not in flop_registry and not any(
+                    issubclass(t, DTensor) for t in types):
+                TorchDispatchMode.__enter__(self)
+                try:
+                    out = func.decompose(*args, **kwargs)
+                finally:
+                    TorchDispatchMode.__exit__(self, None, None, None)
+                if out is not NotImplemented:
+                    return out
             out = super().__torch_dispatch__(func, types, args, kwargs)
-            name = getattr(getattr(func, "_overloadpacket", None),
-                           "__name__", "")
-            if out is not NotImplemented and name in KIND_OF:
-                self.bytes[KIND_OF[name]] += _out_bytes(name, args, out)
+            if out is NotImplemented:
+                return out
+            if packet.__name__ in KIND_OF:
+                self.bytes[KIND_OF[packet.__name__]] += _out_bytes(
+                    packet.__name__, args, out)
+            if packet in flop_registry:
+                self.flops += flop_registry[packet](*args, **kwargs,
+                                                    out_val=out)
+            outs = tensors_of(out)
+            if outs and not func.is_view:
+                ins = tensors_of((args, kwargs))
+                self.hlo_bytes += sum(t.numel() * t.element_size()
+                                      for t in ins + outs)
+                seen = {t.untyped_storage()._cdata for t in ins}
+                for t in outs:
+                    if t.untyped_storage()._cdata not in seen:
+                        self._hold(t)
             return out
 
     return Census()
@@ -198,14 +329,40 @@ def run_step(cfg: ArchConfig, shape: InputShape, mesh, x: dict, *,
         x.get("memory"))
 
 
+def track(run, x, *, frees: bool = True) -> dict:
+    """``run(x)`` counted by one ``census_mode``: its ``collectives``
+    (``by_kind``), ``flops`` and ``hlo_bytes``, and its bytes: ``argument``
+    (``x``'s storages), ``output`` (the result's storages that alias no
+    argument), ``peak`` (live bytes at the most, the arguments included)
+    and ``temp`` (peak less argument and output, at least 0: XLA's buffer
+    assignment adds the three up the same way)."""
+    mode = census_mode(frees)
+    with mode:
+        argument = mode.hold(x)
+        out = run(x)
+    output = mode.fresh(out)
+    return {"collectives": by_kind(mode), "flops": float(mode.flops),
+            "hlo_bytes": float(mode.hlo_bytes), "argument": argument,
+            "output": output, "peak": mode.peak,
+            "temp": max(mode.peak - argument - output, 0)}
+
+
+def step_census(cfg: ArchConfig, shape: InputShape, mesh, x=None, *,
+                micro: int = 1, frees: bool = True) -> dict:
+    """``track`` of one rank's plain step on ``x`` (by default the pair's
+    stand-ins over ``mesh``, a ``DeviceMesh`` of a fake group in the
+    dry-run; ``mesh`` None runs whole tensors)."""
+    if x is None:
+        x = input_specs(cfg, shape, mesh)
+    return track(lambda x: run_step(cfg, shape, mesh, x, micro=micro), x,
+                 frees=frees)
+
+
 def collective_census(cfg: ArchConfig, shape: InputShape, mesh,
                       micro: int = 1) -> dict:
     """``by_kind`` of one rank's plain step on the pair's stand-ins over
-    ``mesh`` (a ``DeviceMesh``, of a fake group in the dry-run)."""
-    specs = input_specs(cfg, shape, mesh)
-    with census_mode() as mode:
-        run_step(cfg, shape, mesh, specs, micro=micro)
-    return by_kind(mode)
+    ``mesh`` (``step_census``)."""
+    return step_census(cfg, shape, mesh, micro=micro)["collectives"]
 
 
 def split_census(specs: dict, mesh) -> dict:
@@ -218,8 +375,7 @@ def split_census(specs: dict, mesh) -> dict:
     return out
 
 
-def run_pair(arch: str, shape_name: str, multi_pod: bool,
-             flops_cache: dict) -> dict:
+def run_pair(arch: str, shape_name: str, multi_pod: bool) -> dict:
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod)
@@ -232,20 +388,19 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool,
     micro = 1
     if shape.kind == "train":
         micro = rec["n_micro"] = n_micro(cfg, shape, mesh)
-    if (arch, shape_name) not in flops_cache:
-        t0 = time.time()
-        flops_cache[arch, shape_name] = step_flops(cfg, shape, mesh,
-                                                   micro=micro)
-        rec["flops_s"] = round(time.time() - t0, 2)
-    rec["flops"] = flops_cache[arch, shape_name]
-    rec["bytes_per_device"] = sum(split.values())
-    rec["memory"] = {"argument_size_in_bytes": rec["bytes_per_device"],
-                     **{f"{k}_bytes": v for k, v in split.items()},
-                     "temp_size_in_bytes": None}
-    rec["hlo_bytes"] = None
     t0 = time.time()
-    rec["collectives"] = collective_census(cfg, shape, mesh, micro=micro)
-    rec["collectives_s"] = round(time.time() - t0, 2)
+    one = step_census(cfg, shape, mesh, specs, micro=micro)
+    rec["lower_s"] = round(time.time() - t0, 2)
+    argument = sum(split.values())
+    rec["memory"] = {"argument_size_in_bytes": argument,
+                     "output_size_in_bytes": one["output"],
+                     "temp_size_in_bytes": one["temp"],
+                     "generated_code_size_in_bytes": None,
+                     **{f"{k}_bytes": v for k, v in split.items()}}
+    rec["bytes_per_device"] = argument + one["temp"]
+    rec["flops"] = one["flops"]
+    rec["hlo_bytes"] = one["hlo_bytes"]
+    rec["collectives"] = one["collectives"]
     return rec
 
 
@@ -271,7 +426,7 @@ def main() -> None:
                 pairs.append((a, s, mp))
 
     start_fake_group()
-    results, failures, flops_cache = [], 0, {}
+    results, failures = [], 0
     for a, s, mp in pairs:
         ok, why = applicable(a, s)
         label = f"{a} x {s} x {'2x16x16' if mp else '16x16'}"
@@ -282,7 +437,7 @@ def main() -> None:
                             "skipped": why})
             continue
         try:
-            rec = run_pair(a, s, mp, flops_cache)
+            rec = run_pair(a, s, mp)
             print(f"OK   {label}: flops={rec['flops']:.3e} "
                   f"mem/dev={rec['bytes_per_device'] / 2**30:.2f}GiB")
             results.append(rec)

@@ -230,8 +230,8 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, *,
     clen = cache["k"].shape[-3]
     keep = min(s, clen)
     # ring placement: position p lives at slot p % clen (no-op when clen >= s)
-    slots = slice(0, s) if clen >= s else \
-        torch.arange(s - keep, s, device=x.device) % clen
+    slots = slice(0, s) if clen >= s else torch.arange(
+        s - keep, s, device=hints.index_device(cache["k"], x.device)) % clen
     hints.write(cache["k"], -3, slots,
                 k[..., s - keep:, :, :].to(cache["k"].dtype))
     hints.write(cache["v"], -3, slots,

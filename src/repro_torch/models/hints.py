@@ -144,18 +144,40 @@ def seq(x):
     h = _Current.value
     if h is None or not _dt(x):
         return x
+    if h.seq is None:
+        return reduced(x)
     from torch.distributed.tensor import Replicate
     mesh = x.device_mesh
-    if h.seq is None:
-        pl = tuple(Replicate() if p.is_partial() else p
-                   for p in x.placements)
-    else:
-        pl = tuple(p if not p.is_shard()
-                   or x.shape[p.dim] % mesh.shape[i] == 0
-                   else Replicate() for i, p in enumerate(h.seq))
+    pl = tuple(p if not p.is_shard() or x.shape[p.dim] % mesh.shape[i] == 0
+               else Replicate() for i, p in enumerate(h.seq))
     if tuple(x.placements) == pl:
         return x
     return x.redistribute(mesh, pl)
+
+
+def flat_heads(y, n_heads: int):
+    """``y`` [..., H, P] flattened to [..., H * P]; along a mesh dim whose
+    extent does not divide the ``n_heads`` heads, its gradient is made as
+    ``y``'s placements before the view back to [..., H, P] (the output
+    projection's gradient arrives split on H * P, which a view cannot
+    split into whole heads: mamba2's 24 SSD heads over 16)."""
+    out = y.flatten(-2)
+    if not _dt(out) or all(n_heads % e == 0 for e in out.device_mesh.shape):
+        return out
+    return out.redistribute(out.device_mesh, out.placements)
+
+
+def reduced(x):
+    """``x`` with its pending sums reduced, its splits kept: before a view
+    that would otherwise scatter a pending sum over a dim its mesh dim does
+    not divide (MLA's absorbed decode: minicpm3's 40 heads over 16)."""
+    if not _dt(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(x.device_mesh, pl)
 
 
 def whole_seq(x):
@@ -446,6 +468,14 @@ def _local_values(dst, src):
                                  [Replicate()] * dst.device_mesh.ndim,
                                  run_check=False)
     return src
+
+
+def index_device(cache, device):
+    """The device of an index tensor into ``cache``: the host for a DTensor
+    cache, whose ``write`` picks each rank's slots there (also where the
+    cache lies on the meta device, which holds no values), else
+    ``device``."""
+    return "cpu" if _dt(cache) else device
 
 
 def write(cache, dim: int, slots, values) -> None:

@@ -190,6 +190,7 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
     probs = torch.softmax(logits, dim=-1)
     # value mixing in latent space, then the expansion through W_uv
     lat = torch.einsum("bhqs,bsr->bqhr", probs, ckf)
-    attn = torch.einsum("bqhr,rhk->bqhk", lat, p["w_uv"].to(f32))
+    attn = hints.reduced(torch.einsum("bqhr,rhk->bqhk", lat,
+                                      p["w_uv"].to(f32)))
     out = attn.to(x.dtype).flatten(-2) @ p["wo"].reshape(-1, x.shape[-1])
     return x + hints.seq(out), cache

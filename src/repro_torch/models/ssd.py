@@ -177,7 +177,8 @@ def _ssd_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, conv_state, h0):
                                          *h_b_c[:-2]),
         xin, heads, (B, C), (2, 1))
     y = y + p["d_skip"][:, None] * xh.to(f32)
-    return _gated_out(p, x, y.flatten(-2), z, cfg), h_final, new_conv
+    return (_gated_out(p, x, hints.flat_heads(y, nh), z, cfg), h_final,
+            new_conv)
 
 
 def ssd_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict

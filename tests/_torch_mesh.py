@@ -61,16 +61,17 @@ def run_ranks(code: str, data: int, model: int, out, timeout: float = 300):
 
 
 @functools.lru_cache(maxsize=None)
-def weights(arch: str, seed: int = 0) -> dict:
-    """Smoke weights of ``arch`` drawn with numpy by the reference's rule
-    (``N(0, 1) / sqrt(shape[-2])`` for a normal leaf, zeros and ones for
-    the others) over its ``param_specs``' leaves, flat ``{"a/b": numpy}``
-    float32 (read only)."""
+def weights(arch: str, seed: int = 0, over: tuple = ()) -> dict:
+    """Smoke weights of ``arch`` (``over``: ``port_cfg``'s) drawn with
+    numpy by the reference's rule (``N(0, 1) / sqrt(shape[-2])`` for a
+    normal leaf, zeros and ones for the others) over its ``param_specs``'
+    leaves, flat ``{"a/b": numpy}`` float32 (read only)."""
     from repro_torch.launch.steps import flatten
     from repro_torch.models import param_specs
     rng = np.random.default_rng(seed)
     out = {}
-    for k, spec in sorted(flatten(param_specs(port_cfg(arch))).items()):
+    for k, spec in sorted(flatten(param_specs(
+            port_cfg(arch, over=over))).items()):
         if spec.init == "zeros":
             v = np.zeros(spec.shape, np.float32)
         elif spec.init == "ones":
@@ -85,10 +86,11 @@ def weights(arch: str, seed: int = 0) -> dict:
     return out
 
 
-def port_cfg(arch: str, clients: int = None):
-    """The port's smoke config of ``arch`` (``clients_per_pod`` set)."""
+def port_cfg(arch: str, clients: int = None, over: tuple = ()):
+    """The port's smoke config of ``arch`` (``clients_per_pod`` set, and
+    the fields of ``over``, (name, value) pairs)."""
     from repro_torch.configs import get_smoke
-    cfg = get_smoke(arch)
+    cfg = dataclasses.replace(get_smoke(arch), **dict(over))
     return cfg if clients is None else \
         dataclasses.replace(cfg, clients_per_pod=clients)
 
@@ -117,9 +119,10 @@ from repro_torch.launch import inputs, make_hfl_train_step
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.steps import init_fl_histories, flatten, unflatten
 from repro_torch.models.config import InputShape
-for i, (name, arch, c) in enumerate(json.load(open(f"{out}/cases.json"))):
+for i, (name, arch, c, over) in enumerate(
+        json.load(open(f"{out}/cases.json"))):
     z = np.load(f"{out}/in_{i}.npz")
-    cfg = dataclasses.replace(get_smoke(arch), clients_per_pod=c)
+    cfg = dataclasses.replace(get_smoke(arch), clients_per_pod=c, **over)
     params = unflatten({k[2:]: torch.from_numpy(z[k]) for k in z.files
                         if k.startswith("p/")})
     dh, gh = init_fl_histories(params)
@@ -151,19 +154,26 @@ for i, (name, arch, c) in enumerate(json.load(open(f"{out}/cases.json"))):
 
 class TrainCases:
     """The train cases of one test file: ``cases`` maps a name to (arch,
-    clients a pod, (data, model)); ``seed`` offsets the data's seeds."""
+    clients a pod, (data, model)), or to (arch, clients a pod, (data,
+    model), {field: value} set on the smoke config); ``seed`` offsets the
+    data's seeds."""
 
     def __init__(self, cases: dict, seed: int = 0):
         self.cases, self.seed = cases, seed
 
+    def case(self, name: str) -> tuple:
+        """(arch, clients a pod, (data, model), over: (field, value) pairs)."""
+        arch, c, mesh, *over = self.cases[name]
+        return arch, c, mesh, tuple(sorted(over[0].items())) if over else ()
+
     def inputs(self, name: str) -> dict:
         """Layout-A weights (client c scaled by 1 + c/100), tokens, labels
         (the first two of each row -1), memory, masks and lr, numpy."""
-        arch, c, _ = self.cases[name]
-        cfg = port_cfg(arch, c)
+        arch, c, _, over = self.case(name)
+        cfg = port_cfg(arch, c, over)
         scale = 1.0 + 0.01 * np.arange(c, dtype=np.float32)
         out = {}
-        for k, v in weights(arch).items():
+        for k, v in weights(arch, over=over).items():
             w = np.broadcast_to(v, (E, c) + v.shape)
             out["p/" + k] = np.ascontiguousarray(
                 w * scale.reshape((1, c) + (1,) * v.ndim)).astype(np.float32)
@@ -184,11 +194,12 @@ class TrainCases:
         """{case: the mesh step's outputs gathered whole}: each mesh's
         cases in one group of ranks."""
         res = {}
-        for mesh in sorted({m for _, _, m in self.cases.values()}):
-            names = [n for n, (_, _, m) in self.cases.items() if m == mesh]
+        for mesh in sorted({self.case(n)[2] for n in self.cases}):
+            names = [n for n in self.cases if self.case(n)[2] == mesh]
             out = tmp_path_factory.mktemp("mesh_steps")
             with open(out / "cases.json", "w") as f:
-                json.dump([(n, *self.cases[n][:2]) for n in names], f)
+                json.dump([(n, *self.case(n)[:2], dict(self.case(n)[3]))
+                           for n in names], f)
             for i, n in enumerate(names):
                 np.savez(out / f"in_{i}.npz", **self.inputs(n))
             run_ranks(TRAIN_RANK, *mesh, out)
@@ -236,10 +247,11 @@ class TrainCases:
         import torch
 
         from repro_torch.launch import init_fl_histories, make_hfl_train_step
-        arch, c, _ = self.cases[name]
+        arch, c, _, over = self.case(name)
         z = self.inputs(name)
         params, batch = self._torch(z)
-        out = make_hfl_train_step(port_cfg(arch, c), kernel_mode="torch")(
+        out = make_hfl_train_step(port_cfg(arch, c, over),
+                                  kernel_mode="torch")(
             params, *init_fl_histories(params), batch,
             torch.from_numpy(z["dm"]), torch.from_numpy(z["em"]),
             float(z["lr"]))
@@ -254,14 +266,15 @@ class TrainCases:
         from repro.launch.steps import make_hfl_train_step as j_make_hfl
 
         from repro_torch.launch.steps import flatten, unflatten
-        arch, c, _ = self.cases[name]
+        arch, c, _, over = self.case(name)
         z = self.inputs(name)
         jp = jax.tree.map(jnp.asarray, unflatten(
             {k[2:]: v for k, v in z.items() if k.startswith("p/")}))
         batch = {k: jnp.asarray(z[k].astype(np.float32 if k == "memory"
                                             else np.int32))
                  for k in ("tokens", "labels", "memory") if k in z}
-        cfg = dataclasses.replace(j_get_smoke(arch), clients_per_pod=c)
+        cfg = dataclasses.replace(j_get_smoke(arch), clients_per_pod=c,
+                                  **dict(over))
         out = jax.jit(j_make_hfl(cfg))(
             jp, *j_init_hist(jp), batch, jnp.asarray(z["dm"]),
             jnp.asarray(z["em"]), jnp.float32(z["lr"]))
@@ -335,11 +348,13 @@ for i, arch in enumerate(json.load(open(f"{out}/cases.json"))):
 
 
 class ServeCases:
-    """The serve cases of one test file: arch ids on a (data=2, model=2)
-    mesh."""
+    """The serve cases of one test file: arch ids on one (data, model)
+    mesh, (2, 2) by default, into caches of ``cache_len`` positions."""
 
-    def __init__(self, archs: tuple, seed: int = 0):
-        self.archs, self.seed = archs, seed
+    def __init__(self, archs: tuple, seed: int = 0, mesh: tuple = (2, 2),
+                 cache_len: int = CACHE_LEN):
+        self.archs, self.seed, self.mesh = archs, seed, mesh
+        self.cache_len = cache_len
 
     def inputs(self, arch: str) -> dict:
         cfg = port_cfg(arch)
@@ -350,18 +365,18 @@ class ServeCases:
         mem = memory_of(cfg, (B,), rng)
         if mem is not None:
             out["memory"] = mem
-        out["len"] = np.int64(CACHE_LEN)
+        out["len"] = np.int64(self.cache_len)
         return out
 
     def run(self, tmp_path_factory) -> dict:
         """{arch: every step's logits and the caches at the end, gathered
-        whole}, from one group of four ranks."""
+        whole}, from one group of ranks on the cases' mesh."""
         out = tmp_path_factory.mktemp("mesh_serve")
         with open(out / "cases.json", "w") as f:
             json.dump(list(self.archs), f)
         for i, a in enumerate(self.archs):
             np.savez(out / f"in_{i}.npz", **self.inputs(a))
-        run_ranks(SERVE_RANK, 2, 2, out)
+        run_ranks(SERVE_RANK, *self.mesh, out)
         return {a: dict(np.load(out / f"out_{i}.npz"))
                 for i, a in enumerate(self.archs)}
 
@@ -378,7 +393,7 @@ class ServeCases:
                             for k, v in z.items() if k.startswith("p/")})
         mem = None if "memory" not in z else encode(
             params, torch.from_numpy(z["memory"]), cfg)
-        caches = make_caches(cfg, B, CACHE_LEN, "cpu", smoke=True)
+        caches = make_caches(cfg, B, self.cache_len, "cpu", smoke=True)
         logits, caches = make_prefill_step(cfg)(
             params, torch.from_numpy(z["tokens"]), caches, memory=mem)
         seen = [logits]
@@ -404,8 +419,8 @@ class ServeCases:
         z = self.inputs(arch)
         params = jax.tree.map(jnp.asarray, unflatten(
             {k[2:]: v for k, v in z.items() if k.startswith("p/")}))
-        caches = j_init(j_cache_specs(cfg, B, CACHE_LEN, dtype=jnp.float32),
-                        jax.random.key(1))
+        caches = j_init(j_cache_specs(cfg, B, self.cache_len,
+                                      dtype=jnp.float32), jax.random.key(1))
         logits, caches = jax.jit(functools.partial(jtr.prefill, cfg=cfg))(
             params, jnp.asarray(z["tokens"], jnp.int32), caches=caches)
         seen = [logits]

@@ -35,6 +35,7 @@ from repro.kernels.hieavg_agg import hieavg_agg as jax_hieavg_agg  # noqa: E402
 from repro_torch.kernels.eval_head import eval_head  # noqa: E402
 from repro_torch.kernels.hieavg_agg import hieavg_agg_many  # noqa: E402
 from repro_torch.models import cnn_specs  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.kernel_oracle
 

@@ -41,6 +41,7 @@ from repro_torch.core import baselines  # noqa: E402
 from repro_torch.fl import BHFLSimulator, run_comparison  # noqa: E402
 from repro_torch.kernels import build, dispatch  # noqa: E402
 from repro_torch.kernels.coef_agg import coef_agg_pair  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 RTOL, ATOL = 1e-5, 1e-6
 L_TAILS = [1, 7, 2047, 2049]

@@ -31,6 +31,7 @@ from repro_torch.checkpoint import (latest_step,  # noqa: E402
 from repro_torch.configs import REDUCED as PORT_REDUCED  # noqa: E402
 from repro_torch.core.hieavg import History, init_history  # noqa: E402
 from repro_torch.fl import BHFLSimulator  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TINY = dataclasses.replace(REDUCED, t_global_rounds=4, n_edges=3,
                            j_per_edge=3, image_hw=8)

@@ -32,6 +32,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.coef_agg import (coef_agg_many,  # noqa: E402
                                           coef_agg_pair_many)
 from repro_torch.models import cnn_specs  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.kernel_oracle
 

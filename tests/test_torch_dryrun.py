@@ -10,8 +10,10 @@ on either side: the reference is built on a ``jax.sharding.AbstractMesh``
 and the port on a ``.shape`` mapping of the same extents (its stand-ins
 on a real ``DeviceMesh`` are held in ``tests/test_torch_sharding.py``).
 The output specs are the reference's, ``applicable`` agrees, the CLI runs
-one pair in a subprocess, and the meta device's FLOP count of a step is
-that of the same step on real CPU tensors at smoke width.
+one pair in a subprocess (its record one rank's argument, output and temp
+bytes and bytes accessed: ``tests/test_torch_dryrun_memory.py``), and the
+meta device's FLOP count of a step is that of the same step on real CPU
+tensors at smoke width.
 """
 import dataclasses
 import json
@@ -40,21 +42,12 @@ from repro_torch.launch import dryrun, inputs  # noqa: E402
 from repro_torch.launch import sharding as shd  # noqa: E402
 from repro_torch.models.config import INPUT_SHAPES as T_SHAPES  # noqa: E402
 from repro_torch.models.config import InputShape  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 PAIRS = [(a, s) for a in ARCH_IDS for s in INPUT_SHAPES
          if dryrun.applicable(a, s)[0]]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's small tensors: beside the
-    suite's other workers a wider pool only spins."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _meshes(name: str):
@@ -202,10 +195,14 @@ def test_cli_runs_one_pair_and_writes_its_record(tmp_path):
     (rec,) = json.loads(out.read_text())
     assert rec["arch"] == "mamba2-130m" and rec["mesh"] == "16x16"
     _, got, tm = _pair("mamba2-130m", "decode_32k", "16x16")
-    assert rec["bytes_per_device"] == inputs.census(got, tm)
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == inputs.census(got, tm)
+    assert rec["bytes_per_device"] == inputs.census(got, tm) \
+        + mem["temp_size_in_bytes"]
     assert rec["flops"] > 0
-    assert rec["memory"]["temp_size_in_bytes"] is None
-    assert rec["hlo_bytes"] is None
+    assert isinstance(mem["temp_size_in_bytes"], int)
+    assert isinstance(mem["output_size_in_bytes"], int)
+    assert isinstance(rec["hlo_bytes"], float) and rec["hlo_bytes"] > 0
     assert set(rec["collectives"]) == set(dryrun.KINDS) | {"total_bytes"}
     assert "OK   mamba2-130m x decode_32k x 16x16" in proc.stdout
 

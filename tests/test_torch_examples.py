@@ -59,6 +59,7 @@ from repro_torch.kernels import build  # noqa: E402
 
 from _torch_examples import (ACC_TOL, CPU, EXAMPLES, KW, ROOT,  # noqa: E402, F401
                              _one_torch_thread, driver, ref_weights)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 DRIVERS = ("quickstart", "leader_failover", "latency_optimization",
            "latency_pareto", "sweep_grid", "sweep_topology", "serve_batched",

@@ -25,6 +25,7 @@ from repro.launch import train as jtrain  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 
 from _torch_examples import CPU, _one_torch_thread, driver  # noqa: E402, F401
+from _torch_threads import one_thread  # noqa: E402,F401
 
 SERVED = ("mamba2-130m", "minicpm3-4b", "seamless-m4t-large-v2")
 PROMPT, GEN, BATCH = 8, 4, 2

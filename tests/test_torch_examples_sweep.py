@@ -33,6 +33,7 @@ from repro.fl import run_sweep as j_run_sweep  # noqa: E402
 from _torch_examples import (ACC_TOL, CPU, KW,  # noqa: E402, F401
                              _one_torch_thread, close_sweep, driver,
                              ref_weights)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 def test_sweep_grid_matches_the_reference():

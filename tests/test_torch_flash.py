@@ -29,6 +29,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_attention import flash_attention as twrapper
 from repro_torch.kernels.ref import FLASH_Q_CHUNK, flash_attention_ref
 from repro_torch.models import attention as tatt
+from _torch_threads import one_thread  # noqa: F401
 
 F32_ATOL = 2e-5      # tests/test_kernels.py, float32 flash cases
 BF16_ATOL = 3e-2     # tests/test_kernels.py, bfloat16 flash case

@@ -41,6 +41,7 @@ from repro_torch.configs import REDUCED as PORT_REDUCED  # noqa: E402
 from repro_torch.core import hieavg  # noqa: E402
 from repro_torch.fl import BHFLSimulator  # noqa: E402
 from repro_torch.kernels.hieavg_agg import hieavg_agg  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 DTYPES = {"bf16": (torch.bfloat16, jnp.bfloat16, np.uint16),
           "f8": (torch.float8_e4m3fn, jnp.float8_e4m3fn, np.uint8)}

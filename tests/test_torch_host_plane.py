@@ -29,6 +29,7 @@ from repro_torch.fl import BHFLSimulator, PopulationSpec  # noqa: E402
 from repro_torch.fl.engine import build_inputs, host_clock  # noqa: E402
 from repro_torch.models import cnn_specs, init_params  # noqa: E402
 from repro_torch.optim import paper_lr  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TINY = dataclasses.replace(REDUCED, t_global_rounds=4, n_edges=3,
                            j_per_edge=3, image_hw=8)

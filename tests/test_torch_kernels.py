@@ -37,6 +37,7 @@ from repro_torch.kernels.eval_head import eval_head  # noqa: E402
 from repro_torch.kernels.hieavg_agg import hieavg_agg  # noqa: E402
 from repro_torch.kernels.sgd_update import (sgd_update,  # noqa: E402
                                             sgd_update_many)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.kernel_oracle
 

@@ -30,6 +30,7 @@ from repro_torch.core import (BoundParams, KOptResult,  # noqa: E402
                               edge_window_k, k_axis, omega_bound,
                               omega_bound_k, optimize_k, optimize_k_masked,
                               shannon_rate, total_latency_k)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 RTOL = 1e-6
 K_MAX = 64

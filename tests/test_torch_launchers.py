@@ -26,6 +26,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (BWD_TERMS,  # noqa: E402
                                                  _tma_strides)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 #: C scalar types of the launchers and their ctypes
 C_SCALARS = {"int": build._I, "long long": build._L, "float": build._F}
@@ -104,15 +105,6 @@ BWD_MODEL_CASES = [(129, 129, 8, 2, 80, True, 100, 0, 1.0),
                    (96, 96, 4, 1, 32, True, None, -10, 1.0),
                    (200, 300, 8, 2, 64, True, 70, 100, 1.0),
                    (128, 256, 4, 1, 128, True, None, 128, 24.0)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the suite runs six workers on eight cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bwd_model(q, k, v, o, lse, do, terms, causal, window, q_offset):

@@ -31,19 +31,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_mesh import ServeCases, hold_serve  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 REL, REF_ATOL = 3e-4, 3e-4
 CASES = ServeCases(("deepseek-7b", "seamless-m4t-large-v2", "qwen3-14b",
                     "llama-3.2-vision-11b", "h2o-danube-1.8b"), seed=200)
 JAX_ANCHORED = ("h2o-danube-1.8b",)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

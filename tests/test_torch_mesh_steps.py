@@ -13,7 +13,11 @@ split over ``data``, each client slot a DTensor on ``model``
 reference's hints as explicit redistributions, the flash attention's
 plain version on each rank's shard).  qwen3-smoke also runs on
 (model=3), where its 4 q heads do not divide: K/V gathered once a layer,
-query rows split, each rank's causal mask offset by its rows.  The ranks
+query rows split, each rank's causal mask offset by its rows.
+mamba2-smoke cut to d_model 96 runs on (model=4), which splits its inner
+width (192) but not its 6 SSD heads, as the production mesh splits
+mamba2-130m's 1536 but not its 24 heads over 16: the heads' gradient
+made whole before the view back from [..., H * P].  The ranks
 of a mesh start in one subprocess group; rank 0 saves the outputs
 gathered whole.  Weights are drawn with numpy by the reference's rule
 (client c scaled by 1 + c/100), tokens and labels numpy from a seed.
@@ -35,19 +39,14 @@ torch = pytest.importorskip("torch")
 
 from _torch_mesh import TrainCases, hold_step  # noqa: E402
 from repro_torch.configs import ARCH_IDS  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 DENSE = ("deepseek-7b", "seamless-m4t-large-v2", "qwen3-14b",
          "llama-3.2-vision-11b")
 CASES = TrainCases({**{a: (a, 2, (2, 2)) for a in DENSE},
-                    "qwen3-14b/model3": ("qwen3-14b", 2, (1, 3))})
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+                    "qwen3-14b/model3": ("qwen3-14b", 2, (1, 3)),
+                    "mamba2-130m/6heads": ("mamba2-130m", 2, (1, 4),
+                                           {"d_model": 96})})
 
 
 @pytest.fixture(scope="module")

@@ -16,17 +16,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_mesh import TrainCases, hold_step  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 ARCHS = ("minicpm3-4b", "grok-1-314b", "recurrentgemma-9b", "mamba2-130m")
 CASES = TrainCases({a: (a, 2, (2, 2)) for a in ARCHS}, seed=100)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -12,20 +12,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_mesh import TrainCases, hold_step  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 CASES = TrainCases({"h2o-danube-1.8b": ("h2o-danube-1.8b", 2, (2, 2)),
                     "deepseek-v2-lite-16b": ("deepseek-v2-lite-16b", 2,
                                              (2, 2)),
                     "grok-1-314b/fl1": ("grok-1-314b", 1, (2, 2))},
                    seed=400)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

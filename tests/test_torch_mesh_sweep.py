@@ -40,6 +40,7 @@ from repro_torch.configs import REDUCED as PORT_REDUCED  # noqa: E402
 from repro_torch.fl import run_sweep  # noqa: E402
 from repro_torch.launch.mesh import make_sweep_mesh  # noqa: E402
 from repro_torch.launch.sharding import sweep_spec  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TINY = dataclasses.replace(REDUCED, t_global_rounds=3, n_edges=3,
                            j_per_edge=3, image_hw=8)
@@ -92,16 +93,6 @@ _RANK = textwrap.dedent("""
              **{{"auto_" + k: getattr(auto, k) for k in {rows!r}}})
     dist.destroy_process_group()
 """)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's small tensors: beside the
-    suite's other workers a wider pool only spins."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _free_port() -> int:

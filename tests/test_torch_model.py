@@ -28,6 +28,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import (cnn_accuracy, cnn_loss,  # noqa: E402
                                 cnn_specs, params_from_numpy)
 from repro_torch.models.cnn import _pool_flatten  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

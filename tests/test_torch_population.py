@@ -39,6 +39,7 @@ from repro_torch.fl import (BHFLSimulator, DevicePopulation,  # noqa: E402
                             PopulationSpec, as_population, build_inputs,
                             run_sweep)
 from repro_torch.fl import engine  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TINY = dataclasses.replace(REDUCED, t_global_rounds=4, n_edges=3,
                            j_per_edge=3, image_hw=8)
@@ -47,17 +48,6 @@ PORT_TINY = dataclasses.replace(PORT_REDUCED, t_global_rounds=4, n_edges=3,
 KW = dict(n_train=300, n_test=100, steps_per_epoch=2)
 POP = 200
 ACC_TOL, LOSS_TOL, DELTA_RTOL = 0.02, 1e-3, 0.01
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's small tensors: beside the
-    other test processes, torch's default pool oversubscribes the cores
-    and its many tiny ops spin (tens of times slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _weights() -> dict:

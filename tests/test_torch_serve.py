@@ -40,6 +40,7 @@ from repro_torch.data import lm_tokens
 from repro_torch.launch import make_prefill_step, make_serve_step, serve
 from repro_torch.models import ParamSpec, transformer
 from repro_torch.models.spec import init_from_specs
+from _torch_threads import one_thread  # noqa: F401
 
 ATOL = 3e-4
 DENSE = ("h2o-danube-1.8b", "deepseek-7b", "qwen3-14b")

@@ -47,6 +47,7 @@ from repro_torch.launch.serve import make_caches, make_params  # noqa: E402
 from repro_torch.models import (ParamSpec, cache_specs,  # noqa: E402
                                 init_from_specs, param_specs)
 from repro_torch.models.config import INPUT_SHAPES  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 def _mesh(**shape):
@@ -56,16 +57,6 @@ def _mesh(**shape):
 MESHES = [_mesh(data=1, model=1), _mesh(data=16, model=16),
           _mesh(pod=2, data=16, model=16), _mesh(data=4), _mesh(data=3),
           _mesh(data=8, model=2), _mesh(data=2, model=8)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's small tensors: beside the
-    suite's other workers a wider pool only spins."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ from repro.fl import BHFLSimulator as JaxSim  # noqa: E402
 from repro.models import init_from_specs  # noqa: E402
 from repro_torch.configs import REDUCED as PORT_REDUCED  # noqa: E402
 from repro_torch.fl import BHFLSimulator  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = dataclasses.replace(REDUCED, t_global_rounds=4, n_edges=3,

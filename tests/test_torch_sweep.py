@@ -39,6 +39,7 @@ from repro_torch.configs import REDUCED as PORT_REDUCED  # noqa: E402
 from repro_torch.fl import (BHFLSimulator, build_inputs,  # noqa: E402
                             plan_sweep, run_engine, run_plan, run_sweep)
 from repro_torch.fl.sweep import SweepResult  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TINY = dataclasses.replace(REDUCED, t_global_rounds=3, n_edges=3,
                            j_per_edge=3, image_hw=8)
