@@ -62,7 +62,14 @@ kernel path's peak beside.  Then ``mesh_memory``: two ranks of (data=1,
 model=2) sharing the card run danube's float32 HFL step cut to two
 layers, each rank's requested peak held so to the tracker's on a fake
 group of two ranks (a process of its own, ``--mesh-memory-predict``).
-Then population
+Then ``mesh_train``: the training entry point on a mesh,
+``train.run(..., mesh=...)`` on danube at full width cut to two layers
+(float32, one edge of two clients of 2 x 2048 tokens, T = 1, K = 2), by
+four ranks of (data=2, model=2) sharing the card on the staged group and
+by a group of one rank on NCCL (``--mesh-train-rank``), each rank's
+setup peak (its shard built leaf by leaf, ``train.mesh_state``) held to
+its placed state plus one whole leaf, its losses, clock and chain to the
+one-card run's (see MESH_TRAIN_KW).  Then population
 mode at full width (DEFAULT cut to T = 4, a cohort of 5 devices an edge
 resampled every round out of stores of 10^3 and 10^6 devices, each built
 once): HieAvg and delayed-gradient with the kernels and plain, the pair
@@ -169,7 +176,8 @@ by one, peak memory, launches, the largest differences and whether they
 are bitwise), the ``kstar`` line, four ``mesh_sweep`` lines (the world of
 one; each ranked plan with each rank's wall seconds, device, launches and
 per-row SGD rows; the refused ``"shard"``), the ``mesh_census`` line
-(its ``peaks``), the ``mesh_memory`` line, one ``population`` line per
+(its ``peaks``), the ``mesh_memory`` line, a ``mesh_train_rank`` line a
+rank and the ``mesh_train`` line, one ``population`` line per
 store size and aggregator (the store's host build seconds, rounds/s, peak memory,
 launches and churn resets of each mode, and their parity), the
 ``population_resume``, ``population_parity``, ``population_sweep`` and
@@ -439,6 +447,28 @@ BLOCK_TAIL = 1 << 20
 #: device in a process of its own
 MEMORY_BOUND = 0.05
 MEMORY_WORLD, MEMORY_MESH, MEMORY_LAYERS = 2, {"data": 1, "model": 2}, 2
+#: the training entry point on a mesh (``mesh_train``): ``train.run(...,
+#: mesh=...)`` as a user calls it, MESH_TRAIN_KW (h2o-danube-1.8b at full
+#: width cut to MESH_STEPS_LAYERS layers, float32 weights, one edge of
+#: MESH_STEPS_CLIENTS clients of MESH_STEPS_ROWS x MESH_STEPS_SEQ tokens,
+#: T = 1, K = 2), by MESH_STEPS_WORLD ranks of MESH_STEPS_MESH sharing the
+#: card (``start_group(backend="staged")``) and by a group of one rank on
+#: ``"nccl"``, each a process.  Held to the one-card ``train.run`` on the
+#: card: ``sim_clock``, blocks and chain bitwise; each edge round's loss
+#: no farther from the one-card loss than MESH_STEPS_SPREAD times the
+#: one-card loss is from the float64 run's (the same run one precision
+#: up, plain attention), nor than MESH_STEPS_LOSS_REL, whichever is
+#: larger; the NCCL rank's losses as near the one-card ones as a second
+#: one-card run's are (bitwise where that one is).  Each rank's setup peak
+#: (the allocator's requested bytes while ``train.mesh_state`` builds its
+#: shard) at most its placed state plus the largest whole leaf (float32,
+#: as drawn) plus CENSUS_ROUNDING bytes a tensor; the control, its placed
+#: state plus the whole model (what building the whole model first took),
+#: must read outside that bound
+MESH_TRAIN_KW = dict(smoke=False, n_layers=MESH_STEPS_LAYERS, n_edges=1,
+                     n_clients=MESH_STEPS_CLIENTS, batch=MESH_STEPS_ROWS,
+                     seq=MESH_STEPS_SEQ, steps=1, k_edge=2,
+                     param_dtype="float32", progress=False)
 
 #: the K* grid: 16 LatencyParams (lm_device x lp_device) x 3 omega_bar,
 #: consensus latency 3.3 s, K up to 64
@@ -2924,12 +2954,12 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_procs(phase: str, out: Path, argvs: dict) -> float:
+def run_procs(phase: str, out: Path, argvs: dict, during=None) -> float:
     """``argvs`` ({label: arguments of this script}) as processes started
-    together, each's output to ``out/<label>.log``; every one must exit 0
-    within MESH_RANK_TIMEOUT seconds (``check`` under ``phase``, a log's
-    tail in the message), and none is left running.  Returns the wall
-    seconds."""
+    together, each's output to ``out/<label>.log``, ``during()`` run in
+    this process meanwhile; every one must exit 0 within
+    MESH_RANK_TIMEOUT seconds (``check`` under ``phase``, a log's tail in
+    the message), and none is left running.  Returns the wall seconds."""
     t0 = time.time()
     logs = {k: out / f"{k}.log" for k in argvs}
     procs = {}
@@ -2939,6 +2969,8 @@ def run_procs(phase: str, out: Path, argvs: dict) -> float:
                 procs[k] = subprocess.Popen(
                     [sys.executable, str(RANK_SCRIPT), *map(str, argv)],
                     stdout=log, stderr=subprocess.STDOUT)
+        if during is not None:
+            during()
         for p in procs.values():
             p.wait(timeout=max(1.0, MESH_RANK_TIMEOUT
                                - (time.time() - t0)))
@@ -3469,51 +3501,17 @@ def census_peaks(torch, dryrun) -> dict:
     return out
 
 
-def _mesh_state(torch, mesh, cfg, base: dict, specs: dict,
-                device: str = "cuda"):
+def _mesh_state(mesh, base: dict, specs: dict):
     """Layout-A parameters and both histories as DTensors on ``mesh``,
     placed by ``specs`` (``train_input_specs``), every client slot holding
-    ``base`` (whole tensors, in ``init_fl_histories``' cold boot: device
-    histories a copy of each slot, the leader's the float32 mean over the
-    clients, which is ``base``): only this rank's shards are made."""
-    from torch.distributed.tensor import DTensor
-
-    from repro_torch.core.hieavg import History
+    ``base`` (flat whole tensors), in ``init_fl_histories``' cold boot:
+    only this rank's chunks are made, as ``train.run`` makes them
+    (``sharding.shard_leaves``, ``steps.place_fl_state``)."""
     from repro_torch.launch import sharding as shd
-    from repro_torch.launch.steps import flatten, unflatten
-    e, c = specs["dev_mask"].shape
-
-    def slots(x):
-        return x[None, None].expand(e, c, *x.shape)
-
-    params = shd.place(unflatten({k: slots(v) for k, v in base.items()}),
-                       specs["params"], mesh)
-    flat = flatten(params)
-
-    def like(t, zero: bool):
-        loc = t.to_local()
-        return DTensor.from_local(torch.zeros_like(loc) if zero
-                                  else loc.clone(), mesh, t.placements,
-                                  run_check=False, shape=t.shape,
-                                  stride=t.stride())
-
-    def counts(spec):
-        return shd.place(torch.zeros(tuple(spec.shape), device=device),
-                         spec, mesh)
-
-    dev = specs["dev_hist"]
-    dev_hist = History(prev_w={k: like(v, False) for k, v in flat.items()},
-                       delta_mean={k: like(v, True) for k, v in flat.items()},
-                       n_obs=counts(dev.n_obs),
-                       miss_count=counts(dev.miss_count))
-    glob = specs["glob_hist"]
-    prev = shd.place({k: v.float()[None] for k, v in base.items()},
-                     glob.prev_w, mesh)
-    glob_hist = History(prev_w=prev,
-                        delta_mean={k: like(v, True) for k, v in prev.items()},
-                        n_obs=counts(glob.n_obs),
-                        miss_count=counts(glob.miss_count))
-    return params, dev_hist, glob_hist
+    from repro_torch.launch.steps import flatten, place_fl_state
+    pspec = {k: v.spec for k, v in flatten(specs["params"]).items()}
+    return place_fl_state(shd.shard_leaves(iter(base.items()), pspec, mesh,
+                                           lead=2), specs, mesh)
 
 
 def _flash_heads(shapes) -> dict:
@@ -3573,7 +3571,7 @@ def mesh_train_rank(torch, build, kern, mesh) -> dict:
                                                                    exact)
     specs = inputs.train_input_specs(
         cfg, InputShape("mesh_steps", s, e * c * b, "train"), mesh)
-    state = _mesh_state(torch, mesh, cfg, base, specs)
+    state = _mesh_state(mesh, base, specs)
     del base
     args = _mesh_batch(torch, mesh, specs, batch)
     step = steps.make_hfl_train_step(cfg, mesh=mesh, kernel_mode="auto")
@@ -3893,7 +3891,7 @@ def _memory_state(torch, mesh, device: str):
                          else make_params(cfg, 0, device))
     specs = inputs.train_input_specs(
         cfg, InputShape("mesh_memory", s, e * c * b, "train"), mesh)
-    state = _mesh_state(torch, mesh, cfg, base, specs, device)
+    state = _mesh_state(mesh, base, specs)
     del base
     toks = torch.zeros((e, c, b, s), dtype=torch.long, device=device)
     args = _mesh_batch(torch, mesh, specs,
@@ -4000,6 +3998,246 @@ def mesh_memory(torch, build) -> dict:
             card, card["argument"], pred["n_args"]))
     emit({"mesh_memory": line})
     return line
+
+
+@contextlib.contextmanager
+def edge_losses(train):
+    """While open, the loss of every edge round ``train.run`` steps
+    (floats, in order), read from the step ``make_hfl_train_step``
+    builds."""
+    seen, make = [], train.make_hfl_train_step
+
+    def recording(*a, **k):
+        step = make(*a, **k)
+
+        def wrapped(*args):
+            out = step(*args)
+            seen.append(float(out[-1]))
+            return out
+        return wrapped
+
+    train.make_hfl_train_step = recording
+    try:
+        yield seen
+    finally:
+        train.make_hfl_train_step = make
+
+
+def _run_record(res: dict, losses: list) -> dict:
+    """A ``train.run`` result as JSON, its edge rounds' losses beside."""
+    return {**{k: v if k == "mesh" else np.asarray(v).tolist()
+               for k, v in res.items()}, "edge_losses": losses}
+
+
+def mesh_setup(torch, train, mesh, device) -> dict:
+    """One rank's setup peak: the allocator's requested bytes while
+    ``train.mesh_state`` builds the rank's shard of MESH_TRAIN_KW's state
+    (``train.run``'s own setup), above what was held before, against its
+    placed state, the largest whole leaf (float32, as drawn) and the whole
+    model."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.launch.inputs import leaves
+    from repro_torch.models import param_specs
+    from repro_torch.models.spec import iter_specs
+    kw = MESH_TRAIN_KW
+    cfg = dataclasses.replace(
+        cut_depth(get_config(TRAIN_ARCH), kw["n_layers"]),
+        param_dtype=kw["param_dtype"], clients_per_pod=kw["n_clients"])
+    specs = train.mesh_specs(cfg, mesh, edges=kw["n_edges"],
+                             clients=kw["n_clients"], batch=kw["batch"],
+                             seq=kw["seq"])
+    torch.cuda.empty_cache()
+    h0 = requested_now(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state = train.mesh_state(cfg, mesh, specs, seed=0, device=device)
+    torch.cuda.synchronize()
+    out = {"seconds": time.time() - t0,
+           "peak": torch.cuda.memory_stats()["requested_bytes.all.peak"]
+           - h0, "held": requested_now(torch) - h0}
+    ts = leaves(state)
+    out["placed"] = sum(t.to_local().numel() * t.to_local().element_size()
+                        for t in ts)
+    out["tensors"] = len(ts)
+    sizes = [math.prod(sp.shape) * 4 for _, sp in
+             iter_specs(param_specs(cfg))]
+    out["largest_leaf"], out["whole_model"] = max(sizes), sum(sizes)
+    out["bound"] = out["placed"] + out["largest_leaf"] \
+        + CENSUS_ROUNDING * out["tensors"]
+    out["control"] = out["placed"] + out["whole_model"]
+    del state, ts
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_run_rank(argv: list) -> int:
+    """One rank of ``mesh_train`` (``--mesh-train-rank R --mesh-world W
+    --mesh-port P --mesh-backend B --mesh-out DIR``): joins the group
+    (``start_group(backend=B)``; W = MESH_STEPS_WORLD ranks of
+    MESH_STEPS_MESH, or one rank), reads its setup peak (``mesh_setup``),
+    then runs ``train.run(**MESH_TRAIN_KW, mesh=...)`` with its launches
+    counted (set to 0 just before, read just after, by shape too) and
+    writes its record to DIR.  The kernels are built by the parent
+    first."""
+    import torch
+    import torch.distributed as dist
+    arg = dict(zip(argv[::2], argv[1::2]))
+    rank, world = int(arg["--mesh-train-rank"]), int(arg["--mesh-world"])
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_debug_mesh, start_group
+    kern = importlib.import_module("repro_torch.kernels.flash_attention")
+    if arg["--mesh-backend"] == "staged":
+        torch.cuda.set_device(0)
+    group = start_group(rank, world, int(arg["--mesh-port"]),
+                        backend=arg["--mesh-backend"],
+                        timeout_s=MESH_RANK_TIMEOUT)
+    try:
+        mesh = make_debug_mesh(**(MESH_STEPS_MESH if world > 1 else {}))
+        build.library()
+        dev = torch.device("cuda", torch.cuda.current_device())
+        rec = {"rank": rank, "world": world, "backend": group.backend,
+               "reason": group.reason, "device": str(dev),
+               "coords": {a: mesh.get_local_rank(a)
+                          for a in mesh.mesh_dim_names}}
+        rec["setup"] = mesh_setup(torch, train, mesh, dev)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        with shape_launches(kern, build) as shapes, \
+                edge_losses(train) as losses:
+            t0 = time.time()
+            res = train.run(TRAIN_ARCH, **MESH_TRAIN_KW, mesh=mesh,
+                            device="cuda")
+            rec["wall_s"] = time.time() - t0
+        rec["launches"] = dict(build.LAUNCHES)
+        rec["flash_heads"] = _flash_heads(shapes)
+        rec["run"] = _run_record(res, losses)
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        Path(arg["--mesh-out"], f"rank{rank}_of{world}.json").write_text(
+            json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_train(torch, build, train) -> dict:
+    """``train.run`` on a mesh through its entry point (see MESH_TRAIN_KW):
+    MESH_STEPS_WORLD staged ranks sharing the card and one NCCL rank, each
+    a process of this script (``mesh_run_rank``) started after the kernels
+    are built, while this process runs the one-card references: the run
+    twice (its repeat spread) and once in float64 (plain attention).  Every
+    process must exit 0 (a rank's failure fails the phase, nothing
+    caught), every rank launch the flash forward and backward at its local
+    head count, hold its setup peak to its bound, and return what the
+    one-card run returns within the bounds of MESH_TRAIN_KW's comment.
+    Prints one line a rank and a summary."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = ROOT / "build" / "mesh_train"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.time()
+    port, port1 = free_port(), free_port()
+    argvs = {f"staged{r}": ["--mesh-train-rank", r, "--mesh-world",
+                            MESH_STEPS_WORLD, "--mesh-port", port,
+                            "--mesh-backend", "staged", "--mesh-out", out]
+             for r in range(MESH_STEPS_WORLD)}
+    argvs["nccl0"] = ["--mesh-train-rank", 0, "--mesh-world", 1,
+                      "--mesh-port", port1, "--mesh-backend", "nccl",
+                      "--mesh-out", out]
+    ref = {}
+
+    def references():
+        for name, kw in (("one_card", {}), ("repeat", {}), ("float64", dict(
+                param_dtype="float64", kernel_mode="torch"))):
+            with edge_losses(train) as losses:
+                res = train.run(TRAIN_ARCH, **{**MESH_TRAIN_KW, **kw},
+                                device="cuda")
+            ref[name] = _run_record(res, losses)
+
+    wall = run_procs("mesh_train", out, argvs, during=references)
+    recs = [json.loads((out / f"rank{r}_of{MESH_STEPS_WORLD}.json")
+                       .read_text()) for r in range(MESH_STEPS_WORLD)]
+    recs.append(json.loads((out / "rank0_of1.json").read_text()))
+    one, rep, up = ref["one_card"], ref["repeat"], ref["float64"]
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    one_up = rel(one["edge_losses"], up["edge_losses"])
+    bound = [max(MESH_STEPS_LOSS_REL, MESH_STEPS_SPREAD * x) for x in one_up]
+    spread = rel(rep["edge_losses"], one["edge_losses"])
+    from repro_torch.configs import get_config
+    h, hkv, _ = attn_heads(get_config(TRAIN_ARCH), "attn")
+    layers, k_edge = MESH_TRAIN_KW["n_layers"], MESH_TRAIN_KW["k_edge"]
+    for rec in recs:
+        who = f"mesh_train {rec['backend']} rank {rec['rank']}"
+        m = MESH_STEPS_MESH["model"] if rec["world"] > 1 else 1
+        clients = MESH_TRAIN_KW["n_clients"] // (
+            MESH_STEPS_MESH["data"] if rec["world"] > 1 else 1)
+        steps = layers * k_edge * clients
+        emit({"mesh_train_rank": rec})
+        check("launches", rec["launches"].get("flash_attention") == 2 * steps
+              and rec["launches"].get("flash_attention_bwd") == 3 * steps
+              and rec["flash_heads"].get("flash_attention")
+              == rec["flash_heads"].get("flash_attention_bwd")
+              == [[h // m, hkv // m]],
+              f"{who}: flash launches {rec['launches']} by heads "
+              f"{rec['flash_heads']}, expected {2 * steps} forward and "
+              f"{3 * steps} backward at {[h // m, hkv // m]}")
+        st = rec["setup"]
+        check("mesh_train", st["peak"] <= st["bound"] < st["control"]
+              and st["held"] <= st["placed"] + CENSUS_ROUNDING
+              * st["tensors"],
+              f"{who}: setup peak {st['peak']} B against its bound "
+              f"{st['bound']} (placed {st['placed']}, held {st['held']}, "
+              f"largest leaf {st['largest_leaf']}), control "
+              f"{st['control']}")
+        run = rec["run"]
+        check("mesh_train", run["sim_clock"] == one["sim_clock"]
+              and (run["blocks"], run["chain_valid"]) == (one["blocks"],
+                                                          one["chain_valid"])
+              and run["backend"] == rec["backend"],
+              f"{who}: clock {run['sim_clock']}, blocks {run['blocks']}, "
+              f"chain {run['chain_valid']}, backend {run['backend']} "
+              f"against the one-card {one['sim_clock']}, {one['blocks']}, "
+              f"{one['chain_valid']}")
+        got = rel(run["edge_losses"], one["edge_losses"])
+        lim = bound if rec["world"] > 1 else spread
+        check("mesh_train", len(got) == len(lim) == k_edge
+              and all(g <= b for g, b in zip(got, lim)),
+              f"{who}: edge losses {run['edge_losses']} against the "
+              f"one-card {one['edge_losses']}: {got} > {lim}")
+    staged = recs[:-1]
+    check("mesh_train", [r["backend"] for r in recs]
+          == ["staged"] * MESH_STEPS_WORLD + ["nccl"],
+          f"backends {[r['backend'] for r in recs]}")
+    check("mesh_train", all(r["run"]["edge_losses"]
+                            == staged[0]["run"]["edge_losses"]
+                            for r in staged),
+          "the staged ranks returned different losses")
+    summary = {
+        "world": MESH_STEPS_WORLD, "mesh": MESH_STEPS_MESH,
+        "arch": TRAIN_ARCH, **{k: MESH_TRAIN_KW[k] for k in (
+            "n_layers", "n_clients", "batch", "seq", "steps", "k_edge",
+            "param_dtype")},
+        "wall_s": time.time() - t0, "ranks_wall_s": wall,
+        "one_card": one, "repeat_rel": spread, "float64": up,
+        "one_card_rel_float64": one_up, "loss_bound": bound,
+        "staged_rel_one_card": rel(staged[0]["run"]["edge_losses"],
+                                   one["edge_losses"]),
+        "nccl_rel_one_card": rel(recs[-1]["run"]["edge_losses"],
+                                 one["edge_losses"]),
+        "setup": {f"{r['backend']}{r['rank']}": {
+            k: r["setup"][k] for k in ("peak", "bound", "control",
+                                       "placed", "largest_leaf",
+                                       "whole_model", "seconds")}
+            for r in recs},
+        "rank_run_s": [r["wall_s"] for r in recs],
+        "peak_memory_gb": [r["peak_memory_gb"] for r in recs]}
+    emit({"mesh_train": summary})
+    return summary
 
 
 def load_driver(name: str):
@@ -4213,6 +4451,8 @@ def main() -> int:
         return mesh_memory_rank(sys.argv[1:])
     if "--mesh-memory-predict" in sys.argv[1:]:
         return mesh_memory_predict(sys.argv[1:])
+    if "--mesh-train-rank" in sys.argv[1:]:
+        return mesh_run_rank(sys.argv[1:])
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import core, fl
     from repro_torch.configs import DEFAULT, REDUCED, get_config
@@ -4916,6 +5156,7 @@ def main() -> int:
     mesh_census(torch, build)
     meshed = mesh_steps(torch, build)
     mesh_memory(torch, build)
+    mesh_train(torch, build, train)
 
     # ------------------------------------ population mode, the legacy loop
     population_phase(torch, build, fl, core, setting, {

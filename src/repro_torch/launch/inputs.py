@@ -59,11 +59,16 @@ def fl_dims(cfg: ArchConfig, shape: InputShape, mesh) -> tuple[int, int, int]:
 HIST_DTYPE = None
 
 
-def train_input_specs(cfg: ArchConfig, shape: InputShape, mesh) -> dict:
-    """Inputs of ``make_hfl_train_step``'s step function (Layout A)."""
+def train_input_specs(cfg: ArchConfig, shape: InputShape, mesh, *,
+                      edges: Optional[int] = None) -> dict:
+    """Inputs of ``make_hfl_train_step``'s step function (Layout A).
+    ``edges``: E where it is not the mesh's pod extent (``fl_dims``), a
+    multiple of it (a mesh without ``pod`` holds every edge on each rank)."""
     if shape.kind != "train":
         raise ValueError(f"not a train shape: {shape}")
     e, c, b = fl_dims(cfg, shape, mesh)
+    if edges is not None:
+        e, b = edges, max(shape.global_batch // (edges * c), 1)
     rules = shd.train_rules(cfg.clients_per_pod)
     prefix = ((e, "fl_pods"), (c, "fl_clients"))
     dt = cfg.torch_param_dtype

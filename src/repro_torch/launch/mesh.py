@@ -7,11 +7,14 @@ amortizes.  Each mesh is a ``torch.distributed.device_mesh.DeviceMesh``
 over the ranks of the process group, so a mesh needs one: the dry-run
 (``launch.dryrun``) starts a fake group of 512 ranks; a sweep over ranks
 starts a real one (``gloo``, or ``nccl`` beside a ``gloo`` group for the
-sweep's gather); the LLM steps on a mesh run on ``start_group``'s, whose
-collectives ``gloo`` carries through host memory (``StagedGroup``), so
-that several ranks can share a card.  Where no group is running,
-``make_debug_mesh`` and ``make_sweep_mesh`` start a group of one rank in
-this process.
+sweep's gather); the LLM steps on a mesh run on ``start_group``'s: NCCL
+with a card a rank (``"nccl"``, a ``gloo`` group beside it for host
+objects), or ``gloo`` carrying every collective through host memory
+(``"staged"``, ``StagedGroup``), so that several ranks can share a card
+or run on the CPU.  ``start_group`` also reads the environment torch's
+launcher sets (``python -m torch.distributed.run --nproc-per-node N``),
+one node only.  Where no group is running, ``make_debug_mesh`` and
+``make_sweep_mesh`` start a group of one rank in this process.
 
 ``mesh_shape`` reads ``{axis: extent}`` from a ``DeviceMesh`` or from any
 object whose ``.shape`` is such a mapping, so the sharding rules and the
@@ -19,7 +22,9 @@ census can be worked out for a mesh no process group backs.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import os
 from collections import Counter
 from collections.abc import Mapping
 
@@ -181,17 +186,114 @@ def _staged(store, rank: int, size: int, timeout) -> StagedGroup:
     return StagedGroup(store, rank, size, timeout)
 
 
-def start_group(rank: int, world: int, port: int, *,
-                timeout_s: float = 300.0) -> None:
+#: ``start_group``'s backends: ``"auto"`` chooses one of the other two
+BACKENDS = ("auto", "nccl", "staged")
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """What ``start_group`` started: this process's rank of ``world``, its
+    rank on this node (its card under NCCL), the backend (``"nccl"`` or
+    ``"staged"``) and why it was chosen, and the ``gloo`` group for host
+    objects beside NCCL (None under ``"staged"``, whose group carries
+    host tensors itself)."""
+
+    rank: int
+    world: int
+    local_rank: int
+    backend: str
+    reason: str
+    host: object = None
+
+
+def choose_backend(backend: str, world: int) -> tuple[str, str]:
+    """(backend, why) of ``start_group(backend=...)`` for ``world`` ranks on
+    this node: ``"auto"`` is ``"nccl"`` where the node has a card a rank,
+    ``"staged"`` otherwise; an explicit ``"nccl"`` that the node cannot
+    honour raises (no CUDA, or fewer cards than ranks)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    have = f"{cards} card{'s' if cards != 1 else ''} for {world} " \
+        f"rank{'s' if world != 1 else ''}"
+    if backend == "staged":
+        return "staged", f"asked for ({have})"
+    if backend == "nccl":
+        if not torch.cuda.is_available():
+            raise RuntimeError("backend 'nccl' needs CUDA, and no GPU is "
+                               "present")
+        if cards < world:
+            raise RuntimeError(f"backend 'nccl' needs a card a rank: {have}"
+                               "; NCCL refuses two ranks on one card (use "
+                               "'staged')")
+        return "nccl", f"asked for ({have})"
+    if cards >= world:
+        return "nccl", f"auto: {have}"
+    return "staged", f"auto: {have}"
+
+
+def _launcher_env(rank, world, port):
+    """(rank, world, local rank, init method) from the arguments, or from
+    torch's launcher's environment (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) where they are None;
+    one node only."""
+    env = os.environ
+    if rank is None:
+        if "RANK" not in env:
+            raise RuntimeError("start_group needs rank, world and port, or "
+                               "the environment of torch.distributed.run")
+        rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+        local = int(env.get("LOCAL_RANK", rank))
+        if int(env.get("LOCAL_WORLD_SIZE", world)) != world:
+            raise RuntimeError(
+                f"{env['LOCAL_WORLD_SIZE']} of {world} ranks on this node: "
+                "start_group supports a single node")
+    else:
+        local = rank
+    if port is not None:
+        return rank, world, local, f"tcp://127.0.0.1:{port}"
+    if "MASTER_ADDR" not in env or "MASTER_PORT" not in env:
+        raise RuntimeError("start_group needs a port, or MASTER_ADDR and "
+                           "MASTER_PORT")
+    return rank, world, local, "env://"
+
+
+def start_group(rank: int | None = None, world: int | None = None,
+                port: int | None = None, *, backend: str = "auto",
+                timeout_s: float = 300.0) -> Group:
     """This process's rank of a ``world``-rank group on
-    ``tcp://127.0.0.1:port`` whose collectives ``StagedGroup`` carries: the
-    ranks of a mesh sharing one card, or the CPU."""
+    ``tcp://127.0.0.1:port`` (None: the environment of
+    ``torch.distributed.run``, one node).  ``backend`` (``choose_backend``):
+    ``"nccl"``, each rank on ``cuda:{local rank}``, set as this process's
+    device before the group starts, with a ``gloo`` group beside it for
+    host objects; ``"staged"``, every collective carried by ``gloo`` on
+    host copies (``StagedGroup``): ranks that share a card, or the CPU;
+    ``"auto"``, the first where the node has a card a rank.  A backend the
+    node cannot honour raises before any group starts."""
+    rank, world, local, method = _launcher_env(rank, world, port)
+    chosen, reason = choose_backend(backend, world)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if chosen == "nccl":
+        torch.cuda.set_device(local)
+        dist.init_process_group("nccl", init_method=method, rank=rank,
+                                world_size=world, timeout=timeout,
+                                device_id=torch.device("cuda", local))
+        host = dist.new_group(backend="gloo", timeout=timeout)
+        return Group(rank, world, local, chosen, reason, host)
     if STAGED not in dist.Backend.backend_list:
         dist.Backend.register_backend(STAGED, _staged,
                                       devices=["cpu", "cuda"])
-    dist.init_process_group(STAGED, init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+    dist.init_process_group(STAGED, init_method=method, rank=rank,
+                            world_size=world, timeout=timeout)
+    return Group(rank, world, local, chosen, reason)
+
+
+def group_backend() -> str:
+    """The running group's backend by ``start_group``'s names: ``"nccl"``,
+    ``"staged"``, or torch's own name for any other group."""
+    name = dist.get_backend()
+    return "staged" if name == STAGED else name
 
 
 def _device_type() -> str:
@@ -215,6 +317,9 @@ def _ensure_group(n: int) -> None:
 
 
 def _mesh(shape: tuple, names: tuple) -> DeviceMesh:
+    """A ``DeviceMesh`` over the group's first ranks.  Under NCCL rank r
+    computes on ``cuda:{local rank}``, the device ``start_group`` set
+    (``DeviceMesh`` keeps a device already set)."""
     n = 1
     for s in shape:
         n *= s

@@ -34,6 +34,7 @@ from repro_torch.launch.inputs import memory_shape
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import (cache_specs, encode, init_from_specs,
                                 param_specs)
+from repro_torch.models.spec import draw_leaves
 
 
 def _sync(dev: torch.device) -> None:
@@ -48,6 +49,17 @@ def make_params(cfg, seed: int, device) -> dict:
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     return init_from_specs(param_specs(cfg), g, device, cfg.torch_param_dtype)
+
+
+def draw_params(cfg, seed: int, device):
+    """``make_params``' weights one leaf at a time: ``(path, leaf)`` pairs
+    from the same generator in the same order, each leaf float32 (its cast
+    to ``cfg.param_dtype`` is ``make_params``' leaf bitwise), so that a
+    caller need never hold the whole model (``sharding.shard_leaves``).
+    The draws depend on the card's model, not on which card of a node."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return draw_leaves(param_specs(cfg), g, device)
 
 
 def make_caches(cfg, batch: int, max_len: int, device, *,

@@ -268,6 +268,56 @@ def place(tree: PyTree, specs: PyTree, mesh: DeviceMesh) -> PyTree:
         for f in dataclasses.fields(tree)})
 
 
+def local_index(shape: tuple, spec: Spec, mesh: DeviceMesh) -> tuple:
+    """The slices of a whole ``shape`` tensor that this rank holds when it
+    is placed by ``spec`` (``place``'s chunk): a dim over several mesh axes
+    split by the outermost mesh dim first, as a DTensor splits it."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    extents = mesh_shape(mesh)
+    out = []
+    for i, d in enumerate(shape):
+        axes = spec_axes(spec[i]) if i < len(spec) else ()
+        idx, n = 0, 1
+        for a in mesh.mesh_dim_names:
+            if a in axes:
+                idx, n = idx * extents[a] + coord[a], n * extents[a]
+        out.append(slice(idx * (d // n), (idx + 1) * (d // n)))
+    return tuple(out)
+
+
+def from_local(local: torch.Tensor, stand: torch.Tensor,
+               mesh: DeviceMesh):
+    """This rank's chunk ``local`` of the tensor a stand-in describes (its
+    global shape and ``.spec``) as a DTensor on ``mesh``.  No data moves."""
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(stand.shape)
+    return DTensor.from_local(local, mesh, placements(stand.spec, mesh),
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def shard_leaves(leaves, specs: dict, mesh: DeviceMesh, *, lead: int = 0,
+                 device=None, dtype=None):
+    """Each rank's chunks of a model made one leaf at a time, never whole:
+    for each ``(key, whole tensor)`` that ``leaves`` yields, this rank's
+    chunk of it, where ``specs[key]`` places a tensor of ``lead`` more
+    leading dims (the FL dims: each rank's chunk of a slot), copied to
+    ``device`` in ``dtype`` (each the whole tensor's where None).  Yields
+    ``(key, chunk)``; the whole tensor is dropped before the next is
+    drawn, so a rank holds its chunks and one whole leaf at the most.
+    A chunk equals ``place``'s of the whole tree bitwise: the cast is
+    elementwise, so cutting before it changes no bit."""
+    for key, full in leaves:
+        spec = tuple(specs[key])[lead:]
+        chunk = full[local_index(tuple(full.shape), spec, mesh)]
+        chunk = chunk.to(device=device or full.device,
+                         dtype=dtype or full.dtype, copy=True,
+                         memory_format=torch.contiguous_format)
+        del full
+        yield key, chunk
+
+
 def whole(tree: PyTree) -> PyTree:
     """``place``'s inverse: every DTensor of a tree gathered whole on every
     rank (``full_tensor``); plain tensors as they are."""

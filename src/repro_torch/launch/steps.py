@@ -555,6 +555,48 @@ def init_fl_histories(params: dict) -> tuple[History, History]:
     return dev_hist, glob_hist
 
 
+def place_fl_state(chunks, specs: dict, mesh):
+    """``init_fl_histories``' cold boot of every client slot holding one
+    model, as (params, dev_hist, glob_hist) DTensors on ``mesh`` placed by
+    ``specs`` (``launch.inputs.train_input_specs``' stand-ins), made from
+    ``chunks``: ``(key, this rank's chunk of one slot)`` pairs, taken one
+    at a time (``sharding.shard_leaves``).  A rank fills its own
+    ``[E/pod, C/data]`` slots with its chunk, and takes the leader's
+    float32 mean over all C clients from it too (every slot holds the
+    same model), so no leaf is ever whole and no data moves."""
+    from repro_torch.launch import sharding as shd
+    c_all = specs["dev_mask"].shape[1]
+    sp = flatten(specs["params"])
+    dev, glob = specs["dev_hist"], specs["glob_hist"]
+
+    def put(local, stand):
+        return shd.from_local(local, stand, mesh)
+
+    params, d_prev, d_dmean, g_prev, g_dmean = {}, {}, {}, {}, {}
+    for k, x in chunks:
+        e_l, c_l = shd.local_shape(tuple(sp[k].shape), sp[k].spec, mesh)[:2]
+        w = x[None, None].expand(e_l, c_l, *x.shape).contiguous()
+        params[k] = put(w, sp[k])
+        d_prev[k] = put(w.clone(), dev.prev_w[k])
+        d_dmean[k] = put(torch.zeros_like(w), dev.delta_mean[k])
+        g = x.to(f32)[None, None].expand(e_l, c_all, *x.shape).mean(1)
+        del x, w
+        g_prev[k] = put(g, glob.prev_w[k])
+        g_dmean[k] = put(torch.zeros_like(g), glob.delta_mean[k])
+
+    def counts(stand, device):
+        return put(torch.zeros(shd.local_shape(tuple(stand.shape),
+                                               stand.spec, mesh),
+                               dtype=f32, device=device), stand)
+
+    at = next(iter(params.values())).device
+    return unflatten(params), History(
+        prev_w=d_prev, delta_mean=d_dmean, n_obs=counts(dev.n_obs, at),
+        miss_count=counts(dev.miss_count, at)), History(
+        prev_w=g_prev, delta_mean=g_dmean, n_obs=counts(glob.n_obs, at),
+        miss_count=counts(glob.miss_count, at))
+
+
 def make_train_step(cfg: ArchConfig, remat: bool = True,
                     kernel_mode: str = "auto"):
     """Plain (non-FL) train step for Layout B params, the W/O-stragglers

@@ -43,8 +43,9 @@ def _draw(spec: ParamSpec, generator, device, dtype) -> torch.Tensor:
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    # in place: one float32 leaf alive, not two
     v = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device) / np.sqrt(max(fan_in, 1))
+                    device=device).div_(np.sqrt(max(fan_in, 1)))
     return v.to(dtype)
 
 
@@ -67,6 +68,25 @@ def init_from_specs(specs: dict, generator: Optional[torch.Generator],
                 if isinstance(v, ParamSpec)
                 else init_from_specs(v, generator, device, dtype))
             for k, v in sorted(specs.items())}
+
+
+def iter_specs(specs: dict, prefix: str = ""):
+    """``("a/b/c", ParamSpec)`` of a nested dict, in ``init_from_specs``'
+    order (sorted keys, depth first)."""
+    for k, v in sorted(specs.items()):
+        if isinstance(v, ParamSpec):
+            yield prefix + k, v
+        else:
+            yield from iter_specs(v, f"{prefix}{k}/")
+
+
+def draw_leaves(specs: dict, generator: Optional[torch.Generator],
+                device="cpu"):
+    """``(path, leaf)`` of ``init_from_specs(specs, generator, device,
+    dtype)`` one leaf at a time, each in float32: the same draws, and a
+    leaf cast to ``dtype`` is ``init_from_specs``' leaf bitwise."""
+    for path, spec in iter_specs(specs):
+        yield path, _draw(spec, generator, device, torch.float32)
 
 
 def count_params(specs: dict) -> int:

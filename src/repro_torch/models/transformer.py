@@ -142,19 +142,18 @@ def params_from_numpy(tree: dict, device="cpu") -> dict:
     """Carry a JAX parameter (or cache) pytree, as numpy arrays, onto the
     port's: the same nested names, the stacked unit axis kept, each leaf in
     its own dtype (bfloat16 leaves through their bits)."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out[k] = params_from_numpy(v, device)
-            continue
-        a = np.asarray(v)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(np.array(a.view(np.int16))).view(
-                torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(a))
-        out[k] = t.to(device)
-    return out
+    return {k: params_from_numpy(v, device) if isinstance(v, dict)
+            else leaf_from_numpy(v).to(device) for k, v in tree.items()}
+
+
+def leaf_from_numpy(v) -> torch.Tensor:
+    """One numpy leaf as a CPU tensor of its dtype (a copy; bfloat16
+    through its bits)."""
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.int16))).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 # ------------------------------------------------------------------- apply
