@@ -29,7 +29,14 @@ stragglers, ``fedavg`` without.  Each runs once with the kernels
 (``kernel_mode="auto"``) and once with the plain versions (``"torch"``),
 and the two must agree.  Last, ``run_checkpointed(every=2)`` is cut
 after its first chunk and resumed from a fresh simulator: the result
-must be bitwise the uninterrupted checkpointed run's.  Then the sweeps
+must be bitwise the uninterrupted checkpointed run's.  Then the
+``geometry`` phase: the same experiment (HieAvg, T = 2) at three CNN
+geometries past the conv kernels' old limits (``GEOMETRY``: a 96-pixel
+image, 128 -> 256 channels, 256 pixels a row), kernels against plain
+within the engine-parity bounds, clock and energy equal; the conv kernels
+are also checked at those geometries' shapes and tails (``CONV_SHAPES``,
+dW and db bitwise on repeat) and timed at two of them (``CONV_WIDE``).
+Then the sweeps
 (``repro_torch.fl.sweep``) at the CNN's full width, DEFAULT cut to T = 4
 with one epoch over each device's own shard: Fig. 3's eleven rows
 (``bucket_cost="measured"``) and a "switched" plan (HieAvg,
@@ -142,9 +149,13 @@ the flash bounds, every recurrent layer and its caches bitwise in both
 modes, the tail after the units); ``train.run`` on mamba2 at full depth
 and on recurrentgemma cut to one unit and its tail (5 layers), kernels
 and plain, ``train_parity``, and ``train_grads_bf16`` on recurrentgemma's
-attention layer.  The flash phases hold the kernels at head dim 256
-(``FLASH_RG``, two sharp cases in ``FLASH_SHARP``; the float32 backward,
-not built there, must refuse), and ``flash_model_timing`` times them at
+attention layer; then recurrentgemma trained in float32 (``RG_F32_KW``:
+one client of 1 x 8192 tokens at 5 layers), kernels and plain, its
+``train_parity``, the dry-run's predicted peak beside the card's
+(``train_rg_f32``), and the float32 backward at Dh 256 timed at the
+``[rg]`` shape (``flash_attention_bwd[rg_f32]``).  The flash phases hold the kernels at head dim 256
+(``FLASH_RG``, two sharp cases in ``FLASH_SHARP``; the float32 backward
+on its 32-row tiles), and ``flash_model_timing`` times them at
 recurrentgemma's shape (``[rg]``, with the instances' registers, spills
 and HGMMA counts).  The flash phases also hold the kernels at head dims
 no kernel is built for (``FLASH_PADDED``: 24, smoke MLA's, 40 and 100),
@@ -249,13 +260,27 @@ FEAT = (HW // 2) ** 2 * C2
 RB, RHW, RC1, RC2 = 16, 14, 8, 16
 RFEAT = (RHW // 2) ** 2 * RC2
 EXAMPLE_NTEST, EXAMPLE_POINTS = (400, 300), 18
+#: the conv kernels' check shapes (D, B, H, W, Cin, Cout) past the old
+#: limits: every shape the GEOMETRY runs give the kernels (``geometry_phase``
+#: checks that none is missing): S1's, S2's and S3's two layers at the
+#: train shape (layer 2 of S1 and S2 timed, CONV_WIDE) and at the eval
+#: shape (n_test NTEST, one model), then a 230-pixel row's tail segment,
+#: 4096 input channels (weights streamed) and 300 (streamed, odd)
+CONV_GEOMETRY_SHAPES = (
+    (D, B, 96, 96, C1, C2), (D, B, 96, 96, 1, C1),
+    (1, NTEST, 96, 96, 1, C1), (1, NTEST, 96, 96, C1, C2),
+    (D, B, HW, HW, 128, 256), (D, B, HW, HW, 1, 128),
+    (1, NTEST, HW, HW, 1, 128), (1, NTEST, HW, HW, 128, 256),
+    (4, 8, 256, 256, 8, 16), (4, 8, 256, 256, 1, 8),
+    (1, NTEST, 256, 256, 1, 8), (1, NTEST, 256, 256, 8, 16),
+    (1, 2, 9, 230, 3, 5), (1, 1, 3, 3, 4096, 64), (1, 2, 10, 10, 300, 7))
 #: the conv kernels' check shapes (D, B, H, W, Cin, Cout): the main path's
 #: (train and eval, layers 2 and 1; the first is timed), the example
 #: drivers' at REDUCED (train at 25 devices and at the largest sweep's
 #: points x 25, eval of one model at n_test 400 and of the largest sweep's
 #: points at 300) and tails of the tiling: one tile, tails, odd channels,
 #: a non-square image, channels across the 4-channel chunk and 8-channel
-#: group edges
+#: group edges; then CONV_GEOMETRY_SHAPES
 CONV_SHAPES = ((D, B, HW, HW, C1, C2), (D, B, HW, HW, 1, C1),
                (1, NTEST, HW, HW, 1, C1), (1, NTEST, HW, HW, C1, C2),
                (D, RB, RHW, RHW, 1, RC1), (D, RB, RHW, RHW, RC1, RC2),
@@ -266,11 +291,37 @@ CONV_SHAPES = ((D, B, HW, HW, C1, C2), (D, B, HW, HW, 1, C1),
                (EXAMPLE_POINTS, EXAMPLE_NTEST[1], RHW, RHW, 1, RC1),
                (EXAMPLE_POINTS, EXAMPLE_NTEST[1], RHW, RHW, RC1, RC2),
                (1, 1, 5, 5, 1, 3), (2, 2, 12, 12, 4, 8), (1, 2, 16, 16, 3, 7),
-               (1, 3, 7, 9, 5, 6), (1, 2, 10, 10, 33, 65))
+               (1, 3, 7, 9, 5, 6), (1, 2, 10, 10, 33, 65),
+               *CONV_GEOMETRY_SHAPES)
+#: the paper's experiment at CNN geometries past the conv kernels' old
+#: limits (the ``geometry`` phase: HieAvg, temporary stragglers at both
+#: layers, T = GEOMETRY_T, kernels and plain): label -> the BHFLSetting
+#: fields it overrides.  S1: a 96-pixel image at the paper's widths (the
+#: dW pass's row segments); S2: 128 -> 256 channels (dx's streamed
+#: weights, dW's channel windows); S3: 256 pixels a row (two column
+#: segments), 2 edges of 2 devices at batch 8
+GEOMETRY = {"s1": dict(image_hw=96),
+            "s2": dict(cnn_c1=128, cnn_c2=256),
+            "s3": dict(image_hw=256, cnn_c1=8, cnn_c2=16, n_edges=2,
+                       j_per_edge=2, batch_size=8)}
+GEOMETRY_T = 2
+#: the geometry runs' local steps an edge round: DEFAULT's own count
+#: (4000 // (25 x 32)), which S1 and S2 take by themselves; one epoch of
+#: S3's 4 devices x batch 8 would be 125 (25 s a plain run on the card)
+GEOMETRY_KW = dict(steps_per_epoch=5)
+#: the conv entries of the ``kernels`` line at a geometry's second layer
+#: (D, B, H, W, c1, c2 of its train step; PERF.md rows 1b, 2b): label ->
+#: geometry
+CONV_WIDE = {"s2": (D, B, HW, HW, 128, 256), "s1": (D, B, 96, 96, C1, C2)}
 
 REPLACES = {
     "conv3x3_fwd": "src/repro/kernels/conv3x3.py:83",
     "conv3x3_bwd": "src/repro/kernels/conv3x3.py:105",
+    # the same two kernels at the geometries' second layers (CONV_WIDE)
+    "conv3x3_fwd[s2]": "src/repro/kernels/conv3x3.py:83",
+    "conv3x3_bwd[s2]": "src/repro/kernels/conv3x3.py:105",
+    "conv3x3_fwd[s1]": "src/repro/kernels/conv3x3.py:83",
+    "conv3x3_bwd[s1]": "src/repro/kernels/conv3x3.py:105",
     "sgd_update": "src/repro/kernels/sgd_update.py:40",
     "sgd_update[rows]": "src/repro/kernels/sgd_update.py:40",
     "hieavg_agg": "src/repro/kernels/hieavg_agg.py:60",
@@ -300,6 +351,9 @@ REPLACES = {
     # 16, window 2048; FLASH_TIMED)
     "flash_attention[rg]": "src/repro/kernels/flash_attention.py:77",
     "flash_attention_bwd[rg]": "src/repro/kernels/flash_attention.py:77",
+    # the float32 backward at that shape (recurrentgemma trained in float32,
+    # RG_F32_KW)
+    "flash_attention_bwd[rg_f32]": "src/repro/kernels/flash_attention.py:77",
     # the same two kernels at a rank's shard of the mesh steps (danube's
     # heads over model=2; FLASH_SHARD)
     "flash_attention[shard]": "src/repro/kernels/flash_attention.py:77",
@@ -310,6 +364,10 @@ REPLACES = {
 SOURCE = {
     "conv3x3_fwd": "src/repro_torch/kernels/csrc/conv3x3.cu",
     "conv3x3_bwd": "src/repro_torch/kernels/csrc/conv3x3.cu",
+    "conv3x3_fwd[s2]": "src/repro_torch/kernels/csrc/conv3x3.cu",
+    "conv3x3_bwd[s2]": "src/repro_torch/kernels/csrc/conv3x3.cu",
+    "conv3x3_fwd[s1]": "src/repro_torch/kernels/csrc/conv3x3.cu",
+    "conv3x3_bwd[s1]": "src/repro_torch/kernels/csrc/conv3x3.cu",
     "sgd_update": "src/repro_torch/kernels/csrc/sgd_update.cu",
     "sgd_update[rows]": "src/repro_torch/kernels/csrc/sgd_update.cu",
     "hieavg_agg": "src/repro_torch/kernels/csrc/hieavg_agg.cu",
@@ -342,6 +400,8 @@ SOURCE = {
     "flash_attention[rg]":
         "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_bwd[rg]":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd[rg_f32]":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "flash_attention[shard]":
         "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -563,6 +623,17 @@ MOE_TRAIN = ("minicpm3-4b", "deepseek-v2-lite-16b")
 RG_ARCH, MAMBA_ARCH = "recurrentgemma-9b", "mamba2-130m"
 RECURRENT_SERVE = (RG_ARCH, MAMBA_ARCH)
 RECURRENT_TRAIN = {MAMBA_ARCH: 24, RG_ARCH: 5}
+#: recurrentgemma-9b trained in float32 (the reference's own training
+#: dtype; ``train.run(param_dtype="float32")``), its local attention's
+#: backward on the float32 kernels at Dh 256: full width cut to one unit
+#: and its tail (RECURRENT_TRAIN's 5 layers, the least ``cut_depth``
+#: takes; 2.17 B parameters, 8.7 GB a copy), one edge of one client of
+#: 1 x 8192 tokens, T = 1, K = 2, kernels and plain.  Sized by the
+#: dry-run's peak of the plain step (``rg_f32_predict``, printed beside the
+#: card's): two clients' state alone is 69.6 GB; one client's 43.5 GB and
+#: the step's temp 21.6 GB give 65.1 GB of the card's 80
+RG_F32_KW = dict(n_edges=1, n_clients=1, batch=1, seq=8192, steps=1,
+                 k_edge=2, param_dtype="float32")
 #: the layer kinds that attend to nothing (no flash call)
 RECURRENT_KINDS = ("rec", "ssd")
 #: auto-vs-torch bound on each layer's output and on the logits, relative
@@ -608,7 +679,7 @@ FLASH_MLA = ((300, 300, 96, True, None, (8, 8)),
 #: causal, window, (H, Hkv)), its group of 16 over one kv head among them,
 #: windows, lengths across the 32-row tiles' edges, in the forward's grid
 #: and, with a q offset, FLASH_BWD_CASES (tests/test_torch_gpu.py's
-#: FLASH_RG_CASES); the float32 backward is not built at 256 and must raise
+#: FLASH_RG_CASES), the float32 backward on its 32-row tiles
 FLASH_RG = ((300, 300, 256, True, 100, (16, 1)),
             (33, 65, 256, False, None, (4, 1)),
             (129, 257, 256, True, 40, (16, 1)),
@@ -714,7 +785,9 @@ FLASH_BWD_CASES = (((100, 100), 32, (4, 4), True, None, 0),
     (sqkv, dh, hh, False, None, 0) for sqkv, dh, hh in FLASH_MODEL) + tuple(
     ((sq, skv), dh, hh, causal, window, 5 if causal else 0)
     for sq, skv, dh, causal, window, hh in FLASH_MLA + FLASH_RG
-    + FLASH_PADDED)
+    + FLASH_PADDED) + (
+    # recurrentgemma's window over a cut length, float32 on its 32-row tiles
+    ((2304, 2304), 256, (16, 1), True, 2048, 0),)
 #: the backward's bounds against its plain version (each side fed its own
 #: forward's output and lse), relative to each gradient's largest
 #: magnitude: float32 1e-4 (the same float32 sums in another order),
@@ -895,6 +968,39 @@ def device_ms(torch, fn, symbols, iters: int = 20):
     return us / 1e3 / iters if us > 0 else None
 
 
+def launch_ms(torch, build, fn, iters: int = 10) -> dict:
+    """Device time per call of each launch ``fn`` makes, by the name its
+    wrapper hands ``build.check`` right after the launch: CUDA events
+    recorded before the call and at each such check, so each launch's time
+    runs from the end of the one before (with whatever the host did in
+    between); the profiler is not needed."""
+    sound, marks = build.check, []
+
+    def mark(rc, name):
+        sound(rc, name)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    fn()
+    torch.cuda.synchronize()
+    totals: dict = collections.defaultdict(float)
+    build.check = mark
+    try:
+        for _ in range(iters):
+            marks.clear()
+            prev = torch.cuda.Event(enable_timing=True)
+            prev.record()
+            fn()
+            torch.cuda.synchronize()
+            for name, ev in marks:
+                totals[name] += prev.elapsed_time(ev) / iters
+                prev = ev
+    finally:
+        build.check = sound
+    return dict(totals)
+
+
 def check(name: str, ok: bool, detail: str) -> None:
     if not ok:
         raise AssertionError(f"{name}: {detail}")
@@ -902,8 +1008,11 @@ def check(name: str, ok: bool, detail: str) -> None:
 
 #: device-side kernel names -> the port's kernels (the rest is PyTorch's)
 KERNEL_SYMBOLS = (("conv3x3_fwd_kernel", "conv3x3_fwd"),
+                  ("conv3x3_fwd_ws_kernel", "conv3x3_fwd"),
                   ("conv3x3_dx_kernel", "conv3x3_bwd dx"),
+                  ("conv3x3_dx_ws_kernel", "conv3x3_bwd dx"),
                   ("conv3x3_dw_kernel", "conv3x3_bwd dW/db"),
+                  ("conv3x3_dw_wide_kernel", "conv3x3_bwd dW/db"),
                   ("sgd_update_kernel", "sgd_update"),
                   ("hieavg_agg_kernel", "hieavg_agg"),
                   ("coef_agg_kernel<false>", "coef_agg"),
@@ -1715,18 +1824,6 @@ def flash_bwd_phase(torch, cfg, kern, randn, record, design) -> dict:
             do = randn(b, sq, h, dh).to(dtype)
             kw = dict(causal=causal, window=window, q_offset=off)
             o, lse = fwd(q, k, v, lse=True, mode="cuda", **kw)
-            if dtype == torch.float32 and kern._kernel_head_dim(
-                    "flash_attention_bwd", dh) not in kern.F32_BWD_HEAD_DIMS:
-                # not built: the wrapper refuses before any launch
-                try:
-                    bwd(q, k, v, o, lse, do, mode="cuda", **kw)
-                    refused = False
-                except ValueError:
-                    refused = True
-                check("flash_attention_bwd", refused,
-                      f"float32 at Dh {dh} did not raise")
-                worst["float32_refused_dh"] = dh
-                continue
             got = bwd(q, k, v, o, lse, do, mode="cuda", **kw)
             o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
             case = f"{(b, (sq, skv), dh, (h, hkv), causal, window, off, name)}"
@@ -2023,9 +2120,11 @@ def flash_shard_timing(torch, kern, randn, record) -> None:
 
 def train_runs(torch, train, build, kern, n_layers: int,
                modes=("auto", "torch"), finite: bool = True,
-               arch: str = TRAIN_ARCH, seq: int = TRAIN_KW["seq"]) -> dict:
+               arch: str = TRAIN_ARCH, seq: int = TRAIN_KW["seq"],
+               over=None) -> dict:
     """``train.run`` on ``arch`` at full width cut to ``n_layers`` layers
-    (``TRAIN_KW``, ``seq`` tokens a row), once per kernel mode, the launch
+    (``TRAIN_KW``, ``seq`` tokens a row, ``over``'s fields in its place),
+    once per kernel mode, the launch
     counts set to 0 just before each run and read just after, in all and
     at each shape (``shape_launches``): seconds per edge round, tokens a
     second, peak memory, the losses, the clock and the blocks.  With the
@@ -2040,7 +2139,9 @@ def train_runs(torch, train, build, kern, n_layers: int,
     without the kernels; that line measures time and memory only."""
     from repro_torch.configs import cut_depth, get_config
     from repro_torch.models import count_params, param_specs
-    kw = dict(TRAIN_KW, n_layers=n_layers, device="cuda", seq=seq)
+    kw = {**TRAIN_KW, "n_layers": n_layers, "device": "cuda", "seq": seq,
+          **(over or {})}
+    seq = kw["seq"]
     cfg = cut_depth(get_config(arch), n_layers)
     rounds = kw["steps"] * kw["k_edge"]
     tokens = rounds * kw["n_edges"] * kw["n_clients"] * kw["batch"] \
@@ -2064,6 +2165,7 @@ def train_runs(torch, train, build, kern, n_layers: int,
                 "params": count_params(param_specs(cfg)),
                 **{k: kw[k] for k in ("n_edges", "n_clients", "batch", "seq",
                                       "steps", "k_edge")},
+                "param_dtype": kw.get("param_dtype") or cfg.param_dtype,
                 "wall_s": res["wall"], "s_per_edge_round": res["wall"]
                 / rounds, "tokens_per_s": tokens / res["wall"],
                 "peak_memory_gb": peak / 1e9,
@@ -4374,6 +4476,243 @@ def examples_phase(torch, build) -> None:
             "sim_seconds": float(res["sim_clock"][-1])})
 
 
+@contextlib.contextmanager
+def conv_launches(conv, build):
+    """While open, each conv forward and backward call's launches are
+    added to the yielded Counter under (kernel, D, B, H, W, Cin, Cout) of
+    its input: a run's launches at each layer's shape.  The wrappers of
+    module ``conv`` (which the autograd function looks up at each call) are
+    swapped for counting ones and restored on exit."""
+    into = collections.Counter()
+    sound = {name: getattr(conv, name) for name in ("conv3x3_fwd",
+                                                    "conv3x3_bwd")}
+
+    def counted(name, x, w, *a, **kw):
+        before = build.LAUNCHES[name]
+        try:
+            return sound[name](x, w, *a, **kw)
+        finally:
+            n = build.LAUNCHES[name] - before
+            if n:
+                into[(name, *x.shape, w.shape[-1])] += n
+
+    for name in sound:
+        setattr(conv, name, functools.partial(counted, name))
+    try:
+        yield into
+    finally:
+        for name, fn in sound.items():
+            setattr(conv, name, fn)
+
+
+def geometry_phase(torch, build, simulator, conv) -> dict:
+    """The paper's experiment at each GEOMETRY (DEFAULT with its fields,
+    T = GEOMETRY_T, GEOMETRY_KW), HieAvg with temporary stragglers at both
+    layers, once with the kernels and once plain, the launch counts set to
+    0 just before each run and read just after (``conv_launches`` by
+    shape): every
+    run's rows finite and its chain valid, the kernel run launching the
+    conv kernels, the SGD update, the coefficient aggregate and the
+    evaluation head and the plain run nothing, the pair within the
+    engine-parity bounds with clock and energy equal.  Returns each
+    geometry's kernel-run launches by conv shape."""
+    from repro_torch.configs import DEFAULT
+    out, t0 = {}, time.time()
+    for label, fields in GEOMETRY.items():
+        setting = dataclasses.replace(DEFAULT, t_global_rounds=GEOMETRY_T,
+                                      **fields)
+        runs = {}
+        for mode in ("auto", "torch"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launch_counts()
+            sim = simulator(setting, "hieavg", "temporary", "temporary",
+                            device="cuda", kernel_mode=mode, **GEOMETRY_KW)
+            with conv_launches(conv, build) as shapes:
+                res = sim.run()
+            torch.cuda.synchronize()
+            runs[mode] = (res, dict(build.LAUNCHES), shapes)
+            for key in ROWS:
+                row = getattr(res, key)
+                check("geometry", row.shape == (GEOMETRY_T,)
+                      and bool(np.isfinite(row).all()),
+                      f"{label} {mode} {key}: {row}")
+            check("geometry", res.blocks == GEOMETRY_T and res.chain_valid,
+                  f"{label} {mode}: chain {res.blocks}")
+            emit({"geometry_run": {
+                "geometry": label, "fields": fields, "kernel_mode": mode,
+                "wall_s": res.wall_time, "steps_per_epoch": sim.steps,
+                "devices": sim.D, **{k: [float(v) for v in getattr(res, k)]
+                                     for k in ROWS},
+                "launches": runs[mode][1],
+                "conv_launches_by_shape": [[*k, n] for k, n in
+                                           sorted(shapes.items())],
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}})
+        (a, launches, shapes), (p, plain, _) = runs["auto"], runs["torch"]
+        check("geometry", not plain, f"{label}: torch mode launched {plain}")
+        unchecked = sorted({k[1:] for k in shapes} - set(CONV_SHAPES))
+        check("geometry", not unchecked,
+              f"{label}: conv shapes not in CONV_SHAPES {unchecked}")
+        missing = [k for k in EVERY_RUN + ("coef_agg",)
+                   if launches.get(k, 0) == 0]
+        check("geometry", not missing, f"{label}: never launched {missing}")
+        parity = {
+            "accuracy": bool(np.allclose(a.accuracy, p.accuracy, rtol=0,
+                                         atol=ACC_TOL)),
+            "loss": bool(np.allclose(a.loss, p.loss, rtol=LOSS_TOL,
+                                     atol=LOSS_TOL)),
+            "delta": bool(np.allclose(a.grad_norm, p.grad_norm,
+                                      rtol=DELTA_RTOL, atol=DELTA_ATOL)),
+            "clock_equal": bool(np.array_equal(a.sim_clock, p.sim_clock)),
+            "energy_equal": bool(np.array_equal(a.sim_energy,
+                                                p.sim_energy)),
+            "blocks_equal": a.blocks == p.blocks}
+        emit({"geometry_parity": {
+            "geometry": label, "auto_vs_torch": parity,
+            "max_abs_diff": {k: float(np.abs(getattr(a, r)
+                                             - getattr(p, r)).max())
+                             for k, r in (("accuracy", "accuracy"),
+                                          ("loss", "loss"),
+                                          ("delta", "grad_norm"))},
+            "tolerances": {"accuracy_atol": ACC_TOL,
+                           "loss_rtol_atol": LOSS_TOL,
+                           "delta_rtol": DELTA_RTOL,
+                           "delta_atol": DELTA_ATOL}}})
+        check("geometry", all(parity.values()), f"{label}: {parity}")
+        out[label] = shapes
+    emit({"geometry": {"seconds": time.time() - t0}})
+    return out
+
+
+def rg_f32_predict(torch, cfg, kw: dict) -> dict:
+    """The dry-run's reading of the plain HFL step of ``cfg`` at ``kw``'s
+    edges, clients, rows and tokens, on meta tensors of the train line's
+    state (``dryrun.track``, no mesh): argument, output, temp and peak
+    bytes, and the seconds it took."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import init_fl_histories
+    from repro_torch.models import param_specs
+    from repro_torch.models.config import InputShape
+    e, c, b, s = kw["n_edges"], kw["n_clients"], kw["batch"], kw["seq"]
+
+    def tree(specs):
+        return {k: tree(v) if isinstance(v, dict) else torch.zeros(
+            (e, c) + tuple(v.shape), dtype=cfg.torch_param_dtype,
+            device="meta") for k, v in specs.items()}
+
+    params = tree(param_specs(cfg))
+    dev_hist, glob_hist = init_fl_histories(params)
+    tok = torch.zeros((e, c, b, s), dtype=torch.long, device="meta")
+    x = {"params": params, "dev_hist": dev_hist, "glob_hist": glob_hist,
+         "batch": {"tokens": tok, "labels": tok.clone()},
+         "dev_mask": torch.ones((e, c), dtype=torch.bool, device="meta"),
+         "edge_mask": torch.ones((e,), dtype=torch.bool, device="meta"),
+         "lr": 0.01}
+    shape = InputShape("train", s, e * c * b, "train")
+    t0 = time.time()
+    rec = dryrun.track(lambda m: dryrun.run_step(cfg, shape, None, m,
+                                                 kernel_mode="torch"), x)
+    return {**{k: rec[k] for k in ("argument", "output", "temp", "peak")},
+            "seconds": time.time() - t0}
+
+
+def rg_f32_phase(torch, train, build, kern, randn, record) -> dict:
+    """recurrentgemma-9b trained in float32 (RG_F32_KW), kernels against
+    plain (``train_runs``: launches at each shape, the float32 backward's
+    three a call; ``train_parity``), the dry-run's predicted peak
+    (``rg_f32_predict``) beside each run's measured one; then the float32
+    backward timed at row 8p's shape (FLASH_TIMED["rg"], bf16 there) beside
+    its plain version and the library's (autograd of
+    ``scaled_dot_product_attention`` in float32, bool mask,
+    ``enable_gqa``), its bound at the FP32 peak.  Returns the kernel run's
+    launches by shape."""
+    import dataclasses as dc
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_fwd_ref)
+    t0 = time.time()
+    n = RECURRENT_TRAIN[RG_ARCH]
+    cfg = dc.replace(cut_depth(get_config(RG_ARCH), n),
+                     param_dtype=RG_F32_KW["param_dtype"],
+                     clients_per_pod=RG_F32_KW["n_clients"])
+    pred = rg_f32_predict(torch, cfg, RG_F32_KW)
+    runs = train_runs(torch, train, build, kern, n, arch=RG_ARCH,
+                      over=RG_F32_KW)
+    parity = train_parity(torch, train, runs, RG_ARCH)
+    emit({"train_rg_f32": {
+        "predicted_peak_gb": pred["peak"] / 1e9,
+        "predicted": {k: v / 1e9 if k != "seconds" else v
+                      for k, v in pred.items()},
+        "measured_peak_gb": {m: runs[m][2]["peak_memory_gb"]
+                             for m in runs},
+        "first_loss_rel": parity["full_width"]["first_loss_rel"]}})
+    # the float32 backward at row 8p's shape
+    (sq, skv), dh, (h, hkv), causal, _, win = FLASH_TIMED["rg"]
+    b = SERVE_BATCH
+    q, do = (randn(b, sq, h, dh) for _ in range(2))
+    k, v = (randn(b, skv, hkv, dh) for _ in range(2))
+    kw = dict(causal=causal, window=win)
+    fwd, bwd = kern.flash_attention_fwd, kern.flash_attention_bwd
+    o, lse = fwd(q, k, v, lse=True, mode="cuda", **kw)
+    got = bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+    check("flash_attention_bwd", all(torch.equal(a, c) for a, c in zip(
+        got, bwd(q, k, v, o, lse, do, mode="cuda", **kw))),
+        "float32 at Dh 256: not bitwise on repeat")
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    del o_ref, lse_ref
+    rel = max((g - w).abs().max().item() / w.abs().max().item()
+              for g, w in zip(got, want))
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    check("flash_attention_bwd", rel <= FLASH_BWD_REL["float32"],
+          f"float32 at row 8p's shape: {rel}")
+    del got, want
+    qpos = torch.arange(sq, device=q.device)
+    mask = (qpos[None, :] <= qpos[:, None]) & \
+        (qpos[None, :] > qpos[:, None] - win)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    flops = 10.0 * dh * b * h * flash_pairs(sq, skv, causal, win)
+    record("flash_attention_bwd[rg_f32]", err, FLASH_BWD_REL["float32"],
+           lambda: bwd(q, k, v, o, lse, do, mode="cuda", **kw),
+           timed_ms(torch, lambda: flash_attention_bwd_ref(
+               q, k, v, o, lse, do, **kw), iters=2, warmup=1),
+           timed_ms(torch, library, iters=3, warmup=1),
+           4.0 * (3 * b * sq * h * dh + 4 * b * skv * hkv * dh + b * h * sq),
+           flops,
+           {"shape": {"q": [b, sq, h, dh], "kv": [b, skv, hkv, dh],
+                      "dtype": "float32", "causal": causal, "window": win},
+            "max_rel_err": rel,
+            "tolerance": f"{FLASH_BWD_REL['float32']} x max|grad|",
+            "flops": flops, "bitwise_on_repeat": True,
+            "design": kern.BWD_DESIGNS[torch.float32],
+            "library_call": "autograd of scaled_dot_product_attention("
+                            "attn_mask=causal & window, enable_gqa=True), "
+                            "float32",
+            "device_ms_kernels": {part: device_ms(
+                torch, lambda: bwd(q, k, v, o, lse, do, mode="cuda", **kw),
+                (sym,), iters=10) for sym, part in (
+                ("flash_bwd_delta_kernel", "delta"),
+                ("flash_bwd_dkdv_kernel", "dk_dv"),
+                ("flash_bwd_dq_kernel", "dq"))},
+            "launch_ms": launch_ms(torch, build, lambda: bwd(
+                q, k, v, o, lse, do, mode="cuda", **kw), iters=5),
+            "host_ms": host_ms(torch, lambda: bwd(
+                q, k, v, o, lse, do, mode="cuda", **kw), iters=5)},
+           kernel="flash_attention_bwd", iters=10)
+    del q, k, v, o, lse, do, qt, kt, vt, lib_out, dot
+    emit({"rg_f32_phase": {"seconds": time.time() - t0}})
+    return runs["auto"][-1]
+
+
 def kstar_phase(torch, core) -> dict:
     """K* over a batched grid: ``optimize_k_masked`` on the card over 16
     LatencyParams x 3 omega_bar in one call, against ``optimize_k`` on the
@@ -4462,6 +4801,7 @@ def main() -> int:
     from repro_torch.kernels.coef_agg import (coef_agg_many,
                                               coef_agg_pair_many)
     from repro_torch.kernels.conv3x3 import conv3x3_bwd, conv3x3_fwd
+    conv_mod = importlib.import_module("repro_torch.kernels.conv3x3")
     from repro_torch.kernels.eval_head import eval_head
     from repro_torch.kernels.flash_attention import DESIGNS as FLASH_DESIGNS
     from repro_torch.kernels.flash_attention import flash_attention
@@ -4515,17 +4855,20 @@ def main() -> int:
     results = {}
 
     def record(name, err, tol, fn, plain_ms, library_ms, nbytes, flops,
-               extra=None, kernel=None, flop_rate=FP32_FLOP_PER_S):
+               extra=None, kernel=None, flop_rate=FP32_FLOP_PER_S,
+               iters=20):
         """``fn`` launches the kernel (``kernel``, default ``name``) at the
         timed shape: ``ms`` is its wall time per call through the wrapper
-        (CUDA events, the median of 5 timings: a host-bound wrapper's
-        swings with the shared host), ``device_ms`` its kernels' own device
-        time (profiler).  The bound counts ``flops`` at ``flop_rate``."""
+        (CUDA events, the median of 5 timings of ``iters`` calls: a
+        host-bound wrapper's swings with the shared host), ``device_ms``
+        its kernels' own device time (profiler).  The bound counts
+        ``flops`` at ``flop_rate``."""
         bms, by = bound_ms(nbytes, flops, flop_rate)
         line = {"kernel": name, "max_abs_err": err, "tolerance": tol,
-                "ms": float(np.median([timed_ms(torch, fn)
+                "ms": float(np.median([timed_ms(torch, fn, iters=iters)
                                        for _ in range(5)])),
-                "device_ms": device_ms(torch, fn, symbols_of(kernel or name)),
+                "device_ms": device_ms(torch, fn, symbols_of(kernel or name),
+                                       iters=iters),
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bms, "bound_by": by, **(extra or {})}
         emit(line)
@@ -4539,10 +4882,13 @@ def main() -> int:
 
     # ------------------------------------------------- conv3x3_fwd and _bwd
     # every shape the main path gives the kernels (train and eval, both
-    # layers) and the tiling's tails, the backward with and without dx;
-    # layer 2 at the train shape is timed
+    # layers), the tiling's tails and the geometries past the old limits,
+    # the backward with and without dx, and dx, dW and db bitwise on repeat;
+    # layer 2 at the train shape is timed, and at CONV_WIDE's
     worst_f = worst_b = 0.0
+    wide_s = 0.0  # CONV_GEOMETRY_SHAPES' share of the phase
     for shape in CONV_SHAPES:
+        t_shape = time.time()
         d, b_, h, wd, ci, co = shape
         x, w = rand(d, b_, h, wd, ci), randn(d, 3, 3, ci, co,
                                              scale=(9 * ci) ** -0.5)
@@ -4563,65 +4909,95 @@ def main() -> int:
                 check("conv3x3_bwd", err <= tol,
                       f"{shape} need_dx={need}: {err} > {tol}")
                 worst_b = max(worst_b, err / max(tol, 1e-30))
-        del x, w, b, want, dy, got
-    d, b_, h, wd, ci, co = CONV_SHAPES[0]
-    m = b_ * h * wd
-    x, w = rand(d, b_, h, wd, ci), randn(d, 3, 3, ci, co,
-                                         scale=(9 * ci) ** -0.5)
-    b = randn(d, co, scale=0.1)
-    y = conv3x3_fwd(x, w, b, "torch")
-    dy = randn(d, b_, h, wd, co)
-    # the yardsticks: one grouped conv2d over the D devices (NCHW, TF32
-    # off), its convolution_backward given dz, and the im2col GEMM on
-    # patches built beforehand
-    xn = x.permute(1, 0, 4, 2, 3).reshape(b_, d * ci, h, wd).contiguous()
-    wn = w.permute(0, 4, 3, 1, 2).reshape(d * co, ci, 3, 3).contiguous()
-    bn = b.reshape(-1)
-    dzn = (dy * (y > 0)).permute(1, 0, 4, 2, 3).reshape(
-        b_, d * co, h, wd).contiguous()
-    cols = im2col3x3(x).reshape(d, m, 9 * ci)
-    wmat = w.reshape(d, 9 * ci, co)
+        again = conv3x3_bwd(x, w, want, dy, True, "cuda")
+        check("conv3x3_bwd", all(torch.equal(g_, a_) for g_, a_ in zip(
+            conv3x3_bwd(x, w, want, dy, True, "cuda"), again)),
+            f"{shape}: not bitwise on repeat")
+        del x, w, b, want, dy, got, again
+        if shape in CONV_GEOMETRY_SHAPES:
+            wide_s += time.time() - t_shape
 
-    def lib_fwd():
-        return torch.nn.functional.conv2d(xn, wn, bn, padding=1, groups=d)
+    def conv_records(suffix, shape, iters=20):
+        """conv3x3_fwd and _bwd at ``shape`` (D, B, H, W, Cin, Cout) timed
+        beside the plain versions and the yardsticks: one grouped conv2d
+        over the D devices (NCHW, TF32 off), its convolution_backward given
+        dz and, at the DEFAULT shape, the im2col GEMM on patches built
+        beforehand."""
+        d, b_, h, wd, ci, co = shape
+        m = b_ * h * wd
+        x, w = rand(d, b_, h, wd, ci), randn(d, 3, 3, ci, co,
+                                             scale=(9 * ci) ** -0.5)
+        b = randn(d, co, scale=0.1)
+        y = conv3x3_fwd(x, w, b, "torch")
+        dy = randn(d, b_, h, wd, co)
+        xn = x.permute(1, 0, 4, 2, 3).reshape(b_, d * ci, h, wd).contiguous()
+        wn = w.permute(0, 4, 3, 1, 2).reshape(d * co, ci, 3, 3).contiguous()
+        bn = b.reshape(-1)
+        dzn = (dy * (y > 0)).permute(1, 0, 4, 2, 3).reshape(
+            b_, d * co, h, wd).contiguous()
 
-    def lib_bwd():
-        return torch.ops.aten.convolution_backward(
-            dzn, xn, wn, [d * co], [1, 1], [1, 1], [1, 1], False, [0, 0], d,
-            [True, True, True])
+        def lib_fwd():
+            return torch.nn.functional.conv2d(xn, wn, bn, padding=1,
+                                              groups=d)
 
-    lib_diff = (torch.relu(lib_fwd()).reshape(b_, d, co, h, wd)
-                .permute(1, 0, 3, 4, 2) - y).abs().max().item()
-    err, tol = gemm_err(conv3x3_fwd(x, w, b, "cuda"), y)
-    flops = 2.0 * d * m * 9 * ci * co
-    record("conv3x3_fwd", err, tol, lambda: conv3x3_fwd(x, w, b, "cuda"),
-           timed_ms(torch, lambda: conv3x3_fwd(x, w, b, "torch")),
-           timed_ms(torch, lib_fwd),
-           4.0 * (d * m * ci + d * 9 * ci * co + d * co + d * m * co), flops,
-           {"shape": [d, b_, h, wd, ci, co], "worst_err_over_tol": worst_f,
-            "library_call": "conv2d(groups=D), no ReLU",
-            "library_max_abs_diff": lib_diff,
-            "library_cols_ms": timed_ms(torch, lambda: torch.baddbmm(
-                b[:, None, :], cols, wmat)),
-            "library_cols_call": "baddbmm on im2col patches built before"})
-    del cols, wmat
-    got = conv3x3_bwd(x, w, y, dy, True, "cuda")
-    errs = [gemm_err(g_, w_) for g_, w_ in
-            zip(got, conv3x3_bwd(x, w, y, dy, True, "torch"))]
-    check("conv3x3_bwd", all(e <= t_ for e, t_ in errs), f"{errs}")
-    record("conv3x3_bwd", max(e for e, _ in errs), max(t_ for _, t_ in errs),
-           lambda: conv3x3_bwd(x, w, y, dy, True, "cuda"),
-           timed_ms(torch, lambda: conv3x3_bwd(x, w, y, dy, True, "torch")),
-           timed_ms(torch, lib_bwd),
-           4.0 * (2 * d * m * ci + 2 * d * 9 * ci * co + 2 * d * m * co
-                  + d * co), 2 * flops + d * m * co,
-           {"shape": [d, b_, h, wd, ci, co], "worst_err_over_tol": worst_b,
-            "library_call": "convolution_backward of conv2d(groups=D), "
-                            "given dz",
-            "library_cols_ms": None,
-            "bitwise_on_repeat": all(torch.equal(a_, b2) for a_, b2 in zip(
-                got, conv3x3_bwd(x, w, y, dy, True, "cuda")))})
-    del x, w, b, y, dy, got, xn, wn, bn, dzn
+        def lib_bwd():
+            return torch.ops.aten.convolution_backward(
+                dzn, xn, wn, [d * co], [1, 1], [1, 1], [1, 1], False,
+                [0, 0], d, [True, True, True])
+
+        lib_diff = (torch.relu(lib_fwd()).reshape(b_, d, co, h, wd)
+                    .permute(1, 0, 3, 4, 2) - y).abs().max().item()
+        cols_ms = None
+        if not suffix:
+            cols = im2col3x3(x).reshape(d, m, 9 * ci)
+            wmat = w.reshape(d, 9 * ci, co)
+            cols_ms = timed_ms(torch, lambda: torch.baddbmm(
+                b[:, None, :], cols, wmat))
+            del cols, wmat
+        err, tol = gemm_err(conv3x3_fwd(x, w, b, "cuda"), y)
+        flops = 2.0 * d * m * 9 * ci * co
+        record("conv3x3_fwd" + suffix, err, tol,
+               lambda: conv3x3_fwd(x, w, b, "cuda"),
+               timed_ms(torch, lambda: conv3x3_fwd(x, w, b, "torch"),
+                        iters=iters),
+               timed_ms(torch, lib_fwd, iters=iters),
+               4.0 * (d * m * ci + d * 9 * ci * co + d * co + d * m * co),
+               flops,
+               {"shape": [d, b_, h, wd, ci, co],
+                "worst_err_over_tol": worst_f,
+                "library_call": "conv2d(groups=D), no ReLU",
+                "library_max_abs_diff": lib_diff,
+                "library_cols_ms": cols_ms,
+                "library_cols_call": "baddbmm on im2col patches built "
+                                     "before"},
+               kernel="conv3x3_fwd", iters=iters)
+        got = conv3x3_bwd(x, w, y, dy, True, "cuda")
+        errs = [gemm_err(g_, w_) for g_, w_ in
+                zip(got, conv3x3_bwd(x, w, y, dy, True, "torch"))]
+        check("conv3x3_bwd", all(e <= t_ for e, t_ in errs), f"{errs}")
+        record("conv3x3_bwd" + suffix, max(e for e, _ in errs),
+               max(t_ for _, t_ in errs),
+               lambda: conv3x3_bwd(x, w, y, dy, True, "cuda"),
+               timed_ms(torch, lambda: conv3x3_bwd(x, w, y, dy, True,
+                                                   "torch"), iters=iters),
+               timed_ms(torch, lib_bwd, iters=iters),
+               4.0 * (2 * d * m * ci + 2 * d * 9 * ci * co + 2 * d * m * co
+                      + d * co), 2 * flops + d * m * co,
+               {"shape": [d, b_, h, wd, ci, co],
+                "worst_err_over_tol": worst_b,
+                "library_call": "convolution_backward of conv2d(groups=D), "
+                                "given dz",
+                "library_cols_ms": None,
+                "bitwise_on_repeat": all(torch.equal(a_, b2) for a_, b2 in
+                                         zip(got, conv3x3_bwd(
+                                             x, w, y, dy, True, "cuda")))},
+               kernel="conv3x3_bwd", iters=iters)
+
+    conv_records("", CONV_SHAPES[0])
+    t_wide = time.time()
+    for label, shape in CONV_WIDE.items():
+        conv_records(f"[{label}]", shape, iters=5)
+    emit({"conv_wide": {"seconds": wide_s + time.time() - t_wide}})
 
     # ------------------------------------------------ the model's leaves
     specs = cnn_specs(HW, 1, NCLS, c1=C1, c2=C2)
@@ -5142,6 +5518,9 @@ def main() -> int:
         check("resume", line["resumed_bitwise"] and line["close_to_run"],
               f"{label}: {line}")
 
+    # ---------------------------- the geometries past the conv's old limits
+    geometry = geometry_phase(torch, build, BHFLSimulator, conv_mod)
+
     # ------------------------------------------------------ the sweeps
     sweep_setting = dataclasses.replace(DEFAULT, t_global_rounds=SWEEP_T)
     sweep_launches, swept = sweep_phase(torch, build, fl, sweep_setting,
@@ -5226,6 +5605,7 @@ def main() -> int:
         train_parity(torch, train, rtrained[arch], arch)
     train_grads_bf16(torch, build, flash_kernels, RECURRENT_TRAIN[RG_ARCH],
                      arch=RG_ARCH)
+    rg_f32 = rg_f32_phase(torch, train, build, flash_kernels, randn, record)
 
     # ------------------------------------------------ the example drivers
     # the per-row SGD kernel at every row count the sweep drivers' buckets
@@ -5299,6 +5679,12 @@ def main() -> int:
         shapes = main_runs[path][arch]["auto"][-1]
         launches[f"{name}[{label}]"] = shapes[timed_key(name, label)]
     launches["sgd_update[rows]"] = sweep_launches.get("sgd_update[rows]", 0)
+    for label, (d, b_, h, wd, ci, co) in CONV_WIDE.items():
+        for name in ("conv3x3_fwd", "conv3x3_bwd"):
+            launches[f"{name}[{label}]"] = geometry[label][
+                (name, d, b_, h, wd, ci, co)]
+    launches["flash_attention_bwd[rg_f32]"] = sum(
+        n for key, n in rg_f32.items() if key[0] == "flash_attention_bwd")
     for (name, label), part in SHARD_RUNS.items():
         b, (sq, skv), dh, (h, hkv), _, _ = FLASH_SHARD[label]
         key = list(flash_key(name, b, sq, skv, h, hkv, dh, True))

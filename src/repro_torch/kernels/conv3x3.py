@@ -23,6 +23,13 @@ Layouts are the JAX package's and the stacked device axis is the grid's:
 x [D, B, H, W, Cin], w [D, 3, 3, Cin, Cout], b [D, Cout].  The autograd
 function saves x, w and y, never patches.  Plain versions:
 ``ref.conv3x3_fwd_ref`` and ``ref.conv3x3_bwd_ref``.
+
+Limits: none below the card's memory, as the reference's tiling of the
+im2col rows takes any shape.  Rows wider than 224 pixels are split into
+column segments; weights too wide for a block's shared memory are streamed
+a chunk of channels at a time beside the input (the ``_ws`` kernels); the
+dW pass (``conv3x3_dw_wide_kernel``) splits its channel groups and its
+rows' columns over blocks until its stages fit.  A launch that fails raises (``build.check``).
 """
 from __future__ import annotations
 
@@ -34,18 +41,9 @@ from . import build, ref
 #: block of the backward kernel (the partials are summed outside,
 #: deterministically)
 ROWS_PER_PARTIAL = 32
-#: the widest image the kernels take: 32 groups of 7 pixels a row
-MAX_WIDTH = 224
 #: the most devices one launch takes (the grid's z extent); more are split
 #: across launches
 MAX_DEVICES = 65535
-
-
-def _launch(rc: int, name: str) -> None:
-    if rc == -1:
-        raise ValueError(f"{name}: image wider than {MAX_WIDTH} or weights "
-                         "too wide for a block's shared memory")
-    build.check(rc, name)
 
 
 def _device_runs(D: int):
@@ -72,7 +70,7 @@ def conv3x3_fwd(x, w, b, mode: str = "auto"):
                     dtype=torch.float32)
     for d0, d in _device_runs(D):
         build.LAUNCHES["conv3x3_fwd"] += 1
-        _launch(build.library().conv3x3_fwd_launch(
+        build.check(build.library().conv3x3_fwd_launch(
             _at(x, d0), _at(w, d0), _at(b, d0), _at(y, d0), d, nb * h, h, wd,
             cin, cout, build.stream()), "conv3x3_fwd")
     return y
@@ -97,7 +95,7 @@ def conv3x3_bwd(x, w, y, dy, need_dx: bool = True, mode: str = "auto"):
                        dtype=torch.float32)
     for d0, d in _device_runs(D):
         build.LAUNCHES["conv3x3_bwd"] += 1
-        _launch(build.library().conv3x3_bwd_launch(
+        build.check(build.library().conv3x3_bwd_launch(
             _at(x, d0), _at(w, d0), _at(y, d0), _at(dy, d0), _at(dx, d0),
             _at(part, d0), d, nb * h, h, wd, cin, cout, ROWS_PER_PARTIAL,
             build.stream()), "conv3x3_bwd")

@@ -89,21 +89,28 @@
 // forward's float32 layout: q rows by ty, kv rows by tx, odd row strides
 // so column reads hit distinct banks).  It runs q k^T and do v^T in both
 // kernels (14 Dh FLOPs a pair), bound by shared-memory loads and FMA issue.
-// It is built up to Dh 192: at 256 its four float32 tiles alone take 257
-// KB of shared memory (the wrapper refuses float32 at Dh 256; no main
-// path trains in float32 at that width).
+// At Dh 256 (recurrentgemma trained in float32) four 64-row float32 tiles
+// alone would take 257 KB of shared memory, so the tiles there are 32 rows
+// (F32Tile: 2 x 2 a thread, 140 KB), the bf16 design's answer at that
+// width too.
 #include <math.h>
 
 #include "flash_hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per tile
-constexpr int BK = 64;         // kv rows per tile
 constexpr int THREADS = 256;   // 16 x 16: ty picks q rows, tx kv rows
-constexpr int RPT = BQ / 16;   // q rows per thread
-constexpr int CPT = BK / 16;   // kv rows per thread
-constexpr int LP = BK + 1;     // row stride of P and dS
+
+// The float32 kernels' tiles at head dim DH: R query and R kv rows (64;
+// 32 above Dh 192, where four 64-row float32 tiles would take 257 KB of
+// shared memory), R / 16 rows of each a thread, P and dS rows LP apart.
+template <int DH>
+struct F32Tile {
+  static constexpr int R = DH > 192 ? 32 : 64;
+  static constexpr int RPT = R / 16;  // q rows per thread
+  static constexpr int CPT = R / 16;  // kv rows per thread
+  static constexpr int LP = R + 1;    // row stride of P and dS
+};
 
 struct Params {
   const void* q;
@@ -149,24 +156,25 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// rows r0.. of a [*, DH] operand with row stride `rs` into a [64][DH + 1]
+// rows r0.. of a [*, DH] operand with row stride `rs` into an [R][DH + 1]
 // float32 tile; rows at or past `n` read as zeros
 template <int DH>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long rs, long long r0,
                                           long long n) {
   constexpr int LD = DH + 1;
-  for (int e = threadIdx.x; e < 64 * DH; e += THREADS) {
+  for (int e = threadIdx.x; e < F32Tile<DH>::R * DH; e += THREADS) {
     const int r = e / DH, d = e - r * DH;
     dst[r * LD + d] = r0 + r < n ? src[(r0 + r) * rs + d] : 0.f;
   }
 }
 
-// lse and delta of q rows q0.. of head h; rows past Sq see nothing
+// lse and delta of the R q rows q0.. of head h; rows past Sq see nothing
+template <int R>
 __device__ __forceinline__ void load_rows(float* sL, float* sD,
                                           const Params& p, int b, int h,
                                           int q0) {
-  if (threadIdx.x < BQ) {
+  if (threadIdx.x < R) {
     const int row = q0 + threadIdx.x;
     const size_t at = ((size_t)b * p.H + h) * p.Sq + row;
     sL[threadIdx.x] = row < p.Sq ? p.lse[at] : INFINITY;
@@ -174,10 +182,10 @@ __device__ __forceinline__ void load_rows(float* sL, float* sD,
   }
 }
 
-// P and dS of the 64 x 64 tile (q rows q0 + ty + 16 i, kv rows k0 + tx +
+// P and dS of the R x R tile (q rows q0 + ty + 16 i, kv rows k0 + tx +
 // 16 j): s = q k^T and dp = do v^T as FMA chains over d, then
 // P = exp(s scale - lse) where the masks keep the pair, dS = P (dp - delta)
-template <int DH>
+template <int DH, int RPT = F32Tile<DH>::RPT, int CPT = F32Tile<DH>::CPT>
 __device__ __forceinline__ void tile_p_ds(
     const float* sQ, const float* sDO, const float* sK, const float* sV,
     const float* sL, const float* sD, const Params& p, int q0, long long k0,
@@ -229,11 +237,13 @@ __device__ __forceinline__ void tile_p_ds(
 
 template <int DH>
 constexpr size_t dkdv_smem() {  // k, v, q, do tiles; P, dS; lse, delta
-  return sizeof(float) * (4 * 64 * (DH + 1) + 2 * BQ * LP + 2 * BQ);
+  using T = F32Tile<DH>;
+  return sizeof(float) * (4 * T::R * (DH + 1) + 2 * T::R * T::LP + 2 * T::R);
 }
 template <int DH>
 constexpr size_t dq_smem() {  // q, do, k, v tiles; dS; lse, delta
-  return sizeof(float) * (4 * 64 * (DH + 1) + BQ * LP + 2 * BQ);
+  using T = F32Tile<DH>;
+  return sizeof(float) * (4 * T::R * (DH + 1) + T::R * T::LP + 2 * T::R);
 }
 
 // ------------------------------------------ (b) dk, dv: one block a kv tile
@@ -241,6 +251,8 @@ template <int DH>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dkdv_kernel(const Params p) {
   constexpr int LD = DH + 1, DPT = DH / 16;
+  constexpr int BQ = F32Tile<DH>::R, BK = BQ, RPT = F32Tile<DH>::RPT;
+  constexpr int CPT = F32Tile<DH>::CPT, LP = F32Tile<DH>::LP;
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + BK * LD;
@@ -280,7 +292,7 @@ __global__ void __launch_bounds__(THREADS)
       __syncthreads();  // the last tile's readers are done
       load_tile<DH>(sQ, Q, p.qss, q0, p.Sq);
       load_tile<DH>(sDO, DO, (long long)ds_row, q0, p.Sq);
-      load_rows(sL, sD, p, b, h, (int)q0);
+      load_rows<BQ>(sL, sD, p, b, h, (int)q0);
       __syncthreads();
       float pr[RPT][CPT], ds[RPT][CPT];
       tile_p_ds<DH>(sQ, sDO, sK, sV, sL, sD, p, (int)q0, k0, pr, ds);
@@ -337,6 +349,8 @@ template <int DH>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dq_kernel(const Params p) {
   constexpr int LD = DH + 1, DPT = DH / 16;
+  constexpr int BQ = F32Tile<DH>::R, BK = BQ, RPT = F32Tile<DH>::RPT;
+  constexpr int CPT = F32Tile<DH>::CPT, LP = F32Tile<DH>::LP;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sDO = sQ + BQ * LD;
@@ -356,7 +370,7 @@ __global__ void __launch_bounds__(THREADS)
   load_tile<DH>(sDO, static_cast<const float*>(p.dout) +
                          (size_t)b * p.Sq * ds_row + (size_t)h * DH,
                 (long long)ds_row, q0, p.Sq);
-  load_rows(sL, sD, p, b, h, q0);
+  load_rows<BQ>(sL, sD, p, b, h, q0);
   const float* K = static_cast<const float*>(p.k) + b * p.ksb + hk * p.ksh;
   const float* V = static_cast<const float*>(p.v) + b * p.vsb + hk * p.vsh;
 
@@ -421,6 +435,7 @@ int launch_dkdv(const Params& p, int B, cudaStream_t stream) {
       flash_bwd_dkdv_kernel<DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
+  constexpr int BK = F32Tile<DH>::R;
   const dim3 grid((p.Skv + BK - 1) / BK, p.Hkv, B);
   flash_bwd_dkdv_kernel<DH><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
@@ -434,6 +449,7 @@ int launch_dq(const Params& p, int B, cudaStream_t stream) {
       flash_bwd_dq_kernel<DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
+  constexpr int BQ = F32Tile<DH>::R;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
   flash_bwd_dq_kernel<DH><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
@@ -453,6 +469,7 @@ int dispatch(bool dq, const Params& p, int B, int D, cudaStream_t st) {
     case 96: return launch<96>(dq, p, B, st);
     case 128: return launch<128>(dq, p, B, st);
     case 192: return launch<192>(dq, p, B, st);
+    case 256: return launch<256>(dq, p, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -35,9 +35,6 @@ from . import build, ref
 #: csrc/flash_attention_bwd.cu); 96 and 192 are multi-head latent
 #: attention's (``models.mla``: nope + rope), 256 recurrentgemma's
 HEAD_DIMS = (32, 64, 80, 96, 128, 192, 256)
-#: the float32 backward's: at Dh 256 its FP32 tiles do not fit in a
-#: block's shared memory, and no main path trains in float32 at that width
-F32_BWD_HEAD_DIMS = (32, 64, 80, 96, 128, 192)
 #: input types and the launcher's code for each
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the design each input type launches, by its kernel's name
@@ -47,7 +44,7 @@ DESIGNS = {torch.float32: "flash_attention_kernel (FP32 FMA)",
                            "32-row above Dh 192)"}
 #: the backward's design per input type, by its dk/dv and dq kernels' names
 BWD_DESIGNS = {torch.float32: "flash_bwd_dkdv_kernel, flash_bwd_dq_kernel "
-                              "(FP32 FMA)",
+                              "(FP32 FMA; 32-row tiles above Dh 192)",
                torch.bfloat16: "flash_bwd_dkdv_wgmma_kernel, "
                                "flash_bwd_dq_wgmma_kernel (bf16 wgmma, TMA "
                                "ring, P and dS in BWD_TERMS bf16 terms; "
@@ -205,11 +202,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                                            causal=causal, window=window,
                                            q_offset=q_offset)
     dp = _kernel_head_dim("flash_attention_bwd", Dh)
-    if q.dtype == torch.float32 and dp not in F32_BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: the float32 kernels are "
-                         f"built for head dims {F32_BWD_HEAD_DIMS}, not "
-                         f"{dp} (head dim {Dh}); bfloat16 runs at "
-                         f"{HEAD_DIMS}")
     o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
     q, k, v, o, do = _pad_head_dim(dp, q, k, v, o, do)
     _check_kernel_args("flash_attention_bwd", window, q, k, v, o, do)

@@ -590,16 +590,20 @@ def test_plain_flash_at_head_dim_256_matches_jax():
 
 def test_kernels_are_built_at_256_and_the_float32_backward_refuses_it(
         monkeypatch):
-    """Head dim 256 is built for both kernels; the float32 backward is not
-    (its FP32 tiles do not fit in a block's shared memory): with the kernel
-    route forced on, it raises before any launch or device check."""
-    assert 256 in tflash.HEAD_DIMS and 256 not in tflash.F32_BWD_HEAD_DIMS
+    """Head dim 256 is built for both kernels and both input types (the
+    float32 backward no longer refuses it: its tiles are 32 rows there, so
+    recurrentgemma trains in float32 on the kernels): with the kernel route
+    forced on, float32 and bfloat16 both pass the head-dim check and stop
+    at the device check, before any launch."""
+    assert 256 in tflash.HEAD_DIMS
     q = torch.zeros((1, 8, 4, 256))
     k = torch.zeros((1, 8, 1, 256))
     lse = torch.zeros((1, 4, 8))
     monkeypatch.setattr(build, "use_kernel", lambda mode, t: True)
-    with pytest.raises(ValueError, match="float32 kernels are built for"):
+    before = build.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="operand on cpu"):
         tflash.flash_attention_bwd(q, k, k, q, lse, q)
+    assert build.LAUNCHES["flash_attention_bwd"] == before
     with pytest.raises(ValueError, match="operand on cpu"):
         tflash.flash_attention_bwd(*(t.bfloat16() for t in (q, k, k, q)),
                                    lse, q.bfloat16())
