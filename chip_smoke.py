@@ -265,7 +265,8 @@ EXAMPLE_NTEST, EXAMPLE_POINTS = (400, 300), 18
 #: checks that none is missing): S1's, S2's and S3's two layers at the
 #: train shape (layer 2 of S1 and S2 timed, CONV_WIDE) and at the eval
 #: shape (n_test NTEST, one model), then a 230-pixel row's tail segment,
-#: 4096 input channels (weights streamed) and 300 (streamed, odd)
+#: 4096 input channels (weights streamed), 300 (streamed, odd) and the
+#: wide dW pass at 127 output channels (4-byte dz copies, Cout % 4 != 0)
 CONV_GEOMETRY_SHAPES = (
     (D, B, 96, 96, C1, C2), (D, B, 96, 96, 1, C1),
     (1, NTEST, 96, 96, 1, C1), (1, NTEST, 96, 96, C1, C2),
@@ -273,7 +274,8 @@ CONV_GEOMETRY_SHAPES = (
     (1, NTEST, HW, HW, 1, 128), (1, NTEST, HW, HW, 128, 256),
     (4, 8, 256, 256, 8, 16), (4, 8, 256, 256, 1, 8),
     (1, NTEST, 256, 256, 1, 8), (1, NTEST, 256, 256, 8, 16),
-    (1, 2, 9, 230, 3, 5), (1, 1, 3, 3, 4096, 64), (1, 2, 10, 10, 300, 7))
+    (1, 2, 9, 230, 3, 5), (1, 1, 3, 3, 4096, 64), (1, 2, 10, 10, 300, 7),
+    (2, 2, 96, 96, 1, 127), (2, 2, 64, 64, 16, 127))
 #: the conv kernels' check shapes (D, B, H, W, Cin, Cout): the main path's
 #: (train and eval, layers 2 and 1; the first is timed), the example
 #: drivers' at REDUCED (train at 25 devices and at the largest sweep's
@@ -402,13 +404,13 @@ SOURCE = {
     "flash_attention_bwd[rg]":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd[rg_f32]":
-        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro_torch/kernels/csrc/flash_bwd_fma.cu",
     "flash_attention[shard]":
         "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention[shard_f32]":
         "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_bwd[shard_f32]":
-        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro_torch/kernels/csrc/flash_bwd_fma.cu",
 }
 
 #: the sweep phase: DEFAULT geometry cut to T = 4, one epoch over each
@@ -1011,6 +1013,7 @@ KERNEL_SYMBOLS = (("conv3x3_fwd_kernel", "conv3x3_fwd"),
                   ("conv3x3_fwd_ws_kernel", "conv3x3_fwd"),
                   ("conv3x3_dx_kernel", "conv3x3_bwd dx"),
                   ("conv3x3_dx_ws_kernel", "conv3x3_bwd dx"),
+                  ("conv3x3_dx_wide_kernel", "conv3x3_bwd dx"),
                   ("conv3x3_dw_kernel", "conv3x3_bwd dW/db"),
                   ("conv3x3_dw_wide_kernel", "conv3x3_bwd dW/db"),
                   ("sgd_update_kernel", "sgd_update"),
@@ -1022,9 +1025,9 @@ KERNEL_SYMBOLS = (("conv3x3_fwd_kernel", "conv3x3_fwd"),
                   ("flash_attention_kernel", "flash_attention"),
                   ("flash_attention_wgmma_kernel", "flash_attention"),
                   ("flash_bwd_delta_kernel", "flash_attention_bwd delta"),
-                  ("flash_bwd_dkdv_kernel", "flash_attention_bwd dk/dv"),
+                  ("flash_bwd_dkdv_fma_kernel", "flash_attention_bwd dk/dv"),
                   ("flash_bwd_dkdv_wgmma_kernel", "flash_attention_bwd dk/dv"),
-                  ("flash_bwd_dq_kernel", "flash_attention_bwd dq"),
+                  ("flash_bwd_dq_fma_kernel", "flash_attention_bwd dq"),
                   ("flash_bwd_dq_wgmma_kernel", "flash_attention_bwd dq"))
 
 
@@ -1242,8 +1245,8 @@ def flash_bwd_design(torch, kern, randn, library) -> dict:
         and all(n > 0 for n in out[f"bfloat16{sfx}"]["hgmma"].values())
         for dh, sfx in ((80, ""), (96, "_dh96"), (192, "_dh192"),
                         (256, "_dh256")))
-          and f32["kernels"] == ["flash_bwd_dkdv_kernel<80>",
-                                 "flash_bwd_dq_kernel<80>"]
+          and f32["kernels"] == ["flash_bwd_dkdv_fma_kernel<80>",
+                                 "flash_bwd_dq_fma_kernel<80>"]
           and not any(f32["hgmma"].values()), f"designs launched: {out}")
     emit({"flash_bwd_design": out})
     return out
@@ -2112,7 +2115,9 @@ def flash_shard_timing(torch, kern, randn, record) -> None:
                     "flops": flops, "bound_flop_rate": rate,
                     "library_call": "autograd of scaled_dot_product_"
                                     "attention(enable_gqa=True, "
-                                    "is_causal=True)"},
+                                    "is_causal=True)",
+                    "launch_ms": launch_ms(torch, kern.build, lambda: bwd(
+                        q, k, v, o, lse, do, mode="cuda", **kw), iters=5)},
                    kernel="flash_attention_bwd", flop_rate=rate)
             del lib_out
         del q, k, v, do, o, lse, o_ref, lse_ref, qt, kt, vt
@@ -4701,8 +4706,8 @@ def rg_f32_phase(torch, train, build, kern, randn, record) -> dict:
                 torch, lambda: bwd(q, k, v, o, lse, do, mode="cuda", **kw),
                 (sym,), iters=10) for sym, part in (
                 ("flash_bwd_delta_kernel", "delta"),
-                ("flash_bwd_dkdv_kernel", "dk_dv"),
-                ("flash_bwd_dq_kernel", "dq"))},
+                ("flash_bwd_dkdv_fma_kernel", "dk_dv"),
+                ("flash_bwd_dq_fma_kernel", "dq"))},
             "launch_ms": launch_ms(torch, build, lambda: bwd(
                 q, k, v, o, lse, do, mode="cuda", **kw), iters=5),
             "host_ms": host_ms(torch, lambda: bwd(

@@ -193,8 +193,28 @@ def stream() -> int:
     """The current CUDA stream of the current device, as an int: the value
     of ``torch.cuda.current_stream().cuda_stream``, read without building
     a ``Stream`` object, which costs a host-bound wrapper more than the
-    rest of its launch."""
+    rest of its launch.  Inside ``on_device(t)`` that is ``t``'s card."""
     return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+
+class on_device:
+    """``with on_device(t):`` around a launch makes the card that holds
+    ``t`` the current device (a launcher runs on the current one, and
+    ``stream()`` reads its stream), and the device before current again
+    after.  A tensor on the CPU (index -1) changes nothing.  Each wrapper
+    launches inside one, on its first operand, which it has checked to lie
+    on the same card as the others."""
+    __slots__ = ("index", "prev")
+
+    def __init__(self, t: torch.Tensor):
+        self.index = t.get_device()
+
+    def __enter__(self) -> "on_device":
+        self.prev = torch.cuda._exchange_device(self.index)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        torch.cuda._maybe_exchange_device(self.prev)
 
 
 def check(rc: int, name: str) -> None:

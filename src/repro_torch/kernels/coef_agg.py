@@ -106,10 +106,11 @@ def _launch(name: str, operands: list, coefs: list, lead: tuple) -> list:
     out = torch.empty(B * total, dtype=f32, device=dev)
     k = len(ws)
     build.LAUNCHES[name] += 1
-    build.check(getattr(build.library(), name + "_launch")(
-        (ctypes.c_void_p * len(ptrs))(*ptrs), cols, starts,
-        (ctypes.c_int * k)(*vec), k, coef.data_ptr(), out.data_ptr(), B, n,
-        build.stream()), name)
+    with build.on_device(out):
+        build.check(getattr(build.library(), name + "_launch")(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), cols, starts,
+            (ctypes.c_int * k)(*vec), k, coef.data_ptr(), out.data_ptr(), B,
+            n, build.stream()), name)
     # per-leaf views of the one allocation (as_strided is the cheapest view
     # the host can make)
     view = out.as_strided

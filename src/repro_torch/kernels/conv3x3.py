@@ -68,11 +68,12 @@ def conv3x3_fwd(x, w, b, mode: str = "auto"):
     build.expect(b, "b", (D, cout), device=x.device)
     y = torch.empty((D, nb, h, wd, cout), device=x.device,
                     dtype=torch.float32)
-    for d0, d in _device_runs(D):
-        build.LAUNCHES["conv3x3_fwd"] += 1
-        build.check(build.library().conv3x3_fwd_launch(
-            _at(x, d0), _at(w, d0), _at(b, d0), _at(y, d0), d, nb * h, h, wd,
-            cin, cout, build.stream()), "conv3x3_fwd")
+    with build.on_device(x):
+        for d0, d in _device_runs(D):
+            build.LAUNCHES["conv3x3_fwd"] += 1
+            build.check(build.library().conv3x3_fwd_launch(
+                _at(x, d0), _at(w, d0), _at(b, d0), _at(y, d0), d, nb * h, h,
+                wd, cin, cout, build.stream()), "conv3x3_fwd")
     return y
 
 
@@ -93,12 +94,13 @@ def conv3x3_bwd(x, w, y, dy, need_dx: bool = True, mode: str = "auto"):
     dx = torch.empty_like(x) if need_dx else None
     part = torch.empty((D, nparts, 9 * cin + 1, cout), device=x.device,
                        dtype=torch.float32)
-    for d0, d in _device_runs(D):
-        build.LAUNCHES["conv3x3_bwd"] += 1
-        build.check(build.library().conv3x3_bwd_launch(
-            _at(x, d0), _at(w, d0), _at(y, d0), _at(dy, d0), _at(dx, d0),
-            _at(part, d0), d, nb * h, h, wd, cin, cout, ROWS_PER_PARTIAL,
-            build.stream()), "conv3x3_bwd")
+    with build.on_device(x):
+        for d0, d in _device_runs(D):
+            build.LAUNCHES["conv3x3_bwd"] += 1
+            build.check(build.library().conv3x3_bwd_launch(
+                _at(x, d0), _at(w, d0), _at(y, d0), _at(dy, d0), _at(dx, d0),
+                _at(part, d0), d, nb * h, h, wd, cin, cout, ROWS_PER_PARTIAL,
+                build.stream()), "conv3x3_bwd")
     total = part.sum(1)                              # [D, 9*Cin + 1, Cout]
     return dx, total[:, :9 * cin].reshape(w.shape), total[:, 9 * cin]
 

@@ -82,6 +82,7 @@ constexpr int TM = 7;             // output pixels a thread, along a row
 constexpr int TN = 8;             // output channels a thread
 constexpr int NS = 3;             // stages of the cp.async rings
 constexpr int DW_NT = 288;        // threads of a dW block (9 warps)
+constexpr int DW2_NT = 192;       // of a conv3x3_dw_wide_kernel block
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory of one block
 
 // 4-byte asynchronous copy to shared memory; ok false zero-fills it
@@ -401,17 +402,221 @@ __global__ void __launch_bounds__(NT, 2)
   conv_tile<DX, CK, WM, true>(dy, y, w, nullptr, dx, Cout, Cin, g);
 }
 
-// A dW block's share of the channels and columns: the input-channel groups
-// [gi0, gi0 + nwi) and output-channel groups [go0, go0 + nwo) of window
-// blockIdx.y / spw (windows numbered output-fastest, wo along the output
-// groups), the window's groups over spw blocks of GB, and each image row
-// in seg column segments of wc pixels (the last may be narrower).  One
-// window and one segment where a stage of every channel of a whole row
-// fits.
+// conv3x3_dx_wide_kernel: dx where a block's weights cannot stay resident
+// and dx has more than 64 channels (the S2 geometry's 256 -> 128).  The
+// pass is conv_tile's DX pass with the weights streamed a chunk of CK dz
+// channels a stage beside the chunk's dz and y halos, with three changes
+// for its FMA rate:
+//   * a thread computes DXM = 14 pixels (two groups of TM side by side) x
+//     DXN = 8 dx channels: per channel and tap row it reads 16 inputs and
+//     24 weights for 336 FMAs (conv_tile: 9 and 24 for 168), so that its
+//     shared-memory reads, which bound conv_tile's loop, fall by 40% a
+//     FMA; a block of 8 warps covers 32 groups x 64 channels (255
+//     registers, none spilled);
+//   * one barrier a stage: the next copy is issued after it, into the
+//     slot of the stage before;
+//   * one block an SM over all the units: the blocks walk the D x ny x
+//     ntiles (device, channel slice, tile) units in turn, so every SM gets
+//     the same share (conv_tile's grid gives a device's tiles to whole
+//     blocks, 100 of them on 132 SMs at S2).
+// The sums run in conv_tile's order (dz channel, tap row, tap column), so
+// dx is the same bits as conv_tile's on the same shape.
+constexpr int DXM = 2 * TM, DXN = TN, DXT = NT;  // the tile, the threads
+
+template <int CK>
+__device__ __forceinline__ void dx_wide_body(
+    const float* __restrict__ dy, const float* __restrict__ y,
+    const float* __restrict__ w, float* __restrict__ dx, int Cin, int Cout,
+    int D, const Tile g) {
+  constexpr int BN = DXT / 32 * DXN;  // dx channels a block
+  constexpr int WF = 9 * CK * BN;     // a stage's weights (floats)
+  extern __shared__ float4 smem4[];
+  float* zrow = reinterpret_cast<float*>(smem4);  // cs zeros
+  float* ring = zrow + (g.cs + 3) / 4 * 4;         // NS stages
+  const int half = CK * (g.rb + 2) * g.cs;  // one halo [CK][rb+2][cs]
+  const int sf = (WF + 2 * half + 3) / 4 * 4;
+  const int tid = threadIdx.x, wn = tid >> 5, lane = tid & 31;
+  const int ny = (Cin + BN - 1) / BN, nchunk = (Cout + CK - 1) / CK;
+  const size_t plane = (size_t)g.rows * g.W;
+  const long long units = (long long)D * ny * g.ntiles;
+  const int bx = blockIdx.x, gx = gridDim.x;
+  const int my = bx < units ? (int)((units - 1 - bx) / gx) + 1 : 0;
+  const int steps = my * nchunk;  // (unit, dz channel chunk) pairs
+  const int kk = tid % CK;        // the halo channel this thread copies
+  for (int e = tid; e < g.cs; e += DXT) zrow[e] = 0.f;
+
+  // step s: chunk s % nchunk of unit bx + (s / nchunk) gx = (device d,
+  // channel slice cy, tile t), tile t at image rows from r0, columns c0
+  auto unit = [&](int s, int& d, int& cy, int& r0, int& c0, int& chunk) {
+    const int i = s / nchunk;
+    chunk = s - i * nchunk;
+    const long long u = bx + (long long)i * gx;
+    const int t = (int)(u % g.ntiles);
+    const long long q = u / g.ntiles;
+    cy = (int)(q % ny);
+    d = (int)(q / ny);
+    const int rt = t / g.seg;
+    r0 = rt * g.rb;
+    c0 = (t - rt * g.seg) * g.gpr * DXM;
+  };
+  // the dz and y halos of the step's chunk (channel kk of it by this
+  // thread) and its weights, flipped and transposed to [tap][CK][BN]
+  auto prefetch = [&](int s) {
+    if (s < steps) {
+      int d, cy, r0, c0, chunk;
+      unit(s, d, cy, r0, c0, chunk);
+      --r0;
+      const float* in_d = dy + (size_t)d * plane * Cout;
+      const float* gate_d = y + (size_t)d * plane * Cout;
+      const float* w_d = w + (size_t)d * 9 * Cout * Cin;
+      const int k = chunk * CK + kk, co0 = cy * BN;
+      float* stage = ring + (s % NS) * sf;
+      float* buf = stage + WF + kk * (g.rb + 2) * g.cs;
+      for (Walk q(tid / CK, DXT / CK, g.hw); q.a < g.rb + 2; q.next()) {
+        const int r = r0 + q.a, c = c0 + q.b - 1;
+        const bool ok =
+            k < Cout && r >= 0 && r < g.rows && c >= 0 && c < g.W;
+        const size_t off = ok ? ((size_t)r * g.W + c) * Cout + k : 0;
+        cp_async4(buf + q.a * g.cs + q.b, in_d + off, ok);
+        cp_async4(buf + half + q.a * g.cs + q.b, gate_d + off, ok);
+      }
+      for (int e = tid; e < WF; e += DXT) {
+        const int kc = e % CK, n = (e / CK) % BN, tap = e / (CK * BN);
+        const int kg = chunk * CK + kc;
+        const bool ok = kg < Cout && co0 + n < Cin;
+        const size_t off =
+            ok ? ((size_t)(8 - tap) * Cin + co0 + n) * Cout + kg : 0;
+        cp_async4(stage + (tap * CK + kc) * BN + n, w_d + off, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  // dz = dy * (y > 0) on the elements this thread copied
+  auto mask = [&](int s) {
+    float* buf = ring + (s % NS) * sf + WF + kk * (g.rb + 2) * g.cs;
+    for (Walk q(tid / CK, DXT / CK, g.hw); q.a < g.rb + 2; q.next()) {
+      float* z = buf + q.a * g.cs + q.b;
+      if (!(z[half] > 0.f)) z[0] = 0.f;
+    }
+  };
+
+  // this thread: pixels lg DXM .. lg DXM + DXM - 1 of the tile's row lr,
+  // dx channels co0 + wn DXN .. + DXN - 1
+  const int lr = lane / g.gpr, lg = lane - lr * g.gpr;
+  const bool active = lr < g.rb;
+
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) prefetch(s);
+  float acc[DXM][DXN];
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<NS - 2>();
+    mask(s);
+    __syncthreads();  // stage s is in; every thread is done with s - 1
+    prefetch(s + NS - 1);
+    int d, cy, row, c0, chunk;
+    unit(s, d, cy, row, c0, chunk);
+    row += lr;
+    const int h = row % g.H;
+    const bool live = active && row < g.rows;
+    if (chunk == 0) {
+#pragma unroll
+      for (int m = 0; m < DXM; ++m)
+#pragma unroll
+        for (int n = 0; n < DXN; ++n) acc[m][n] = 0.f;
+    }
+    // the three tap rows of this thread's pixels, a row of zeros where the
+    // tap falls outside the image; kst steps to the next channel
+    const float* xrow[3];
+    int kst[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const bool ok = live && h + i >= 1 && h + i <= g.H;
+      xrow[i] = ok ? ring + (s % NS) * sf + WF + (lr + i) * g.cs + lg * DXM
+                   : zrow;
+      kst[i] = ok ? (g.rb + 2) * g.cs : 0;
+    }
+    const float* ws = ring + (s % NS) * sf + wn * DXN;
+    // two channels an iteration: the loop body fully unrolled over CK is
+    // ~8000 FMAs of code, past what the instruction cache keeps
+#pragma unroll 2
+    for (int k = 0; k < CK; ++k) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const float* xr = xrow[i] + k * kst[i];
+        float a[DXM + 2];
+#pragma unroll
+        for (int q = 0; q < DXM + 2; ++q) a[q] = xr[q];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float4* wr = reinterpret_cast<const float4*>(
+              ws + ((i * 3 + j) * CK + k) * BN);
+          float wv[DXN];
+#pragma unroll
+          for (int v = 0; v < DXN / 4; ++v) {
+            const float4 f = wr[v];
+            wv[4 * v] = f.x;
+            wv[4 * v + 1] = f.y;
+            wv[4 * v + 2] = f.z;
+            wv[4 * v + 3] = f.w;
+          }
+#pragma unroll
+          for (int n = 0; n < DXN; ++n)
+#pragma unroll
+            for (int m = 0; m < DXM; ++m)
+              acc[m][n] = fmaf(a[m + j], wv[n], acc[m][n]);
+        }
+      }
+    }
+    if (chunk == nchunk - 1 && live) {
+      const int cob = cy * BN + wn * DXN;
+      float* orow = dx + (size_t)d * plane * Cin + (size_t)row * g.W * Cin +
+                    cob;
+      const bool vec = Cin % 4 == 0 && cob + DXN <= Cin;
+#pragma unroll
+      for (int m = 0; m < DXM; ++m) {
+        const int c = c0 + lg * DXM + m;
+        if (c < g.W) {
+          float* dst = orow + (size_t)c * Cin;
+          if (vec) {
+#pragma unroll
+            for (int v = 0; v < DXN / 4; ++v)
+              reinterpret_cast<float4*>(dst)[v] =
+                  make_float4(acc[m][4 * v], acc[m][4 * v + 1],
+                              acc[m][4 * v + 2], acc[m][4 * v + 3]);
+          } else {
+#pragma unroll
+            for (int n = 0; n < DXN; ++n)
+              if (cob + n < Cin) dst[n] = acc[m][n];
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int CK>
+__global__ void __launch_bounds__(DXT, 1)
+    conv3x3_dx_wide_kernel(const float* __restrict__ dy,
+                           const float* __restrict__ y,
+                           const float* __restrict__ w,
+                           float* __restrict__ dx, int Cin, int Cout, int D,
+                           Tile g) {
+  dx_wide_body<CK>(dy, y, w, dx, Cin, Cout, D, g);
+}
+
+// A dW block's share of the groups, the channels and the columns.
+// conv3x3_dw_kernel: every group, its G groups over spw blocks of GB
+// (blockIdx.y is the block's slice).  conv3x3_dw_wide_kernel: the input-
+// channel groups [gi0, gi0 + nwi) and output-channel groups [go0, go0 +
+// nwo) of window blockIdx.y (windows numbered output-fastest, wo along the
+// output groups), GB = 3 nwi nwo threads of it, and each image row in seg
+// column segments of wc pixels (the last may be narrower).
 struct DwPlan {
-  int nwi, nwo;  // groups of a window: input (TCI channels), output (8)
+  int nwi, nwo;  // groups of a window: input (TCI channels), output (8
+                 // channels in dw_body, 4 in the wide kernel)
   int wo;        // windows along the output-channel groups
-  int spw, GB;   // blocks a window, groups a block
+  int spw, GB;   // blocks a window, groups (threads) a block
   int wc, seg;   // pixels of a column segment, segments a row
 };
 
@@ -422,10 +627,8 @@ struct DwPlan {
 // so that neighbouring lanes read neighbouring 16-byte words of dz),
 // numbered output channels fastest, then input, then tap (a warp shares
 // its tap and reads few distinct inputs).  When the groups do not fill
-// the block, its DW_NT / GB slices split each segment's pixels.  WIDE
-// (conv3x3_dw_wide_kernel): the plan's windows and segments; without it
-// (conv3x3_dw_kernel) one window of every channel and whole rows.
-template <int TCI, bool WIDE>
+// the block, its DW_NT / GB slices split each row's pixels.
+template <int TCI>
 __device__ __forceinline__ void dw_body(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ dy, float* __restrict__ part, int rows, int H,
@@ -434,111 +637,64 @@ __device__ __forceinline__ void dw_body(
   extern __shared__ float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);
   const int ngi = (Cin + TCI - 1) / TCI, ngo = (Cout + 7) / 8;
-  // the window's groups and a segment's pixels: without WIDE every group
-  // and the whole row
-  const int nwi = WIDE ? p.nwi : ngi, nwo = WIDE ? p.nwo : ngo;
-  const int wc = WIDE ? p.wc : W;
-  const int cip = TCI * nwi, cop = 8 * nwo;  // a window's channel strides
+  const int nwi = ngi, nwo = ngo, wc = W;
+  const int cip = TCI * nwi, cop = 8 * nwo;  // a pixel's channel strides
   // a stage: x rows r-1..r+1 [3][wc+2][cip] | dz row [wc][cop] | y row
   const int xf = (3 * (wc + 2) * cip + 3) / 4 * 4, zf = wc * cop;
   const int sf = xf + 2 * zf;
   const int tid = threadIdx.x, d = blockIdx.z, t = blockIdx.x;
-  const int win = WIDE ? blockIdx.y / p.spw : 0;
-  const int sl = WIDE ? blockIdx.y - win * p.spw : blockIdx.y;
-  const int gi0 = WIDE ? win / p.wo * nwi : 0;
-  const int go0 = WIDE ? win % p.wo * nwo : 0;
+  const int sl = blockIdx.y;
   const int nps = DW_NT / p.GB, slot = tid % p.GB, ps = tid / p.GB;
   const int G = 9 * nwi * nwo, gidx = sl * p.GB + slot;
   const int lgo = gidx % nwo, lgi = gidx / nwo % nwi;
   const int tap = gidx / (nwo * nwi);
-  const bool act = ps < nps && gidx < G &&
-                   (!WIDE || (gi0 + lgi < ngi && go0 + lgo < ngo));
+  const bool act = ps < nps && gidx < G;
   const int ti = tap / 3, tj = tap - 3 * ti;
-  const int cpp = (wc + nps - 1) / nps;  // pixels of a segment per slice
+  const int cpp = (wc + nps - 1) / nps;  // pixels of a row per slice
   const int r_lo = t * rpp, nrow = min(rpp, rows - r_lo);
-  const int steps = WIDE ? nrow * p.seg : nrow;  // (row, segment) stages
+  const int steps = nrow;
   const size_t plane = (size_t)rows * W;
   const float* x_d = x + (size_t)d * plane * Cin;
   const float* y_d = y + (size_t)d * plane * Cout;
   const float* dy_d = dy + (size_t)d * plane * Cout;
   const bool xvec = Cin % 4 == 0, zvec = Cout % 4 == 0;
-  const int ci0 = gi0 * TCI, ncx = min(cip, Cin - ci0);  // x channels copied
 
   // the pad channels are never copied: zero them once
   for (int e = tid; e < NS * sf; e += DW_NT) ring[e] = 0.f;
   __syncthreads();
 
-  // copy units of a pixel: 16 bytes where the channels allow, else 4; the
-  // dz and y units: the window's two halves of output channels (4*go0 ..
-  // 4*(go0 + nwo) - 1, and the same 4*ngo on), zero-filled out of range
-  const int xu = WIDE ? (xvec ? ncx / 4 : ncx) : (xvec ? Cin / 4 : Cin);
-  const int zu = WIDE ? (zvec ? 2 * nwo : cop) : (zvec ? Cout / 4 : Cout);
-  auto zchan = [&](int u, bool& ok) {  // unit u's first global channel
-    const int c = zvec ? 4 * u : u, hn = 4 * nwo;
-    const int lo = c < hn ? c : c - hn;  // its channel within its half
-    const int gc = c < hn ? 4 * go0 + lo : 4 * (ngo + go0) + lo;
-    ok = gc < Cout && go0 + lo / 4 < ngo;
-    return gc;
-  };
-  // stage s: row r_lo + rs, segment sg (s = rs * seg + sg)
-  auto prefetch = [&](int s, int rs, int sg) {
+  // copy units of a pixel: 16 bytes where the channels allow, else 4
+  const int xu = xvec ? Cin / 4 : Cin;
+  const int zu = zvec ? Cout / 4 : Cout;
+  // stage s: row r_lo + rs
+  auto prefetch = [&](int s, int rs) {
     if (s < steps) {
       const int r = r_lo + rs;
       float* xs = ring + (s % NS) * sf;
       float* zs = xs + xf;
       float* ys = zs + zf;
-      if constexpr (!WIDE) {
-        // x rows r-1..r+1 lie one after another in global memory; the pad
-        // columns are never copied
-        for (Walk q(tid, DW_NT, xu); q.a < 3 * W; q.next()) {
-          const int hr = q.a >= 2 * W ? 2 : (q.a >= W ? 1 : 0);
-          const bool ok = r - 1 + hr >= 0 && r - 1 + hr < rows;
-          const float* src =
-              x_d + (ok ? ((size_t)(r - 1) * W + q.a) * Cin : 0);
-          float* dst = xs + (q.a + 2 * hr + 1) * cip;
-          if (xvec)
-            cp_async16(dst + 4 * q.b, src + 4 * q.b, ok);
-          else
-            cp_async4(dst + q.b, src + q.b, ok);
-        }
-        for (Walk q(tid, DW_NT, zu); q.a < W; q.next()) {
-          const size_t o = ((size_t)r * W + q.a) * Cout;
-          const int so = q.a * cop;
-          if (zvec) {
-            cp_async16(zs + so + 4 * q.b, dy_d + o + 4 * q.b, true);
-            cp_async16(ys + so + 4 * q.b, y_d + o + 4 * q.b, true);
-          } else {
-            cp_async4(zs + so + q.b, dy_d + o + q.b, true);
-            cp_async4(ys + so + q.b, y_d + o + q.b, true);
-          }
-        }
-      } else {
-        const int c0 = sg * wc, wcs = min(wc, W - c0), pw = wcs + 2;
-        // x rows r-1..r+1, columns c0-1 .. c0+wcs (zeros outside the image)
-        for (Walk q(tid, DW_NT, xu); q.a < 3 * pw; q.next()) {
-          const int hr = q.a >= 2 * pw ? 2 : (q.a >= pw ? 1 : 0);
-          const int col = q.a - hr * pw, gr = r - 1 + hr, gc = c0 + col - 1;
-          const bool ok = gr >= 0 && gr < rows && gc >= 0 && gc < W;
-          const float* src =
-              x_d + (ok ? ((size_t)gr * W + gc) * Cin + ci0 : 0);
-          float* dst = xs + (hr * (wc + 2) + col) * cip;
-          if (xvec)
-            cp_async16(dst + 4 * q.b, src + 4 * q.b, ok);
-          else
-            cp_async4(dst + q.b, src + q.b, ok);
-        }
-        for (Walk q(tid, DW_NT, zu); q.a < wcs; q.next()) {
-          bool ok;
-          const int gc = zchan(q.b, ok);
-          const size_t o = ok ? ((size_t)r * W + c0 + q.a) * Cout + gc : 0;
-          const int so = q.a * cop + (zvec ? 4 * q.b : q.b);
-          if (zvec) {
-            cp_async16(zs + so, dy_d + o, ok);
-            cp_async16(ys + so, y_d + o, ok);
-          } else {
-            cp_async4(zs + so, dy_d + o, ok);
-            cp_async4(ys + so, y_d + o, ok);
-          }
+      // x rows r-1..r+1 lie one after another in global memory; the pad
+      // columns are never copied
+      for (Walk q(tid, DW_NT, xu); q.a < 3 * W; q.next()) {
+        const int hr = q.a >= 2 * W ? 2 : (q.a >= W ? 1 : 0);
+        const bool ok = r - 1 + hr >= 0 && r - 1 + hr < rows;
+        const float* src =
+            x_d + (ok ? ((size_t)(r - 1) * W + q.a) * Cin : 0);
+        float* dst = xs + (q.a + 2 * hr + 1) * cip;
+        if (xvec)
+          cp_async16(dst + 4 * q.b, src + 4 * q.b, ok);
+        else
+          cp_async4(dst + q.b, src + q.b, ok);
+      }
+      for (Walk q(tid, DW_NT, zu); q.a < W; q.next()) {
+        const size_t o = ((size_t)r * W + q.a) * Cout;
+        const int so = q.a * cop;
+        if (zvec) {
+          cp_async16(zs + so + 4 * q.b, dy_d + o + 4 * q.b, true);
+          cp_async16(ys + so + 4 * q.b, y_d + o + 4 * q.b, true);
+        } else {
+          cp_async4(zs + so + q.b, dy_d + o + q.b, true);
+          cp_async4(ys + so + q.b, y_d + o + q.b, true);
         }
       }
     }
@@ -569,7 +725,7 @@ __device__ __forceinline__ void dw_body(
 #pragma unroll
   for (int v = 0; v < ACC; ++v) acc[v] = 0.f;
 
-  // stage s's taps over the pixels [c_lo, c_hi) of its row's segment
+  // stage s's taps over the pixels [c_lo, c_hi) of its row
   auto accumulate = [&](int s, int h, int c_lo, int c_hi) {
     // a tap row outside the image adds nothing
     if (h + ti >= 1 && h + ti <= H) {
@@ -602,40 +758,23 @@ __device__ __forceinline__ void dw_body(
       }
     }
   };
-  if constexpr (!WIDE) {  // a stage a row, the slice's pixels fixed
-    const int c_lo = act ? min(W, ps * cpp) : W, c_hi = min(W, c_lo + cpp);
+  // a stage a row, the slice's pixels fixed
+  const int c_lo = act ? min(W, ps * cpp) : W, c_hi = min(W, c_lo + cpp);
 #pragma unroll
-    for (int s = 0; s < NS - 1; ++s) prefetch(s, s, 0);
-    for (int s = 0; s < nrow; ++s) {
-      prefetch(s + NS - 1, s + NS - 1, 0);
-      cp_async_wait<NS - 1>();
-      mask(s, W);
-      __syncthreads();
-      accumulate(s, (r_lo + s) % H, c_lo, c_hi);
-      __syncthreads();
-    }
-  } else {  // a stage a (row, segment)
-    Walk pf(0, 1, p.seg), st(0, 1, p.seg);
-#pragma unroll
-    for (int s = 0; s < NS - 1; ++s, pf.next()) prefetch(s, pf.a, pf.b);
-    for (int s = 0; s < steps; ++s, st.next()) {
-      prefetch(s + NS - 1, pf.a, pf.b);
-      pf.next();
-      const int wcs = min(wc, W - st.b * wc);
-      cp_async_wait<NS - 1>();
-      mask(s, wcs);
-      __syncthreads();
-      const int c_lo = act ? min(wcs, ps * cpp) : wcs;
-      accumulate(s, (r_lo + st.a) % H, c_lo, min(wcs, c_lo + cpp));
-      __syncthreads();
-    }
+  for (int s = 0; s < NS - 1; ++s) prefetch(s, s);
+  for (int s = 0; s < nrow; ++s) {
+    prefetch(s + NS - 1, s + NS - 1);
+    cp_async_wait<NS - 1>();
+    mask(s, W);
+    __syncthreads();
+    accumulate(s, (r_lo + s) % H, c_lo, c_hi);
+    __syncthreads();
   }
   cp_async_wait<0>();
 
-  // part row of accumulator v of the window's group gid; -1 where it has
-  // none
+  // part row of accumulator v of group gid; -1 where it has none
   auto row_of = [&](int gid, int v, int& col) {
-    const int o = go0 + gid % nwo, i = gi0 + gid / nwo % nwi;
+    const int o = gid % nwo, i = gid / nwo % nwi;
     const int tp = gid / (nwo * nwi);
     if (o >= ngo || i >= ngi) return -1;
     const int n = v % 8;
@@ -679,18 +818,254 @@ __global__ void __launch_bounds__(DW_NT, 2)
                       const float* __restrict__ dy, float* __restrict__ part,
                       int rows, int H, int W, int Cin, int Cout, int rpp,
                       int nparts, DwPlan p) {
-  dw_body<TCI, false>(x, y, dy, part, rows, H, W, Cin, Cout, rpp, nparts, p);
+  dw_body<TCI>(x, y, dy, part, rows, H, W, Cin, Cout, rpp, nparts, p);
+}
+
+// conv3x3_dw_wide_kernel: where a stage of every channel of a whole row
+// does not fit dw_body, block (t, y, d) reduces the same rows into part[d,
+// t] for one window of the channel groups (blockIdx.y), each row in p.seg
+// column segments of p.wc pixels, segment after segment.
+//   A thread owns one tap row ti and one group of TCI input by 4 output
+// channels, for the three taps (ti, 0..2): 12 TCI accumulators (96 at
+// TCI 8; two blocks of 6 warps an SM).  Along its pixels it slides a
+// window of three x vectors, so that a pixel costs one new x vector (TCI
+// floats) and one dz vector (4 floats) for 12 TCI FMAs: 8 FMAs a float
+// read from shared memory at TCI 8, against 4 for dw_body's one tap of
+// 8 x 8 (those reads, and the fixed cost of a stage of one row, bound
+// that loop, not the FMAs).  Threads are numbered output groups fastest,
+// then input groups, then tap row; where the groups do not fill the
+// block, its DW2_NT / GB slices split each segment's pixels.
+//   The x rows come through a ring of XR row slots, one new row a stage:
+// each x row is copied once a segment and serves its three tap rows; a
+// stage carries one x row, one dz row and one y row (the segment's first
+// stage carries its first two x rows and nothing to compute).  db is
+// summed where dz is masked: each thread masks the same 4 (or 1) output
+// channels at every stage (its copy units' channel is fixed, zu dividing
+// DW2_NT), and the threads of a channel are added in a fixed order at the
+// end, as are the slices.  No atomics: the same bits on repeat.
+template <int TCI>
+__device__ __forceinline__ void dw_ring(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ dy, float* __restrict__ part, int rows, int H,
+    int W, int Cin, int Cout, int rpp, int nparts, const DwPlan& p) {
+  constexpr int ACC = 12 * TCI;  // [tap column][TCI][4]
+  constexpr int XR = 6;  // x rows held: 3 read, those of the next 2 stages
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int ngi = (Cin + TCI - 1) / TCI, ngo = (Cout + 3) / 4;
+  const int nwi = p.nwi, nwo = p.nwo, wc = p.wc;
+  const int cip = TCI * nwi, cop = 4 * nwo;  // a window's channel strides
+  const int xs = ((wc + 2) * cip + 3) / 4 * 4, zf = wc * cop;
+  float* xring = sm;             // [XR][wc + 2][cip]
+  float* zring = sm + XR * xs;   // [NS][dz, y][wc][cop]
+  const int tid = threadIdx.x, d = blockIdx.z, t = blockIdx.x;
+  const int gi0 = blockIdx.y / p.wo * nwi, go0 = blockIdx.y % p.wo * nwo;
+  const int nps = DW2_NT / p.GB, slot = tid % p.GB, ps = tid / p.GB;
+  const int lgo = slot % nwo, lgi = slot / nwo % nwi;
+  const int ti = slot / (nwo * nwi);
+  const bool act = ps < nps && gi0 + lgi < ngi && go0 + lgo < ngo;
+  const int cpp = (wc + nps - 1) / nps;  // pixels of a segment per slice
+  const int r_lo = t * rpp, nrow = min(rpp, rows - r_lo);
+  const int per = nrow + 1;              // stages a segment
+  const int steps = per * p.seg;
+  const size_t plane = (size_t)rows * W;
+  const float* x_d = x + (size_t)d * plane * Cin;
+  const float* y_d = y + (size_t)d * plane * Cout;
+  const float* dy_d = dy + (size_t)d * plane * Cout;
+  const bool xvec = Cin % 4 == 0, zvec = Cout % 4 == 0;
+  const int ci0 = gi0 * TCI, ncx = min(cip, Cin - ci0);  // x channels copied
+  const int co0 = 4 * go0;
+
+  // the pad channels are never copied: zero them once
+  for (int e = tid; e < XR * xs + NS * 2 * zf; e += DW2_NT) sm[e] = 0.f;
+  __syncthreads();
+
+  // copy units of a pixel: 16 bytes where the channels allow, else 4;
+  // a thread's dz units are all of channel unit tid % zu
+  const int xu = xvec ? ncx / 4 : ncx;
+  const int zu = zvec ? nwo : cop;
+  const Walk xw(tid, DW2_NT, xu), zw(tid, DW2_NT, zu);  // a stage's copies
+  // x row r, columns c0 - 1 .. c0 + wcs (zeros outside the image), into
+  // the slot of the x row numbered q
+  auto load_x = [&](int q, int r, int c0, int wcs) {
+    float* dst0 = xring + (q % XR) * xs;
+    for (Walk u = xw; u.a < wcs + 2; u.next()) {
+      const int gc = c0 + u.a - 1;
+      const bool ok = r >= 0 && r < rows && gc >= 0 && gc < W;
+      const float* src = x_d + (ok ? ((size_t)r * W + gc) * Cin + ci0 : 0);
+      float* dst = dst0 + u.a * cip;
+      if (xvec)
+        cp_async16(dst + 4 * u.b, src + 4 * u.b, ok);
+      else
+        cp_async4(dst + u.b, src + u.b, ok);
+    }
+  };
+  // stage s = sg * per + k of segment sg: k = 0 brings x rows r_lo - 1 and
+  // r_lo (x rows numbered sg * (nrow + 2) + 0, 1); k > 0 computes row
+  // r_lo + k - 1 and brings x row r_lo + k (numbered + k + 1) and that
+  // row's dz and y.  Called for s = 0, 1, 2, ... in turn (pf is (sg, k))
+  Walk pf(0, 1, per);
+  auto prefetch = [&](int s) {
+    if (s < steps) {
+      const int sg = pf.a, k = pf.b;
+      pf.next();
+      const int c0 = sg * wc, wcs = min(wc, W - c0), q0 = sg * (nrow + 2);
+      if (k == 0) {
+        load_x(q0, r_lo - 1, c0, wcs);
+        load_x(q0 + 1, r_lo, c0, wcs);
+      } else {
+        const int r = r_lo + k - 1;
+        load_x(q0 + k + 1, r + 1, c0, wcs);
+        float* zs = zring + (s % NS) * 2 * zf;
+        for (Walk u = zw; u.a < wcs; u.next()) {
+          const int ch = zvec ? 4 * u.b : u.b;
+          const bool ok = co0 + ch < Cout;
+          const size_t o = ok ? ((size_t)r * W + c0 + u.a) * Cout + co0 + ch
+                              : 0;
+          const int so = u.a * cop + ch;
+          if (zvec) {
+            cp_async16(zs + so, dy_d + o, ok);
+            cp_async16(zs + zf + so, y_d + o, ok);
+          } else {
+            cp_async4(zs + so, dy_d + o, ok);
+            cp_async4(zs + zf + so, y_d + o, ok);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // dz = dy * (y > 0) on the elements this thread copied, summed into db
+  float db[4] = {0.f, 0.f, 0.f, 0.f};
+  auto mask = [&](int s, int wcs) {
+    float* zs = zring + (s % NS) * 2 * zf;
+    const float* ys = zs + zf;
+    for (Walk u = zw; u.a < wcs; u.next()) {
+      if (zvec) {
+        const int o = u.a * cop + 4 * u.b;
+        float4 z = *reinterpret_cast<float4*>(zs + o);
+        const float4 yv = *reinterpret_cast<const float4*>(ys + o);
+        z.x = yv.x > 0.f ? z.x : 0.f;
+        z.y = yv.y > 0.f ? z.y : 0.f;
+        z.z = yv.z > 0.f ? z.z : 0.f;
+        z.w = yv.w > 0.f ? z.w : 0.f;
+        *reinterpret_cast<float4*>(zs + o) = z;
+        db[0] += z.x;
+        db[1] += z.y;
+        db[2] += z.z;
+        db[3] += z.w;
+      } else {
+        const int o = u.a * cop + u.b;
+        if (!(ys[o] > 0.f)) zs[o] = 0.f;
+        db[0] += zs[o];
+      }
+    }
+  };
+
+  float acc[ACC];
+#pragma unroll
+  for (int v = 0; v < ACC; ++v) acc[v] = 0.f;
+
+  // one pixel: x0, x1 hold the x vectors of its tap columns 0 and 1; x2
+  // (column 2) is read, then the three taps take dz
+  auto load = [&](const float* xq, float (&v)[TCI]) {
+    if constexpr (TCI == 8) {
+      const float4 a = *reinterpret_cast<const float4*>(xq);
+      const float4 b = *reinterpret_cast<const float4*>(xq + 4);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    } else {
+      v[0] = xq[0];
+    }
+  };
+  auto pixel = [&](const float* xq, const float* zq, const float (&x0)[TCI],
+                   const float (&x1)[TCI], float (&x2)[TCI]) {
+    load(xq + 2 * cip, x2);
+    const float4 z4 = *reinterpret_cast<const float4*>(zq);
+    const float z[4] = {z4.x, z4.y, z4.z, z4.w};
+#pragma unroll
+    for (int u = 0; u < TCI; ++u)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int i = u * 4 + n;  // tap columns 0, 1, 2: 4 TCI apart
+        acc[i] = fmaf(x0[u], z[n], acc[i]);
+        acc[i + 4 * TCI] = fmaf(x1[u], z[n], acc[i + 4 * TCI]);
+        acc[i + 8 * TCI] = fmaf(x2[u], z[n], acc[i + 8 * TCI]);
+      }
+  };
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) prefetch(s);
+  Walk st(0, 1, per);  // (segment, k) of stage s
+  int h = 0;           // the image row of row r_lo + k - 1
+  for (int s = 0; s < steps; ++s, st.next()) {
+    const int wcs = min(wc, W - st.a * wc);
+    cp_async_wait<NS - 2>();
+    if (st.b > 0) mask(s, wcs);
+    __syncthreads();  // stage s is in; every thread is done with s - 1
+    prefetch(s + NS - 1);
+    h = st.b == 1 ? r_lo % H : (h + 1 == H ? 0 : h + 1);
+    // a tap row outside the image adds nothing
+    if (act && st.b > 0 && h + ti >= 1 && h + ti <= H) {
+      const int c_lo = min(wcs, ps * cpp), c_hi = min(wcs, c_lo + cpp);
+      const int q = st.a * (nrow + 2) + st.b - 1 + ti;  // x row r - 1 + ti
+      const float* xp = xring + (q % XR) * xs + c_lo * cip + lgi * TCI;
+      const float* zp = zring + (s % NS) * 2 * zf + c_lo * cop + 4 * lgo;
+      float xa[TCI], xb[TCI], xc[TCI];
+      load(xp, xa);
+      load(xp + cip, xb);
+      int c = c_lo;
+      for (; c + 3 <= c_hi; c += 3, xp += 3 * cip, zp += 3 * cop) {
+        pixel(xp, zp, xa, xb, xc);
+        pixel(xp + cip, zp + cop, xb, xc, xa);
+        pixel(xp + 2 * cip, zp + 2 * cop, xc, xa, xb);
+      }
+      if (c < c_hi) pixel(xp, zp, xa, xb, xc);
+      if (c + 1 < c_hi) pixel(xp + cip, zp + cop, xb, xc, xa);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the rings' readers are done
+
+  // the slices' sums and the db partials of the threads of a channel, each
+  // added in a fixed order
+  float* red = sm;                   // [DW2_NT][ACC]
+  float* dbr = sm + DW2_NT * ACC;    // [DW2_NT][4]
+#pragma unroll
+  for (int v = 0; v < ACC; ++v) red[tid * ACC + v] = acc[v];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) dbr[tid * 4 + n] = db[n];
+  __syncthreads();
+  float* pd = part + ((size_t)d * nparts + t) * (9 * Cin + 1) * Cout;
+  for (int e = tid; e < p.GB * ACC; e += DW2_NT) {
+    const int g2 = e / ACC, v = e - g2 * ACC;
+    const int o = go0 + g2 % nwo, i = gi0 + g2 / nwo % nwi;
+    const int tr = g2 / (nwo * nwi), tc = v / (4 * TCI);
+    const int ci = i * TCI + v / 4 % TCI, col = 4 * o + v % 4;
+    if (o >= ngo || i >= ngi || ci >= Cin || col >= Cout) continue;
+    float sum = 0.f;
+    for (int q = 0; q < nps; ++q) sum += red[(q * p.GB + g2) * ACC + v];
+    pd[(size_t)((3 * tr + tc) * Cin + ci) * Cout + col] = sum;
+  }
+  if (gi0 == 0) {  // db: one window of input channels writes it
+    for (int e = tid; e < cop; e += DW2_NT) {
+      const int b = zvec ? e / 4 : e, n = zvec ? e % 4 : 0;
+      if (co0 + e >= Cout) continue;
+      float sum = 0.f;
+      for (int q = b; q < DW2_NT; q += zu) sum += dbr[q * 4 + n];
+      pd[(size_t)9 * Cin * Cout + co0 + e] = sum;
+    }
+  }
 }
 
 template <int TCI>
-__global__ void __launch_bounds__(DW_NT, 2)
+__global__ void __launch_bounds__(DW2_NT, 2)
     conv3x3_dw_wide_kernel(const float* __restrict__ x,
                            const float* __restrict__ y,
                            const float* __restrict__ dy,
                            float* __restrict__ part, int rows, int H, int W,
                            int Cin, int Cout, int rpp, int nparts,
                            DwPlan p) {
-  dw_body<TCI, true>(x, y, dy, part, rows, H, W, Cin, Cout, rpp, nparts, p);
+  dw_ring<TCI>(x, y, dy, part, rows, H, W, Cin, Cout, rpp, nparts, p);
 }
 
 // ---------------------------------------------------------------- host side
@@ -698,13 +1073,13 @@ __global__ void __launch_bounds__(DW_NT, 2)
 // The halo row stride: at least hw, and such that a warp's first reads
 // (lane -> row lane / gpr, column (lane % gpr) * TM) fall into as few
 // lanes a bank as can be.
-int pick_cs(int gpr, int hw) {
+int pick_cs(int gpr, int hw, int tm = TM) {
   int best = hw, best_deg = 33;
   const int lanes = 32 / gpr * gpr;
   for (int cs = hw; cs < hw + 32; ++cs) {
     int cnt[32] = {0}, deg = 0;
     for (int lane = 0; lane < lanes; ++lane) {
-      const int bank = ((lane / gpr) * cs + (lane % gpr) * TM) % 32;
+      const int bank = ((lane / gpr) * cs + (lane % gpr) * tm) % 32;
       deg = ++cnt[bank] > deg ? cnt[bank] : deg;
     }
     if (deg < best_deg) {
@@ -715,17 +1090,17 @@ int pick_cs(int gpr, int hw) {
   return best;
 }
 
-Tile make_tile(int rows, int H, int W, int wm) {
+Tile make_tile(int rows, int H, int W, int wm, int tm = TM) {
   Tile g;
   g.rows = rows;
   g.H = H;
   g.W = W;
-  const int groups = (W + TM - 1) / TM;
+  const int groups = (W + tm - 1) / tm;
   g.seg = (groups + 31) / 32;
   g.gpr = (groups + g.seg - 1) / g.seg;
   g.rb = 32 * wm / g.gpr;
-  g.hw = g.gpr * TM + 2;
-  g.cs = pick_cs(g.gpr, g.hw);
+  g.hw = g.gpr * tm + 2;
+  g.cs = pick_cs(g.gpr, g.hw, tm);
   g.ntiles = (rows + g.rb - 1) / g.rb * g.seg;
   return g;
 }
@@ -806,6 +1181,36 @@ int tile_run(const float* in, const float* gate, const float* w,
                      gate, w, out, Cin, Cout, g);
 }
 
+// dynamic shared memory of a conv3x3_dx_wide_kernel<8> block
+size_t dx_wide_smem(const Tile& g) {
+  const size_t half = (size_t)8 * (g.rb + 2) * g.cs;
+  return 4 * ((g.cs + 3) / 4 * 4 +
+               NS * ((9 * 8 * (DXT / 32 * DXN) + 2 * half + 3) / 4 * 4));
+}
+
+// dx on conv3x3_dx_wide_kernel<8>: as many blocks as the card holds at
+// once, each walking its share of the units
+int dx_wide_run(const float* dy, const float* y, const float* w, float* dx,
+                int D, int rows, int H, int W, int Cin, int Cout,
+                cudaStream_t st) {
+  const Tile g = make_tile(rows, H, W, 1, DXM);
+  const size_t smem = dx_wide_smem(g);
+  auto kernel = conv3x3_dx_wide_kernel<8>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DXT,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int BN = DXT / 32 * DXN;
+  const long long units = (long long)D * ((Cin + BN - 1) / BN) * g.ntiles;
+  const long long slots = (long long)(per_sm > 0 ? per_sm : 1) * sm_count();
+  const int blocks = (int)(units < slots ? units : slots);
+  kernel<<<blocks, DXT, smem, st>>>(dy, y, w, dx, Cin, Cout, D, g);
+  return (int)cudaGetLastError();
+}
+
 template <int MODE>
 int tile_pass(const float* in, const float* gate, const float* w,
               const float* b, float* out, int D, int rows, int H, int W,
@@ -819,8 +1224,16 @@ int tile_pass(const float* in, const float* gate, const float* w,
 #define RUN(CK, WM, WS)                                                    \
   tile_run<MODE, CK, WM, WS>(in, gate, w, b, out, D, rows, H, W, Cin, Cout, \
                              st)
+  // dx past 64 channels with streamed weights: conv3x3_dx_wide_kernel
+  // where its ring fits
+  bool wide = false;
+  if constexpr (MODE == DX)
+    wide = Ck > 1 && Cn > 64 &&
+           dx_wide_smem(make_tile(rows, H, W, 1, DXM)) <= (size_t)SMEM_MAX;
   if (g1.seg > 1) {
     if (Ck == 1) return Cn > 32 ? RUN(1, 1, true) : RUN(1, 2, true);
+    if (wide)
+      return dx_wide_run(in, gate, w, out, D, rows, H, W, Cin, Cout, st);
     return Cn > 32 ? RUN(8, 1, true) : RUN(8, 2, true);
   }
   if (Ck == 1) return Cn > 32 && fits(1, 1) ? RUN(1, 1, false)
@@ -829,76 +1242,128 @@ int tile_pass(const float* in, const float* gate, const float* w,
     return Ck % 8 == 0 && fits(8, 1) ? RUN(8, 1, false) : RUN(4, 1, false);
   if (fits(4, 2))
     return Ck % 8 == 0 && fits(8, 2) ? RUN(8, 2, false) : RUN(4, 2, false);
+  if (wide) return dx_wide_run(in, gate, w, out, D, rows, H, W, Cin, Cout,
+                               st);
   return Cn > 32 ? RUN(8, 1, true) : RUN(8, 2, true);
 #undef RUN
 }
 
-// The dW pass's plan: every channel of a whole row a stage where NS such
-// stages fit; else windows of the channel groups, halved (the wider side
-// first) until a segment of min(W, 32) columns fits, and each row in the
-// fewest equal segments that fit.
+// dynamic shared memory of a conv3x3_dw_wide_kernel block: XR x rows and
+// NS dz and y rows, or the slices' sums and the db partials after them
+template <int TCI>
+size_t dw_ring_smem(const DwPlan& p) {
+  const size_t xs = ((p.wc + 2) * (size_t)TCI * p.nwi + 3) / 4 * 4;
+  const size_t ring = 6 * xs + NS * 2 * (size_t)p.wc * 4 * p.nwo;
+  const size_t red = (size_t)DW2_NT * (12 * TCI + 4);
+  return 4 * (ring > red ? ring : red);
+}
+
+// conv3x3_dw_wide_kernel's plan: the window of at most DW2_NT / 3 groups
+// (a power of 2 of output groups whose dz copy units, nwo of 16 bytes or
+// 4 nwo of 4 where Cout % 4 != 0, divide DW2_NT, so that a thread's dz
+// units keep their channels) whose pixels copy the fewest bytes a FMA
+// (TCI nwi x channels and 2 x 4 nwo dz and y channels, for 12 TCI nwi nwo
+// FMAs a tap row), and each row in the fewest equal segments whose block
+// fits half an SM's shared memory (two blocks an SM), or a block's.
+template <int TCI>
+DwPlan dw_wide_plan(int W, int Cin, int Cout) {
+  const int ngi = (Cin + TCI - 1) / TCI, ngo = (Cout + 3) / 4;
+  DwPlan p;
+  double best = 0;
+  for (int i = 1; i <= ngi; ++i)
+    for (int o = 1; o <= ngo && 3 * i * o <= DW2_NT; o *= 2) {
+      if (DW2_NT % (Cout % 4 ? 4 * o : o) != 0) continue;
+      const double cost = (double)(TCI * i + 8 * o) / (TCI * i * o);
+      if (best == 0 || cost < best) {
+        best = cost;
+        p.nwi = i;
+        p.nwo = o;
+      }
+    }
+  p.wo = (ngo + p.nwo - 1) / p.nwo;
+  p.GB = 3 * p.nwi * p.nwo;
+  p.spw = 1;
+  const long long caps[2] = {SMEM_MAX / 2 - 1024, SMEM_MAX};
+  for (const long long cap : caps) {
+    for (p.seg = 1; p.seg <= W; ++p.seg) {
+      p.wc = (W + p.seg - 1) / p.seg;
+      if (dw_ring_smem<TCI>(p) <= (size_t)cap) return p;
+      if (p.wc < 32 && cap < SMEM_MAX) break;  // narrower: try more room
+    }
+  }
+  return p;
+}
+
+// conv3x3_dw_kernel's plan: every channel of a whole row a stage, its
+// groups over spw blocks of at most DW_NT
 template <int TCI>
 DwPlan dw_plan(int W, int Cin, int Cout) {
-  const int ngi = (Cin + TCI - 1) / TCI, ngo = (Cout + 7) / 8;
   DwPlan p;
-  p.nwi = ngi;
-  p.nwo = ngo;
-  auto stage = [&](long long wc) {  // bytes of the NS stages
-    return 4LL * NS *
-           ((3 * (wc + 2) * TCI * p.nwi + 3) / 4 * 4 + 2 * wc * 8 * p.nwo);
-  };
-  auto widest = [&]() {  // the widest segment that fits, at most W
-    long long wc = W;
-    while (wc > 1 && stage(wc) > SMEM_MAX) {
-      const long long per = 4LL * NS * (3 * TCI * p.nwi + 16 * p.nwo);
-      const long long over = (stage(wc) - SMEM_MAX + per - 1) / per;
-      wc = wc - over > 1 ? wc - over : 1;
-    }
-    return (int)wc;
-  };
-  const int want = W < 32 ? W : 32;
-  while (widest() < want) {
-    if (TCI == 8 && p.nwi > 1 && TCI * p.nwi >= 8 * p.nwo)
-      p.nwi = (p.nwi + 1) / 2;
-    else if (p.nwo > 1)
-      p.nwo = (p.nwo + 1) / 2;
-    else if (TCI == 8 && p.nwi > 1)
-      p.nwi = (p.nwi + 1) / 2;
-    else
-      break;
-  }
-  const int wc = widest();
-  p.seg = (W + wc - 1) / wc;
-  p.wc = (W + p.seg - 1) / p.seg;
-  p.wo = (ngo + p.nwo - 1) / p.nwo;
+  p.nwi = (Cin + TCI - 1) / TCI;
+  p.nwo = (Cout + 7) / 8;
+  p.wo = 1;
+  p.wc = W;
+  p.seg = 1;
   const int G = 9 * p.nwi * p.nwo;
   p.GB = G < DW_NT ? G : DW_NT;
   p.spw = (G + p.GB - 1) / p.GB;
   return p;
 }
 
+// dynamic shared memory of a conv3x3_dw_kernel block: NS stages of x rows
+// r-1..r+1 and a dz and a y row, or the slices' sums after them
 template <int TCI>
-int dw_run(const float* x, const float* y, const float* dy, float* part,
-           int D, int rows, int H, int W, int Cin, int Cout, int rpp,
-           cudaStream_t st) {
+size_t dw_smem(int W, int Cin, int Cout) {
   const DwPlan p = dw_plan<TCI>(W, Cin, Cout);
-  const int ngi = (Cin + TCI - 1) / TCI;
-  const size_t xf = (3 * (size_t)(p.wc + 2) * TCI * p.nwi + 3) / 4 * 4;
-  size_t smem = 4 * NS * (xf + 2 * (size_t)p.wc * 8 * p.nwo);
+  const size_t xf = (3 * (size_t)(W + 2) * TCI * p.nwi + 3) / 4 * 4;
+  const size_t smem = 4 * NS * (xf + 2 * (size_t)W * 8 * p.nwo);
   const size_t red = 4 * (size_t)DW_NT * (TCI * 8 + 8);
-  if (DW_NT / p.GB > 1 && smem < red) smem = red;
+  return DW_NT / p.GB > 1 && smem < red ? red : smem;
+}
+
+// The dW pass: conv3x3_dw_kernel where a stage of every channel of a
+// whole row fits, else conv3x3_dw_wide_kernel.
+template <typename... A>
+int dw_launch(void (*kernel)(A...), size_t smem, const DwPlan& p, int nwin,
+              int nth, const float* x, const float* y, const float* dy,
+              float* part, int D, int rows, int H, int W, int Cin, int Cout,
+              int rpp, cudaStream_t st) {
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidConfiguration;
-  const bool wide = p.seg > 1 || p.nwi < ngi || p.wo > 1;
-  auto kernel = wide ? conv3x3_dw_wide_kernel<TCI> : conv3x3_dw_kernel<TCI>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int nparts = (rows + rpp - 1) / rpp;
-  const int windows = (ngi + p.nwi - 1) / p.nwi * p.wo;
-  dim3 grid(nparts, windows * p.spw, D);
-  kernel<<<grid, DW_NT, smem, st>>>(x, y, dy, part, rows, H, W, Cin, Cout,
-                                    rpp, nparts, p);
+  dim3 grid(nparts, nwin, D);
+  kernel<<<grid, nth, smem, st>>>(x, y, dy, part, rows, H, W, Cin, Cout,
+                                  rpp, nparts, p);
   return (int)cudaGetLastError();
+}
+
+int dw_pass(const float* x, const float* y, const float* dy, float* part,
+            int D, int rows, int H, int W, int Cin, int Cout, int rpp,
+            cudaStream_t st) {
+  const bool t8 = Cin % 8 == 0 || Cin > 8;
+  const size_t smem = t8 ? dw_smem<8>(W, Cin, Cout) : dw_smem<1>(W, Cin, Cout);
+  if (smem <= (size_t)SMEM_MAX) {
+    if (t8) {
+      const DwPlan p = dw_plan<8>(W, Cin, Cout);
+      return dw_launch(conv3x3_dw_kernel<8>, smem, p, p.spw, DW_NT, x, y, dy,
+                       part, D, rows, H, W, Cin, Cout, rpp, st);
+    }
+    const DwPlan p = dw_plan<1>(W, Cin, Cout);
+    return dw_launch(conv3x3_dw_kernel<1>, smem, p, p.spw, DW_NT, x, y, dy,
+                     part, D, rows, H, W, Cin, Cout, rpp, st);
+  }
+  if (t8) {
+    const DwPlan p = dw_wide_plan<8>(W, Cin, Cout);
+    return dw_launch(conv3x3_dw_wide_kernel<8>, dw_ring_smem<8>(p), p,
+                     (Cin + 8 * p.nwi - 1) / (8 * p.nwi) * p.wo, DW2_NT, x,
+                     y, dy, part, D, rows, H, W, Cin, Cout, rpp, st);
+  }
+  const DwPlan p = dw_wide_plan<1>(W, Cin, Cout);
+  return dw_launch(conv3x3_dw_wide_kernel<1>, dw_ring_smem<1>(p), p,
+                   (Cin + p.nwi - 1) / p.nwi * p.wo, DW2_NT, x, y, dy, part,
+                   D, rows, H, W, Cin, Cout, rpp, st);
 }
 
 }  // namespace
@@ -928,8 +1393,5 @@ extern "C" int conv3x3_bwd_launch(const float* x, const float* w,
                                  Cout, st);
     if (rc != 0) return rc;
   }
-  return Cin % 8 == 0 || Cin > 8
-             ? dw_run<8>(x, y, dy, dw_part, D, rows, H, W, Cin, Cout, rpp, st)
-             : dw_run<1>(x, y, dy, dw_part, D, rows, H, W, Cin, Cout, rpp,
-                         st);
+  return dw_pass(x, y, dy, dw_part, D, rows, H, W, Cin, Cout, rpp, st);
 }

@@ -83,50 +83,20 @@
 // cores, plus the masked part of the tiles that cut a visible range; only
 // those tiles are masked.
 //
-// float32: the first design, FP32 FMA on operands in shared memory (the
-// port runs without TF32): kernel b on 64-row kv tiles, kernel c on 64-row
-// q tiles, 64 x 64 products over 256 threads, 4 x 4 a thread (the
-// forward's float32 layout: q rows by ty, kv rows by tx, odd row strides
-// so column reads hit distinct banks).  It runs q k^T and do v^T in both
-// kernels (14 Dh FLOPs a pair), bound by shared-memory loads and FMA issue.
-// At Dh 256 (recurrentgemma trained in float32) four 64-row float32 tiles
-// alone would take 257 KB of shared memory, so the tiles there are 32 rows
-// (F32Tile: 2 x 2 a thread, 140 KB), the bf16 design's answer at that
-// width too.
+// float32 (flash_bwd_fma.cu): FP32 FMA, the port running without TF32.
+// The same kernels b and c on 64-row owned tiles, resident in shared
+// memory, and a 3-stage cp.async ring of the streamed tiles: in column
+// chunks for S and dP, in row chunks for the products that sum over the
+// streamed rows; 4 x 4 register tiles fed by 16-byte reads; dk/dv in a dV
+// and a dK pass above Dh 128, as in bfloat16.
 #include <math.h>
 
+#include "flash_bwd_fma.cuh"
 #include "flash_hopper.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;   // 16 x 16: ty picks q rows, tx kv rows
-
-// The float32 kernels' tiles at head dim DH: R query and R kv rows (64;
-// 32 above Dh 192, where four 64-row float32 tiles would take 257 KB of
-// shared memory), R / 16 rows of each a thread, P and dS rows LP apart.
-template <int DH>
-struct F32Tile {
-  static constexpr int R = DH > 192 ? 32 : 64;
-  static constexpr int RPT = R / 16;  // q rows per thread
-  static constexpr int CPT = R / 16;  // kv rows per thread
-  static constexpr int LP = R + 1;    // row stride of P and dS
-};
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;    // [B, Sq, H, Dh] contiguous
-  const float* lse;    // [B, H, Sq]
-  const float* delta;  // [B, H, Sq]
-  void* dq;            // [B, Sq, H, Dh]
-  void* dk;            // [B, Skv, Hkv, Dh]
-  void* dv;
-  int H, Hkv, G, Sq, Skv;
-  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
-  int causal, window, q_offset;  // window < 0: none
-  float scale;
-};
+constexpr int THREADS = 256;   // kernel a: a warp a row
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -153,324 +123,6 @@ __global__ void __launch_bounds__(THREADS)
   if (lane == 0) {  // r = (b Sq + i) H + h -> delta[b, h, i]
     const long long h = r % H, bi = r / H, i = bi % Sq, b = bi / Sq;
     delta[(b * H + h) * Sq + i] = (float)acc;
-  }
-}
-
-// rows r0.. of a [*, DH] operand with row stride `rs` into an [R][DH + 1]
-// float32 tile; rows at or past `n` read as zeros
-template <int DH>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long rs, long long r0,
-                                          long long n) {
-  constexpr int LD = DH + 1;
-  for (int e = threadIdx.x; e < F32Tile<DH>::R * DH; e += THREADS) {
-    const int r = e / DH, d = e - r * DH;
-    dst[r * LD + d] = r0 + r < n ? src[(r0 + r) * rs + d] : 0.f;
-  }
-}
-
-// lse and delta of the R q rows q0.. of head h; rows past Sq see nothing
-template <int R>
-__device__ __forceinline__ void load_rows(float* sL, float* sD,
-                                          const Params& p, int b, int h,
-                                          int q0) {
-  if (threadIdx.x < R) {
-    const int row = q0 + threadIdx.x;
-    const size_t at = ((size_t)b * p.H + h) * p.Sq + row;
-    sL[threadIdx.x] = row < p.Sq ? p.lse[at] : INFINITY;
-    sD[threadIdx.x] = row < p.Sq ? p.delta[at] : 0.f;
-  }
-}
-
-// P and dS of the R x R tile (q rows q0 + ty + 16 i, kv rows k0 + tx +
-// 16 j): s = q k^T and dp = do v^T as FMA chains over d, then
-// P = exp(s scale - lse) where the masks keep the pair, dS = P (dp - delta)
-template <int DH, int RPT = F32Tile<DH>::RPT, int CPT = F32Tile<DH>::CPT>
-__device__ __forceinline__ void tile_p_ds(
-    const float* sQ, const float* sDO, const float* sK, const float* sV,
-    const float* sL, const float* sD, const Params& p, int q0, long long k0,
-    float (&pr)[RPT][CPT], float (&ds)[RPT][CPT]) {
-  constexpr int LD = DH + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[RPT][CPT], dp[RPT][CPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    float a[RPT], e[RPT], c[CPT], w[CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      a[i] = sQ[(ty + 16 * i) * LD + d];
-      e[i] = sDO[(ty + 16 * i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      c[j] = sK[(tx + 16 * j) * LD + d];
-      w[j] = sV[(tx + 16 * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        s[i][j] = fmaf(a[i], c[j], s[i][j]);
-        dp[i][j] = fmaf(e[i], w[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + ty + 16 * i;
-    const long long qpos = (long long)p.q_offset + row;
-    const float lse = sL[ty + 16 * i], dl = sD[ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const long long kpos = k0 + tx + 16 * j;
-      const bool ok = row < p.Sq && kpos < p.Skv &&
-                      (!p.causal || kpos <= qpos) &&
-                      (p.window < 0 || kpos > qpos - p.window);
-      pr[i][j] = ok ? expf(s[i][j] * p.scale - lse) : 0.f;
-      ds[i][j] = pr[i][j] * (dp[i][j] - dl);
-    }
-  }
-}
-
-template <int DH>
-constexpr size_t dkdv_smem() {  // k, v, q, do tiles; P, dS; lse, delta
-  using T = F32Tile<DH>;
-  return sizeof(float) * (4 * T::R * (DH + 1) + 2 * T::R * T::LP + 2 * T::R);
-}
-template <int DH>
-constexpr size_t dq_smem() {  // q, do, k, v tiles; dS; lse, delta
-  using T = F32Tile<DH>;
-  return sizeof(float) * (4 * T::R * (DH + 1) + T::R * T::LP + 2 * T::R);
-}
-
-// ------------------------------------------ (b) dk, dv: one block a kv tile
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkdv_kernel(const Params p) {
-  constexpr int LD = DH + 1, DPT = DH / 16;
-  constexpr int BQ = F32Tile<DH>::R, BK = BQ, RPT = F32Tile<DH>::RPT;
-  constexpr int CPT = F32Tile<DH>::CPT, LP = F32Tile<DH>::LP;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + BK * LD;
-  float* sQ = sV + BK * LD;
-  float* sDO = sQ + BQ * LD;
-  float* sP = sDO + BQ * LD;
-  float* sS = sP + BQ * LP;
-  float* sL = sS + BQ * LP;
-  float* sD = sL + BQ;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
-  const float* K = static_cast<const float*>(p.k) + b * p.ksb + hk * p.ksh;
-  const float* V = static_cast<const float*>(p.v) + b * p.vsb + hk * p.vsh;
-  load_tile<DH>(sK, K, p.kss, k0, p.Skv);
-  load_tile<DH>(sV, V, p.vss, k0, p.Skv);
-
-  // the q rows that can see a key of this tile: positions [k0, k1 + window)
-  const long long k1 = min(k0 + BK, p.Skv) - 1;
-  long long ilo = 0, ihi = p.Sq;
-  if (p.causal) ilo = max(0LL, (long long)k0 - p.q_offset);
-  if (p.window >= 0) ihi = min(ihi, k1 + p.window - p.q_offset);
-
-  float dk[RPT][DPT], dv[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  const size_t ds_row = (size_t)p.H * DH;  // do's row stride
-  for (int g = 0; g < p.G; ++g) {
-    const int h = hk * p.G + g;
-    const float* Q = static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh;
-    const float* DO = static_cast<const float*>(p.dout) +
-                      (size_t)b * p.Sq * ds_row + (size_t)h * DH;
-    for (long long q0 = ilo / BQ * BQ; q0 < ihi; q0 += BQ) {
-      __syncthreads();  // the last tile's readers are done
-      load_tile<DH>(sQ, Q, p.qss, q0, p.Sq);
-      load_tile<DH>(sDO, DO, (long long)ds_row, q0, p.Sq);
-      load_rows<BQ>(sL, sD, p, b, h, (int)q0);
-      __syncthreads();
-      float pr[RPT][CPT], ds[RPT][CPT];
-      tile_p_ds<DH>(sQ, sDO, sK, sV, sL, sD, p, (int)q0, k0, pr, ds);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          sP[(ty + 16 * i) * LP + tx + 16 * j] = pr[i][j];
-          sS[(ty + 16 * i) * LP + tx + 16 * j] = ds[i][j];
-        }
-      __syncthreads();
-      // this thread's kv rows ty + 16 i, columns tx + 16 j of dk and dv
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float pv[RPT], sv[RPT], ov[DPT], qv[DPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          pv[i] = sP[r * LP + ty + 16 * i];
-          sv[i] = sS[r * LP + ty + 16 * i];
-        }
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          ov[j] = sDO[r * LD + tx + 16 * j];
-          qv[j] = sQ[r * LD + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int j = 0; j < DPT; ++j) {
-            dv[i][j] = fmaf(pv[i], ov[j], dv[i][j]);
-            dk[i][j] = fmaf(sv[i], qv[j], dk[i][j]);
-          }
-      }
-    }
-  }
-
-  float* DK = static_cast<float*>(p.dk);
-  float* DV = static_cast<float*>(p.dv);
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= p.Skv) continue;
-    const size_t at = (((size_t)b * p.Skv + row) * p.Hkv + hk) * DH;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      DK[at + tx + 16 * j] = dk[i][j] * p.scale;
-      DV[at + tx + 16 * j] = dv[i][j];
-    }
-  }
-}
-
-// --------------------------------------------- (c) dq: one block a q tile
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq_kernel(const Params p) {
-  constexpr int LD = DH + 1, DPT = DH / 16;
-  constexpr int BQ = F32Tile<DH>::R, BK = BQ, RPT = F32Tile<DH>::RPT;
-  constexpr int CPT = F32Tile<DH>::CPT, LP = F32Tile<DH>::LP;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + BQ * LD;
-  float* sK = sDO + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sS = sV + BK * LD;
-  float* sL = sS + BQ * LP;
-  float* sD = sL + BQ;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.G;
-  const size_t ds_row = (size_t)p.H * DH;
-  load_tile<DH>(sQ,
-                static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh,
-                p.qss, q0, p.Sq);
-  load_tile<DH>(sDO, static_cast<const float*>(p.dout) +
-                         (size_t)b * p.Sq * ds_row + (size_t)h * DH,
-                (long long)ds_row, q0, p.Sq);
-  load_rows<BQ>(sL, sD, p, b, h, q0);
-  const float* K = static_cast<const float*>(p.k) + b * p.ksb + hk * p.ksh;
-  const float* V = static_cast<const float*>(p.v) + b * p.vsb + hk * p.vsh;
-
-  // the kv rows any q row of this tile can see: [kbeg, kend)
-  const int nrows = min(BQ, p.Sq - q0);
-  const long long qlo = (long long)p.q_offset + q0, qhi = qlo + nrows - 1;
-  long long kbeg = 0, kend = p.Skv;
-  if (p.causal && qhi + 1 < kend) kend = qhi + 1;
-  if (p.window >= 0 && qlo - p.window + 1 > kbeg) kbeg = qlo - p.window + 1;
-
-  float dq[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) dq[i][j] = 0.f;
-
-  for (long long k0 = kbeg / BK * BK; k0 < kend; k0 += BK) {
-    __syncthreads();  // the last tile's readers are done
-    load_tile<DH>(sK, K, p.kss, k0, p.Skv);
-    load_tile<DH>(sV, V, p.vss, k0, p.Skv);
-    __syncthreads();
-    float pr[RPT][CPT], ds[RPT][CPT];
-    tile_p_ds<DH>(sQ, sDO, sK, sV, sL, sD, p, q0, k0, pr, ds);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j)
-        sS[(ty + 16 * i) * LP + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float sv[RPT], kv[DPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) sv[i] = sS[(ty + 16 * i) * LP + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) kv[j] = sK[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < DPT; ++j)
-          dq[i][j] = fmaf(sv[i], kv[j], dq[i][j]);
-    }
-  }
-
-  float* DQ = static_cast<float*>(p.dq);
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= p.Sq) continue;
-    const size_t at = (((size_t)b * p.Sq + row) * p.H + h) * DH;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      DQ[at + tx + 16 * j] = dq[i][j] * p.scale;
-  }
-}
-
-template <int DH>
-int launch_dkdv(const Params& p, int B, cudaStream_t stream) {
-  static_assert(dkdv_smem<DH>() <= 232448, "over a block's shared memory");
-  const size_t smem = dkdv_smem<DH>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  constexpr int BK = F32Tile<DH>::R;
-  const dim3 grid((p.Skv + BK - 1) / BK, p.Hkv, B);
-  flash_bwd_dkdv_kernel<DH><<<grid, THREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <int DH>
-int launch_dq(const Params& p, int B, cudaStream_t stream) {
-  static_assert(dq_smem<DH>() <= 232448, "over a block's shared memory");
-  const size_t smem = dq_smem<DH>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  constexpr int BQ = F32Tile<DH>::R;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  flash_bwd_dq_kernel<DH><<<grid, THREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// kernel b (dq = false) or c (dq = true) at head dim D, float32
-template <int DH>
-int launch(bool dq, const Params& p, int B, cudaStream_t st) {
-  return dq ? launch_dq<DH>(p, B, st) : launch_dkdv<DH>(p, B, st);
-}
-
-int dispatch(bool dq, const Params& p, int B, int D, cudaStream_t st) {
-  switch (D) {
-    case 32: return launch<32>(dq, p, B, st);
-    case 64: return launch<64>(dq, p, B, st);
-    case 80: return launch<80>(dq, p, B, st);
-    case 96: return launch<96>(dq, p, B, st);
-    case 128: return launch<128>(dq, p, B, st);
-    case 192: return launch<192>(dq, p, B, st);
-    case 256: return launch<256>(dq, p, B, st);
-    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -1026,16 +678,27 @@ int run(bool dq, const void* q, const void* k, const void* v,
   // an empty grid; every block of a non-empty one writes its tile, zeros
   // where it sees nothing (dq of Skv = 0, dk and dv of Sq = 0)
   if (B == 0 || (dq ? Sq : Skv) == 0) return 0;
-  const Params p{q,   k,    v,     dout,   lse,    delta,  dqp, dkp,
-                 dvp, H,    Hkv,   H / Hkv, Sq,    Skv,    qsb, qss,
-                 qsh, ksb,  kss,   ksh,    vsb,    vss,    vsh, causal,
-                 window, q_offset, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch(dq, p, B, D, st);
+  if (dtype == 0) {
+    // 16-byte copies where every row of q, k, v and do starts on 16 bytes
+    // (do is contiguous, its rows D floats: its base decides)
+    const bool vec = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                      (uintptr_t)dout) % 16 == 0 &&
+                     (qsb | qss | qsh | ksb | kss | ksh | vsb | vss | vsh) %
+                             4 == 0;
+    const flash_fma::Params p{
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, static_cast<float*>(dqp), static_cast<float*>(dkp),
+        static_cast<float*>(dvp), B, H, Hkv, H / Hkv, Sq, Skv, qsb, qss, qsh,
+        ksb, kss, ksh, vsb, vss, vsh, causal, window, q_offset, scale,
+        (int)vec};
+    return flash_fma::launch(dq, p, D, st);
+  }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const wg::Params w{lse,     delta, dq ? dqp : dkp, dvp,  H,
                      Hkv,     H / Hkv, Sq,          Skv,  causal,
-                     window,  q_offset, p.scale};
+                     window,  q_offset, scale};
 #define WG_LAUNCH(DH)                                                     \
   wg::launch<DH>(dq, q, k, v, dout, w, B, qsb, qss, qsh, ksb, kss, ksh, \
                  vsb, vss, vsh, st)

@@ -41,8 +41,9 @@ def eval_head(feats, wmat, bias, labels, mode: str = "auto"):
     part = torch.empty((slices, M, C), device=dev, dtype=f32)
     count = torch.empty((), device=dev, dtype=torch.int64)
     build.LAUNCHES["eval_head"] += 1
-    build.check(build.library().eval_head_launch(
-        feats.data_ptr(), wmat.data_ptr(), bias.data_ptr(),
-        labels.data_ptr(), part.data_ptr(), count.data_ptr(), M, F, C,
-        build.stream()), "eval_head")
+    with build.on_device(feats):
+        build.check(build.library().eval_head_launch(
+            feats.data_ptr(), wmat.data_ptr(), bias.data_ptr(),
+            labels.data_ptr(), part.data_ptr(), count.data_ptr(), M, F, C,
+            build.stream()), "eval_head")
     return count

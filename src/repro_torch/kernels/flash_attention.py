@@ -10,7 +10,8 @@ on tensor cores (``wgmma``, operands loaded by TMA), float32 on FP32 FMA
 
 The gradient (``FlashAttentionFn``, which ``ops.flash_attention`` takes
 when an input requires one) runs the three kernels of
-``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``) from the
+``csrc/flash_attention_bwd.cu`` (float32: ``csrc/flash_bwd_fma.cu``;
+``flash_attention_bwd``) from the
 forward's output and its rows' log-sum-exp; their plain version is
 ``ref.flash_attention_bwd_ref``.  The Pallas kernel has no backward: the
 JAX package differentiates its XLA attention (``_sdpa``) instead.
@@ -43,8 +44,11 @@ DESIGNS = {torch.float32: "flash_attention_kernel (FP32 FMA)",
                            "kv ring; 64-row kv tiles above Dh 128, "
                            "32-row above Dh 192)"}
 #: the backward's design per input type, by its dk/dv and dq kernels' names
-BWD_DESIGNS = {torch.float32: "flash_bwd_dkdv_kernel, flash_bwd_dq_kernel "
-                              "(FP32 FMA; 32-row tiles above Dh 192)",
+BWD_DESIGNS = {torch.float32: "flash_bwd_dkdv_fma_kernel, "
+                              "flash_bwd_dq_fma_kernel (FP32 FMA: 64-row "
+                              "owned tiles, a cp.async ring of streamed "
+                              "chunks, 4 x 4 register tiles; dk/dv in a dV "
+                              "and a dK pass above Dh 128)",
                torch.bfloat16: "flash_bwd_dkdv_wgmma_kernel, "
                                "flash_bwd_dq_wgmma_kernel (bf16 wgmma, TMA "
                                "ring, P and dS in BWD_TERMS bf16 terms; "
@@ -155,13 +159,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     rows = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if lse else None
     build.LAUNCHES["flash_attention"] += 1
-    build.check(build.library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if rows is None else rows.data_ptr(), B, H, Hkv,
-        Sq, Skv, dp, *strides[0], *strides[1], *strides[2],
-        int(causal), -1 if window is None else int(window), int(q_offset),
-        1.0 / math.sqrt(Dh), DTYPES[q.dtype], build.stream()),
-        "flash_attention")
+    with build.on_device(q):
+        build.check(build.library().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if rows is None else rows.data_ptr(), B, H, Hkv,
+            Sq, Skv, dp, *strides[0], *strides[1], *strides[2],
+            int(causal), -1 if window is None else int(window),
+            int(q_offset), 1.0 / math.sqrt(Dh), DTYPES[q.dtype],
+            build.stream()), "flash_attention")
     return out[..., :Dh] if dp != Dh else out, rows
 
 
@@ -214,28 +219,31 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                                                     ("v", v), ("do", do))][:3]
     else:
         strides = [t.stride()[:3] for t in (q, k, v)]
-    code, st = DTYPES[q.dtype], build.stream()
+    code = DTYPES[q.dtype]
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     lib = build.library()
-    tail = (B, H, Hkv, Sq, Skv, dp, *strides[0], *strides[1], *strides[2],
-            int(causal), -1 if window is None
-            else int(window), int(q_offset), 1.0 / math.sqrt(Dh), code, st)
-    build.LAUNCHES["flash_attention_bwd"] += 1
-    build.check(lib.flash_attention_bwd_delta_launch(
-        o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, H, Sq, dp, code,
-        st), "flash_attention_bwd (delta)")
-    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), delta.data_ptr())
-    build.LAUNCHES["flash_attention_bwd"] += 1
-    build.check(lib.flash_attention_bwd_dkdv_launch(
-        *inputs, dk.data_ptr(), dv.data_ptr(), *tail),
-        "flash_attention_bwd (dk, dv)")
-    build.LAUNCHES["flash_attention_bwd"] += 1
-    build.check(lib.flash_attention_bwd_dq_launch(
-        *inputs, dq.data_ptr(), *tail), "flash_attention_bwd (dq)")
+    with build.on_device(q):
+        st = build.stream()
+        tail = (B, H, Hkv, Sq, Skv, dp, *strides[0], *strides[1],
+                *strides[2], int(causal), -1 if window is None
+                else int(window), int(q_offset), 1.0 / math.sqrt(Dh), code,
+                st)
+        build.LAUNCHES["flash_attention_bwd"] += 1
+        build.check(lib.flash_attention_bwd_delta_launch(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, H, Sq, dp,
+            code, st), "flash_attention_bwd (delta)")
+        inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr())
+        build.LAUNCHES["flash_attention_bwd"] += 1
+        build.check(lib.flash_attention_bwd_dkdv_launch(
+            *inputs, dk.data_ptr(), dv.data_ptr(), *tail),
+            "flash_attention_bwd (dk, dv)")
+        build.LAUNCHES["flash_attention_bwd"] += 1
+        build.check(lib.flash_attention_bwd_dq_launch(
+            *inputs, dq.data_ptr(), *tail), "flash_attention_bwd (dq)")
     if dp != Dh:
         return dq[..., :Dh], dk[..., :Dh], dv[..., :Dh]
     return dq, dk, dv

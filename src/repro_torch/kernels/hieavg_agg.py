@@ -77,11 +77,12 @@ def hieavg_agg_many(ws, prevs, dmeans, mask, coef_present, coef_est, n_obs,
     nprev = torch.empty(B * n * total, dtype=hdt, device=dev)
     ndmean = torch.empty(B * n * total, dtype=hdt, device=dev)
     build.LAUNCHES["hieavg_agg"] += 1
-    build.check(build.library().hieavg_agg_launch(
-        (ctypes.c_void_p * len(ptrs))(*ptrs), cols, starts, len(ws),
-        (ctypes.c_void_p * 4)(*[v.data_ptr() for v in vecs]),
-        agg.data_ptr(), nprev.data_ptr(), ndmean.data_ptr(), B, n,
-        HIST_CODES[hdt], build.stream()), "hieavg_agg")
+    with build.on_device(agg):
+        build.check(build.library().hieavg_agg_launch(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), cols, starts, len(ws),
+            (ctypes.c_void_p * 4)(*[v.data_ptr() for v in vecs]),
+            agg.data_ptr(), nprev.data_ptr(), ndmean.data_ptr(), B, n,
+            HIST_CODES[hdt], build.stream()), "hieavg_agg")
     # per-leaf views of the three allocations (as_strided is the cheapest
     # view the host can make)
     a_view, p_view, d_view = agg.as_strided, nprev.as_strided, \

@@ -75,12 +75,14 @@ def sgd_update_many(ws, gs, scale, mode: str = "auto") -> list:
     ptrs = ctypes.c_void_p * n
     # the per-row path counts apart: a sweep's rows, not a standalone step
     build.LAUNCHES["sgd_update" if rows is None else ROWS_COUNT] += 1
-    build.check(build.library().sgd_update_launch(
-        ptrs(*[w.data_ptr() for w in ws]), ptrs(*[g.data_ptr() for g in gs]),
-        (ctypes.c_longlong * n)(*sizes), n, flat.data_ptr(),
-        0.0 if rows is not None else float(scale),
-        None if rows is None else scale.data_ptr(), rows or 0,
-        build.stream()), "sgd_update")
+    with build.on_device(flat):
+        build.check(build.library().sgd_update_launch(
+            ptrs(*[w.data_ptr() for w in ws]),
+            ptrs(*[g.data_ptr() for g in gs]),
+            (ctypes.c_longlong * n)(*sizes), n, flat.data_ptr(),
+            0.0 if rows is not None else float(scale),
+            None if rows is None else scale.data_ptr(), rows or 0,
+            build.stream()), "sgd_update")
     return outs
 
 

@@ -28,7 +28,11 @@ through the kernel within ``3e-4`` of the plain logits.  The flash
 backward: float32 ``rel 1e-4`` of each gradient's largest magnitude,
 bfloat16 ``2^-7`` of it (one bfloat16 ulp at the top: both sum in float32
 and round once), a row that sees no key dq exactly 0, bitwise on
-repeat; float32 at head dim 256 too (its 32-row tiles).  The multi-leaf SGD update is bitwise
+repeat; float32 at every built head dim (64-row tiles, rows that see no
+key), and with a do offset off 16 bytes or q at odd strides (its 4-byte
+copies) the aligned operands' bits.  Every conv shape ``chip_smoke.py`` checks (``CONV_SHAPES``) within
+1e-4 of each output's largest, dW and db bitwise on repeat.  The
+multi-leaf SGD update is bitwise
 the plain version, one launch a call, with one scale or one a row; a
 bfloat16 operand that breaks a TMA precondition raises before any
 launch.  The multi-leaf HieAvg mix is
@@ -605,9 +609,12 @@ def test_gpu_conv_runs_images_wider_than_224(cuda):
 
 def test_gpu_conv_runs_weights_too_wide_for_shared_memory(cuda):
     """4096 input channels: a block's [9 * Cin, 64] slice of w is 9.4 MB,
-    streamed a chunk of channels a stage; and the paper's second layer
-    at 128 -> 256 channels (its dx and dW past a block's resident limit)."""
-    for shape in ((1, 1, 3, 3, 4096, 64), (2, 4, 28, 28, 128, 256)):
+    streamed a chunk of channels a stage; the paper's second layer at
+    128 -> 256 channels (its dx and dW past a block's resident limit); and
+    the wide dW pass at 127 output channels, whose dz is copied 4 bytes at
+    a time (one and 16 input channels)."""
+    for shape in ((1, 1, 3, 3, 4096, 64), (2, 4, 28, 28, 128, 256),
+                  (2, 2, 96, 96, 1, 127), (2, 2, 64, 64, 16, 127)):
         _conv_matches_plain(cuda, 10, shape)
 
 
@@ -619,7 +626,8 @@ def test_gpu_conv_wide_backward_is_bitwise_on_repeat(cuda):
     g.manual_seed(11)
     for shape in ((2, 4, 96, 96, 32, 64), (2, 4, 28, 28, 128, 256),
                   (1, 2, 9, 230, 3, 5), (1, 1, 3, 3, 4096, 64),
-                  (2, 3, 5, 256, 1, 8)):
+                  (2, 3, 5, 256, 1, 8), (2, 2, 96, 96, 1, 127),
+                  (2, 2, 64, 64, 16, 127)):
         x, w, b, dy = _conv_inputs(cuda, g, *shape)
         y = conv3x3_fwd(x, w, b, "cuda")
         first = conv3x3_bwd(x, w, y, dy, True, "cuda")
@@ -983,6 +991,111 @@ def test_gpu_flash_attention_bwd_f32_head_dim_256_matches_plain(cuda):
     for g, w in zip(got, want):
         err = (g - w).abs().max().item()
         assert err <= 1e-4 * w.abs().max().item(), err
+
+
+#: the float32 backward at every built head dim: Sq and Skv off the
+#: 64-row tiles, a window, a nonzero q_offset (a chunked prefill's), GQA
+#: groups of 4, and a negative offset whose first rows see no key
+F32_BWD_SHAPES = (((100, 130), (8, 2), True, 50, 30),
+                  ((70, 70), (4, 1), True, None, -10))
+
+
+@pytest.mark.parametrize("dh", [32, 64, 80, 96, 128, 192, 256])
+def test_gpu_flash_attention_bwd_f32_every_head_dim(cuda, dh):
+    """The float32 backward (``flash_bwd_fma.cu``) at each of
+    ``HEAD_DIMS``: within ``rel 1e-4`` of each gradient's largest, the
+    plain version fed the plain forward's output and lse; rows that see no
+    key dq exactly 0; bitwise on repeat."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    assert dh in HEAD_DIMS
+    rng = np.random.default_rng(dh)
+    for (sq, skv), (h, hkv), causal, window, off in F32_BWD_SHAPES:
+        q = t(np32(rng, 2, sq, h, dh)).to(cuda)
+        k, v = (t(np32(rng, 2, skv, hkv, dh)).to(cuda) for _ in range(2))
+        do = t(np32(rng, 2, sq, h, dh)).to(cuda)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        o, lse = flash_attention_fwd(q, k, v, lse=True, mode="cuda", **kw)
+        got = flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+        o_ref, lse_ref = flash_attention_fwd(q, k, v, lse=True,
+                                             mode="torch", **kw)
+        want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+        for g, w in zip(got, want):
+            err = (g - w).abs().max().item()
+            assert err <= 1e-4 * w.abs().max().item(), (dh, sq, skv, err)
+        unseen = torch.isinf(lse_ref).permute(0, 2, 1)
+        assert bool(unseen.any()) == (off < 0)
+        assert bool((got[0][unseen] == 0).all())
+        again = flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("operand", ["do", "q"])
+def test_gpu_flash_attention_bwd_f32_reads_unaligned_operands(cuda, operand):
+    """The float32 backward's 4-byte copies: a contiguous do whose data
+    starts one element past 16 bytes, or q read through odd strides (a
+    view of a wider tensor), launches without a fault and gives the bits
+    of the aligned operands' 16-byte copies, within ``rel 1e-4`` of the
+    plain version."""
+    rng = np.random.default_rng(7)
+    shape = (2, 100, 4, 80)
+    q, do = (t(np32(rng, *shape)).to(cuda) for _ in range(2))
+    k, v = (t(np32(rng, 2, 130, 2, 80)).to(cuda) for _ in range(2))
+    kw = dict(causal=True, window=50, q_offset=30)
+    o, lse = flash_attention_fwd(q, k, v, lse=True, mode="cuda", **kw)
+    aligned = flash_attention_bwd(q, k, v, o, lse, do, mode="cuda", **kw)
+    qq, dd = q, do
+    if operand == "do":
+        dd = torch.empty(do.numel() + 1, device=cuda)[1:].view(shape)
+        dd.copy_(do)
+        assert dd.is_contiguous() and dd.data_ptr() % 16 != 0
+    else:
+        qq = torch.empty(*shape[:3], 81, device=cuda)[..., :80]
+        qq.copy_(q)
+        assert qq.stride(2) % 4 != 0
+    before = build.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(qq, k, v, o, lse, dd, mode="cuda", **kw)
+    assert build.LAUNCHES["flash_attention_bwd"] == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(got, aligned)), operand
+    o_ref, lse_ref = flash_attention_fwd(q, k, v, lse=True, mode="torch",
+                                         **kw)
+    want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    for g, w in zip(got, want):
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), (operand, err)
+
+
+def test_gpu_conv_every_checked_shape_matches_plain(cuda):
+    """Every shape ``chip_smoke.py`` holds the conv kernels to
+    (``CONV_SHAPES``: the main path's, the example drivers', the tiling's
+    tails and the geometries past the old limits): the forward and the
+    backward with and without dx within 1e-4 of each output's largest
+    magnitude of the plain version's, dW and db bitwise on repeat."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(31)
+    for shape in smoke.CONV_SHAPES:
+        x, w, b, dy = _conv_inputs(cuda, g, *shape)
+        y = conv3x3_fwd(x, w, b, "torch")
+        err = (conv3x3_fwd(x, w, b, "cuda") - y).abs().max().item()
+        assert err <= 1e-4 * y.abs().max().item(), (shape, err)
+        for need in (True, False):
+            got = conv3x3_bwd(x, w, y, dy, need, "cuda")
+            want = conv3x3_bwd(x, w, y, dy, need, "torch")
+            for a, c in zip(got, want):
+                assert (a is None) == (c is None)
+                if c is not None:
+                    err = (a - c).abs().max().item()
+                    assert err <= 1e-4 * c.abs().max().item(), (shape, err)
+            again = conv3x3_bwd(x, w, y, dy, need, "cuda")
+            assert torch.equal(got[1], again[1]) and \
+                torch.equal(got[2], again[2]), shape
+        del x, w, b, dy, y, got, want, again
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("kind", ["rec", "ssd"])

@@ -6,14 +6,16 @@ GPU.
 
 ``DIR`` is the root of a checkout (``--change`` defaults to the one that
 holds this script).  One process per tree, in turns (parent, change,
-change, parent), each importing that tree's ``repro_torch`` and building
-its kernels, measures what both trees share:
+change, parent: ``ab_conv.in_turns``), each importing that tree's
+``repro_torch`` and building its kernels, measures what both trees share:
 
   * ``ops.fused_coef_aggregate`` and ``ops.fused_coef_aggregate_pair``
-    over the paper's CNN's six leaves at DEFAULT width, B = n = 5: the
-    wall time per call (CUDA events, the median of 5 timings of 20
-    calls), the device time of the kernels per call (``torch.profiler``),
-    the host time per call and the launches per call;
+    over the paper's CNN's six leaves at DEFAULT width, B = n = 5, and
+    ``hieavg_agg_many`` over the same leaves with float32 history
+    (PERF.md's row 4: a host-bound wrapper): the wall time per call (CUDA
+    events, the median of 5 timings of 20 calls), the device time of the
+    kernels per call (``torch.profiler``), the host time per call (the
+    median of 5) and the launches per call;
   * the smoke runs (DEFAULT cut to T = 4) of FedAvg, delayed-gradient and
     HieAvg aggregation with the kernels: their rows;
   * the whole DEFAULT runs (T = 50) of FedAvg and delayed-gradient
@@ -29,13 +31,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from ab_conv import ROOT, in_turns, trees_of  # noqa: E402
+
 #: the smoke runs whose rows are compared: label -> (aggregator, stragglers)
 RUNS = {"fedavg": ("fedavg", "none"),
         "delayed_grad": ("delayed_grad", "temporary"),
@@ -51,6 +54,7 @@ def one() -> dict:
     from repro_torch.configs import DEFAULT
     from repro_torch.fl import BHFLSimulator
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.hieavg_agg import hieavg_agg_many
     from repro_torch.models import cnn_specs
 
     build.library()
@@ -67,9 +71,12 @@ def one() -> dict:
     c = torch.rand((nb, n), generator=gen, device=dev)
     m = torch.rand((nb, n), generator=gen, device=dev) > 0.4
     ca, cb = c * m, c * ~m
+    leaves, hist = list(ws.values()), list(aux.values())
     calls = {"coef_agg": lambda: ops.fused_coef_aggregate(ws, c),
              "coef_agg_pair": lambda: ops.fused_coef_aggregate_pair(
-                 ws, aux, ca, cb)}
+                 ws, aux, ca, cb),
+             "hieavg_agg": lambda: hieavg_agg_many(
+                 leaves, hist, hist, m.float(), ca, cb, c, mode="cuda")}
     out: dict = {"tree": os.environ.get("PYTHONPATH", ""),
                  "device": torch.cuda.get_device_name(0)}
     for name, fn in calls.items():
@@ -78,8 +85,11 @@ def one() -> dict:
         launches = sum(build.LAUNCHES.values()) - before
         out[name] = {
             "ms": float(np.median([timed_ms(torch, fn) for _ in range(5)])),
-            "device_ms": device_ms(torch, fn, ("coef_agg",)),
-            "host_ms": host_ms(torch, fn), "launches_per_call": launches}
+            "device_ms": device_ms(torch, fn, (name.replace("_pair", "")
+                                               + "_kernel",)),
+            "host_ms": float(np.median([host_ms(torch, fn)
+                                        for _ in range(5)])),
+            "launches_per_call": launches}
     setting = dataclasses.replace(DEFAULT, t_global_rounds=4)
     for label, (agg, strag) in RUNS.items():
         res = BHFLSimulator(setting, agg, strag, strag, device="cuda",
@@ -105,25 +115,11 @@ def main() -> int:
             return 2
         print(json.dumps(one()), flush=True)
         return 0
-    args = sys.argv[1:]
-    trees = {"parent": Path(args[args.index("--parent") + 1]).resolve(),
-             "change": (Path(args[args.index("--change") + 1]).resolve()
-                        if "--change" in args else ROOT)}
-    lines = []
-    for side in ("parent", "change", "change", "parent"):
-        env = dict(os.environ, PYTHONPATH=str(trees[side] / "src"))
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--one"], env=env, cwd=trees[side],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            print(proc.stderr[-4000:], file=sys.stderr)
-            return proc.returncode
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        line["side"] = side
-        print(json.dumps(line), flush=True)
-        lines.append(line)
+    lines = in_turns(Path(__file__).resolve(), trees_of(sys.argv[1:]))
+    if isinstance(lines, int):
+        return lines
     summary: dict = {"order": [x["side"] for x in lines]}
-    for name in ("coef_agg", "coef_agg_pair"):
+    for name in ("coef_agg", "coef_agg_pair", "hieavg_agg"):
         summary[name] = {side: {k: [x[name][k] for x in lines
                                     if x["side"] == side]
                                 for k in lines[0][name]}

@@ -3,14 +3,16 @@
 instance, as ``ptxas -v`` reports them (needs the CUDA toolkit's nvcc):
 
     python3 tools/flash_ptxas.py [--dh 256] [--out build/ptxas]
+    python3 tools/flash_ptxas.py --source conv3x3.cu --every
 
-Compiles ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``
-with the port's own flags plus ``-Xptxas -v``, in parallel, and prints one
-JSON line per kernel instance at the asked head dims: its name (with the
-template arguments: the head dim, and the dk/dv kernel's pass, 0 both, 1
-dV alone, 2 dK alone), registers a thread, spill stores and loads in
-bytes, and static shared memory.  The whole ptxas log of each source goes
-to ``--out``.
+Compiles ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu`` and
+``csrc/flash_bwd_fma.cu`` (or the ``--source`` files of ``csrc/``) with
+the port's own flags plus ``-Xptxas -v``, in parallel, and prints one
+JSON line per kernel instance at the asked head dims (every instance
+with ``--every``): its name (with the template arguments: the head dim,
+and the dk/dv kernel's pass, 0 both, 1 dV alone, 2 dK alone), registers
+a thread, spill stores and loads in bytes, and static shared memory.
+The whole ptxas log of each source goes to ``--out``.
 """
 from __future__ import annotations
 
@@ -25,12 +27,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "flash_bwd_fma.cu")
 
 
 def kernel_name(mangled: str) -> str:
     """``flash_bwd_dkdv_wgmma_kernel<256, 1>`` from a mangled name."""
-    m = re.search(r"([a-z_]+_kernel)I((?:Li\d+E)+)", mangled)
+    m = re.search(r"([a-z][a-z0-9_]*_kernel)I((?:Li\d+E)+)", mangled)
     if not m:
         return mangled
     return f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
@@ -65,6 +67,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dh", type=int, nargs="*", default=[256])
     ap.add_argument("--out", default=str(ROOT / "build" / "ptxas"))
+    ap.add_argument("--source", nargs="*", default=list(SOURCES))
+    ap.add_argument("--every", action="store_true")
     args = ap.parse_args()
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -74,7 +78,7 @@ def main() -> int:
             [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
              str(build.CSRC), "-c", str(build.CSRC / src), "-o",
              str(Path(tmp) / (src + ".o"))], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)) for src in SOURCES]
+            stderr=subprocess.STDOUT, text=True)) for src in args.source]
         rc = 0
         for src, p in procs:
             log, _ = p.communicate()
@@ -82,7 +86,7 @@ def main() -> int:
             rc |= p.returncode
             for k in parse(log):
                 dims = re.findall(r"\d+", k["kernel"].split("<")[-1])
-                if dims and int(dims[0]) in args.dh:
+                if args.every or dims and int(dims[0]) in args.dh:
                     print(json.dumps({"source": src, **k}), flush=True)
     return rc
 
